@@ -1,0 +1,506 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, each printing one JSON line (and failing the run on any error):
+
+1. device    -- the card's name and power limit, as ``nvidia-smi`` prints them;
+2. build     -- both CUDA kernels compiled from ``src/repro_torch/csrc``;
+3. kernels   -- each kernel against its plain PyTorch version on the card, at
+                the main path's shapes (bf16, 2e-2) and at a small size
+                (f32, 1e-5); the decode splice bitwise equal to a scatter;
+                chunk pad rows finite; then each kernel and its plain version
+                timed with CUDA events;
+4. reference -- the reduced qwen3-8b served on the card (kernels) and on the
+                CPU (plain versions) from the same weights: identical greedy
+                tokens;
+5. main      -- full-width qwen3-8b (36 layers, bf16, random weights from the
+                seed) serving 8 requests of 200-1500 prompt tokens, 64 new
+                tokens each, with chunked prefill (256) and a decode horizon
+                of 8; the launch counts are zeroed just before and read just
+                after, every kernel must have launched and no plain version
+                may have run; then the same requests at horizon 1 must give
+                identical tokens;
+6. profile   -- device time by kernel (torch.profiler) over the first
+                prefill-chunk step and one pure-decode horizon launch of the
+                same configuration.
+
+The last lines are the ``nvidia-smi`` line, the ``kernels`` JSON line and
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+repository around it, the script exits non-zero and prints no result. TF32
+stays off throughout (``torch.backends.cuda.matmul.allow_tf32 = False``).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA data sheet
+BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
+
+MAIN = dict(model="qwen3-8b", max_slots=8, s_max=2048, page_tokens=16,
+            prefill_chunk_tokens=256, decode_horizon=8, n_requests=8,
+            prompt_min=200, prompt_max=1500, max_new=64)
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of one call, by CUDA events, with L2 flushed
+    (a 64 MiB write; the H100's L2 is 50 MB) before each call."""
+    import torch
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(n_bytes: float, n_flops: float, peak_flops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------- inputs
+def paged_inputs(torch, gen, seq_lens, H, Hkv, hd, page, W, n_rows, dtype):
+    """Decode-kernel inputs: each sequence's pages are distinct random rows
+    of a plane layer with ``n_rows`` rows."""
+    B = len(seq_lens)
+    dev = "cuda"
+    q = torch.randn((B, H, hd), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((n_rows, page, Hkv, hd), generator=gen,
+                     device=dev).to(dtype)
+    vp = torch.randn((n_rows, page, Hkv, hd), generator=gen,
+                     device=dev).to(dtype)
+    perm = torch.randperm(n_rows - 1, generator=gen, device=dev) + 1
+    bt = perm[:B * W].reshape(B, W).int()
+    sl = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
+    return q, kp, vp, bt, sl
+
+
+def chunk_positions(torch, prompt_lens, C):
+    """Positions of each prompt's last full chunk (the costliest chunk call
+    of the main path), or of its only chunk when the prompt is shorter than
+    C, as the engine lays them out: pad columns repeat position 0."""
+    pos = torch.zeros((len(prompt_lens), C), dtype=torch.int32)
+    for b, P in enumerate(prompt_lens):
+        p0 = max(P // C - 1, 0) * C
+        n = min(C, P - p0)
+        pos[b, :n] = torch.arange(p0, p0 + n, dtype=torch.int32)
+    return pos.cuda()
+
+
+def paged_cost(seq_lens, H, Hkv, hd, W, esize):
+    tokens = sum(max(s, 1) for s in seq_lens)
+    B = len(seq_lens)
+    n_bytes = (2 * tokens * Hkv * hd * esize        # K and V, read once
+               + 2 * B * H * hd * esize             # q in, out
+               + B * W * 4 + B * 4)                 # block table, seq_lens
+    return n_bytes, 4 * tokens * H * hd             # QK^T and PV products
+
+
+def chunk_cost(pos, H, Hkv, hd, W, esize):
+    B, C = pos.shape
+    k_lens = (pos.amax(dim=1) + 1).tolist()
+    visible = int((pos.long() + 1).sum())           # causal keys per row
+    n_bytes = (2 * sum(k_lens) * Hkv * hd * esize
+               + 2 * B * C * H * hd * esize + B * C * 4 + B * W * 4)
+    return n_bytes, 4 * visible * H * hd
+
+
+# ---------------------------------------------------------------- phases
+def phase_kernels(torch, args, prompt_lens):
+    """Each kernel against its plain version, then both timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import chunk_prefill as cp
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    cfg = get_config(MAIN["model"])
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    page, C = MAIN["page_tokens"], MAIN["prefill_chunk_tokens"]
+    W = -(-MAIN["s_max"] // page)
+    n_rows = MAIN["max_slots"] * W + 1
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    bf16, f32 = torch.bfloat16, torch.float32
+    results = {}
+
+    # -- paged decode at the main path's shapes: every request mid-decode
+    seq_lens = [P + MAIN["max_new"] // 2 for P in prompt_lens]
+    q, kp, vp, bt, sl = paged_inputs(torch, gen, seq_lens, H, Hkv, hd, page,
+                                     W, n_rows, bf16)
+    got = pa.paged_attention(q, kp, vp, bt, sl)
+    want = ref.paged_attention_ref(q, kp, vp, bt, sl)
+    err = float((got.float() - want.float()).abs().max())
+    require(err <= 2e-2, f"paged_attention bf16 max_abs_err {err} > 2e-2")
+    # splice: bitwise equal to scattering k_new/v_new first
+    k_new = torch.randn((len(seq_lens), Hkv, hd), generator=gen,
+                        device="cuda").to(bf16)
+    v_new = torch.randn((len(seq_lens), Hkv, hd), generator=gen,
+                        device="cuda").to(bf16)
+    w = (sl - 1).long()
+    rows = bt[torch.arange(len(seq_lens), device="cuda"), w // page].long()
+    kp_sc, vp_sc = kp.clone(), vp.clone()
+    kp_sc[rows, w % page] = k_new
+    vp_sc[rows, w % page] = v_new
+    spliced = pa.paged_attention(q, kp, vp, bt, sl, k_new=k_new, v_new=v_new)
+    require(torch.equal(spliced, pa.paged_attention(q, kp_sc, vp_sc, bt, sl)),
+            "paged_attention splice differs from scatter-then-attend")
+    # f32 at a small size, tight
+    qs, kps, vps, bts, sls = paged_inputs(torch, gen, [1, 37, 64, 5], 8, 2,
+                                          64, 16, 4, 20, f32)
+    err32 = float((pa.paged_attention(qs, kps, vps, bts, sls)
+                   - ref.paged_attention_ref(qs, kps, vps, bts, sls))
+                  .abs().max())
+    require(err32 <= 1e-5, f"paged_attention f32 max_abs_err {err32}")
+    n_bytes, n_flops = paged_cost(seq_lens, H, Hkv, hd, W, 2)
+    b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+    results["paged_attention"] = dict(
+        max_abs_err=err, max_abs_err_f32=err32, splice_bitwise=True,
+        ms=time_ms(lambda: pa.paged_attention(q, kp, vp, bt, sl)),
+        plain_ms=time_ms(lambda: ref.paged_attention_ref(q, kp, vp, bt, sl)),
+        bound_ms=b_ms, bound_by=b_by,
+        shapes=dict(q=list(q.shape), pages=list(kp.shape), seq_lens=seq_lens))
+    emit("kernel_check", name="paged_attention",
+         **{k: v for k, v in results["paged_attention"].items()})
+    del q, kp, vp, kp_sc, vp_sc
+
+    # -- chunked prefill at the main path's shapes: each prompt's last full
+    # chunk
+    pos = chunk_positions(torch, prompt_lens, C)
+    B = len(prompt_lens)
+    q = torch.randn((B, C, H, hd), generator=gen, device="cuda").to(bf16)
+    _, kp, vp, bt, _ = paged_inputs(torch, gen, [1] * B, H, Hkv, hd, page, W,
+                                    n_rows, bf16)
+    got = cp.chunk_prefill_attention(q, kp, vp, bt, pos)
+    # the plain version takes its score dot in the I/O dtype; held at f32
+    # on the same bf16-valued inputs
+    want = ref.chunk_prefill_attention_ref(q.float(), kp.float(), vp.float(),
+                                           bt, pos)
+    err = float((got.float() - want).abs().max())
+    require(err <= 2e-2, f"chunk_prefill bf16 max_abs_err {err} > 2e-2")
+    pad_finite = bool(torch.isfinite(got).all())
+    require(pad_finite, "chunk_prefill output (pad rows included) not finite")
+    qs = torch.randn((3, 8, 6, 16), generator=gen, device="cuda")
+    _, kps, vps, bts, _ = paged_inputs(torch, gen, [1] * 3, 6, 2, 16, 8, 3,
+                                       12, f32)
+    poss = (torch.tensor([[0], [5], [13]]) + torch.arange(8)).int().cuda()
+    err32 = float((cp.chunk_prefill_attention(qs, kps, vps, bts, poss)
+                   - ref.chunk_prefill_attention_ref(qs, kps, vps, bts, poss))
+                  .abs().max())
+    require(err32 <= 1e-5, f"chunk_prefill f32 max_abs_err {err32}")
+    n_bytes, n_flops = chunk_cost(pos, H, Hkv, hd, W, 2)
+    b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+    results["chunk_prefill_attention"] = dict(
+        max_abs_err=err, max_abs_err_f32=err32, pad_rows_finite=pad_finite,
+        ms=time_ms(lambda: cp.chunk_prefill_attention(q, kp, vp, bt, pos)),
+        plain_ms=time_ms(lambda: ref.chunk_prefill_attention_ref(
+            q, kp, vp, bt, pos), reps=5),
+        bound_ms=b_ms, bound_by=b_by,
+        shapes=dict(q=list(q.shape), pages=list(kp.shape),
+                    k_lens=(pos.amax(dim=1) + 1).tolist()))
+    emit("kernel_check", name="chunk_prefill_attention",
+         **{k: v for k, v in results["chunk_prefill_attention"].items()})
+    return results
+
+
+def serve(torch, model, prompts, *, device, arena_rows=None, **kw):
+    """Drain ``prompts`` through a fresh engine. Returns the engine, the
+    finished requests by id, and per step (wall seconds, prefill tokens,
+    decode tokens)."""
+    from repro_torch.core.runtime.accounting import MemoryAccountant
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.kv_arena import KVArena
+
+    arena = (KVArena(kw["page_tokens"], init_rows=arena_rows, device=device)
+             if arena_rows else None)
+    eng = Engine(model, MemoryAccountant(m_total=60e9), arena=arena,
+                 device=device, **kw)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(req_id=i, tokens=list(p), max_new=MAIN["max_new"]))
+    steps = []
+    while eng.waiting or eng.active:
+        pre, dec = eng.stat_prefill_tokens, eng.stat_decode_tokens
+        t0 = time.perf_counter()
+        eng.step()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0,
+                      eng.stat_prefill_tokens - pre,
+                      eng.stat_decode_tokens - dec))
+        require(len(steps) < 10_000, "engine stalled")
+    done = {r.req_id: r for r in eng.finished}
+    require(eng.arena.mapped_pages() == 0 and eng.arena.check_mirror(),
+            "KV pages leaked")
+    return eng, done, steps
+
+
+def profile_step(torch, eng):
+    """Device time by kernel over one engine step (torch.profiler). The
+    profiled step's wall time includes the profiler's own overhead, so its
+    idle share is an upper bound."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        kernels.append((us / 1e3, ev.key, ev.count))
+    kernels.sort(reverse=True)
+    busy_ms = sum(k[0] for k in kernels)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                idle_share=1 - busy_ms / wall_ms,
+                top=[dict(kernel=name[:90], ms=ms, calls=n)
+                     for ms, name, n in kernels[:8]])
+
+
+def phase_profile(torch, model, prompts, rows, kw):
+    """Profile the first step (every prompt's first 256-token chunk) and
+    one pure-decode horizon launch of the main path's configuration."""
+    from repro_torch.core.runtime.accounting import MemoryAccountant
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.kv_arena import KVArena
+
+    eng = Engine(model, MemoryAccountant(m_total=60e9),
+                 arena=KVArena(kw["page_tokens"], init_rows=rows,
+                               device="cuda"),
+                 decode_horizon=MAIN["decode_horizon"], device="cuda", **kw)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(req_id=i, tokens=list(p), max_new=MAIN["max_new"]))
+    chunk = profile_step(torch, eng)
+    while eng._prefill_pos:
+        eng.step()
+    require(len(eng.active) == len(prompts), "a request ended in prefill")
+    horizon = profile_step(torch, eng)
+    require(eng.stat_horizon_steps == 1, "profiled step was not a horizon")
+    eng.drain()
+    emit("profile", chunk_step=chunk, decode_horizon_step=horizon)
+
+
+def phase_reference(torch, args):
+    """Reduced qwen3-8b: kernels on the card vs plain versions on the CPU,
+    same weights, identical greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_params
+
+    cfg = get_config(MAIN["model"]).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(args.seed), "cpu")
+    cpu = build_model(cfg, params, device="cpu")
+    gpu = build_model(cfg, params, device="cuda")
+    rng = np.random.default_rng(args.seed)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)]
+               for n in (3, 17, 40, 9, 25, 33)]
+    kw = dict(max_slots=4, s_max=128, page_tokens=8, prefill_chunk_tokens=16,
+              decode_horizon=4)
+    _, want, _ = serve(torch, cpu, prompts, device="cpu", **kw)
+    _, got, _ = serve(torch, gpu, prompts, device="cuda", **kw)
+    same = all(got[i].out == want[i].out for i in want)
+    require(same, "reduced model: card tokens differ from the CPU's")
+    emit("reference", model=cfg.name, requests=len(prompts),
+         identical_tokens=same)
+
+
+def phase_main(torch, args, prompts):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import chunk_prefill as cp
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import build_model
+
+    cfg = get_config(MAIN["model"])
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=args.seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    W = -(-MAIN["s_max"] // MAIN["page_tokens"])
+    kw = {k: MAIN[k] for k in ("max_slots", "s_max", "page_tokens",
+                               "prefill_chunk_tokens")}
+    rows = MAIN["max_slots"] * W + 1            # the peak: no regrowth
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    eng, done, steps = serve(torch, model, prompts, device="cuda",
+                             arena_rows=rows,
+                             decode_horizon=MAIN["decode_horizon"], **kw)
+    launches = {"paged_attention": pa.launches,
+                "chunk_prefill_attention": cp.launches}
+    plain = dict(ops.plain_calls)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(len(done) == len(prompts), "not every request finished")
+    for i, r in done.items():
+        require(len(r.out) == MAIN["max_new"] and not r.truncated,
+                f"request {i} emitted {len(r.out)} tokens")
+        require(all(0 <= t < model.vocab_padded for t in r.out),
+                f"request {i} emitted a token outside the vocabulary")
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel never launched on the main path: {launches}")
+    require(not any(plain.values()),
+            f"a plain version ran on the main path: {plain}")
+    # decode rate over the pure-decode steps (no prefill chunk in them)
+    decode_s = sum(dt for dt, pre, _ in steps if not pre)
+    decode_tok = sum(dec for _, pre, dec in steps if not pre)
+    ttft = sorted(r.ttft_s for r in done.values())
+    stats = dict(stat_steps=eng.stat_steps,
+                 stat_horizon_steps=eng.stat_horizon_steps,
+                 stat_decode_syncs=eng.stat_decode_syncs,
+                 stat_fused_steps=eng.stat_fused_steps,
+                 stat_prefill_tokens=eng.stat_prefill_tokens,
+                 stat_decode_tokens=eng.stat_decode_tokens)
+    tokens_h8 = {i: r.out for i, r in done.items()}
+    arena_gb = rows * eng.binding.plane.spec.row_bytes / 1e9
+    del eng
+    torch.cuda.empty_cache()
+
+    # finite logits of the expected shape on a short prompt
+    logits, _, _ = model.prefill(torch.tensor([prompts[0][:64]],
+                                              device="cuda"))
+    require(tuple(logits.shape) == (1, model.vocab_padded)
+            and bool(torch.isfinite(logits).all()),
+            "prefill logits not finite or misshapen")
+
+    ops.reset_counts()
+    eng1, done1, _ = serve(torch, model, prompts, device="cuda",
+                           arena_rows=rows, decode_horizon=1, **kw)
+    same = all(done1[i].out == tokens_h8[i] for i in tokens_h8)
+    require(same, "horizon 8 tokens differ from horizon 1")
+    launches_h1 = {"paged_attention": pa.launches,
+                   "chunk_prefill_attention": cp.launches}
+    syncs_h1 = eng1.stat_decode_syncs
+    del eng1
+    torch.cuda.empty_cache()
+    emit("main", model=cfg.name, params=n_params,
+         weights_gb=n_params * 2 / 1e9, model_build_s=build_s,
+         prompt_lens=[len(p) for p in prompts], max_new=MAIN["max_new"],
+         config={**kw, "decode_horizon": MAIN["decode_horizon"]},
+         arena_rows=rows, arena_gb=arena_gb, launches=launches,
+         plain_calls=plain,
+         decode_tok_s=decode_tok / decode_s if decode_s else None,
+         decode_tokens=decode_tok, decode_wall_s=decode_s,
+         total_wall_s=sum(dt for dt, _, _ in steps),
+         ttft_s=dict(min=ttft[0], median=statistics.median(ttft),
+                     max=ttft[-1]),
+         peak_mem_gb=peak_gb, **stats,
+         horizon1=dict(identical_tokens=same, launches=launches_h1,
+                       stat_decode_syncs=syncs_h1))
+    phase_profile(torch, model, prompts, rows, kw)
+    return launches
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the weights, prompts and kernel inputs")
+    args = ap.parse_args(argv)
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the "
+              "card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        import repro_torch  # noqa: F401
+        from repro_torch.kernels import _build
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script "
+              f"(src/repro_torch): {e}", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+
+    smi = nvidia_smi()
+    emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda)
+    t0 = time.perf_counter()
+    _build.build_all()
+    emit("build", seconds=time.perf_counter() - t0,
+         libraries=[str(_build._target(n).relative_to(ROOT))
+                    for n in _build.SOURCES])
+
+    rng = np.random.default_rng(args.seed)
+    vocab = 151936
+    prompt_lens = [int(n) for n in rng.integers(
+        MAIN["prompt_min"], MAIN["prompt_max"] + 1, MAIN["n_requests"])]
+    prompts = [[int(t) for t in rng.integers(0, vocab, n)]
+               for n in prompt_lens]
+
+    checks = phase_kernels(torch, args, prompt_lens)
+    phase_reference(torch, args)
+    launches = phase_main(torch, args, prompts)
+
+    sources = {
+        "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                            "src/repro/kernels/paged_attention.py:146"),
+        "chunk_prefill_attention": ("src/repro_torch/csrc/chunk_prefill.cu",
+                                    "src/repro/kernels/chunk_prefill.py:124"),
+    }
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        c = checks[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=launches[name], max_abs_err=c["max_abs_err"],
+            ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+            bound_by=c["bound_by"],
+            # no single PyTorch call computes attention through a block
+            # table: SDPA would need the pages gathered first
+            library_ms=None))
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,159 @@
+"""The port's plain paged-attention versions against the JAX package.
+
+The same numpy inputs go through ``repro_torch.kernels.ref``, the JAX
+oracles in ``repro.kernels.ref`` and the Pallas kernels in interpret mode,
+at float32 with atol/rtol 1e-5 (the plain versions and the oracles do the
+same operations; the Pallas kernels take a tiled online softmax). Cases are
+taken from the sweeps of ``tests/test_kernels.py``. The CUDA kernels
+themselves are held against these plain versions on the card
+(``tests/test_torch_cuda.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.chunk_prefill import chunk_prefill_attention as pl_chunk
+from repro.kernels.paged_attention import paged_attention as pl_paged
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import chunk_prefill as cp
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ref
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _paged_case(seed, B, H, Hkv, hd, page, slots):
+    rng = np.random.default_rng(seed)
+    n_rows = B * slots + 3
+    return dict(
+        q=rng.standard_normal((B, H, hd), np.float32),
+        kp=rng.standard_normal((n_rows, page, Hkv, hd), np.float32),
+        vp=rng.standard_normal((n_rows, page, Hkv, hd), np.float32),
+        bt=rng.permutation(n_rows)[:B * slots].reshape(B, slots)
+        .astype(np.int32),
+        sl=rng.integers(0, page * slots + 1, B).astype(np.int32),  # 0 clamps
+        kn=rng.standard_normal((B, Hkv, hd), np.float32),
+        vn=rng.standard_normal((B, Hkv, hd), np.float32),
+    )
+
+
+def _torch(c, *names):
+    return [torch.from_numpy(c[n]) for n in names]
+
+
+def _jax(c, *names):
+    return [jnp.asarray(c[n]) for n in names]
+
+
+@pytest.mark.parametrize("B,H,Hkv,hd,page,slots", [
+    (2, 8, 2, 64, 16, 8),
+    (3, 4, 4, 32, 8, 4),
+    (1, 16, 2, 128, 32, 4),
+])
+@pytest.mark.parametrize("splice", [False, True])
+def test_paged_attention_ref_matches_jax_and_pallas(B, H, Hkv, hd, page,
+                                                    slots, splice):
+    c = _paged_case(0, B, H, Hkv, hd, page, slots)
+    kw_t = dict(zip(("k_new", "v_new"), _torch(c, "kn", "vn"))) \
+        if splice else {}
+    kw_j = dict(zip(("k_new", "v_new"), _jax(c, "kn", "vn"))) \
+        if splice else {}
+    got = ref.paged_attention_ref(*_torch(c, "q", "kp", "vp", "bt", "sl"),
+                                  **kw_t).numpy()
+    args = _jax(c, "q", "kp", "vp", "bt", "sl")
+    np.testing.assert_allclose(
+        got, np.asarray(jref.paged_attention_ref(*args, **kw_j)), **TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(pl_paged(*args, page_size=page, interpret=True,
+                                 **kw_j)), **TOL)
+
+
+def test_paged_attention_ref_splice_is_bitwise_scatter():
+    B, H, Hkv, hd, page, slots = 2, 8, 2, 64, 16, 8
+    c = _paged_case(1, B, H, Hkv, hd, page, slots)
+    q, kp, vp, bt, sl, kn, vn = _torch(c, "q", "kp", "vp", "bt", "sl", "kn",
+                                       "vn")
+    w = (sl.clamp(min=1) - 1).long()
+    rows = bt[torch.arange(B), w // page].long()
+    kp_sc, vp_sc = kp.clone(), vp.clone()
+    kp_sc[rows, w % page] = kn
+    vp_sc[rows, w % page] = vn
+    assert torch.equal(
+        ref.paged_attention_ref(q, kp, vp, bt, sl, k_new=kn, v_new=vn),
+        ref.paged_attention_ref(q, kp_sc, vp_sc, bt, sl))
+
+
+@pytest.mark.parametrize("B,C,H,Hkv,hd,page,slots", [
+    (2, 4, 4, 2, 8, 4, 4),       # GQA 2x, chunk spans pages
+    (3, 8, 6, 2, 16, 8, 3),      # GQA 3x
+    (2, 8, 8, 1, 64, 4, 6),      # MQA, chunk 2x page
+])
+def test_chunk_prefill_ref_matches_jax_and_pallas(B, C, H, Hkv, hd, page,
+                                                  slots):
+    rng = np.random.default_rng(2)
+    n_rows = B * slots + 3
+    c = dict(
+        q=rng.standard_normal((B, C, H, hd), np.float32),
+        kp=rng.standard_normal((n_rows, page, Hkv, hd), np.float32),
+        vp=rng.standard_normal((n_rows, page, Hkv, hd), np.float32),
+        bt=rng.permutation(n_rows)[:B * slots].reshape(B, slots)
+        .astype(np.int32))
+    p0 = rng.integers(0, slots * page - C + 1, B)
+    c["pos"] = (p0[:, None] + np.arange(C)[None, :]).astype(np.int32)
+    names = ("q", "kp", "vp", "bt", "pos")
+    got = ref.chunk_prefill_attention_ref(*_torch(c, *names)).numpy()
+    args = _jax(c, *names)
+    np.testing.assert_allclose(
+        got, np.asarray(jref.chunk_prefill_attention_ref(*args)), **TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(pl_chunk(*args, page_size=page, interpret=True)),
+        **TOL)
+
+
+def test_chunk_prefill_ref_pad_rows_are_finite():
+    rng = np.random.default_rng(3)
+    B, C, H, Hkv, hd, page, slots = 2, 4, 4, 2, 8, 4, 3
+    q = torch.from_numpy(rng.standard_normal((B, C, H, hd), np.float32))
+    kp = torch.from_numpy(rng.standard_normal((10, page, Hkv, hd),
+                                              np.float32))
+    bt = torch.ones((B, slots), dtype=torch.int32)
+    pos = torch.zeros((B, C), dtype=torch.int32)
+    assert bool(torch.isfinite(
+        ref.chunk_prefill_attention_ref(q, kp, kp, bt, pos)).all())
+
+
+def test_ops_dispatch_cpu_tensors_to_the_plain_versions_with_splice():
+    """On CPU tensors the dispatch runs the plain version — and passes
+    k_new/v_new through, unlike the reference ``ops.paged_attention``."""
+    c = _paged_case(4, 2, 8, 2, 64, 16, 8)
+    args = _torch(c, "q", "kp", "vp", "bt", "sl")
+    kn, vn = _torch(c, "kn", "vn")
+    ops.reset_counts()
+    got = ops.paged_attention(*args, k_new=kn, v_new=vn)
+    assert torch.equal(got, ref.paged_attention_ref(*args, k_new=kn,
+                                                    v_new=vn))
+    assert not torch.equal(got, ref.paged_attention_ref(*args))
+    assert ops.plain_calls["paged_attention"] == 1
+    assert pa.launches == 0 and cp.launches == 0
+
+
+def test_kernel_wrappers_never_fall_back_to_the_cpu():
+    """Given CPU tensors a kernel wrapper raises; it has no plain branch."""
+    c = _paged_case(5, 1, 4, 2, 32, 8, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        pa.paged_attention(*_torch(c, "q", "kp", "vp", "bt", "sl"))
+    q = torch.zeros((1, 2, 4, 32))
+    kp = torch.zeros((3, 8, 2, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        cp.chunk_prefill_attention(q, kp, kp,
+                                   torch.zeros((1, 2), dtype=torch.int32),
+                                   torch.zeros((1, 2), dtype=torch.int32))
+
+
+def test_build_raises_without_the_cuda_toolkit(monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda _: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build._nvcc()
