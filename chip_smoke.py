@@ -6,25 +6,41 @@
 Phases, each printing one JSON line (and failing the run on any error):
 
 1. device    -- the card's name and power limit, as ``nvidia-smi`` prints them;
-2. build     -- both CUDA kernels compiled from ``src/repro_torch/csrc``;
+2. build     -- the four CUDA kernels compiled from ``src/repro_torch/csrc``,
+                all ``nvcc`` processes at once;
 3. kernels   -- each kernel against its plain PyTorch version on the card, at
-                the main path's shapes (bf16, 2e-2) and at a small size
-                (f32, 1e-5); the decode splice bitwise equal to a scatter;
-                chunk pad rows finite; then each kernel and its plain version
-                timed with CUDA events;
-4. reference -- the reduced qwen3-8b served on the card (kernels) and on the
-                CPU (plain versions) from the same weights: identical greedy
-                tokens;
+                the main paths' shapes (bf16) and at a small size (f32); the
+                decode splice bitwise equal to a scatter; chunk pad rows
+                finite; the SSD scan at the 8 prompt lengths (one prime) with
+                its final state; flash causal at the 8 prompt lengths plus a
+                non-causal cross-length case; then each kernel, its plain
+                version and, where one exists, the one PyTorch call computing
+                the same function timed with CUDA events;
+4. reference -- reduced models served on the card (kernels) and on the CPU
+                (plain versions) from the same weights: identical greedy
+                tokens, for qwen3-8b with chunked and with monolithic prefill
+                and for mamba2-2.7b;
 5. main      -- full-width qwen3-8b (36 layers, bf16, random weights from the
                 seed) serving 8 requests of 200-1500 prompt tokens, 64 new
                 tokens each, with chunked prefill (256) and a decode horizon
-                of 8; the launch counts are zeroed just before and read just
-                after, every kernel must have launched and no plain version
-                may have run; then the same requests at horizon 1 must give
+                of 8; then the same requests at horizon 1 must give
                 identical tokens;
 6. profile   -- device time by kernel (torch.profiler) over the first
                 prefill-chunk step and one pure-decode horizon launch of the
-                same configuration.
+                same configuration;
+7. dense_monolithic -- the same model and requests with monolithic prefill
+                (``prefill_chunk_tokens=0``), every prompt's attention in the
+                flash kernel; its tokens against the chunked run's, or the
+                first difference with its logit gap;
+8. ssm_main  -- full-width mamba2-2.7b (64 layers, bf16, random weights from
+                the seed) serving 8 requests of the same lengths, every
+                prefill's scan in the SSD kernel; the chunk and horizon knobs
+                (256, 8) must degrade to 0 and 1; then a profile of its first
+                step (the prefills) and of one decode step.
+
+Each serving path zeroes the launch counts just before it runs and reads
+them just after: every kernel of that path must have launched and no plain
+version may have run.
 
 The last lines are the ``nvidia-smi`` line, the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -34,6 +50,7 @@ stays off throughout (``torch.backends.cuda.matmul.allow_tf32 = False``).
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -50,6 +67,7 @@ BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 MAIN = dict(model="qwen3-8b", max_slots=8, s_max=2048, page_tokens=16,
             prefill_chunk_tokens=256, decode_horizon=8, n_requests=8,
             prompt_min=200, prompt_max=1500, max_new=64)
+SSM_MODEL = "mamba2-2.7b"
 
 
 def require(cond: bool, msg: str) -> None:
@@ -67,6 +85,14 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def reset_peak(torch) -> None:
+    """Free what earlier phases left behind (an engine and its arena hold
+    each other, so they go only at a collection) and zero the peak."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -142,7 +168,156 @@ def chunk_cost(pos, H, Hkv, hd, W, esize):
     return n_bytes, 4 * visible * H * hd
 
 
+def flash_cost(Sq, Sk, H, Hkv, hd, causal, esize):
+    """Bytes (q, k, v in, out written) and flops of one sequence's dense
+    attention: 4 * hd per visible (query, key) pair and head."""
+    if causal:
+        visible = sum(min(i + 1, Sk) for i in range(Sq))
+    else:
+        visible = Sq * Sk
+    n_bytes = (2 * Sq * H * hd + 2 * Sk * Hkv * hd) * esize
+    return n_bytes, 4 * visible * H * hd
+
+
+def ssd_cost(S, H, P, N, Q, esize):
+    """Bytes (x, B, C, y in the I/O dtype; dt, A and the final state in
+    f32) and flops of one sequence's chunked SSD scan with chunks of Q: per
+    chunk of n tokens and head, the masked C B^T and its product with x dt
+    over the n(n+1)/2 visible pairs, the carried state's term and the state
+    update (2 * N * P each per token)."""
+    n_bytes = (2 * S * H * P * esize + 2 * S * H * N * esize
+               + S * H * 4 + H * 4 + H * N * P * 4)
+    flops = 0
+    for c0 in range(0, S, Q):
+        n = min(Q, S - c0)
+        flops += H * (n * (n + 1) * (N + P) + 4 * n * N * P)
+    return n_bytes, flops
+
+
+def next_prime(n: int) -> int:
+    while n < 2 or any(n % d == 0 for d in range(2, int(n ** 0.5) + 1)):
+        n += 1
+    return n
+
+
 # ---------------------------------------------------------------- phases
+def check_flash(torch, gen, prompt_lens):
+    """The flash kernel against its plain version at qwen3-8b's heads:
+    causal at each prompt length (bf16, held at f32 on the same values, as
+    the plain version takes its score dot in the I/O dtype), one non-causal
+    cross-length case, and an f32 case at a small size; then timed at the
+    longest prompt beside SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    cfg = get_config(MAIN["model"])
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    bf16 = torch.bfloat16
+
+    def inputs(Sq, Sk, h, hkv, d, dtype):
+        return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for shape in ((1, Sq, h, d), (1, Sk, hkv, d), (1, Sk, hkv, d))]
+
+    def err(got, q, k, v, causal):
+        want = ref.blockwise_attention(q.float(), k.float(), v.float(),
+                                       causal=causal)
+        return float((got.float() - want).abs().max())
+
+    errs = []
+    for S in prompt_lens:
+        q, k, v = inputs(S, S, H, Hkv, hd, bf16)
+        errs.append(err(fa.flash_attention(q, k, v, causal=True), q, k, v,
+                        True))
+    q, k, v = inputs(300, max(prompt_lens), H, Hkv, hd, bf16)
+    err_cross = err(fa.flash_attention(q, k, v, causal=False), q, k, v, False)
+    qs, ks, vs = inputs(77, 77, 8, 2, 64, torch.float32)
+    err32 = err(fa.flash_attention(qs, ks, vs, causal=True), qs, ks, vs, True)
+    qs, ks, vs = inputs(50, 131, 8, 1, 128, torch.float32)
+    err32 = max(err32, err(fa.flash_attention(qs, ks, vs, causal=False),
+                           qs, ks, vs, False))
+    max_err = max(errs + [err_cross])
+    require(max_err <= 2e-2, f"flash_attention bf16 max_abs_err {max_err}")
+    require(err32 <= 1e-5, f"flash_attention f32 max_abs_err {err32}")
+    S = max(prompt_lens)
+    q, k, v = inputs(S, S, H, Hkv, hd, bf16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    n_bytes, n_flops = flash_cost(S, S, H, Hkv, hd, True, 2)
+    b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+    return dict(
+        max_abs_err=max_err, max_abs_err_f32=err32,
+        max_abs_err_noncausal_cross=err_cross,
+        ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+        plain_ms=time_ms(lambda: ref.blockwise_attention(q, k, v, True),
+                         reps=5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        shapes=dict(q=[1, S, H, hd], kv=[1, S, Hkv, hd],
+                    causal_lens=list(prompt_lens), cross=[300, S]))
+
+
+def check_ssd(torch, gen, prompt_lens):
+    """The SSD kernel against its plain version at mamba2-2.7b's heads, one
+    call per prompt length as each prefill makes it (bf16 x/B/C, f32
+    dt/A): y and the final state, each held by its largest error over its
+    largest magnitude (1e-2 for the bf16 y, one rounding; 1e-4 for the f32
+    state, sums in another order over other chunk lengths); an f32 case at
+    a small, prime length; then timed at the longest prompt."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk as ssd
+
+    cfg = get_config(SSM_MODEL)
+    s = cfg.ssm
+    H, P, N = s.n_heads(cfg.d_model), s.head_dim, s.d_state
+
+    def inputs(S, h, p, n, dtype):
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        return (rnd(1, S, h, p).to(dtype),
+                torch.nn.functional.softplus(rnd(1, S, h)),
+                -torch.exp(rnd(h) * 0.3),
+                rnd(1, S, h, n).to(dtype), rnd(1, S, h, n).to(dtype))
+
+    def scaled(got, want):
+        return float((got.float() - want.float()).abs().max()
+                     / want.float().abs().max())
+
+    y_errs, st_errs, abs_errs = [], [], []
+    for S in prompt_lens:
+        args = inputs(S, H, P, N, torch.bfloat16)
+        y, st = ssd.ssd_chunk(*args, s.chunk)
+        y_ref, st_ref = ref.ssd_chunk_scan(*args, s.chunk)
+        y_errs.append(scaled(y, y_ref))
+        st_errs.append(scaled(st, st_ref))
+        abs_errs.append(float((y.float() - y_ref.float()).abs().max()))
+    args32 = inputs(67, 4, 16, 16, torch.float32)
+    y, st = ssd.ssd_chunk(*args32, 32)
+    y_ref, st_ref = ref.ssd_chunk_scan(*args32, 32)
+    err32 = max(scaled(y, y_ref), scaled(st, st_ref))
+    require(max(y_errs) <= 1e-2 and max(st_errs) <= 1e-4,
+            f"ssd_chunk bf16 scaled errors y {y_errs} state {st_errs}")
+    require(err32 <= 1e-4, f"ssd_chunk f32 scaled error {err32}")
+    S = max(prompt_lens)
+    args = inputs(S, H, P, N, torch.bfloat16)
+    n_bytes, n_flops = ssd_cost(S, H, P, N, min(s.chunk, ssd.MAX_CHUNK), 2)
+    b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+    return dict(
+        max_abs_err=max(abs_errs), y_scaled_err=max(y_errs),
+        state_scaled_err=max(st_errs), scaled_err_f32=err32,
+        ms=time_ms(lambda: ssd.ssd_chunk(*args, s.chunk)),
+        plain_ms=time_ms(lambda: ref.ssd_chunk_scan(*args, s.chunk), reps=3,
+                         warmup=1),
+        bound_ms=b_ms, bound_by=b_by,
+        # no single PyTorch call computes the scan
+        library_ms=None,
+        shapes=dict(x=[1, S, H, P], bc=[1, S, H, N], lens=list(prompt_lens),
+                    prime_lens=[n for n in prompt_lens
+                                if n == next_prime(n)]))
+
+
 def phase_kernels(torch, args, prompt_lens):
     """Each kernel against its plain version, then both timed."""
     from repro_torch.configs import get_config
@@ -235,6 +410,11 @@ def phase_kernels(torch, args, prompt_lens):
                     k_lens=(pos.amax(dim=1) + 1).tolist()))
     emit("kernel_check", name="chunk_prefill_attention",
          **{k: v for k, v in results["chunk_prefill_attention"].items()})
+    del q, kp, vp
+    for name, check in (("flash_attention", check_flash),
+                        ("ssd_chunk", check_ssd)):
+        results[name] = check(torch, gen, prompt_lens)
+        emit("kernel_check", name=name, **results[name])
     return results
 
 
@@ -321,33 +501,59 @@ def phase_profile(torch, model, prompts, rows, kw):
 
 
 def phase_reference(torch, args):
-    """Reduced qwen3-8b: kernels on the card vs plain versions on the CPU,
-    same weights, identical greedy tokens."""
+    """Reduced models: kernels on the card vs plain versions on the CPU,
+    same weights, identical greedy tokens — qwen3-8b with chunked prefill
+    (the paged kernels) and with monolithic prefill (flash), mamba2-2.7b
+    (the SSD scan; its chunk and horizon knobs degrade)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.models import build_model, init_params
 
-    cfg = get_config(MAIN["model"]).reduced()
-    params = init_params(cfg, torch.Generator().manual_seed(args.seed), "cpu")
-    cpu = build_model(cfg, params, device="cpu")
-    gpu = build_model(cfg, params, device="cuda")
-    rng = np.random.default_rng(args.seed)
-    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)]
-               for n in (3, 17, 40, 9, 25, 33)]
-    kw = dict(max_slots=4, s_max=128, page_tokens=8, prefill_chunk_tokens=16,
-              decode_horizon=4)
-    _, want, _ = serve(torch, cpu, prompts, device="cpu", **kw)
-    _, got, _ = serve(torch, gpu, prompts, device="cuda", **kw)
-    same = all(got[i].out == want[i].out for i in want)
-    require(same, "reduced model: card tokens differ from the CPU's")
-    emit("reference", model=cfg.name, requests=len(prompts),
-         identical_tokens=same)
+    cases = (("qwen3-8b", 16, (3, 17, 40, 9, 25, 33)),
+             ("qwen3-8b", 0, (3, 17, 40, 9, 25, 33)),
+             (SSM_MODEL, 16, (3, 17, 41, 9, 25, 33)))
+    for name, chunk, lens in cases:
+        cfg = get_config(name).reduced()
+        params = init_params(cfg, torch.Generator().manual_seed(args.seed),
+                             "cpu")
+        cpu = build_model(cfg, params, device="cpu")
+        gpu = build_model(cfg, params, device="cuda")
+        rng = np.random.default_rng(args.seed)
+        prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)]
+                   for n in lens]
+        kw = dict(max_slots=4, s_max=128, page_tokens=8,
+                  prefill_chunk_tokens=chunk, decode_horizon=4)
+        _, want, _ = serve(torch, cpu, prompts, device="cpu", **kw)
+        ops.reset_counts()
+        _, got, _ = serve(torch, gpu, prompts, device="cuda", **kw)
+        launches = launch_counts()
+        same = all(got[i].out == want[i].out for i in want)
+        require(same, f"reduced {name} (chunk {chunk}): card tokens differ "
+                f"from the CPU's")
+        require(not any(ops.plain_calls.values()),
+                f"reduced {name}: a plain version ran on the card")
+        emit("reference", model=cfg.name, prefill_chunk_tokens=chunk,
+             requests=len(prompts), identical_tokens=same,
+             launches={k: n for k, n in launches.items() if n})
+
+
+def launch_counts():
+    """Each kernel wrapper's launches since the last ``ops.reset_counts``."""
+    from repro_torch.kernels import chunk_prefill as cp
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_chunk as ssd
+    return {"paged_attention": pa.launches,
+            "chunk_prefill_attention": cp.launches,
+            "flash_attention": fa.launches, "ssd_chunk": ssd.launches}
 
 
 def phase_main(torch, args, prompts):
+    """Full-width qwen3-8b, chunked prefill and the decode horizon. Returns
+    the model (the monolithic phase reuses it), this path's launches and
+    its tokens."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import chunk_prefill as cp
     from repro_torch.kernels import ops
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import build_model
 
     cfg = get_config(MAIN["model"])
@@ -361,13 +567,13 @@ def phase_main(torch, args, prompts):
                                "prefill_chunk_tokens")}
     rows = MAIN["max_slots"] * W + 1            # the peak: no regrowth
 
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     ops.reset_counts()
     eng, done, steps = serve(torch, model, prompts, device="cuda",
                              arena_rows=rows,
                              decode_horizon=MAIN["decode_horizon"], **kw)
-    launches = {"paged_attention": pa.launches,
-                "chunk_prefill_attention": cp.launches}
+    launches = {k: n for k, n in launch_counts().items()
+                if k in ("paged_attention", "chunk_prefill_attention")}
     plain = dict(ops.plain_calls)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     require(len(done) == len(prompts), "not every request finished")
@@ -380,16 +586,13 @@ def phase_main(torch, args, prompts):
             f"a kernel never launched on the main path: {launches}")
     require(not any(plain.values()),
             f"a plain version ran on the main path: {plain}")
-    # decode rate over the pure-decode steps (no prefill chunk in them)
-    decode_s = sum(dt for dt, pre, _ in steps if not pre)
-    decode_tok = sum(dec for _, pre, dec in steps if not pre)
-    ttft = sorted(r.ttft_s for r in done.values())
     stats = dict(stat_steps=eng.stat_steps,
                  stat_horizon_steps=eng.stat_horizon_steps,
                  stat_decode_syncs=eng.stat_decode_syncs,
                  stat_fused_steps=eng.stat_fused_steps,
                  stat_prefill_tokens=eng.stat_prefill_tokens,
                  stat_decode_tokens=eng.stat_decode_tokens)
+    rates = serving_rates(done, steps)
     tokens_h8 = {i: r.out for i, r in done.items()}
     arena_gb = rows * eng.binding.plane.spec.row_bytes / 1e9
     del eng
@@ -407,8 +610,7 @@ def phase_main(torch, args, prompts):
                            arena_rows=rows, decode_horizon=1, **kw)
     same = all(done1[i].out == tokens_h8[i] for i in tokens_h8)
     require(same, "horizon 8 tokens differ from horizon 1")
-    launches_h1 = {"paged_attention": pa.launches,
-                   "chunk_prefill_attention": cp.launches}
+    launches_h1 = {k: launch_counts()[k] for k in launches}
     syncs_h1 = eng1.stat_decode_syncs
     del eng1
     torch.cuda.empty_cache()
@@ -417,16 +619,172 @@ def phase_main(torch, args, prompts):
          prompt_lens=[len(p) for p in prompts], max_new=MAIN["max_new"],
          config={**kw, "decode_horizon": MAIN["decode_horizon"]},
          arena_rows=rows, arena_gb=arena_gb, launches=launches,
-         plain_calls=plain,
-         decode_tok_s=decode_tok / decode_s if decode_s else None,
-         decode_tokens=decode_tok, decode_wall_s=decode_s,
-         total_wall_s=sum(dt for dt, _, _ in steps),
-         ttft_s=dict(min=ttft[0], median=statistics.median(ttft),
-                     max=ttft[-1]),
-         peak_mem_gb=peak_gb, **stats,
+         plain_calls=plain, **rates, peak_mem_gb=peak_gb, **stats,
          horizon1=dict(identical_tokens=same, launches=launches_h1,
                        stat_decode_syncs=syncs_h1))
     phase_profile(torch, model, prompts, rows, kw)
+    return model, launches, tokens_h8
+
+
+def serving_rates(done, steps):
+    """Decode tokens/s over the pure-decode steps (no prefill in them),
+    and TTFT."""
+    decode_s = sum(dt for dt, pre, _ in steps if not pre)
+    decode_tok = sum(dec for _, pre, dec in steps if not pre)
+    ttft = sorted(r.ttft_s for r in done.values())
+    return dict(decode_tok_s=decode_tok / decode_s if decode_s else None,
+                decode_tokens=decode_tok, decode_wall_s=decode_s,
+                total_wall_s=sum(dt for dt, _, _ in steps),
+                ttft_s=dict(min=ttft[0], median=statistics.median(ttft),
+                            max=ttft[-1]))
+
+
+def first_difference(torch, model, prompts, want, got):
+    """The first token where ``got`` leaves ``want`` (request by request),
+    with the logit gap between the two candidates there, from a monolithic
+    prefill of the prompt and the common prefix; None when they agree."""
+    for i in sorted(want):
+        a, b = want[i], got[i]
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        ctx = torch.tensor([prompts[i] + a[:j]], device="cuda")
+        logits = model.prefill(ctx)[0][0].float()
+        top2 = logits.topk(2).values
+        return dict(request=i, index=j, chunked=a[j], monolithic=b[j],
+                    logit_gap=float(logits[a[j]] - logits[b[j]]),
+                    top2_margin=float(top2[0] - top2[1]))
+    return None
+
+
+def phase_dense_monolithic(torch, model, prompts, tokens_chunked):
+    """The main path's model and requests with monolithic prefill: every
+    prompt's attention in the flash kernel (36 layers x 8 prompts)."""
+    from repro_torch.kernels import ops
+
+    kw = {k: MAIN[k] for k in ("max_slots", "s_max", "page_tokens")}
+    rows = MAIN["max_slots"] * -(-MAIN["s_max"] // MAIN["page_tokens"]) + 1
+    reset_peak(torch)
+    ops.reset_counts()
+    eng, done, steps = serve(torch, model, prompts, device="cuda",
+                             arena_rows=rows, prefill_chunk_tokens=0,
+                             decode_horizon=MAIN["decode_horizon"], **kw)
+    launches = {k: n for k, n in launch_counts().items()
+                if k in ("flash_attention", "paged_attention")}
+    plain = dict(ops.plain_calls)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = model.cfg.n_layers * len(prompts)
+    require(launches["flash_attention"] == expected,
+            f"flash_attention launched {launches['flash_attention']} times, "
+            f"not {expected}")
+    require(launches["paged_attention"] > 0, "paged decode never launched")
+    require(not any(plain.values()),
+            f"a plain version ran on the monolithic path: {plain}")
+    for i, r in done.items():
+        require(len(r.out) == MAIN["max_new"] and not r.truncated,
+                f"request {i} emitted {len(r.out)} tokens")
+    rates = serving_rates(done, steps)
+    tokens = {i: r.out for i, r in done.items()}
+    diff = first_difference(torch, model, prompts, tokens_chunked, tokens)
+    prof = profile_first_step(torch, model, prompts, rows=rows,
+                              prefill_chunk_tokens=0,
+                              decode_horizon=MAIN["decode_horizon"], **kw)
+    emit("dense_monolithic", model=model.cfg.name,
+         config={**kw, "prefill_chunk_tokens": 0,
+                 "decode_horizon": MAIN["decode_horizon"]},
+         launches=launches, plain_calls=plain, **rates, peak_mem_gb=peak_gb,
+         identical_to_chunked=diff is None, first_difference=diff,
+         profile_first_step=prof)
+    return launches
+
+
+def profile_first_step(torch, model, prompts, rows=None, **kw):
+    """Device time by kernel over a fresh engine's first step: every
+    prompt's monolithic prefill and the first decode token."""
+    from repro_torch.core.runtime.accounting import MemoryAccountant
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.kv_arena import KVArena
+
+    arena = (KVArena(kw["page_tokens"], init_rows=rows, device="cuda")
+             if rows else None)
+    eng = Engine(model, MemoryAccountant(m_total=60e9), arena=arena,
+                 device="cuda", **kw)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(req_id=i, tokens=list(p), max_new=MAIN["max_new"]))
+    first = profile_step(torch, eng)
+    decode = profile_step(torch, eng)
+    for rid in list(eng.active):
+        eng.evict(rid)
+    return dict(first_step=first, decode_step=decode)
+
+
+def phase_ssm_main(torch, args, prompt_lens):
+    """Full-width mamba2-2.7b serving 8 requests: every prefill's scan in
+    the SSD kernel (64 layers x 8 prompts); the chunk and horizon knobs
+    degrade to 0 and 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    from repro_torch.configs import dtype_bytes
+
+    cfg = get_config(SSM_MODEL)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=args.seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(args.seed + 1)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)]
+               for n in prompt_lens]
+    kw = {k: MAIN[k] for k in ("max_slots", "s_max", "page_tokens",
+                               "prefill_chunk_tokens", "decode_horizon")}
+    reset_peak(torch)
+    ops.reset_counts()
+    eng, done, steps = serve(torch, model, prompts, device="cuda", **kw)
+    launches = {"ssd_chunk": launch_counts()["ssd_chunk"]}
+    plain = dict(ops.plain_calls)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(eng.chunk_tokens == 0 and eng.horizon == 1 and not eng.paged,
+            f"knobs did not degrade: chunk {eng.chunk_tokens}, horizon "
+            f"{eng.horizon}")
+    expected = cfg.n_layers * len(prompts)
+    require(launches["ssd_chunk"] == expected,
+            f"ssd_chunk launched {launches['ssd_chunk']} times, not "
+            f"{expected}")
+    require(not any(plain.values()),
+            f"a plain version ran on the SSM path: {plain}")
+    require(len(done) == len(prompts), "not every request finished")
+    for i, r in done.items():
+        require(len(r.out) == MAIN["max_new"] and not r.truncated,
+                f"request {i} emitted {len(r.out)} tokens")
+        require(all(0 <= t < model.vocab_padded for t in r.out),
+                f"request {i} emitted a token outside the vocabulary")
+    state_bytes = eng._state_bytes
+    require(state_bytes == kw["max_slots"] * (
+        cfg.ssm_state_bytes() + cfg.n_layers * (cfg.ssm.conv_dim - 1)
+        * cfg.ssm.d_inner(cfg.d_model) * dtype_bytes(cfg.dtype)),
+        f"state cache of {state_bytes} bytes")
+    stats = dict(stat_steps=eng.stat_steps,
+                 stat_decode_syncs=eng.stat_decode_syncs,
+                 stat_horizon_steps=eng.stat_horizon_steps,
+                 stat_prefill_tokens=eng.stat_prefill_tokens,
+                 stat_decode_tokens=eng.stat_decode_tokens)
+    rates = serving_rates(done, steps)
+    del eng
+    logits, _, _ = model.prefill(torch.tensor([prompts[0][:64]],
+                                              device="cuda"))
+    require(tuple(logits.shape) == (1, model.vocab_padded)
+            and bool(torch.isfinite(logits).all()),
+            "mamba2 prefill logits not finite or misshapen")
+    prof = profile_first_step(torch, model, prompts, **kw)
+    emit("ssm_main", model=cfg.name, params=n_params,
+         weights_gb=n_params * 2 / 1e9, model_build_s=build_s,
+         prompt_lens=list(prompt_lens), max_new=MAIN["max_new"],
+         config=kw, degraded=dict(prefill_chunk_tokens=0, decode_horizon=1),
+         state_cache_gb=state_bytes / 1e9, launches=launches,
+         plain_calls=plain, **rates, peak_mem_gb=peak_gb, **stats,
+         profile_first_step=prof)
     return launches
 
 
@@ -470,18 +828,30 @@ def main(argv=None) -> int:
     vocab = 151936
     prompt_lens = [int(n) for n in rng.integers(
         MAIN["prompt_min"], MAIN["prompt_max"] + 1, MAIN["n_requests"])]
+    # one prime length: the SSD kernel's ragged last chunk on a main path
+    prompt_lens[-1] = next_prime(prompt_lens[-1])
     prompts = [[int(t) for t in rng.integers(0, vocab, n)]
                for n in prompt_lens]
 
     checks = phase_kernels(torch, args, prompt_lens)
     phase_reference(torch, args)
-    launches = phase_main(torch, args, prompts)
+    model, launches, tokens_chunked = phase_main(torch, args, prompts)
+    # the paged kernels' launches are the chunked main path's; flash's the
+    # monolithic path's
+    launches["flash_attention"] = phase_dense_monolithic(
+        torch, model, prompts, tokens_chunked)["flash_attention"]
+    del model
+    launches.update(phase_ssm_main(torch, args, prompt_lens))
 
     sources = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention.py:146"),
         "chunk_prefill_attention": ("src/repro_torch/csrc/chunk_prefill.cu",
                                     "src/repro/kernels/chunk_prefill.py:124"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:88"),
+        "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
+                      "src/repro/kernels/ssd_chunk.py:85"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -491,9 +861,9 @@ def main(argv=None) -> int:
             launches=launches[name], max_abs_err=c["max_abs_err"],
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"],
-            # no single PyTorch call computes attention through a block
-            # table: SDPA would need the pages gathered first
-            library_ms=None))
+            # no single PyTorch call attends through a block table: SDPA
+            # would need the pages gathered first
+            library_ms=c.get("library_ms")))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

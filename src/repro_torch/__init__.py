@@ -2,9 +2,10 @@
 
 Mirrors the module layout of the JAX package ``repro`` (the reference it is
 held against) but imports none of it. Entry points run on ``cuda`` unless
-the caller passes ``device="cpu"``; on CUDA tensors the paged-attention
-kernels are the hand-written Hopper kernels under ``csrc/``, on CPU tensors
-their plain PyTorch versions in ``kernels/ref.py``.
+the caller passes ``device="cpu"``; on CUDA tensors the kernels (paged,
+chunked-prefill and flash attention, the Mamba2 SSD scan) are the
+hand-written Hopper kernels under ``csrc/``, on CPU tensors their plain
+PyTorch versions in ``kernels/ref.py``.
 """
 import torch
 

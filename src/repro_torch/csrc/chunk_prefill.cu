@@ -62,9 +62,10 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   const int64_t tok_stride = (int64_t)Hkv * hd;
   const int64_t row_stride = (int64_t)page * tok_stride;
+  const PagedAddr addr{block_table + (int64_t)b * W, page, row_stride,
+                       tok_stride};
   attend<T>(s, R, hd, scale, k_len, kp + (int64_t)kvh * hd,
-            vp + (int64_t)kvh * hd, block_table + (int64_t)b * W, page,
-            row_stride, tok_stride, -1, nullptr, nullptr);
+            vp + (int64_t)kvh * hd, addr, -1, nullptr, nullptr);
   for (int i = threadIdx.x; i < R * hd; i += blockDim.x) {
     const int r = i / hd, d = i - r * hd, row = r0 + r;
     const int64_t head = ((int64_t)b * C + row / g) * H + kvh * g + row % g;

@@ -51,9 +51,10 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t row_stride = (int64_t)page * tok_stride;
   const int64_t new_off = ((int64_t)b * Hkv + kvh) * hd;
   const bool splice = k_new != nullptr;
+  const PagedAddr addr{block_table + (int64_t)b * W, page, row_stride,
+                       tok_stride};
   attend<T>(s, g, hd, scale, seq_len, kp + (int64_t)kvh * hd,
-            vp + (int64_t)kvh * hd, block_table + (int64_t)b * W, page,
-            row_stride, tok_stride, splice ? seq_len - 1 : -1,
+            vp + (int64_t)kvh * hd, addr, splice ? seq_len - 1 : -1,
             splice ? k_new + new_off : nullptr,
             splice ? v_new + new_off : nullptr);
   for (int i = threadIdx.x; i < g * hd; i += blockDim.x)

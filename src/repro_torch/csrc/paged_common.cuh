@@ -1,9 +1,12 @@
-// Shared tile loop of the two paged-attention kernels (paged_attention.cu,
-// chunk_prefill.cu).
+// Shared tile loop of the attention kernels (paged_attention.cu,
+// chunk_prefill.cu, flash_attention.cu); ssd_chunk.cu takes its dtype
+// helpers and shared-memory opt-in.
 //
 // A block owns R query rows that all read one sequence's keys of one kv
-// head. Keys are walked in tiles of kTile positions: position t of the
-// sequence lives at plane row block_table[t / page], offset t % page. Each
+// head. Keys are walked in tiles of kTile positions; an address functor
+// maps position t to its offset: through a block table for the paged
+// kernels (plane row block_table[t / page], offset t % page), t times the
+// token stride for contiguous K/V. Each
 // tile is staged in shared memory as f32, scored against the R rows, and
 // folded into an f32 online softmax (running max m, running sum l and the
 // accumulator acc, all in shared memory). A key is visible to a row when
@@ -67,19 +70,38 @@ __device__ inline Smem carve(float* base, int R, int hd) {
   return s;
 }
 
+// Position t of a sequence in the paged plane: row bt[t / page], offset
+// t % page (bt is this sequence's block-table row).
+struct PagedAddr {
+  const int32_t* bt;
+  int page;
+  int64_t row_stride, tok_stride;
+  __device__ __forceinline__ int64_t operator()(int t) const {
+    return (int64_t)bt[t / page] * row_stride +
+           (int64_t)(t % page) * tok_stride;
+  }
+};
+
+// Position t of a contiguous [S, Hkv, hd] sequence.
+struct DenseAddr {
+  int64_t tok_stride;
+  __device__ __forceinline__ int64_t operator()(int t) const {
+    return (int64_t)t * tok_stride;
+  }
+};
+
 // Folds key positions [0, k_len) into the R rows' online softmax. On entry
 // s.q, s.pos, s.m (= kNegInf), s.l (= 0) and s.acc (= 0) are set and
-// synchronised. kp/vp point at this kv head's first element of plane row 0
-// (the layer slice plus kvh * hd); bt is this sequence's block-table row.
+// synchronised. kp/vp point at this kv head's first element of position 0's
+// addressing origin (for the paged plane: plane row 0 of the layer slice,
+// plus kvh * hd); addr(t) is position t's offset from there.
 // When splice >= 0, position `splice` is read from k_new/v_new [hd] instead
 // of the pages: the same values scatter-then-read would load, so the
 // result is bitwise equal.
-template <typename T>
+template <typename T, typename Addr>
 __device__ void attend(const Smem& s, int R, int hd, float scale, int k_len,
                        const T* __restrict__ kp, const T* __restrict__ vp,
-                       const int32_t* __restrict__ bt, int page,
-                       int64_t row_stride, int64_t tok_stride, int splice,
-                       const T* __restrict__ k_new,
+                       Addr addr, int splice, const T* __restrict__ k_new,
                        const T* __restrict__ v_new) {
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nthr >> 5;
@@ -93,8 +115,7 @@ __device__ void attend(const Smem& s, int R, int hd, float scale, int k_len,
         kv = to_float(k_new[d]);
         vv = to_float(v_new[d]);
       } else {
-        const int64_t off = (int64_t)bt[pos / page] * row_stride +
-                            (int64_t)(pos % page) * tok_stride + d;
+        const int64_t off = addr(pos) + d;
         kv = to_float(kp[off]);
         vv = to_float(vp[off]);
       }

@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("paged_attention", "chunk_prefill")
+SOURCES = ("paged_attention", "chunk_prefill", "flash_attention",
+           "ssd_chunk")
 
 # dtype codes of the C interface, and the widest head the kernels stage
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -8,18 +8,30 @@ of the reference's stacked ``groups``::
      "layers": [{"attn": {"ln", "wq", "wk", "wv", "wo", ("bq", "bk", "bv"),
                           ("qn", "kn")},
                  "ffn": {"ln", "w_up", "w_down", ("w_gate")}}, ...]}
+
+A Mamba2 layer holds ``{"ssm": {"ln", "wx", "wz", "wB", "wC", "wdt",
+"conv", "A_log", "dt_bias", "D_skip", "gn", "wout"}}`` instead; its
+``A_log``, ``dt_bias`` and ``D_skip`` are float32 whatever the config's
+dtype, as in the reference's ``ssm_defs``.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 
-# (shape, init) per leaf; init is "normal" | "zeros" | "ones"
-Spec = Tuple[Tuple[int, ...], str]
+
+class Spec(NamedTuple):
+    """One parameter leaf: its shape, its init ("normal" | "zeros" |
+    "ones"), the multiplier of the normal std, and its dtype (None: the
+    config's)."""
+    shape: Tuple[int, ...]
+    init: str = "normal"
+    scale: float = 1.0
+    dtype: Optional[torch.dtype] = None
 
 
 def pad_vocab(vocab: int, multiple: int = 512) -> int:
@@ -29,43 +41,73 @@ def pad_vocab(vocab: int, multiple: int = 512) -> int:
 def attn_specs(cfg: ArchConfig) -> Dict[str, Spec]:
     D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     specs: Dict[str, Spec] = {
-        "ln": ((D,), "ones"),
-        "wq": ((D, H * hd), "normal"),
-        "wk": ((D, Hkv * hd), "normal"),
-        "wv": ((D, Hkv * hd), "normal"),
-        "wo": ((H * hd, D), "normal"),
+        "ln": Spec((D,), "ones"),
+        "wq": Spec((D, H * hd), "normal"),
+        "wk": Spec((D, Hkv * hd), "normal"),
+        "wv": Spec((D, Hkv * hd), "normal"),
+        "wo": Spec((H * hd, D), "normal"),
     }
     if cfg.qkv_bias:
-        specs["bq"] = ((H * hd,), "zeros")
-        specs["bk"] = ((Hkv * hd,), "zeros")
-        specs["bv"] = ((Hkv * hd,), "zeros")
+        specs["bq"] = Spec((H * hd,), "zeros")
+        specs["bk"] = Spec((Hkv * hd,), "zeros")
+        specs["bv"] = Spec((Hkv * hd,), "zeros")
     if cfg.qk_norm:
-        specs["qn"] = ((hd,), "ones")
-        specs["kn"] = ((hd,), "ones")
+        specs["qn"] = Spec((hd,), "ones")
+        specs["kn"] = Spec((hd,), "ones")
     return specs
 
 
 def ffn_specs(cfg: ArchConfig) -> Dict[str, Spec]:
     D, F = cfg.d_model, cfg.d_ff
     specs: Dict[str, Spec] = {
-        "ln": ((D,), "ones"),
-        "w_up": ((D, F), "normal"),
-        "w_down": ((F, D), "normal"),
+        "ln": Spec((D,), "ones"),
+        "w_up": Spec((D, F), "normal"),
+        "w_down": Spec((F, D), "normal"),
     }
     if not cfg.ffn_gelu:  # SwiGLU
-        specs["w_gate"] = ((D, F), "normal")
+        specs["w_gate"] = Spec((D, F), "normal")
     return specs
+
+
+def ssm_specs(cfg: ArchConfig) -> Dict[str, Spec]:
+    s = cfg.ssm
+    D = cfg.d_model
+    di, H = s.d_inner(D), s.n_heads(D)
+    GN = s.n_groups * s.d_state
+    f32 = torch.float32
+    return {
+        "ln": Spec((D,), "ones"),
+        "wx": Spec((D, di)),
+        "wz": Spec((D, di)),
+        "wB": Spec((D, GN)),
+        "wC": Spec((D, GN)),
+        "wdt": Spec((D, H)),
+        "conv": Spec((s.conv_dim, di), scale=0.5),
+        "A_log": Spec((H,), "zeros", dtype=f32),
+        "dt_bias": Spec((H,), "zeros", dtype=f32),
+        "D_skip": Spec((H,), "ones", dtype=f32),
+        "gn": Spec((di,), "ones"),
+        "wout": Spec((di, D)),
+    }
+
+
+def layer_specs(cfg: ArchConfig, idx: int) -> Dict[str, Dict[str, Spec]]:
+    """Layer ``idx``'s parts: attention + FFN, or one Mamba2 block."""
+    if cfg.is_attn_layer(idx):
+        return {"attn": attn_specs(cfg), "ffn": ffn_specs(cfg)}
+    return {"ssm": ssm_specs(cfg)}
 
 
 def _init_leaf(spec: Spec, dtype: torch.dtype, generator: torch.Generator,
                device: torch.device) -> torch.Tensor:
-    shape, init = spec
+    shape, init, scale, own_dtype = spec
+    dtype = own_dtype or dtype
     if init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=device)
     if init == "ones":
         return torch.ones(shape, dtype=dtype, device=device)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    std = 1.0 / math.sqrt(max(fan_in, 1))
+    std = scale / math.sqrt(max(fan_in, 1))
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device)
     return x.mul_(std).to(dtype)
@@ -74,29 +116,28 @@ def _init_leaf(spec: Spec, dtype: torch.dtype, generator: torch.Generator,
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device=None) -> Dict[str, Any]:
     """Random parameters drawn from the reference's ``init_tree``
-    distribution (normal with std = 1 / sqrt(fan_in), drawn in f32 and
-    cast; ones and zeros where it has them) — the same distribution, not
-    the same bits. ``generator`` must live on ``device``."""
+    distribution (normal with std = scale / sqrt(fan_in), drawn in f32 and
+    cast; ones and zeros where it has them; its leaf dtypes) — the same
+    distribution, not the same bits. ``generator`` must live on
+    ``device``."""
     from repro_torch import resolve_device
     device = resolve_device(device)
     dt = cfg.dtype
     Vp = pad_vocab(cfg.vocab, 256)
     D = cfg.d_model
     params: Dict[str, Any] = {
-        "embed": _init_leaf(((Vp, D), "normal"), dt, generator, device),
-        "final_ln": _init_leaf(((D,), "ones"), dt, generator, device),
+        "embed": _init_leaf(Spec((Vp, D)), dt, generator, device),
+        "final_ln": _init_leaf(Spec((D,), "ones"), dt, generator, device),
     }
     layers: List[Dict[str, Dict[str, torch.Tensor]]] = []
-    for _ in range(cfg.n_layers):
+    for i in range(cfg.n_layers):
         layers.append({
-            "attn": {k: _init_leaf(s, dt, generator, device)
-                     for k, s in attn_specs(cfg).items()},
-            "ffn": {k: _init_leaf(s, dt, generator, device)
-                    for k, s in ffn_specs(cfg).items()},
-        })
+            part: {k: _init_leaf(s, dt, generator, device)
+                   for k, s in specs.items()}
+            for part, specs in layer_specs(cfg, i).items()})
     params["layers"] = layers
     if not cfg.tie_embeddings:
-        params["lm_head"] = _init_leaf(((D, Vp), "normal"), dt,
+        params["lm_head"] = _init_leaf(Spec((D, Vp)), dt,
                                        generator, device)
     return params
 

@@ -1,5 +1,6 @@
 """Transformer building blocks: GQA attention (full, paged decode, paged
-chunk) and the dense SwiGLU / GELU FFNs.
+chunk) and the dense SwiGLU / GELU FFNs. (The Mamba2 block is
+``models/mamba2.py``.)
 
 Plain functions on tensors, one per reference function in
 ``repro/models/layers.py``, with the same arguments minus the sharding
@@ -15,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope, rms_norm
 
 
@@ -38,49 +40,17 @@ def _project_qkv(p: Mapping[str, torch.Tensor], h: torch.Tensor,
     return q, k, v
 
 
-_Q_CHUNK = 512
-
-
-def blockwise_attention(q: torch.Tensor, k: torch.Tensor,
-                        v: torch.Tensor) -> torch.Tensor:
-    """Chunked causal softmax attention. q [B,S,H,hd]; k/v [B,S,H,hd] (heads
-    already repeated). Scores are materialised one q-chunk at a time (f32);
-    the score dot runs in the I/O dtype, as in the reference."""
-    B, S, H, hd = q.shape
-    Sk = k.shape[1]
-    scale = hd ** -0.5
-    qc = min(_Q_CHUNK, S)
-    while S % qc:
-        qc -= 1                         # largest divisor <= _Q_CHUNK
-    kpos = torch.arange(Sk, device=q.device)
-    outs = []
-    for idx in range(S // qc):
-        qb = q[:, idx * qc:(idx + 1) * qc]
-        scores = torch.einsum("bqhd,bkhd->bhqk", qb, k).float() * scale
-        qpos = idx * qc + torch.arange(qc, device=q.device)
-        mask = qpos[:, None] >= kpos[None, :]
-        scores = scores.masked_fill(~mask[None, None], float("-inf"))
-        m = torch.clamp(scores.amax(dim=-1, keepdim=True), min=-1e30)
-        p_ = torch.exp(scores - m)
-        l = p_.sum(dim=-1, keepdim=True)
-        outs.append(torch.einsum("bhqk,bkhd->bqhd", (p_ / l).to(v.dtype), v))
-    return torch.cat(outs, dim=1)
-
-
 def attn_full(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
-    """Full-sequence causal self-attention (monolithic prefill).
+    """Full-sequence causal self-attention (monolithic prefill) through
+    :func:`repro_torch.kernels.ops.flash_attention` on the un-repeated K/V.
     Returns (output [B,S,D], k, v [B,S,Hkv,hd] for the cache)."""
-    H, Hkv = cfg.n_heads, cfg.n_kv_heads
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q, k, v = _project_qkv(p, h, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    kr, vr = k, v
-    if Hkv != H:
-        kr = k.repeat_interleave(H // Hkv, dim=2)
-        vr = v.repeat_interleave(H // Hkv, dim=2)
-    o = blockwise_attention(q, kr, vr)
-    o = o.reshape(*x.shape[:-1], H * cfg.head_dim_)
+    o = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=True)
+    o = o.reshape(*x.shape[:-1], cfg.n_heads * cfg.head_dim_)
     return o @ p["wo"], k, v
 
 

@@ -1,5 +1,5 @@
 """Continuous-batching inference engine — the port of
-``repro/serving/engine.py`` for dense self-attention models.
+``repro/serving/engine.py`` for dense self-attention and pure-SSM models.
 
 Iteration-level scheduling: each ``step()`` admits waiting requests into
 free slots (admission is prediction-guided through the Maestro accountant +
@@ -15,10 +15,14 @@ one host sync. Preemption is boundary-only (``evict`` between steps).
 K/V lives in the paged :class:`~repro_torch.serving.kv_arena.KVArena`;
 decode and chunk attention read it through per-sequence block tables via
 :mod:`repro_torch.kernels.ops`, which launches the CUDA kernels for tensors
-on the card and runs their plain versions for tensors on the CPU.
+on the card and runs their plain versions for tensors on the CPU. A model
+with nothing to page (pure SSM, ``paged_kv_layout()`` of 0 layers) keeps
+its recurrent state in a dense per-slot cache instead, registered with the
+accountant, and decodes all ``max_slots`` lanes one token at a time; its
+chunk and horizon knobs degrade to 0 and 1, as the reference's do.
 
-Not ported yet: the prefix cache (``prefix_cache=True`` raises), the
-SSM / hybrid / MoE / cross-attention families and their dense state cache.
+Not ported yet: the prefix cache (``prefix_cache=True`` raises) and the
+hybrid / MoE / cross-attention families.
 """
 from __future__ import annotations
 
@@ -81,9 +85,10 @@ class Engine:
         decode positions + prefill chunks (None = unbounded; at least one
         chunk always advances). ``decode_horizon`` > 1 fuses up to that many
         decode iterations into one launch per ``step()``; mixed
-        prefill+decode iterations fall back to one-token decode.
-        ``device``: ``cuda`` unless the caller names another; it must be the
-        model's device."""
+        prefill+decode iterations fall back to one-token decode. Both knobs
+        need every layer's context in paged KV; for a model without it they
+        degrade to 0 and 1. ``device``: ``cuda`` unless the caller names
+        another; it must be the model's device."""
         if prefix_cache:
             raise NotImplementedError(
                 "the prefix cache is not ported to repro_torch yet")
@@ -107,6 +112,7 @@ class Engine:
         self.pool.set_virtual_budget(model.cfg.name,
                                      alpha * s_max * max_slots * 4)
         n_layers, Hkv, hd, kv_dtype = model.paged_kv_layout()
+        self.paged = n_layers > 0       # else a state-only model
         self.binding = self.arena.register(
             model.cfg.name, self.pool, s_max=s_max, n_layers=n_layers,
             n_kv_heads=Hkv, head_dim=hd, dtype=kv_dtype)
@@ -117,7 +123,14 @@ class Engine:
         self.free_slots = list(range(max_slots))
         self.positions = np.zeros(max_slots, np.int32)
         self._needs: Dict[int, float] = {}   # admitted R_need, by req_id
-        self.horizon = max(int(decode_horizon or 1), 1)
+        self._state_key = f"{model.cfg.name}::decode-state"
+        self._state_bytes = 0
+        self.cache: Optional[Dict[str, torch.Tensor]] = None
+        self._ensure_cache()
+        self.horizon = (int(decode_horizon)
+                        if (decode_horizon and int(decode_horizon) > 1
+                            and self.paged and model.supports_decode_horizon)
+                        else 1)
         # persistent device-side decode tables (horizon > 1 only): uploaded
         # when admission, release, eviction or page growth dirties them —
         # never rebuilt per token
@@ -125,7 +138,9 @@ class Engine:
         self._dev_pos: Optional[torch.Tensor] = None
         self._tables_dirty = True
         self.max_batch_tokens = max_batch_tokens
-        self.chunk_tokens = int(prefill_chunk_tokens or 0)
+        self.chunk_tokens = (int(prefill_chunk_tokens)
+                             if (prefill_chunk_tokens and self.paged
+                                 and model.supports_chunked_prefill) else 0)
         self._prefill_pos: Dict[int, int] = {}   # rid -> prompt tokens done
         # iteration telemetry: the prefill/decode token split, fused
         # iterations, and horizon launches + decode-side host syncs (one
@@ -142,14 +157,34 @@ class Engine:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    # -------------------------------------------------------------- state
+    def _ensure_cache(self) -> None:
+        """(Re)allocate the dense per-slot state cache (SSM state / conv;
+        empty for a pure attention model) and register its bytes with the
+        accountant, so engine state is never silently device-resident."""
+        if self.cache is not None:
+            return
+        self.cache = self.model.state_cache(self.max_slots)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in self.cache.values())
+        self._state_bytes = nbytes
+        if nbytes:
+            self.acc.register_context(self._state_key, nbytes)
+
     def release_kv(self) -> None:
         """Drop every byte of device KV this engine holds: boundary-evict
         active requests back to the front of the waiting queue (their arena
-        pages return to pool + plane). Called on sleep/offload."""
+        pages return to pool + plane), then free the dense state cache and
+        its accountant registration. Called on sleep/offload."""
         evicted = [req for rid in list(self.active)
                    if (req := self.evict(rid)) is not None]
         self.waiting.extendleft(reversed(evicted))
         self.binding.release_all()
+        if self.cache is not None:
+            self.cache = None
+            if self._state_bytes:
+                self.acc.unregister_context(self._state_key)
+            self._state_bytes = 0
         self._dev_bt = self._dev_pos = None     # device tables go with KV
         self._tables_dirty = True
 
@@ -200,13 +235,18 @@ class Engine:
         self._prefill_pos[req.req_id] = 0
 
     def _prefill_full(self, req: Request) -> None:
+        self._ensure_cache()
         slot = self.slot_of[req.req_id]
         toks = torch.tensor([req.tokens], dtype=torch.int32,
                             device=self.device)
-        logits, k_all, v_all = self.model.prefill(toks)
+        logits, k_all, v_all, state = self.model.prefill_with_state(toks)
         P = len(req.tokens)
         self.stat_prefill_tokens += P
-        self.binding.write_prompt(req.req_id, k_all[:, 0], v_all[:, 0])
+        if self.paged:
+            self.binding.write_prompt(req.req_id, k_all[:, 0], v_all[:, 0])
+        if state is not None:                    # ssm state / conv
+            for name, t in state.items():
+                self.cache[name][:, slot] = t[:, 0]
         self.positions[slot] = P
         self._tables_dirty = True
         self._first_token(req, int(logits.argmax(dim=-1)[0]))
@@ -277,7 +317,7 @@ class Engine:
         caps: Dict[int, int] = {}
         # grow page coverage for this step's writes; a sequence the pool
         # cannot extend finishes truncated (honest backpressure)
-        for rid in list(decode_rids):
+        for rid in (list(decode_rids) if self.paged else []):
             pos = int(self.positions[self.slot_of[rid]])
             if use_horizon:
                 # pre-grant up to a horizon's worth of pages; a partial
@@ -313,7 +353,12 @@ class Engine:
             toks = np.zeros((self.max_slots, 1), np.int32)
             for rid in decode_rids:
                 toks[self.slot_of[rid], 0] = self.active[rid].out[-1]
-            logits = self._decode_paged(toks, decode_rids)
+            if self.paged:
+                logits = self._decode_paged(toks, decode_rids)
+            else:                 # every lane steps its dense state
+                logits = self.model.decode_step(
+                    self.cache, self._dev(toks),
+                    self._dev(self.positions.copy()))
             nxt = logits.argmax(dim=-1).cpu().numpy()
             self.stat_decode_syncs += 1
             self.stat_decode_tokens += len(decode_rids)

@@ -12,8 +12,10 @@ rebuilds donated arrays with ``.at[].set``.
 The arena never decides admission: every alloc / grow / free flows through
 the engine's :class:`~repro_torch.core.runtime.kv_pool.VirtualKVPool`, and
 the per-engine :class:`ModelKVBinding` mirrors the pool's page grants 1:1
-onto plane rows (no row is shared until the prefix cache is ported).
-Row 0 of every plane is the reserved *null row* that idle decode slots and
+onto plane rows (no row is shared until the prefix cache is ported). A
+model with no self-attention layer (pure SSM) gets an accounting-only
+binding: its pool still grants pages, but no plane backs them. Row 0 of
+every plane is the reserved *null row* that idle decode slots and
 chunk pad columns point at; it is never granted.
 
 Sizing: ``init_rows`` is the initial plane capacity; a full plane doubles
@@ -24,7 +26,7 @@ aliasing (shared rows, copy-on-write) and the node-level usage metrics.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Set
+from typing import Dict, List, Optional, Set
 
 import numpy as np
 import torch
@@ -121,10 +123,11 @@ class ArenaPlane:
 class ModelKVBinding:
     """The 1:1 mirror between one engine's pool grants and arena rows: every
     pool page id maps to exactly one plane row from the moment it is granted
-    until the pool unmaps it (``reclaim``)."""
+    until the pool unmaps it (``reclaim``). ``plane`` is None for a model
+    with nothing to page: then no page maps to a row."""
 
     def __init__(self, arena: "KVArena", name: str, pool: VirtualKVPool,
-                 plane: ArenaPlane, n_layers: int, s_max: int):
+                 plane: Optional[ArenaPlane], n_layers: int, s_max: int):
         self.arena = arena
         self.name = name
         self.pool = pool
@@ -150,6 +153,8 @@ class ModelKVBinding:
         return True
 
     def _map(self, seq_id: int) -> None:
+        if self.plane is None:
+            return
         for p in self.pool.seqs[seq_id].pages:
             if p not in self.row_of:
                 self.row_of[p] = self.plane.take_row()
@@ -163,10 +168,11 @@ class ModelKVBinding:
         self.reclaim()
 
     def reclaim(self) -> None:
-        for p in self.pool.free_pages:
-            row = self.row_of.pop(p, None)
-            if row is not None:
-                self.plane.drop_row(row)
+        if self.plane is not None:
+            for p in self.pool.free_pages:
+                row = self.row_of.pop(p, None)
+                if row is not None:
+                    self.plane.drop_row(row)
         self.pool.reclaim_unmapped()
 
     def release_all(self) -> None:
@@ -192,14 +198,17 @@ class ModelKVBinding:
 
     def write_prompt(self, seq_id: int, k: torch.Tensor,
                      v: torch.Tensor) -> None:
-        rows = np.asarray(self.seq_rows(seq_id), np.int32)
-        self.plane.write_prompt(self.n_layers, rows, k, v)
+        if self.plane is not None:
+            rows = np.asarray(self.seq_rows(seq_id), np.int32)
+            self.plane.write_prompt(self.n_layers, rows, k, v)
 
     # ----------------------------------------------------------- invariant
     def check_mirror(self) -> bool:
         """Every granted page maps to a live non-null row, and nothing else
         is mapped (pages freed to the pool but not yet reclaimed keep
         theirs)."""
+        if self.plane is None:
+            return not self.row_of
         pages: set = set()
         for s in self.pool.seqs.values():
             for p in s.pages:
@@ -229,18 +238,22 @@ class KVArena:
     def register(self, name: str, pool: VirtualKVPool, s_max: int,
                  n_layers: int, n_kv_heads: int, head_dim: int,
                  dtype: torch.dtype) -> ModelKVBinding:
-        """Bind one engine's pool to the arena."""
+        """Bind one engine's pool to the arena. ``n_layers == 0`` means the
+        model holds no pageable self-attention KV (accounting-only
+        binding, no plane)."""
         assert pool.page_tokens == self.page_tokens, \
             (pool.page_tokens, self.page_tokens)
         if name in self.bindings:
             raise ValueError(f"model {name!r} already bound to this arena")
-        spec = PlaneSpec(n_layers=n_layers, page_tokens=self.page_tokens,
-                         n_kv_heads=n_kv_heads, head_dim=head_dim,
-                         dtype=dtype)
-        plane = self.planes.get(spec)
-        if plane is None:
-            plane = self.planes[spec] = ArenaPlane(spec, self.init_rows,
-                                                   self.device)
+        plane = None
+        if n_layers > 0:
+            spec = PlaneSpec(n_layers=n_layers, page_tokens=self.page_tokens,
+                             n_kv_heads=n_kv_heads, head_dim=head_dim,
+                             dtype=dtype)
+            plane = self.planes.get(spec)
+            if plane is None:
+                plane = self.planes[spec] = ArenaPlane(spec, self.init_rows,
+                                                       self.device)
         b = ModelKVBinding(self, name, pool, plane, n_layers, s_max)
         self.bindings[name] = b
         return b

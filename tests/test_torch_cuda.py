@@ -7,15 +7,21 @@ tests/test_torch_cuda.py``.
 
 Tolerances: float32 to 1e-5 (the kernel's tiled online softmax against the
 plain version's one-shot softmax, both in f32); bfloat16 to 2e-2, as in
-``tests/test_kernels.py``. The splice is held bitwise. TF32 stays off.
+``tests/test_kernels.py``. The splice is held bitwise. The SSD scan is held
+by its largest error over the largest magnitude: 1e-4 at f32 (fixed chunks
+of at most 64 against the plain version's largest-divisor chunks, sums in
+another order), 1e-2 for a bf16 ``y`` (one rounding of the output). TF32
+stays off.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import chunk_prefill as cp
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_chunk as ssd
 
 pytestmark = pytest.mark.cuda
 
@@ -204,3 +210,122 @@ def test_engine_on_the_card_matches_the_cpu(dev, chunk, horizon):
     assert got == want
     assert pa.launches > 0 and not any(ops.plain_calls.values())
     assert (cp.launches > 0) == bool(chunk)
+    assert (fa.launches > 0) == (not chunk)    # monolithic prefill
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,hd,causal", [
+    (1, 128, 128, 4, 4, 64, True),      # MHA
+    (2, 77, 77, 8, 2, 64, True),        # GQA 4x, S not a multiple of 32
+    (2, 77, 77, 8, 2, 64, False),
+    (1, 50, 131, 8, 1, 128, False),     # MQA, cross-length
+    (1, 50, 131, 8, 1, 128, True),
+    (1, 131, 50, 8, 1, 128, True),      # more queries than keys
+    (1, 397, 397, 32, 8, 128, True),    # qwen3-8b heads, prime length
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(dev, B, Sq, Sk, H, Hkv, hd, causal, dtype):
+    rng = np.random.default_rng(6)
+    q = _t(rng.standard_normal((B, Sq, H, hd), np.float32), dev, dtype)
+    k = _t(rng.standard_normal((B, Sk, Hkv, hd), np.float32), dev, dtype)
+    v = _t(rng.standard_normal((B, Sk, Hkv, hd), np.float32), dev, dtype)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    # the oracle upcasts first, as the kernel does; the plain version
+    # (score dot in the I/O dtype) agrees with it at f32
+    exp = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                  causal=causal)
+    torch.cuda.synchronize()
+    _close(got, exp, dtype)
+    if dtype == torch.float32:
+        _close(got, ref.blockwise_attention(q, k, v, causal=causal), dtype)
+
+
+def _ssd_inputs(rng, B, S, H, P, N, dtype, dev):
+    x = rng.standard_normal((B, S, H, P), np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(H) * 0.3)).astype(np.float32)
+    Bm = rng.standard_normal((B, S, H, N), np.float32)
+    Cm = rng.standard_normal((B, S, H, N), np.float32)
+    return (_t(x, dev, dtype), _t(dt, dev), _t(A, dev), _t(Bm, dev, dtype),
+            _t(Cm, dev, dtype))
+
+
+def _scaled_err(got, exp):
+    return float((got.float() - exp.float()).abs().max()
+                 / (exp.float().abs().max() + 1e-9))
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 128, 4, 32, 16, 32),
+    (1, 64, 2, 16, 8, 16),
+    (2, 96, 8, 64, 32, 32),
+    (1, 67, 4, 16, 16, 32),         # prime S: ragged last chunk
+    (1, 1, 2, 16, 16, 256),
+    (1, 397, 80, 64, 128, 256),     # mamba2-2.7b heads, prime prompt
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_kernel(dev, B, S, H, P, N, chunk, dtype):
+    rng = np.random.default_rng(7)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, B, S, H, P, N, dtype, dev)
+    y, state = ssd.ssd_chunk(x, dt, A, Bm, Cm, chunk)
+    y_ref, state_ref = ref.ssd_chunk_scan(x, dt, A, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and state.dtype == torch.float32
+    assert state.shape == (B, H, N, P)
+    assert _scaled_err(y, y_ref) < (1e-4 if dtype == torch.float32 else 1e-2)
+    assert _scaled_err(state, state_ref) < 1e-4
+    if S <= 128:   # the sequential oracle, at f32
+        y_seq = ref.ssd_chunk_ref(x.float(), dt, A, Bm.float(), Cm.float())
+        assert _scaled_err(y.float(), y_seq) < (
+            1e-4 if dtype == torch.float32 else 1e-2)
+
+
+def test_new_wrappers_raise_on_inputs_they_do_not_take(dev):
+    q = torch.zeros((1, 8, 4, 32), device=dev)
+    k = torch.zeros((1, 8, 3, 32), device=dev)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, k)                      # 4 % 3 heads
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.half(), k[:, :, :2].half(), k[:, :, :2].half())
+    x, dt, A, Bm, Cm = _ssd_inputs(np.random.default_rng(8), 1, 8, 2, 16, 8,
+                                   torch.float32, dev)
+    with pytest.raises(ValueError):
+        ssd.ssd_chunk(x, dt.double(), A, Bm, Cm)          # dt not f32
+    with pytest.raises(ValueError):
+        ssd.ssd_chunk(x, dt, A, Bm[..., :4], Cm)          # B/C mismatch
+    with pytest.raises(ValueError):
+        ssd.ssd_chunk(x.transpose(1, 2), dt, A, Bm, Cm)   # layout
+
+
+def test_mamba2_engine_on_the_card_matches_the_cpu(dev):
+    """The reduced mamba2-2.7b from one set of weights: the engine on the
+    card (the SSD kernel in every prefill) and on the CPU (its plain
+    version) emit identical greedy tokens; a prime prompt length takes the
+    kernel's ragged last chunk."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime.accounting import MemoryAccountant
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, init_params
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = get_config("mamba2-2.7b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(9)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)]
+               for n in (3, 17, 41, 90)]
+
+    def run(device):
+        model = build_model(cfg, params, device=device)
+        eng = Engine(model, MemoryAccountant(m_total=1e9), max_slots=3,
+                     s_max=128, prefill_chunk_tokens=16, decode_horizon=4,
+                     device=device)
+        assert eng.chunk_tokens == 0 and eng.horizon == 1
+        for i, p in enumerate(prompts):
+            eng.submit(Request(req_id=i, tokens=p, max_new=10))
+        return {r.req_id: r.out for r in eng.drain()}
+
+    want = run("cpu")
+    ops.reset_counts()
+    got = run("cuda")
+    assert got == want
+    assert ssd.launches == cfg.n_layers * len(prompts)
+    assert not any(ops.plain_calls.values())

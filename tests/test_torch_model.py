@@ -151,7 +151,9 @@ def test_default_device_is_cuda_and_never_silently_cpu():
 
 
 def test_non_dense_families_are_refused():
-    cfg = dataclasses.replace(get_config("qwen3-8b").reduced(),
-                              family="hybrid")
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, device="cpu")
+    """Dense and pure-SSM stacks are served; the mixed families are not."""
+    for family in ("hybrid", "moe", "encdec", "vlm"):
+        cfg = dataclasses.replace(get_config("qwen3-8b").reduced(),
+                                  family=family)
+        with pytest.raises(NotImplementedError):
+            build_model(cfg, device="cpu")
