@@ -10,12 +10,17 @@ Phases, each printing one JSON line (and failing the run on any error):
                 all ``nvcc`` processes at once;
 3. kernels   -- each kernel against its plain PyTorch version on the card, at
                 the main paths' shapes (bf16) and at a small size (f32); the
-                decode splice bitwise equal to a scatter; chunk pad rows
-                finite; the SSD scan at the 8 prompt lengths (one prime) with
-                its final state; flash causal at the 8 prompt lengths plus a
-                non-causal cross-length case; then each kernel, its plain
-                version and, where one exists, the one PyTorch call computing
-                the same function timed with CUDA events;
+                decode splice bitwise equal to a scatter, and the decode
+                split plan at the main shapes; chunk pad rows finite; the
+                SSD scan at the 8 prompt lengths (one prime) with its final
+                state; flash causal at the 8 prompt lengths plus a
+                non-causal cross-length case, bf16 through the wgmma
+                variant and f32 through the simt one, bf16 also by each
+                row's error over its magnitude; then each kernel, its plain
+                version and, where one exists, the one PyTorch call
+                computing the same function timed with CUDA events (each
+                kernel also without the device spin, and its wrapper's
+                host time per call);
 4. reference -- reduced models served on the card (kernels) and on the CPU
                 (plain versions) from the same weights: identical greedy
                 tokens, for qwen3-8b with chunked and with monolithic prefill
@@ -27,11 +32,13 @@ Phases, each printing one JSON line (and failing the run on any error):
                 identical tokens;
 6. profile   -- device time by kernel (torch.profiler) over the first
                 prefill-chunk step and one pure-decode horizon launch of the
-                same configuration;
+                same configuration, with the paged kernels' share of the
+                horizon launch;
 7. dense_monolithic -- the same model and requests with monolithic prefill
                 (``prefill_chunk_tokens=0``), every prompt's attention in the
-                flash kernel; its tokens against the chunked run's, or the
-                first difference with its logit gap;
+                flash kernel's wgmma variant; its tokens against the chunked
+                run's, or the first difference with its logit gap; flash's
+                share of the first step's device time;
 8. ssm_main  -- full-width mamba2-2.7b (64 layers, bf16, random weights from
                 the seed) serving 8 requests of the same lengths, every
                 prefill's scan in the SSD kernel; the chunk and horizon knobs
@@ -95,9 +102,17 @@ def reset_peak(torch) -> None:
     torch.cuda.reset_peak_memory_stats()
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+SPIN_CYCLES = 1_000_000       # torch.cuda._sleep: about 0.5 ms of device
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3, spin: bool = True) -> float:
     """Median device time of one call, by CUDA events, with L2 flushed
-    (a 64 MiB write; the H100's L2 is 50 MB) before each call."""
+    (a 64 MiB write; the H100's L2 is 50 MB) before each call. With
+    ``spin``, a spin of the device after the flush keeps it busy while the
+    host enqueues the call, so the interval between the events holds the
+    call's kernels and not the host's time to launch them; without it, the
+    interval also holds the host's time to enqueue the call, which bounds
+    a short kernel's time when the device is otherwise idle."""
     import torch
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
@@ -105,6 +120,8 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     times = []
     for _ in range(reps):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -113,6 +130,31 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median host time of one call (a wrapper's checks, allocations and
+    launches), with the device kept busy by a spin so no call waits on
+    it."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def kernel_times(fn) -> dict:
+    """A kernel wrapper's device time (``ms``), its time without the spin
+    (``ms_no_spin``) and its host time per call (``host_ms``)."""
+    return dict(ms=time_ms(fn), ms_no_spin=time_ms(fn, spin=False),
+                host_ms=host_ms(fn))
 
 
 def bound(n_bytes: float, n_flops: float, peak_flops: float):
@@ -210,7 +252,7 @@ def check_flash(torch, gen, prompt_lens):
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
 
     cfg = get_config(MAIN["model"])
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -221,10 +263,15 @@ def check_flash(torch, gen, prompt_lens):
                 for shape in ((1, Sq, h, d), (1, Sk, hkv, d), (1, Sk, hkv, d))]
 
     def err(got, q, k, v, causal):
+        """Largest absolute error, and largest error of a row (one query
+        and head) over that row's largest magnitude."""
         want = ref.blockwise_attention(q.float(), k.float(), v.float(),
                                        causal=causal)
-        return float((got.float() - want).abs().max())
+        diff = (got.float() - want).abs()
+        row = diff.amax(-1) / want.abs().amax(-1).clamp_min(1e-30)
+        return float(diff.max()), float(row.max())
 
+    ops.reset_counts()
     errs = []
     for S in prompt_lens:
         q, k, v = inputs(S, S, H, Hkv, hd, bf16)
@@ -233,27 +280,43 @@ def check_flash(torch, gen, prompt_lens):
     q, k, v = inputs(300, max(prompt_lens), H, Hkv, hd, bf16)
     err_cross = err(fa.flash_attention(q, k, v, causal=False), q, k, v, False)
     qs, ks, vs = inputs(77, 77, 8, 2, 64, torch.float32)
-    err32 = err(fa.flash_attention(qs, ks, vs, causal=True), qs, ks, vs, True)
+    err32 = err(fa.flash_attention(qs, ks, vs, causal=True), qs, ks, vs,
+                True)[0]
     qs, ks, vs = inputs(50, 131, 8, 1, 128, torch.float32)
     err32 = max(err32, err(fa.flash_attention(qs, ks, vs, causal=False),
-                           qs, ks, vs, False))
-    max_err = max(errs + [err_cross])
+                           qs, ks, vs, False)[0])
+    max_err = max(e[0] for e in errs + [err_cross])
+    row_err = max(e[1] for e in errs + [err_cross])
     require(max_err <= 2e-2, f"flash_attention bf16 max_abs_err {max_err}")
+    # bf16 rounding of P and of the output gives about 5e-3 of a row's
+    # magnitude; a K/V tile dropped or misplaced gives tenths
+    require(row_err <= 2e-2, f"flash_attention bf16 row-scaled err {row_err}")
     require(err32 <= 1e-5, f"flash_attention f32 max_abs_err {err32}")
+    # the bf16 checks at qwen3-8b's heads took the wgmma variant, the f32
+    # ones the simt variant
+    checked = dict(fa.launches_by_variant)
+    require(checked == {"wgmma": len(prompt_lens) + 1, "simt": 2},
+            f"flash_attention variants of the checks: {checked}")
     S = max(prompt_lens)
     q, k, v = inputs(S, S, H, Hkv, hd, bf16)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     n_bytes, n_flops = flash_cost(S, S, H, Hkv, hd, True, 2)
     b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
     return dict(
-        max_abs_err=max_err, max_abs_err_f32=err32,
-        max_abs_err_noncausal_cross=err_cross,
-        ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+        variant=fa.variant(bf16, hd), check_launches_by_variant=checked,
+        max_abs_err=max_err, row_scaled_err=row_err, max_abs_err_f32=err32,
+        max_abs_err_noncausal_cross=err_cross[0],
+        **kernel_times(lambda: fa.flash_attention(q, k, v, causal=True)),
         plain_ms=time_ms(lambda: ref.blockwise_attention(q, k, v, True),
                          reps=5),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        library_ms=time_ms(sdpa),
+        library_ms_no_spin=time_ms(sdpa, spin=False),
         shapes=dict(q=[1, S, H, hd], kv=[1, S, Hkv, hd],
                     causal_lens=list(prompt_lens), cross=[300, S]))
 
@@ -307,7 +370,7 @@ def check_ssd(torch, gen, prompt_lens):
     return dict(
         max_abs_err=max(abs_errs), y_scaled_err=max(y_errs),
         state_scaled_err=max(st_errs), scaled_err_f32=err32,
-        ms=time_ms(lambda: ssd.ssd_chunk(*args, s.chunk)),
+        **kernel_times(lambda: ssd.ssd_chunk(*args, s.chunk)),
         plain_ms=time_ms(lambda: ref.ssd_chunk_scan(*args, s.chunk), reps=3,
                          warmup=1),
         bound_ms=b_ms, bound_by=b_by,
@@ -366,7 +429,9 @@ def phase_kernels(torch, args, prompt_lens):
     b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
     results["paged_attention"] = dict(
         max_abs_err=err, max_abs_err_f32=err32, splice_bitwise=True,
-        ms=time_ms(lambda: pa.paged_attention(q, kp, vp, bt, sl)),
+        split=dict(zip(("n_split", "span"),
+                       pa.split_plan(len(seq_lens), Hkv, W, page))),
+        **kernel_times(lambda: pa.paged_attention(q, kp, vp, bt, sl)),
         plain_ms=time_ms(lambda: ref.paged_attention_ref(q, kp, vp, bt, sl)),
         bound_ms=b_ms, bound_by=b_by,
         shapes=dict(q=list(q.shape), pages=list(kp.shape), seq_lens=seq_lens))
@@ -402,7 +467,8 @@ def phase_kernels(torch, args, prompt_lens):
     b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
     results["chunk_prefill_attention"] = dict(
         max_abs_err=err, max_abs_err_f32=err32, pad_rows_finite=pad_finite,
-        ms=time_ms(lambda: cp.chunk_prefill_attention(q, kp, vp, bt, pos)),
+        **kernel_times(lambda: cp.chunk_prefill_attention(q, kp, vp, bt,
+                                                          pos)),
         plain_ms=time_ms(lambda: ref.chunk_prefill_attention_ref(
             q, kp, vp, bt, pos), reps=5),
         bound_ms=b_ms, bound_by=b_by,
@@ -450,9 +516,10 @@ def serve(torch, model, prompts, *, device, arena_rows=None, **kw):
 
 
 def profile_step(torch, eng):
-    """Device time by kernel over one engine step (torch.profiler). The
-    profiled step's wall time includes the profiler's own overhead, so its
-    idle share is an upper bound."""
+    """Device time by kernel over one engine step (torch.profiler), and the
+    share of the step's device time in the paged and the flash kernels (by
+    kernel name). The profiled step's wall time includes the profiler's
+    own overhead, so its idle share is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -471,8 +538,10 @@ def profile_step(torch, eng):
         kernels.append((us / 1e3, ev.key, ev.count))
     kernels.sort(reverse=True)
     busy_ms = sum(k[0] for k in kernels)
+    share = {s: sum(ms for ms, name, _ in kernels if s in name) / busy_ms
+             for s in ("paged_attention", "flash_attention")}
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                idle_share=1 - busy_ms / wall_ms,
+                idle_share=1 - busy_ms / wall_ms, device_share=share,
                 top=[dict(kernel=name[:90], ms=ms, calls=n)
                      for ms, name, n in kernels[:8]])
 
@@ -497,7 +566,8 @@ def phase_profile(torch, model, prompts, rows, kw):
     horizon = profile_step(torch, eng)
     require(eng.stat_horizon_steps == 1, "profiled step was not a horizon")
     eng.drain()
-    emit("profile", chunk_step=chunk, decode_horizon_step=horizon)
+    emit("profile", chunk_step=chunk, decode_horizon_step=horizon,
+         paged_share_of_horizon=horizon["device_share"]["paged_attention"])
 
 
 def phase_reference(torch, args):
@@ -669,14 +739,19 @@ def phase_dense_monolithic(torch, model, prompts, tokens_chunked):
     eng, done, steps = serve(torch, model, prompts, device="cuda",
                              arena_rows=rows, prefill_chunk_tokens=0,
                              decode_horizon=MAIN["decode_horizon"], **kw)
+    from repro_torch.kernels import flash_attention as fa
     launches = {k: n for k, n in launch_counts().items()
                 if k in ("flash_attention", "paged_attention")}
+    by_variant = dict(fa.launches_by_variant)
     plain = dict(ops.plain_calls)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = model.cfg.n_layers * len(prompts)
     require(launches["flash_attention"] == expected,
             f"flash_attention launched {launches['flash_attention']} times, "
             f"not {expected}")
+    require(by_variant["wgmma"] == expected,
+            f"flash_attention launches by variant {by_variant}: not all "
+            f"{expected} through wgmma")
     require(launches["paged_attention"] > 0, "paged decode never launched")
     require(not any(plain.values()),
             f"a plain version ran on the monolithic path: {plain}")
@@ -692,8 +767,11 @@ def phase_dense_monolithic(torch, model, prompts, tokens_chunked):
     emit("dense_monolithic", model=model.cfg.name,
          config={**kw, "prefill_chunk_tokens": 0,
                  "decode_horizon": MAIN["decode_horizon"]},
-         launches=launches, plain_calls=plain, **rates, peak_mem_gb=peak_gb,
+         launches=launches, flash_launches_by_variant=by_variant,
+         plain_calls=plain, **rates, peak_mem_gb=peak_gb,
          identical_to_chunked=diff is None, first_difference=diff,
+         flash_share_of_first_step=prof["first_step"]["device_share"][
+             "flash_attention"],
          profile_first_step=prof)
     return launches
 
@@ -861,8 +939,9 @@ def main(argv=None) -> int:
             launches=launches[name], max_abs_err=c["max_abs_err"],
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"],
-            # no single PyTorch call attends through a block table: SDPA
-            # would need the pages gathered first
+            # SDPA for flash; None where no single PyTorch call computes
+            # the function (the paged kernels would need their pages
+            # gathered first, and nothing computes the SSD scan)
             library_ms=c.get("library_ms")))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -65,7 +65,7 @@ __global__ void __launch_bounds__(kThreads)
   const PagedAddr addr{block_table + (int64_t)b * W, page, row_stride,
                        tok_stride};
   attend<T>(s, R, hd, scale, k_len, kp + (int64_t)kvh * hd,
-            vp + (int64_t)kvh * hd, addr, -1, nullptr, nullptr);
+            vp + (int64_t)kvh * hd, addr);
   for (int i = threadIdx.x; i < R * hd; i += blockDim.x) {
     const int r = i / hd, d = i - r * hd, row = r0 + r;
     const int64_t head = ((int64_t)b * C + row / g) * H + kvh * g + row % g;

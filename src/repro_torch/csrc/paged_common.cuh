@@ -1,21 +1,24 @@
-// Shared tile loop of the attention kernels (paged_attention.cu,
-// chunk_prefill.cu, flash_attention.cu); ssd_chunk.cu takes its dtype
-// helpers and shared-memory opt-in.
+// Shared CUDA-core tile loop of the prefill attention kernels
+// (chunk_prefill.cu, and flash_attention.cu's simt variant); every kernel
+// takes its dtype helpers and shared-memory opt-in.
 //
 // A block owns R query rows that all read one sequence's keys of one kv
 // head. Keys are walked in tiles of kTile positions; an address functor
-// maps position t to its offset: through a block table for the paged
-// kernels (plane row block_table[t / page], offset t % page), t times the
-// token stride for contiguous K/V. Each
-// tile is staged in shared memory as f32, scored against the R rows, and
-// folded into an f32 online softmax (running max m, running sum l and the
-// accumulator acc, all in shared memory). A key is visible to a row when
+// maps position t to its offset: through a block table for the chunk
+// kernel (plane row block_table[t / page], offset t % page), t times the
+// token stride for contiguous K/V. Each tile is staged in shared memory
+// as f32, scored against the R rows, and folded into an f32 online softmax
+// (running max m, running sum l and the accumulator acc, all in shared
+// memory). A key is visible to a row when
 // its position is <= the row's position; masked scores take -1e30, the
 // Pallas kernels' constant.
 //
-// Plain C++ on CUDA cores: no tensor cores, TMA or split-K yet. The loop is
-// bound by the bytes of K/V it reads (decode) or by its f32 arithmetic
-// (long chunks); the wgmma/TMA version is later work.
+// Plain C++ on CUDA cores, f32 throughout: the tiles are staged with
+// scalar loads and scored with fmaf, so a long chunk is bound by this f32
+// arithmetic, far below the tensor cores' bf16 rate. Flash's bf16 variant
+// (wgmma, TMA) and the split decode kernel no longer use it; the chunk
+// kernel's redesign on flash's wgmma loop with paged addressing is later
+// work. The f32 paths keep it: their products stay exact.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -95,32 +98,20 @@ struct DenseAddr {
 // synchronised. kp/vp point at this kv head's first element of position 0's
 // addressing origin (for the paged plane: plane row 0 of the layer slice,
 // plus kvh * hd); addr(t) is position t's offset from there.
-// When splice >= 0, position `splice` is read from k_new/v_new [hd] instead
-// of the pages: the same values scatter-then-read would load, so the
-// result is bitwise equal.
 template <typename T, typename Addr>
 __device__ void attend(const Smem& s, int R, int hd, float scale, int k_len,
                        const T* __restrict__ kp, const T* __restrict__ vp,
-                       Addr addr, int splice, const T* __restrict__ k_new,
-                       const T* __restrict__ v_new) {
+                       Addr addr) {
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nthr >> 5;
   for (int t0 = 0; t0 < k_len; t0 += kTile) {
     const int n = min(kTile, k_len - t0);
     // 1. stage K/V of n positions (consecutive threads, consecutive d)
     for (int i = tid; i < n * hd; i += nthr) {
-      const int t = i / hd, d = i - t * hd, pos = t0 + t;
-      float kv, vv;
-      if (pos == splice) {
-        kv = to_float(k_new[d]);
-        vv = to_float(v_new[d]);
-      } else {
-        const int64_t off = addr(pos) + d;
-        kv = to_float(kp[off]);
-        vv = to_float(vp[off]);
-      }
-      s.k[t * (hd + 1) + d] = kv;
-      s.v[t * hd + d] = vv;
+      const int t = i / hd, d = i - t * hd;
+      const int64_t off = addr(t0 + t) + d;
+      s.k[t * (hd + 1) + d] = to_float(kp[off]);
+      s.v[t * hd + d] = to_float(vp[off]);
     }
     __syncthreads();
     // 2. scores [R][n]

@@ -114,6 +114,13 @@ def check_tensors(kernel: str, floats: Sequence[torch.Tensor],
             "index tensors must be int32")
 
 
+def check_aligned(kernel: str, tensors: Sequence[torch.Tensor]) -> None:
+    """Every tensor's first element on a 16-byte boundary, as TMA and the
+    kernels' 16-byte vector loads need."""
+    require(all(t.data_ptr() % 16 == 0 for t in tensors), kernel,
+            "every tensor must start on a 16-byte boundary")
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launcher."""
     if err != 0:

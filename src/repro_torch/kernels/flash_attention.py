@@ -3,6 +3,10 @@
 Replaces the Pallas kernel ``repro/kernels/flash_attention.py``. The plain
 PyTorch version is :func:`repro_torch.kernels.ref.blockwise_attention`; the
 dispatch between the two by device is :mod:`repro_torch.kernels.ops`.
+
+The C launcher picks one of two variants from (dtype, hd) alone: ``wgmma``
+(bf16 with hd 64 or 128: tensor cores, TMA) or ``simt`` (f32 and other
+widths: the CUDA-core tile loop). :data:`launches_by_variant` counts each.
 """
 from __future__ import annotations
 
@@ -14,7 +18,9 @@ import torch
 from repro_torch.kernels import _build
 
 _NAME = "flash_attention"
+VARIANTS = ("simt", "wgmma")   # indexed by repro_flash_attention_variant
 launches = 0   # kernel launches since the caller last reset it
+launches_by_variant = {v: 0 for v in VARIANTS}
 
 
 @functools.cache
@@ -24,6 +30,16 @@ def _fn():
     f.argtypes = [I, P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, P]
     f.restype = I
     return f
+
+
+@functools.cache
+def variant(dtype: torch.dtype, hd: int) -> str:
+    """The variant the launcher takes for (dtype, hd), as the C library
+    decides it."""
+    f = _build.library("flash_attention").repro_flash_attention_variant
+    f.argtypes = [ctypes.c_int, ctypes.c_int]
+    f.restype = ctypes.c_int
+    return VARIANTS[f(_build.DTYPE_CODES[dtype], hd)]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -48,6 +64,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.require(Sk > 0 or Sq == 0, _NAME, "no keys to attend to")
     _build.check_tensors(_NAME, [q, k, v], [])
     out = torch.empty_like(q)
+    _build.check_aligned(_NAME, [q, k, v, out])
     if B == 0 or Sq == 0:
         return out
     err = _fn()(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
@@ -56,4 +73,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, _NAME)
     launches += 1
+    launches_by_variant[variant(q.dtype, hd)] += 1
     return out

@@ -68,6 +68,8 @@ def reset_counts() -> None:
     _pa.launches = 0
     _cp.launches = 0
     _fa.launches = 0
+    for v in _fa.launches_by_variant:
+        _fa.launches_by_variant[v] = 0
     _ssd.launches = 0
     for k in plain_calls:
         plain_calls[k] = 0

@@ -3,26 +3,44 @@
 Replaces the Pallas kernel ``repro/kernels/paged_attention.py``. The plain
 PyTorch version is :func:`repro_torch.kernels.ref.paged_attention_ref`; the
 dispatch between the two by device is :mod:`repro_torch.kernels.ops`.
+
+The kernel splits each sequence's positions over several blocks
+(flash-decoding); :func:`split_plan` chooses the split from the shapes
+alone, so no device value is read on the host.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 _NAME = "paged_attention"
+SPLIT_TILE = 32        # positions per tile of the kernel (kSplitTile)
+TARGET_BLOCKS = 1056   # eight blocks for each of the H100's 132 SMs
 launches = 0   # kernel launches since the caller last reset it
+
+
+@functools.cache
+def split_plan(B: int, Hkv: int, W: int, page: int) -> Tuple[int, int]:
+    """(n_split, span): each sequence's positions [0, W * page) split into
+    ``n_split`` spans of ``span`` positions, a whole number of tiles each,
+    so that B * Hkv * n_split blocks come near :data:`TARGET_BLOCKS`. Only
+    the last span may reach past W * page."""
+    n_tiles = max(-(-(W * page) // SPLIT_TILE), 1)
+    want = -(-TARGET_BLOCKS // max(B * Hkv, 1))
+    per = -(-n_tiles // min(want, n_tiles))        # tiles per span
+    return -(-n_tiles // per), per * SPLIT_TILE
 
 
 @functools.cache
 def _fn():
     P, I = ctypes.c_void_p, ctypes.c_int
     f = _build.library("paged_attention").repro_paged_attention
-    f.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+    f.argtypes = [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                   ctypes.c_float, P]
     f.restype = I
     return f
@@ -39,8 +57,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     (optional) spliced in at position seq_len - 1. -> [B, H, hd] in q's
     dtype.
 
-    Launches the CUDA kernel on the current stream; raises on any input it
-    does not take and on a failed launch."""
+    Launches the CUDA kernels on the current stream; raises on any input
+    they do not take and on a failed launch."""
     global launches
     B, H, hd = q.shape
     _build.require(k_pages.dim() == 4 and v_pages.shape == k_pages.shape,
@@ -63,15 +81,26 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                        "k_new/v_new must be [B, Hkv, hd]")
         floats += [k_new, v_new]
     _build.check_tensors(_NAME, floats, [block_table, seq_lens])
+    _build.require(hd * q.element_size() % 16 == 0, _NAME,
+                   "a head's row must be a multiple of 16 bytes")
     out = torch.empty_like(q)
+    _build.check_aligned(_NAME, floats + [out])
     if B == 0:
         return out
+    n_split, span = split_plan(B, Hkv, W, page)
+    # the splits' f32 partials in one buffer: acc [B, Hkv, n_split, g, hd],
+    # then ml [B, Hkv, n_split, g, 2] (16-byte aligned: hd % 4 == 0)
+    n_rows = B * Hkv * n_split * (H // Hkv)
+    scratch = torch.empty(n_rows * (hd + 2), dtype=torch.float32,
+                          device=q.device)
+    acc = scratch.data_ptr()
     err = _fn()(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
                 v_pages.data_ptr(), block_table.data_ptr(),
                 seq_lens.data_ptr(),
                 k_new.data_ptr() if k_new is not None else None,
                 v_new.data_ptr() if v_new is not None else None,
-                out.data_ptr(), B, H, Hkv, hd, page, W, hd ** -0.5,
+                out.data_ptr(), acc, acc + 4 * n_rows * hd,
+                B, H, Hkv, hd, page, W, n_split, span, hd ** -0.5,
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, _NAME)
     launches += 1

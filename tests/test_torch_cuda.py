@@ -63,7 +63,9 @@ def _close(got, exp, dtype):
     (2, 8, 2, 64, 16, 8),
     (3, 4, 4, 32, 8, 4),
     (1, 16, 2, 128, 32, 4),
-    (8, 32, 8, 128, 16, 128),     # qwen3-8b decode at s_max 2048
+    (8, 32, 8, 128, 16, 128),     # qwen3-8b decode at s_max 2048: 16 splits
+    (132, 8, 8, 64, 16, 8),       # B * Hkv = 1056 blocks: one split
+    (2, 12, 1, 128, 16, 64),      # g = 12, 32 splits of 32
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_attention_kernel(dev, B, H, Hkv, hd, page, slots, dtype):
@@ -75,16 +77,38 @@ def test_paged_attention_kernel(dev, B, H, Hkv, hd, page, slots, dtype):
     _close(got, ref.paged_attention_ref(q, kp, vp, bt, sl), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_at_span_edges(dev, dtype):
+    """qwen3-8b decode shapes, split 16 ways in spans of 128: an idle slot
+    (seq_len 0), one position, each side of a span boundary and the whole
+    window; two identical calls are bitwise equal."""
+    B, H, Hkv, hd, page, slots = 8, 32, 8, 128, 16, 128
+    n_split, span = pa.split_plan(B, Hkv, slots, page)
+    assert (n_split, span) == (16, 128)
+    rng = np.random.default_rng(10)
+    q, kp, vp, bt, _ = _paged_inputs(rng, B, H, Hkv, hd, page, slots, dtype,
+                                     dev)
+    sl = torch.tensor([0, 1, span - 1, span, span + 1, 2 * span + 1,
+                       page * slots - 1, page * slots], dtype=torch.int32,
+                      device=dev)
+    got = pa.paged_attention(q, kp, vp, bt, sl)
+    again = pa.paged_attention(q, kp, vp, bt, sl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, ref.paged_attention_ref(q, kp, vp, bt, sl), dtype)
+
+
 @pytest.mark.parametrize("B,H,Hkv,hd,page,slots", [
-    (2, 8, 2, 64, 16, 8),
-    (8, 32, 8, 128, 16, 128),
+    (2, 8, 2, 64, 16, 8),         # 4 splits of 32
+    (8, 32, 8, 128, 16, 128),     # 16 splits of 128
+    (132, 8, 8, 64, 16, 8),       # one split
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_attention_kernel_splice_is_bitwise(dev, B, H, Hkv, hd, page,
                                                   slots, dtype):
-    """Splicing k_new/v_new equals scattering them first, bit for bit; the
-    page row under the write position holds other values, so the splice is
-    what was read."""
+    """Splicing k_new/v_new equals scattering them first, bit for bit, with
+    one split or several; the page row under the write position holds
+    other values, so the splice is what was read."""
     rng = np.random.default_rng(1)
     q, kp, vp, bt, sl = _paged_inputs(rng, B, H, Hkv, hd, page, slots, dtype,
                                       dev)
@@ -220,7 +244,21 @@ def test_engine_on_the_card_matches_the_cpu(dev, chunk, horizon):
     (1, 50, 131, 8, 1, 128, False),     # MQA, cross-length
     (1, 50, 131, 8, 1, 128, True),
     (1, 131, 50, 8, 1, 128, True),      # more queries than keys
+    (1, 131, 50, 8, 1, 128, False),
     (1, 397, 397, 32, 8, 128, True),    # qwen3-8b heads, prime length
+    # the wgmma variant's tile edges (128 query rows, 64 keys), g = 4
+    (1, 1, 1, 8, 2, 128, True),
+    (1, 63, 63, 8, 2, 128, True),
+    (1, 64, 64, 8, 2, 128, True),
+    (1, 65, 65, 8, 2, 128, True),
+    (1, 127, 127, 8, 2, 128, True),
+    (1, 128, 128, 8, 2, 128, True),
+    (1, 129, 129, 8, 2, 128, True),
+    (1, 1306, 1306, 32, 8, 128, True),  # the longest smoke prompt
+    (2, 129, 129, 4, 4, 64, False),     # hd 64, g = 1, B = 2
+    (2, 200, 333, 16, 2, 64, True),     # hd 64, g = 8, Sq < Sk
+    (2, 333, 200, 16, 2, 64, False),    # Sq > Sk
+    (1, 77, 77, 4, 2, 32, True),        # hd 32: the simt variant
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel(dev, B, Sq, Sk, H, Hkv, hd, causal, dtype):
@@ -228,7 +266,12 @@ def test_flash_attention_kernel(dev, B, Sq, Sk, H, Hkv, hd, causal, dtype):
     q = _t(rng.standard_normal((B, Sq, H, hd), np.float32), dev, dtype)
     k = _t(rng.standard_normal((B, Sk, Hkv, hd), np.float32), dev, dtype)
     v = _t(rng.standard_normal((B, Sk, Hkv, hd), np.float32), dev, dtype)
+    want = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128)
+            else "simt")
+    assert fa.variant(dtype, hd) == want
+    before = dict(fa.launches_by_variant)
     got = fa.flash_attention(q, k, v, causal=causal)
+    assert fa.launches_by_variant[want] == before[want] + 1
     # the oracle upcasts first, as the kernel does; the plain version
     # (score dot in the I/O dtype) agrees with it at f32
     exp = ref.flash_attention_ref(q.float(), k.float(), v.float(),
@@ -237,6 +280,13 @@ def test_flash_attention_kernel(dev, B, Sq, Sk, H, Hkv, hd, causal, dtype):
     _close(got, exp, dtype)
     if dtype == torch.float32:
         _close(got, ref.blockwise_attention(q, k, v, causal=causal), dtype)
+    else:
+        # each row's error over that row's magnitude: the rounding of P and
+        # of the output gives about 5e-3, a dropped or misplaced K/V tile
+        # tenths
+        row = ((got.float() - exp).abs().amax(-1)
+               / exp.abs().amax(-1).clamp_min(1e-30))
+        assert float(row.max()) <= 2e-2
 
 
 def _ssd_inputs(rng, B, S, H, P, N, dtype, dev):
@@ -286,6 +336,11 @@ def test_new_wrappers_raise_on_inputs_they_do_not_take(dev):
         fa.flash_attention(q, k, k)                      # 4 % 3 heads
     with pytest.raises(ValueError):
         fa.flash_attention(q.half(), k[:, :, :2].half(), k[:, :, :2].half())
+    flat = torch.zeros(1 + 8 * 4 * 64, device=dev, dtype=torch.bfloat16)
+    qm = flat[1:].view(1, 8, 4, 64)                       # 2 bytes off
+    km = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(qm, km, km)
     x, dt, A, Bm, Cm = _ssd_inputs(np.random.default_rng(8), 1, 8, 2, 16, 8,
                                    torch.float32, dev)
     with pytest.raises(ValueError):

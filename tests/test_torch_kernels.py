@@ -18,6 +18,7 @@ from repro.kernels.chunk_prefill import chunk_prefill_attention as pl_chunk
 from repro.kernels.paged_attention import paged_attention as pl_paged
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import chunk_prefill as cp
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 
@@ -157,3 +158,49 @@ def test_build_raises_without_the_cuda_toolkit(monkeypatch):
     monkeypatch.setattr(_build.os.path, "exists", lambda _: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         _build._nvcc()
+
+
+@pytest.mark.parametrize("B,Hkv,W,page", [
+    (8, 8, 128, 16),      # qwen3-8b decode at s_max 2048
+    (4, 2, 16, 8),        # the reduced reference engine
+    (132, 8, 128, 16),    # 1056 blocks already: one split
+    (1, 1, 1, 4),         # a window shorter than a tile
+    (3, 4, 7, 16),        # a window that is not a whole number of tiles
+    (2, 1, 2048, 16),
+])
+def test_paged_split_plan_covers_the_window_in_whole_tiles(B, Hkv, W, page):
+    n_split, span = pa.split_plan(B, Hkv, W, page)
+    assert n_split >= 1 and span > 0 and span % pa.SPLIT_TILE == 0
+    assert (n_split - 1) * span < W * page <= n_split * span
+    if n_split > 1:       # no more blocks than the target asks for
+        assert B * Hkv * (n_split - 1) < pa.TARGET_BLOCKS
+    assert pa.split_plan(B, Hkv, W, page) == (n_split, span)
+
+
+def test_paged_split_plan_at_the_smoke_shapes():
+    """16 spans of 128 at the main path's decode shapes; spans of one
+    tile for the reduced reference engine, so its card-vs-CPU token check
+    takes several splits; one split once B * Hkv fills the card."""
+    assert pa.split_plan(8, 8, 128, 16) == (16, 128)
+    assert pa.split_plan(4, 2, 16, 8) == (4, 32)
+    assert pa.split_plan(132, 8, 8, 16) == (1, 128)
+
+
+def test_reset_counts_zeroes_the_per_variant_flash_counts():
+    fa.launches = 3
+    for v in fa.launches_by_variant:
+        fa.launches_by_variant[v] = 2
+    ops.plain_calls["flash_attention"] = 1
+    ops.reset_counts()
+    assert fa.launches == 0
+    assert fa.launches_by_variant == {"simt": 0, "wgmma": 0}
+    assert not any(ops.plain_calls.values())
+
+
+def test_flash_wrapper_never_falls_back_to_the_cpu():
+    q = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    before = dict(fa.launches_by_variant)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(q, k, k)
+    assert fa.launches_by_variant == before
