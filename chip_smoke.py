@@ -11,16 +11,18 @@ Phases, each printing one JSON line (and failing the run on any error):
 3. kernels   -- each kernel against its plain PyTorch version on the card, at
                 the main paths' shapes (bf16) and at a small size (f32); the
                 decode splice bitwise equal to a scatter, and the decode
-                split plan at the main shapes; chunk pad rows finite; the
-                SSD scan at the 8 prompt lengths (one prime) with its final
-                state; flash causal at the 8 prompt lengths plus a
-                non-causal cross-length case, bf16 through the wgmma
-                variant and f32 through the simt one, bf16 also by each
-                row's error over its magnitude; then each kernel, its plain
-                version and, where one exists, the one PyTorch call
-                computing the same function timed with CUDA events (each
-                kernel also without the device spin, and its wrapper's
-                host time per call);
+                split plan at the main shapes; the chunk kernel, its pad
+                rows finite; the SSD scan at the 8 prompt lengths (one
+                prime) with its final state, y also by each head's error
+                over that head's magnitude; flash causal at the 8 prompt
+                lengths plus a non-causal cross-length case; chunk and flash
+                in bf16 also by each row's error over its magnitude; the
+                bf16 checks of chunk, flash and SSD through their wgmma
+                variants and the f32 ones through the simt variants; then
+                each kernel, its plain version and, where one exists, the
+                one PyTorch call computing the same function timed with CUDA
+                events (each kernel also without the device spin, and its
+                wrapper's host time per call);
 4. reference -- reduced models served on the card (kernels) and on the CPU
                 (plain versions) from the same weights: identical greedy
                 tokens, for qwen3-8b with chunked and with monolithic prefill
@@ -28,12 +30,13 @@ Phases, each printing one JSON line (and failing the run on any error):
 5. main      -- full-width qwen3-8b (36 layers, bf16, random weights from the
                 seed) serving 8 requests of 200-1500 prompt tokens, 64 new
                 tokens each, with chunked prefill (256) and a decode horizon
-                of 8; then the same requests at horizon 1 must give
-                identical tokens;
+                of 8, every chunk-prefill launch through the wgmma variant;
+                then the same requests at horizon 1 must give identical
+                tokens;
 6. profile   -- device time by kernel (torch.profiler) over the first
                 prefill-chunk step and one pure-decode horizon launch of the
-                same configuration, with the paged kernels' share of the
-                horizon launch;
+                same configuration, with the chunk kernel's share of the
+                first and the paged kernels' share of the horizon launch;
 7. dense_monolithic -- the same model and requests with monolithic prefill
                 (``prefill_chunk_tokens=0``), every prompt's attention in the
                 flash kernel's wgmma variant; its tokens against the chunked
@@ -41,15 +44,17 @@ Phases, each printing one JSON line (and failing the run on any error):
                 share of the first step's device time;
 8. ssm_main  -- full-width mamba2-2.7b (64 layers, bf16, random weights from
                 the seed) serving 8 requests of the same lengths, every
-                prefill's scan in the SSD kernel; the chunk and horizon knobs
-                (256, 8) must degrade to 0 and 1; then a profile of its first
-                step (the prefills) and of one decode step.
+                prefill's scan in the SSD kernel's wgmma variant; the chunk
+                and horizon knobs (256, 8) must degrade to 0 and 1; then a
+                profile of its first step (the prefills), with the SSD
+                kernel's share, and of one decode step.
 
 Each serving path zeroes the launch counts just before it runs and reads
 them just after: every kernel of that path must have launched and no plain
 version may have run.
 
-The last lines are the ``nvidia-smi`` line, the ``kernels`` JSON line and
+The last lines are the ``nvidia-smi`` line, the ``kernels`` JSON line (each
+kernel with its launches by variant on its path) and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository around it, the script exits non-zero and prints no result. TF32
 stays off throughout (``torch.backends.cuda.matmul.allow_tf32 = False``).
@@ -324,12 +329,15 @@ def check_flash(torch, gen, prompt_lens):
 def check_ssd(torch, gen, prompt_lens):
     """The SSD kernel against its plain version at mamba2-2.7b's heads, one
     call per prompt length as each prefill makes it (bf16 x/B/C, f32
-    dt/A): y and the final state, each held by its largest error over its
-    largest magnitude (1e-2 for the bf16 y, one rounding; 1e-4 for the f32
-    state, sums in another order over other chunk lengths); an f32 case at
-    a small, prime length; then timed at the longest prompt."""
+    dt/A), through its wgmma variant: y and the final state, each held by
+    its largest error over its largest magnitude (1e-2 for the bf16 y, one
+    rounding; 1e-4 for the f32 state, sums in another order over other
+    chunk lengths), y also by each head's error over that head's magnitude
+    (1e-2), so a dropped chunk cannot hide behind one large head; an f32
+    case at a small, prime length through the simt variant; then timed at
+    the longest prompt."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd_chunk as ssd
 
     cfg = get_config(SSM_MODEL)
@@ -348,12 +356,20 @@ def check_ssd(torch, gen, prompt_lens):
         return float((got.float() - want.float()).abs().max()
                      / want.float().abs().max())
 
-    y_errs, st_errs, abs_errs = [], [], []
+    def per_head(got, want):
+        """The largest error of a head over that head's magnitude."""
+        diff = (got.float() - want.float()).abs().amax(dim=(0, 1, 3))
+        mag = want.float().abs().amax(dim=(0, 1, 3)).clamp_min(1e-30)
+        return float((diff / mag).max())
+
+    ops.reset_counts()
+    y_errs, head_errs, st_errs, abs_errs = [], [], [], []
     for S in prompt_lens:
         args = inputs(S, H, P, N, torch.bfloat16)
         y, st = ssd.ssd_chunk(*args, s.chunk)
         y_ref, st_ref = ref.ssd_chunk_scan(*args, s.chunk)
         y_errs.append(scaled(y, y_ref))
+        head_errs.append(per_head(y, y_ref))
         st_errs.append(scaled(st, st_ref))
         abs_errs.append(float((y.float() - y_ref.float()).abs().max()))
     args32 = inputs(67, 4, 16, 16, torch.float32)
@@ -362,13 +378,23 @@ def check_ssd(torch, gen, prompt_lens):
     err32 = max(scaled(y, y_ref), scaled(st, st_ref))
     require(max(y_errs) <= 1e-2 and max(st_errs) <= 1e-4,
             f"ssd_chunk bf16 scaled errors y {y_errs} state {st_errs}")
+    # bf16 rounding of y gives up to 2^-7 of a head's magnitude; a chunk
+    # dropped or misplaced gives the size of that chunk's share of y
+    require(max(head_errs) <= 1e-2,
+            f"ssd_chunk bf16 per-head y errors {head_errs}")
     require(err32 <= 1e-4, f"ssd_chunk f32 scaled error {err32}")
+    checked = dict(ssd.launches_by_variant)
+    require(checked == {"wgmma": len(prompt_lens), "simt": 1},
+            f"ssd_chunk variants of the checks: {checked}")
     S = max(prompt_lens)
     args = inputs(S, H, P, N, torch.bfloat16)
     n_bytes, n_flops = ssd_cost(S, H, P, N, min(s.chunk, ssd.MAX_CHUNK), 2)
     b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
     return dict(
+        variant=ssd.variant(torch.bfloat16, N, P, s.chunk),
+        check_launches_by_variant=checked,
         max_abs_err=max(abs_errs), y_scaled_err=max(y_errs),
+        y_head_scaled_err=max(head_errs),
         state_scaled_err=max(st_errs), scaled_err_f32=err32,
         **kernel_times(lambda: ssd.ssd_chunk(*args, s.chunk)),
         plain_ms=time_ms(lambda: ref.ssd_chunk_scan(*args, s.chunk), reps=3,
@@ -385,8 +411,8 @@ def phase_kernels(torch, args, prompt_lens):
     """Each kernel against its plain version, then both timed."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import chunk_prefill as cp
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import ref
 
     cfg = get_config(MAIN["model"])
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -441,6 +467,7 @@ def phase_kernels(torch, args, prompt_lens):
 
     # -- chunked prefill at the main path's shapes: each prompt's last full
     # chunk
+    ops.reset_counts()
     pos = chunk_positions(torch, prompt_lens, C)
     B = len(prompt_lens)
     q = torch.randn((B, C, H, hd), generator=gen, device="cuda").to(bf16)
@@ -451,8 +478,15 @@ def phase_kernels(torch, args, prompt_lens):
     # on the same bf16-valued inputs
     want = ref.chunk_prefill_attention_ref(q.float(), kp.float(), vp.float(),
                                            bt, pos)
-    err = float((got.float() - want).abs().max())
+    diff = (got.float() - want).abs()
+    err = float(diff.max())
     require(err <= 2e-2, f"chunk_prefill bf16 max_abs_err {err} > 2e-2")
+    # each row's error over its magnitude, as flash's: the rounding of P and
+    # of the output gives about 5e-3, a dropped or misplaced 64-key tile
+    # tenths
+    row_err = float((diff.amax(-1) / want.abs().amax(-1).clamp_min(1e-30))
+                    .max())
+    require(row_err <= 2e-2, f"chunk_prefill bf16 row-scaled err {row_err}")
     pad_finite = bool(torch.isfinite(got).all())
     require(pad_finite, "chunk_prefill output (pad rows included) not finite")
     qs = torch.randn((3, 8, 6, 16), generator=gen, device="cuda")
@@ -463,10 +497,17 @@ def phase_kernels(torch, args, prompt_lens):
                    - ref.chunk_prefill_attention_ref(qs, kps, vps, bts, poss))
                   .abs().max())
     require(err32 <= 1e-5, f"chunk_prefill f32 max_abs_err {err32}")
+    # the bf16 check at qwen3-8b's heads took the wgmma variant, the f32
+    # one (hd 16) the simt variant
+    checked = dict(cp.launches_by_variant)
+    require(checked == {"wgmma": 1, "simt": 1},
+            f"chunk_prefill variants of the checks: {checked}")
     n_bytes, n_flops = chunk_cost(pos, H, Hkv, hd, W, 2)
     b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
     results["chunk_prefill_attention"] = dict(
-        max_abs_err=err, max_abs_err_f32=err32, pad_rows_finite=pad_finite,
+        variant=cp.variant(bf16, hd, page), check_launches_by_variant=checked,
+        max_abs_err=err, row_scaled_err=row_err, max_abs_err_f32=err32,
+        pad_rows_finite=pad_finite,
         **kernel_times(lambda: cp.chunk_prefill_attention(q, kp, vp, bt,
                                                           pos)),
         plain_ms=time_ms(lambda: ref.chunk_prefill_attention_ref(
@@ -515,11 +556,22 @@ def serve(torch, model, prompts, *, device, arena_rows=None, **kw):
     return eng, done, steps
 
 
+# the device kernels of each wrapper, by a part of their names (the wgmma
+# variants of chunk and flash share one kernel template, told apart by its
+# K/V source)
+KERNEL_NAMES = {
+    "paged_attention": ("paged_attention",),
+    "chunk_prefill_attention": ("chunk_prefill_kernel", "PagedKV"),
+    "flash_attention": ("flash_attention_kernel", "DenseKV"),
+    "ssd_chunk": ("ssd_chunk",),
+}
+
+
 def profile_step(torch, eng):
     """Device time by kernel over one engine step (torch.profiler), and the
-    share of the step's device time in the paged and the flash kernels (by
-    kernel name). The profiled step's wall time includes the profiler's
-    own overhead, so its idle share is an upper bound."""
+    share of the step's device time in each hand kernel (by kernel name).
+    The profiled step's wall time includes the profiler's own overhead, so
+    its idle share is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -538,8 +590,9 @@ def profile_step(torch, eng):
         kernels.append((us / 1e3, ev.key, ev.count))
     kernels.sort(reverse=True)
     busy_ms = sum(k[0] for k in kernels)
-    share = {s: sum(ms for ms, name, _ in kernels if s in name) / busy_ms
-             for s in ("paged_attention", "flash_attention")}
+    share = {k: sum(ms for ms, name, _ in kernels
+                    if any(part in name for part in parts)) / busy_ms
+             for k, parts in KERNEL_NAMES.items()}
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 idle_share=1 - busy_ms / wall_ms, device_share=share,
                 top=[dict(kernel=name[:90], ms=ms, calls=n)
@@ -567,6 +620,8 @@ def phase_profile(torch, model, prompts, rows, kw):
     require(eng.stat_horizon_steps == 1, "profiled step was not a horizon")
     eng.drain()
     emit("profile", chunk_step=chunk, decode_horizon_step=horizon,
+         chunk_share_of_chunk_step=chunk["device_share"][
+             "chunk_prefill_attention"],
          paged_share_of_horizon=horizon["device_share"]["paged_attention"])
 
 
@@ -618,6 +673,23 @@ def launch_counts():
             "flash_attention": fa.launches, "ssd_chunk": ssd.launches}
 
 
+def variant_counts():
+    """Launches by variant since the last ``ops.reset_counts``, for the
+    kernels that have variants."""
+    from repro_torch.kernels import chunk_prefill as cp
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_chunk as ssd
+    return {"chunk_prefill_attention": dict(cp.launches_by_variant),
+            "flash_attention": dict(fa.launches_by_variant),
+            "ssd_chunk": dict(ssd.launches_by_variant)}
+
+
+def require_all_wgmma(name: str, n: int, by_variant: dict) -> None:
+    require(n > 0 and by_variant == {"simt": 0, "wgmma": n},
+            f"{name} launched {n} times, by variant {by_variant}: not all "
+            f"through wgmma")
+
+
 def phase_main(torch, args, prompts):
     """Full-width qwen3-8b, chunked prefill and the decode horizon. Returns
     the model (the monolithic phase reuses it), this path's launches and
@@ -644,6 +716,7 @@ def phase_main(torch, args, prompts):
                              decode_horizon=MAIN["decode_horizon"], **kw)
     launches = {k: n for k, n in launch_counts().items()
                 if k in ("paged_attention", "chunk_prefill_attention")}
+    chunk_variants = variant_counts()["chunk_prefill_attention"]
     plain = dict(ops.plain_calls)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     require(len(done) == len(prompts), "not every request finished")
@@ -654,6 +727,8 @@ def phase_main(torch, args, prompts):
                 f"request {i} emitted a token outside the vocabulary")
     require(all(n > 0 for n in launches.values()),
             f"a kernel never launched on the main path: {launches}")
+    require_all_wgmma("chunk_prefill_attention",
+                      launches["chunk_prefill_attention"], chunk_variants)
     require(not any(plain.values()),
             f"a plain version ran on the main path: {plain}")
     stats = dict(stat_steps=eng.stat_steps,
@@ -689,11 +764,13 @@ def phase_main(torch, args, prompts):
          prompt_lens=[len(p) for p in prompts], max_new=MAIN["max_new"],
          config={**kw, "decode_horizon": MAIN["decode_horizon"]},
          arena_rows=rows, arena_gb=arena_gb, launches=launches,
+         chunk_launches_by_variant=chunk_variants,
          plain_calls=plain, **rates, peak_mem_gb=peak_gb, **stats,
          horizon1=dict(identical_tokens=same, launches=launches_h1,
                        stat_decode_syncs=syncs_h1))
     phase_profile(torch, model, prompts, rows, kw)
-    return model, launches, tokens_h8
+    return (model, launches, {"chunk_prefill_attention": chunk_variants},
+            tokens_h8)
 
 
 def serving_rates(done, steps):
@@ -773,7 +850,7 @@ def phase_dense_monolithic(torch, model, prompts, tokens_chunked):
          flash_share_of_first_step=prof["first_step"]["device_share"][
              "flash_attention"],
          profile_first_step=prof)
-    return launches
+    return launches, by_variant
 
 
 def profile_first_step(torch, model, prompts, rows=None, **kw):
@@ -821,6 +898,7 @@ def phase_ssm_main(torch, args, prompt_lens):
     ops.reset_counts()
     eng, done, steps = serve(torch, model, prompts, device="cuda", **kw)
     launches = {"ssd_chunk": launch_counts()["ssd_chunk"]}
+    by_variant = variant_counts()["ssd_chunk"]
     plain = dict(ops.plain_calls)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     require(eng.chunk_tokens == 0 and eng.horizon == 1 and not eng.paged,
@@ -830,6 +908,7 @@ def phase_ssm_main(torch, args, prompt_lens):
     require(launches["ssd_chunk"] == expected,
             f"ssd_chunk launched {launches['ssd_chunk']} times, not "
             f"{expected}")
+    require_all_wgmma("ssd_chunk", expected, by_variant)
     require(not any(plain.values()),
             f"a plain version ran on the SSM path: {plain}")
     require(len(done) == len(prompts), "not every request finished")
@@ -861,9 +940,12 @@ def phase_ssm_main(torch, args, prompt_lens):
          prompt_lens=list(prompt_lens), max_new=MAIN["max_new"],
          config=kw, degraded=dict(prefill_chunk_tokens=0, decode_horizon=1),
          state_cache_gb=state_bytes / 1e9, launches=launches,
+         ssd_launches_by_variant=by_variant,
          plain_calls=plain, **rates, peak_mem_gb=peak_gb, **stats,
+         ssd_share_of_first_step=prof["first_step"]["device_share"][
+             "ssd_chunk"],
          profile_first_step=prof)
-    return launches
+    return launches, by_variant
 
 
 def main(argv=None) -> int:
@@ -913,13 +995,16 @@ def main(argv=None) -> int:
 
     checks = phase_kernels(torch, args, prompt_lens)
     phase_reference(torch, args)
-    model, launches, tokens_chunked = phase_main(torch, args, prompts)
+    model, launches, variants, tokens_chunked = phase_main(torch, args,
+                                                           prompts)
     # the paged kernels' launches are the chunked main path's; flash's the
     # monolithic path's
-    launches["flash_attention"] = phase_dense_monolithic(
-        torch, model, prompts, tokens_chunked)["flash_attention"]
+    mono, variants["flash_attention"] = phase_dense_monolithic(
+        torch, model, prompts, tokens_chunked)
+    launches["flash_attention"] = mono["flash_attention"]
     del model
-    launches.update(phase_ssm_main(torch, args, prompt_lens))
+    ssm, variants["ssd_chunk"] = phase_ssm_main(torch, args, prompt_lens)
+    launches.update(ssm)
 
     sources = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -942,7 +1027,9 @@ def main(argv=None) -> int:
             # SDPA for flash; None where no single PyTorch call computes
             # the function (the paged kernels would need their pages
             # gathered first, and nothing computes the SSD scan)
-            library_ms=c.get("library_ms")))
+            library_ms=c.get("library_ms"),
+            # launches on the path by variant; the decode kernel has one
+            variants=variants.get(name)))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-// Shared CUDA-core tile loop of the prefill attention kernels
-// (chunk_prefill.cu, and flash_attention.cu's simt variant); every kernel
-// takes its dtype helpers and shared-memory opt-in.
+// Shared CUDA-core tile loop of the prefill attention kernels (the simt
+// variants of chunk_prefill.cu and flash_attention.cu); every kernel takes
+// its dtype helpers and shared-memory opt-in.
 //
 // A block owns R query rows that all read one sequence's keys of one kv
 // head. Keys are walked in tiles of kTile positions; an address functor
@@ -15,10 +15,10 @@
 //
 // Plain C++ on CUDA cores, f32 throughout: the tiles are staged with
 // scalar loads and scored with fmaf, so a long chunk is bound by this f32
-// arithmetic, far below the tensor cores' bf16 rate. Flash's bf16 variant
-// (wgmma, TMA) and the split decode kernel no longer use it; the chunk
-// kernel's redesign on flash's wgmma loop with paged addressing is later
-// work. The f32 paths keep it: their products stay exact.
+// arithmetic, far below the tensor cores' bf16 rate. The bf16 variants of
+// flash and of the chunk kernel (attend_wgmma.cuh) and the split decode
+// kernel do not use it; the f32 paths and the widths the wgmma loop does
+// not take keep it: their products stay exact.
 #pragma once
 
 #include <cuda_bf16.h>

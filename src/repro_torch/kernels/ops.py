@@ -66,10 +66,9 @@ def ssd_chunk(x, dt, A, Bm, Cm, chunk: int):
 def reset_counts() -> None:
     """Zero every launch and plain-call count."""
     _pa.launches = 0
-    _cp.launches = 0
-    _fa.launches = 0
-    for v in _fa.launches_by_variant:
-        _fa.launches_by_variant[v] = 0
-    _ssd.launches = 0
+    for mod in (_cp, _fa, _ssd):
+        mod.launches = 0
+        for v in mod.launches_by_variant:
+            mod.launches_by_variant[v] = 0
     for k in plain_calls:
         plain_calls[k] = 0

@@ -3,6 +3,12 @@
 Replaces the Pallas kernel ``repro/kernels/ssd_chunk.py``. The plain PyTorch
 version is :func:`repro_torch.kernels.ref.ssd_chunk_scan`; the dispatch
 between the two by device is :mod:`repro_torch.kernels.ops`.
+
+The C launcher picks one of two variants from (dtype, N, P, chunk) alone:
+``wgmma`` (bf16, N and P of 64 or 128, chunks of 64: tensor cores, TMA) or
+``simt`` (f32, other widths and shorter chunks: the CUDA-core loop).
+:data:`launches_by_variant` counts each; :func:`takes_wgmma` is the rule
+written out in Python.
 """
 from __future__ import annotations
 
@@ -17,7 +23,9 @@ from repro_torch.kernels import _build
 _NAME = "ssd_chunk"
 MAX_CHUNK = 64       # the kernel's largest chunk (csrc/ssd_chunk.cu kMaxChunk)
 MAX_STATE_DIM = 128  # N and P: the state and a chunk's tiles in shared memory
+VARIANTS = ("simt", "wgmma")   # indexed by repro_ssd_chunk_variant
 launches = 0   # kernel launches since the caller last reset it
+launches_by_variant = {v: 0 for v in VARIANTS}
 
 
 @functools.cache
@@ -27,6 +35,23 @@ def _fn():
     f.argtypes = [I, P, P, P, P, P, P, P, I, I, I, I, I, I, P]
     f.restype = I
     return f
+
+
+def takes_wgmma(dtype: torch.dtype, N: int, P: int, chunk: int) -> bool:
+    """The launcher's rule (``repro_ssd_chunk_variant``) in Python."""
+    return (dtype == torch.bfloat16 and N in (64, 128) and P in (64, 128)
+            and min(chunk, MAX_CHUNK) == MAX_CHUNK)
+
+
+@functools.cache
+def variant(dtype: torch.dtype, N: int, P: int, chunk: int) -> str:
+    """The variant the launcher takes for (dtype, N, P, chunk), as the C
+    library decides it."""
+    f = _build.library("ssd_chunk").repro_ssd_chunk_variant
+    f.argtypes = [ctypes.c_int] * 4
+    f.restype = ctypes.c_int
+    return VARIANTS[f(_build.DTYPE_CODES[dtype], N, P,
+                      min(chunk, MAX_CHUNK))]
 
 
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -59,6 +84,9 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    _NAME, "dt and A must be float32 on x's device")
     y = torch.empty_like(x)
     state = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    which = variant(x.dtype, N, P, chunk)
+    if which == "wgmma":
+        _build.check_aligned(_NAME, [x, Bm, Cm, y])
     if B == 0 or S == 0 or H == 0:
         return y, state
     err = _fn()(_build.DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(),
@@ -67,4 +95,5 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, _NAME)
     launches += 1
+    launches_by_variant[which] += 1
     return y, state

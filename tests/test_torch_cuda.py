@@ -10,8 +10,11 @@ plain version's one-shot softmax, both in f32); bfloat16 to 2e-2, as in
 ``tests/test_kernels.py``. The splice is held bitwise. The SSD scan is held
 by its largest error over the largest magnitude: 1e-4 at f32 (fixed chunks
 of at most 64 against the plain version's largest-divisor chunks, sums in
-another order), 1e-2 for a bf16 ``y`` (one rounding of the output). TF32
-stays off.
+another order), 1e-2 for a bf16 ``y`` (one rounding of the output), also
+per head, and 1e-4 for the f32 state in either dtype. Cases of the chunk,
+flash and SSD kernels assert the variant (``wgmma`` or ``simt``) they took,
+and the bf16 ones of the wgmma attention loop also each row's error over
+its magnitude (2e-2). TF32 stays off.
 """
 import numpy as np
 import pytest
@@ -188,6 +191,61 @@ def test_chunk_prefill_kernel_pad_rows_are_finite(dev):
     assert bool(torch.isfinite(out).all())
 
 
+def _row_err(got, exp) -> float:
+    """The largest error of a row (one query and head) over that row's
+    largest magnitude: the rounding of P and of the output gives about
+    5e-3, a dropped or misplaced 64-key tile tenths."""
+    return float(((got.float() - exp).abs().amax(-1)
+                  / exp.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("page", [8, 16, 32, 64])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("C,p0", [
+    (256, 1024),     # a whole chunk on tile boundaries
+    (100, 37),       # C not a multiple of 128, first position not of 64
+    (200, 61),
+])
+def test_chunk_prefill_kernel_wgmma(dev, page, hd, C, p0):
+    """The wgmma variant at every page it takes: B = 3 sequences starting
+    at p0, p0 + 7, p0 + 14, the last one's second half pad columns
+    (position 0), which stay finite; GQA 4."""
+    rng = np.random.default_rng(11)
+    B, H, Hkv = 3, 8, 2
+    slots = -(-(p0 + 14 + C) // page) + 1
+    n_rows = B * slots + 3
+    bf16 = torch.bfloat16
+    q = _t(rng.standard_normal((B, C, H, hd), np.float32), dev, bf16)
+    kp = _t(rng.standard_normal((n_rows, page, Hkv, hd), np.float32), dev,
+            bf16)
+    vp = _t(rng.standard_normal((n_rows, page, Hkv, hd), np.float32), dev,
+            bf16)
+    bt = _t(rng.permutation(n_rows)[:B * slots].reshape(B, slots)
+            .astype(np.int32), dev)
+    pos = p0 + 7 * np.arange(B)[:, None] + np.arange(C)[None, :]
+    pos[-1, C // 2:] = 0
+    pos = _t(pos.astype(np.int32), dev)
+    assert cp.variant(bf16, hd, page) == "wgmma" == (
+        "wgmma" if cp.takes_wgmma(bf16, hd, page) else "simt")
+    before = dict(cp.launches_by_variant)
+    got = cp.chunk_prefill_attention(q, kp, vp, bt, pos)
+    assert cp.launches_by_variant["wgmma"] == before["wgmma"] + 1
+    exp = ref.chunk_prefill_attention_ref(q.float(), kp.float(), vp.float(),
+                                          bt, pos)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _close(got, exp, bf16)
+    assert _row_err(got, exp) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype,hd,page", [
+    (torch.float32, 128, 16), (torch.bfloat16, 32, 16),
+    (torch.bfloat16, 128, 4), (torch.bfloat16, 128, 128)])
+def test_chunk_prefill_variant_rule_matches_its_mirror(dev, dtype, hd, page):
+    want = "wgmma" if cp.takes_wgmma(dtype, hd, page) else "simt"
+    assert cp.variant(dtype, hd, page) == want == "simt"
+
+
 def test_wrappers_raise_on_inputs_they_do_not_take(dev):
     q = torch.zeros((1, 4, 32), device=dev, dtype=torch.float16)
     kp = torch.zeros((2, 4, 2, 32), device=dev, dtype=torch.float16)
@@ -327,6 +385,54 @@ def test_ssd_chunk_kernel(dev, B, S, H, P, N, chunk, dtype):
         y_seq = ref.ssd_chunk_ref(x.float(), dt, A, Bm.float(), Cm.float())
         assert _scaled_err(y.float(), y_seq) < (
             1e-4 if dtype == torch.float32 else 1e-2)
+
+
+def _head_err(got, exp) -> float:
+    diff = (got.float() - exp.float()).abs().amax(dim=(0, 1, 3))
+    return float((diff / exp.float().abs().amax(dim=(0, 1, 3))
+                  .clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("N", [64, 128])
+@pytest.mark.parametrize("S", [13, 64, 65, 1499])
+def test_ssd_chunk_kernel_wgmma(dev, S, N):
+    """The wgmma variant at B = 2: one partial chunk, one whole, one and a
+    row, and 24 chunks with a ragged end; P 64 as in mamba2-2.7b."""
+    rng = np.random.default_rng(12)
+    B, H, P = 2, 4, 64
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, B, S, H, P, N, torch.bfloat16, dev)
+    assert ssd.variant(torch.bfloat16, N, P, 256) == "wgmma"
+    assert ssd.takes_wgmma(torch.bfloat16, N, P, 256)
+    before = dict(ssd.launches_by_variant)
+    y, state = ssd.ssd_chunk(x, dt, A, Bm, Cm, 256)
+    assert ssd.launches_by_variant["wgmma"] == before["wgmma"] + 1
+    y_ref, state_ref = ref.ssd_chunk_scan(x, dt, A, Bm, Cm, 256)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+    assert _scaled_err(y, y_ref) < 1e-2
+    assert _head_err(y, y_ref) < 1e-2
+    assert _scaled_err(state, state_ref) < 1e-4
+
+
+def test_ssd_chunk_kernel_wgmma_wide_heads(dev):
+    """P 128: two state warpgroups, each with its 64 columns."""
+    rng = np.random.default_rng(13)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, 2, 200, 3, 128, 128,
+                                   torch.bfloat16, dev)
+    assert ssd.variant(torch.bfloat16, 128, 128, 64) == "wgmma"
+    y, state = ssd.ssd_chunk(x, dt, A, Bm, Cm, 64)
+    y_ref, state_ref = ref.ssd_chunk_scan(x, dt, A, Bm, Cm, 64)
+    torch.cuda.synchronize()
+    assert _head_err(y, y_ref) < 1e-2
+    assert _scaled_err(state, state_ref) < 1e-4
+
+
+@pytest.mark.parametrize("dtype,N,P,chunk", [
+    (torch.float32, 128, 64, 256), (torch.bfloat16, 16, 64, 256),
+    (torch.bfloat16, 128, 32, 256), (torch.bfloat16, 128, 64, 32)])
+def test_ssd_variant_rule_matches_its_mirror(dev, dtype, N, P, chunk):
+    want = "wgmma" if ssd.takes_wgmma(dtype, N, P, chunk) else "simt"
+    assert ssd.variant(dtype, N, P, chunk) == want == "simt"
 
 
 def test_new_wrappers_raise_on_inputs_they_do_not_take(dev):

@@ -21,6 +21,7 @@ from repro_torch.kernels import chunk_prefill as cp
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_chunk as ssd
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -204,3 +205,42 @@ def test_flash_wrapper_never_falls_back_to_the_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention(q, k, k)
     assert fa.launches_by_variant == before
+
+
+def test_reset_counts_zeroes_the_chunk_and_ssd_variant_counts():
+    for mod in (cp, ssd):
+        mod.launches = 3
+        for v in mod.launches_by_variant:
+            mod.launches_by_variant[v] = 2
+    ops.reset_counts()
+    for mod in (cp, ssd):
+        assert mod.launches == 0
+        assert mod.launches_by_variant == {"simt": 0, "wgmma": 0}
+
+
+def test_variant_rules_at_the_smoke_paths_shapes():
+    """The launchers' rules, written out in Python: the full-width main
+    paths (bf16 qwen3-8b chunks at page 16, bf16 mamba2-2.7b scans with
+    chunk 256) take the wgmma variants; the reduced f32 models of the
+    card-vs-CPU checks, f32 at full width, pages the tile does not hold in
+    whole swizzle atoms and chunks shorter than 64 take simt."""
+    from repro_torch.configs import get_config
+    bf16, f32 = torch.bfloat16, torch.float32
+    qwen, mamba = get_config("qwen3-8b"), get_config("mamba2-2.7b")
+    hd = qwen.head_dim_
+    assert cp.takes_wgmma(bf16, hd, 16)
+    pages = [cp.takes_wgmma(bf16, hd, p) for p in (4, 8, 16, 32, 64, 128)]
+    assert pages == [False, True, True, True, True, False]
+    assert cp.takes_wgmma(bf16, 64, 8) and not cp.takes_wgmma(bf16, 32, 16)
+    assert not cp.takes_wgmma(f32, hd, 16)
+    small = qwen.reduced()
+    assert not cp.takes_wgmma(small.dtype, small.head_dim_, 8)
+    s = mamba.ssm
+    assert ssd.takes_wgmma(bf16, s.d_state, s.head_dim, s.chunk)
+    assert ssd.takes_wgmma(bf16, 64, 128, 64)
+    assert not ssd.takes_wgmma(bf16, s.d_state, s.head_dim, 32)
+    assert not ssd.takes_wgmma(bf16, 16, s.head_dim, s.chunk)
+    assert not ssd.takes_wgmma(f32, s.d_state, s.head_dim, s.chunk)
+    r = mamba.reduced()
+    assert not ssd.takes_wgmma(r.dtype, r.ssm.d_state, r.ssm.head_dim,
+                               r.ssm.chunk)

@@ -9,6 +9,13 @@ against the oracle and the Pallas kernel (``tests/test_kernels.py``'s
 bound for a chunked scan against a sequential one); 2e-4 on ``y`` and 1e-5
 on the final state against ``_ssd_chunk_scan`` (the same chunked
 operations); 1e-4 on float32 logits. Engine tokens must be identical.
+
+The SSD kernel's wgmma variant rounds its operands to bf16 where its
+tensor-core products need them; a plain-torch emulation of that rounding
+plan is held here against the plain version and the JAX scan under the
+limits the card holds the kernel to (``chip_smoke.py``,
+``tests/test_torch_cuda.py``): y 1e-2 of its magnitude (overall and per
+head), the final state 1e-4.
 """
 import dataclasses
 
@@ -17,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.configs import get_config as jax_config
 from repro.core.runtime.accounting import MemoryAccountant as JaxAccountant
@@ -172,6 +180,96 @@ def test_ops_dispatch_ssd_on_cpu_tensors_to_the_plain_version():
     assert ops.plain_calls["ssd_chunk"] == 1 and ssd.launches == 0
     with pytest.raises(ValueError, match="CUDA"):
         ssd.ssd_chunk(*_args(c, torch), 32)
+
+
+# ------------------------------------------ the wgmma kernel's rounding plan
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def _products(a: torch.Tensor, split: bool):
+    """An f32 operand as the kernel feeds it to bf16 products: hi, and
+    with ``split`` also lo = bf16(a - hi), each product summed in f32."""
+    hi = _bf16(a)
+    return (hi, _bf16(a - hi)) if split else (hi,)
+
+
+def _ssd_wgmma_plan(x, dt, A, Bm, Cm, split_xw: bool = True,
+                    split_g: bool = True, Q: int = 64):
+    """The arithmetic of ``csrc/ssd_chunk.cu``'s wgmma variant in plain
+    torch: fixed chunks of 64 with the ragged last one padded by dt = 0
+    rows; per chunk G = C B^T; y = exp(cs_q) C bf16(state) + (G o L o dt) x
+    with G o L o dt split hi + lo; state = exp(cs_end) state + B^T (x o w)
+    with x o w split hi + lo; sums in f32, y rounded to x's dtype. The
+    kernel's split of P over warpgroups (64 columns each) changes no sum,
+    so it is not repeated here. -> (y, final state f32)."""
+    B, S, H, P = x.shape
+    pad = (-S) % Q
+
+    def padded(t):
+        return F.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
+
+    xp, bp, cp, dp = padded(x), padded(Bm), padded(Cm), padded(dt)
+    iq = torch.arange(Q)
+    causal = iq[:, None] >= iq[None, :]
+    state = torch.zeros((B, H, Bm.shape[-1], P))
+    ys = []
+    for c0 in range(0, S + pad, Q):
+        xc, bc, cc = (t[:, c0:c0 + Q] for t in (xp, bp, cp))
+        dc = dp[:, c0:c0 + Q]                               # [B, Q, H]
+        cs = torch.cumsum(dc * A, dim=1).transpose(1, 2)    # [B, H, Q]
+        decay = torch.where(causal, torch.exp(torch.where(
+            causal, cs[..., :, None] - cs[..., None, :], 0.)), 0.)
+        g = (torch.einsum("bqhn,bkhn->bhqk", cc, bc) * decay
+             * dc.transpose(1, 2)[:, :, None, :])
+        y = (torch.einsum("bqhn,bhnp->bqhp", cc, _bf16(state))
+             * torch.exp(cs).transpose(1, 2)[..., None])
+        for part in _products(g, split_g):
+            y = y + torch.einsum("bhqk,bkhp->bqhp", part, xc)
+        ys.append(y)
+        w = dc * torch.exp(cs[..., -1:] - cs).transpose(1, 2)
+        state = state * torch.exp(cs[..., -1])[..., None, None]
+        for part in _products(xc * w[..., None], split_xw):
+            state = state + torch.einsum("bkhn,bkhp->bhnp", bc, part)
+    return torch.cat(ys, dim=1)[:, :S].to(x.dtype), state
+
+
+def _ssd_bf16_case(seed, S, H=3):
+    """mamba2-2.7b's head widths (P 64, N 128); x, B and C in bf16."""
+    c = _ssd_case(seed, 1, S, H, 64, 128)
+    x, dt, A, Bm, Cm = _args(c, torch)
+    return x.bfloat16(), dt, A, Bm.bfloat16(), Cm.bfloat16()
+
+
+def _head_err(got, exp) -> float:
+    got, exp = np.asarray(got, np.float32), np.asarray(exp, np.float32)
+    return float((np.abs(got - exp).max(axis=(0, 1, 3))
+                  / np.abs(exp).max(axis=(0, 1, 3))).max())
+
+
+@pytest.mark.parametrize("S", [13, 64, 65, 200])
+def test_ssd_wgmma_rounding_plan_meets_the_card_limits(S):
+    args = _ssd_bf16_case(3, S)
+    y, state = _ssd_wgmma_plan(*args)
+    want_y, want_state = ref.ssd_chunk_scan(*args, 256)
+    jy, jstate = _ssd_chunk_scan(*(jnp.asarray(a.float().numpy())
+                                   for a in args), chunk=256)
+    for ry, rs in ((want_y.float(), want_state), (jy, jstate)):
+        assert _scaled_err(y.float(), ry) <= 1e-2
+        assert _head_err(y.float(), ry) <= 1e-2
+        assert _scaled_err(state, rs) <= 1e-4
+
+
+def test_ssd_single_bf16_state_update_breaks_the_state_limit():
+    """Without the hi + lo split of x o w the state misses 1e-4 by an order
+    of magnitude (one bf16 rounding per term); with it, it is ~100 times
+    inside."""
+    args = _ssd_bf16_case(4, 200)
+    _, want = ref.ssd_chunk_scan(*args, 256)
+    _, single = _ssd_wgmma_plan(*args, split_xw=False)
+    _, split = _ssd_wgmma_plan(*args)
+    assert _scaled_err(single, want) > 5e-4
+    assert _scaled_err(split, want) < 1e-5
 
 
 # ------------------------------------------------------------------- model
