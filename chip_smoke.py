@@ -22,11 +22,16 @@ Phases, each printing one JSON line (and failing the run on any error):
                 each kernel, its plain version and, where one exists, the
                 one PyTorch call computing the same function timed with CUDA
                 events (each kernel also without the device spin, and its
-                wrapper's host time per call);
+                wrapper's host time per call); the chunk kernel also at a
+                prefix-cache hit's shape (B=1, the workflow's median suffix
+                after the 1024-token context);
 4. reference -- reduced models served on the card (kernels) and on the CPU
                 (plain versions) from the same weights: identical greedy
                 tokens, for qwen3-8b with chunked and with monolithic prefill
-                and for mamba2-2.7b;
+                and for mamba2-2.7b; then reduced qwen3-8b with the prefix
+                cache on (``prefix_reference``), chunked and monolithic,
+                serving the workflow of phase 8: identical tokens, prefill
+                avoided, aliased pages, copies and mirror check;
 5. main      -- full-width qwen3-8b (36 layers, bf16, random weights from the
                 seed) serving 8 requests of 200-1500 prompt tokens, 64 new
                 tokens each, with chunked prefill (256) and a decode horizon
@@ -42,16 +47,39 @@ Phases, each printing one JSON line (and failing the run on any error):
                 flash kernel's wgmma variant; its tokens against the chunked
                 run's, or the first difference with its logit gap; flash's
                 share of the first step's device time;
-8. ssm_main  -- full-width mamba2-2.7b (64 layers, bf16, random weights from
+8. prefix    -- the full-width qwen3-8b serving one multi-agent workflow
+                (a 1024-token shared context; stage 0 with 211 own tokens,
+                served alone first; stages 1-7 with own suffixes of 64-500
+                tokens, one sharing stage 0's first 8 own tokens, one all
+                of its full pages; 64 new tokens each), chunked and
+                monolithic, with the prefix cache off and on: prefill
+                avoided, aliased pages, copies, the hit stages' TTFT and the
+                device time of their prefill (profiled) off against on, the
+                first-token logits of the hit stages on against off
+                (monolithic: the suffix in the chunk kernel's wgmma variant,
+                the whole prompt in flash), the first differing token;
+9. ssm_main  -- full-width mamba2-2.7b (64 layers, bf16, random weights from
                 the seed) serving 8 requests of the same lengths, every
                 prefill's scan in the SSD kernel's wgmma variant; the chunk
                 and horizon knobs (256, 8) must degrade to 0 and 1; then a
                 profile of its first step (the prefills), with the SSD
-                kernel's share, and of one decode step.
+                kernel's share, and of one decode step;
+10. node     -- a ``NodeRuntime`` on the card holding both full-width models
+                under a 24 GB budget (its GPU tier holds either model's
+                weights, not both), prefix cache on, chunk 256, horizon 8:
+                a qwen3-8b batch, a ``make_room`` that must trim prefix pins
+                and sleep nobody, a mamba2 batch (qwen3 offloaded), qwen3
+                again (mamba2 offloaded, qwen3 back from pinned host memory,
+                the same tokens as before): each activation's seconds against
+                the residency model's, each offload's drop in allocated
+                memory against the weight bytes dropped (>= 95%), the pinned
+                host-to-device rate, the residency events, ``kv_stats()`` and
+                ``signal()``.
 
 Each serving path zeroes the launch counts just before it runs and reads
 them just after: every kernel of that path must have launched and no plain
-version may have run.
+version may have run. The kernels line gives each kernel's launches on the
+main paths and, under ``launches_by_path``, on this slice's paths.
 
 The last lines are the ``nvidia-smi`` line, the ``kernels`` JSON line (each
 kernel with its launches by variant on its path) and
@@ -62,6 +90,8 @@ stays off throughout (``torch.backends.cuda.matmul.allow_tf32 = False``).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import gc
 import json
 import statistics
@@ -407,8 +437,10 @@ def check_ssd(torch, gen, prompt_lens):
                                 if n == next_prime(n)]))
 
 
-def phase_kernels(torch, args, prompt_lens):
-    """Each kernel against its plain version, then both timed."""
+def phase_kernels(torch, args, prompt_lens, suffix_shape):
+    """Each kernel against its plain version, then both timed; the chunk
+    kernel also at ``suffix_shape`` = (M, C), a prefix-cache hit's suffix
+    of C tokens after M cached ones (B = 1)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import chunk_prefill as cp
     from repro_torch.kernels import ops, ref
@@ -502,9 +534,36 @@ def phase_kernels(torch, args, prompt_lens):
     checked = dict(cp.launches_by_variant)
     require(checked == {"wgmma": 1, "simt": 1},
             f"chunk_prefill variants of the checks: {checked}")
+    # a hit's suffix: one sequence, C rows from position M on, read through
+    # its table with the cached prefix before them
+    M, Cs = suffix_shape
+    pos1 = torch.arange(M, M + Cs, dtype=torch.int32, device="cuda")[None]
+    q1 = torch.randn((1, Cs, H, hd), generator=gen, device="cuda").to(bf16)
+    _, kp1, vp1, bt1, _ = paged_inputs(torch, gen, [1], H, Hkv, hd, page, W,
+                                       n_rows, bf16)
+    got1 = cp.chunk_prefill_attention(q1, kp1, vp1, bt1, pos1)
+    want1 = ref.chunk_prefill_attention_ref(q1.float(), kp1.float(),
+                                            vp1.float(), bt1, pos1)
+    diff1 = (got1.float() - want1).abs()
+    err1 = float(diff1.max())
+    row1 = float((diff1.amax(-1) / want1.abs().amax(-1).clamp_min(1e-30))
+                 .max())
+    require(err1 <= 2e-2 and row1 <= 2e-2,
+            f"chunk_prefill at the suffix shape: err {err1}, row {row1}")
+    n_bytes, n_flops = chunk_cost(pos1, H, Hkv, hd, W, 2)
+    b1_ms, b1_by = bound(n_bytes, n_flops, BF16_FLOPS)
+    suffix = dict(
+        M=M, C=Cs, variant=cp.variant(bf16, hd, page), max_abs_err=err1,
+        row_scaled_err=row1,
+        **kernel_times(lambda: cp.chunk_prefill_attention(q1, kp1, vp1, bt1,
+                                                          pos1)),
+        plain_ms=time_ms(lambda: ref.chunk_prefill_attention_ref(
+            q1, kp1, vp1, bt1, pos1), reps=5),
+        bound_ms=b1_ms, bound_by=b1_by)
+    del q1, kp1, vp1
     n_bytes, n_flops = chunk_cost(pos, H, Hkv, hd, W, 2)
     b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
-    results["chunk_prefill_attention"] = dict(
+    results["chunk_prefill_attention"] = dict(suffix_shape=suffix,
         variant=cp.variant(bf16, hd, page), check_launches_by_variant=checked,
         max_abs_err=err, row_scaled_err=row_err, max_abs_err_f32=err32,
         pad_rows_finite=pad_finite,
@@ -572,12 +631,23 @@ def profile_step(torch, eng):
     share of the step's device time in each hand kernel (by kernel name).
     The profiled step's wall time includes the profiler's own overhead, so
     its idle share is an upper bound."""
+    return profile_steps(torch, eng, lambda: False)
+
+
+def profile_steps(torch, eng, more):
+    """:func:`profile_step` over one engine step and the further steps
+    taken while ``more()`` holds."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    n = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         eng.step()
+        n += 1
+        while more():
+            eng.step()
+            n += 1
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = []
@@ -593,7 +663,7 @@ def profile_step(torch, eng):
     share = {k: sum(ms for ms, name, _ in kernels
                     if any(part in name for part in parts)) / busy_ms
              for k, parts in KERNEL_NAMES.items()}
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, steps=n,
                 idle_share=1 - busy_ms / wall_ms, device_share=share,
                 top=[dict(kernel=name[:90], ms=ms, calls=n)
                      for ms, name, n in kernels[:8]])
@@ -876,7 +946,8 @@ def profile_first_step(torch, model, prompts, rows=None, **kw):
 def phase_ssm_main(torch, args, prompt_lens):
     """Full-width mamba2-2.7b serving 8 requests: every prefill's scan in
     the SSD kernel (64 layers x 8 prompts); the chunk and horizon knobs
-    degrade to 0 and 1."""
+    degrade to 0 and 1. Returns this path's launches and the model (the
+    node phase reuses it)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
@@ -945,7 +1016,559 @@ def phase_ssm_main(torch, args, prompt_lens):
          ssd_share_of_first_step=prof["first_step"]["device_share"][
              "ssd_chunk"],
          profile_first_step=prof)
-    return launches, by_variant
+    return launches, by_variant, model
+
+
+# ------------------------------------------------------------ prefix cache
+# one multi-agent workflow: a shared context (the team's system prompt and
+# the upstream turns), stage 0 with its own 211 tokens, then 7 stages with
+# own suffixes of 64-500 tokens; stage 1 repeats stage 0's first 8 own
+# tokens (a hit that ends mid-page: copy on write), stage 2 all of stage
+# 0's full pages before it diverges
+WORKFLOW = dict(context=1024, own0=211, own_min=64, own_max=500, stages=8,
+                partial_stage=1, partial_tokens=8, full_stage=2)
+
+
+def workflow(rng, vocab: int, page: int = 16):
+    """The workflow's prompts and each stage's expected prefix-cache match
+    (0 for stage 0, which is prefilled alone first). Each stage's own
+    tokens differ from stage 0's right after what they share, so the match
+    is exactly the one constructed."""
+    W = WORKFLOW
+
+    def rand(n):
+        return [int(t) for t in rng.integers(0, vocab, n)]
+
+    ctx, own0 = rand(W["context"]), rand(W["own0"])
+    prompts, matched = [ctx + own0], [0]
+    full0 = (len(prompts[0]) // page) * page - W["context"]
+    for s in range(1, W["stages"]):
+        own = rand(int(rng.integers(W["own_min"], W["own_max"] + 1)))
+        shared = {W["partial_stage"]: W["partial_tokens"],
+                  W["full_stage"]: full0}.get(s, 0)
+        if len(own) <= shared + page:
+            own += rand(shared + page + 1 - len(own))
+        own[:shared] = own0[:shared]
+        if own[shared] == own0[shared]:
+            own[shared] = (own0[shared] + 1) % vocab
+        prompts.append(ctx + own)
+        matched.append(W["context"] + shared)
+    return prompts, matched
+
+
+@contextlib.contextmanager
+def first_tokens(torch, model, eng):
+    """Records, for each request ``eng`` gives its first token, that
+    token's logits (f32) and the K/V of its prompt as the sequence's pages
+    hold them at that moment ([L, P, Hkv, hd] each), by request id."""
+    calls, seen = ("prefill_with_state", "prefill_suffix",
+                   "prefill_chunk"), {}
+    out = {}
+    for name in calls:
+        def rec(*a, _orig=getattr(model, name), **k):
+            res = _orig(*a, **k)
+            seen["logits"] = res[0] if isinstance(res, tuple) else res
+            return res
+        setattr(model, name, rec)        # shadows the method
+    first_token = eng._first_token
+
+    def rec_first(req, tok):
+        rid, P, page = req.req_id, len(req.tokens), eng.page_tokens
+        row = eng.slot_of[rid] if eng.chunk_tokens else 0
+        rows = torch.from_numpy(
+            eng.binding.row_table(rid)[:-(-P // page)]).to(eng.device)
+        plane = eng.binding.plane
+        out[rid] = dict(
+            logits=seen["logits"][row].float().clone(),
+            **{n: t[:, rows].flatten(1, 2)[:, :P].clone()
+               for n, t in (("k", plane.k), ("v", plane.v))})
+        first_token(req, tok)
+    eng._first_token = rec_first
+    try:
+        yield out
+    finally:
+        for name in calls:
+            delattr(model, name)
+
+
+def run_workflow(torch, model, flow, *, device, chunk, prefix, rows=None,
+                 profile=False, fault=None):
+    """Stage 0 alone to its end, then stages 1-7 together, on a fresh
+    engine (``max_slots=8, s_max=2048, page 16``, horizon 8); ``fault``,
+    if given, is called with the engine between the two parts. Returns the
+    engine, the finished requests by id, each request's first token's
+    logits and prompt K/V (``first_tokens``), and per step of the second
+    part (wall seconds, prefill tokens, decode tokens); with ``profile``,
+    the second part only runs until every stage has its first token,
+    under the profiler, and its device time by kernel is returned instead
+    of the steps, with nothing recorded."""
+    from repro_torch.core.runtime.accounting import MemoryAccountant
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.kv_arena import KVArena
+
+    page = MAIN["page_tokens"]
+    arena = (KVArena(page, init_rows=rows, device=device) if rows
+             else None)
+    eng = Engine(model, MemoryAccountant(m_total=60e9),
+                 max_slots=MAIN["max_slots"], s_max=MAIN["s_max"],
+                 page_tokens=page, arena=arena, prefix_cache=prefix,
+                 prefill_chunk_tokens=chunk,
+                 decode_horizon=MAIN["decode_horizon"], device=device)
+    n_new = MAIN["max_new"]
+    if profile:
+        first = {}
+        recorder = contextlib.nullcontext(first)
+    else:
+        recorder = first_tokens(torch, model, eng)
+    with recorder as first:
+        eng.submit(Request(req_id=0, tokens=list(flow[0]), max_new=n_new))
+        done = {r.req_id: r for r in eng.drain()}
+        if fault is not None:
+            fault(eng)
+        for i, p in enumerate(flow[1:], 1):
+            eng.submit(Request(req_id=i, tokens=list(p), max_new=n_new))
+        if profile:
+            prof = profile_steps(torch, eng, lambda: any(
+                not r.out for r in list(eng.active.values())
+                + list(eng.waiting)))
+            for rid in list(eng.active):
+                eng.evict(rid)
+            return eng, done, first, prof
+        steps = []
+        while eng.waiting or eng.active:
+            pre, dec = eng.stat_prefill_tokens, eng.stat_decode_tokens
+            t0 = time.perf_counter()
+            eng.step()
+            if device != "cpu":
+                torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0,
+                          eng.stat_prefill_tokens - pre,
+                          eng.stat_decode_tokens - dec))
+            require(len(steps) < 10_000, "engine stalled")
+    done.update({r.req_id: r for r in eng.finished})
+    require(eng.arena.mapped_pages() == 0 and eng.arena.check_mirror(),
+            "KV pages leaked or the arena's mirror broke")
+    return eng, done, first, steps
+
+
+def phase_prefix_reference(torch, args):
+    """Reduced qwen3-8b (f32) with the prefix cache on, chunked (256) and
+    monolithic, horizon 8, the workflow at the reduced vocabulary: the
+    card and the CPU must give identical tokens, hits and counters
+    (matching is host-side: tokens and page size alone decide it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, init_params
+
+    cfg = get_config(MAIN["model"]).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(args.seed), "cpu")
+    flow, matched = workflow(np.random.default_rng(args.seed + 3), cfg.vocab)
+    for chunk in (MAIN["prefill_chunk_tokens"], 0):
+        out = {}
+        for device in ("cpu", "cuda"):
+            model = build_model(cfg, params, device=device)
+            ops.reset_counts()
+            eng, done, _, _ = run_workflow(torch, model, flow,
+                                           device=device, chunk=chunk,
+                                           prefix=True)
+            out[device] = dict(
+                tokens={i: r.out for i, r in done.items()},
+                prefill_avoided=[done[i].prefill_avoided
+                                 for i in sorted(done)],
+                pages_aliased=eng.arena.pages_aliased,
+                cow_copies=eng.arena.cow_copies,
+                check_mirror=eng.arena.check_mirror())
+            launches = launch_counts()
+        cpu, card = out["cpu"], out["cuda"]
+        require(card == cpu, f"reduced prefix path (chunk {chunk}): the "
+                f"card differs from the CPU")
+        require(cpu["prefill_avoided"] == matched,
+                f"prefill avoided {cpu['prefill_avoided']}, not {matched}")
+        require(not any(ops.plain_calls.values()),
+                "a plain version ran on the card")
+        require(launches["chunk_prefill_attention"] > 0
+                and launches["paged_attention"] > 0,
+                f"reduced prefix path launches {launches}")
+        emit("prefix_reference", model=cfg.name, prefill_chunk_tokens=chunk,
+             identical_tokens=True,
+             **{k: card[k] for k in ("prefill_avoided", "pages_aliased",
+                                     "cow_copies", "check_mirror")},
+             launches={k: n for k, n in launches.items() if n})
+
+
+# limits of a hit stage's cache-on run against its cache-off run, each
+# scaled to the cache-off values' magnitude: the first token's logits, and
+# every page of the cached prefix (positions below the match) as the
+# sequence reads it. The monolithic cache-on run is repeated once with
+# the pinned row of context page FAULT_PAGE overwritten by the next
+# page's K/V (a stale page), which both checks must flag, the page check
+# on that page alone. On the H100 the sound runs read at most 1.8e-2
+# (logits; a 17-row suffix through other GEMM shapes) and 0 (pages); the
+# stale page 0.14-0.18 (logits) and 1.4 (its page)
+LOGITS_LIMIT, KV_LIMIT, FAULT_PAGE = 0.05, 0.1, 32
+
+
+def hit_errors(torch, off, on, matched, hit):
+    """Per hit stage, the cache-on run's first-token logits and cached
+    prefix pages against the cache-off run's (``first_tokens``): the
+    logits' largest error and each page's, scaled to the magnitude of the
+    cache-off logits and K/V (per K and V), and the pages over
+    ``KV_LIMIT``."""
+    page = MAIN["page_tokens"]
+    out = dict(logits={}, kv={}, pages_over={})
+    for i in hit:
+        a, b, M = off[i], on[i], matched[i]
+        out["logits"][i] = float((b["logits"] - a["logits"]).abs().max()
+                                 / a["logits"].abs().max())
+        err = torch.zeros(-(-M // page), device=a["k"].device)
+        for n in ("k", "v"):
+            want = a[n][:, :M].float()
+            d = (b[n][:, :M].float() - want).abs().amax(dim=(0, 2, 3))
+            d = torch.nn.functional.pad(d, (0, err.numel() * page - M))
+            err = torch.maximum(err, d.view(-1, page).amax(1)
+                                / want.abs().max())
+        out["kv"][i] = float(err.max())
+        out["pages_over"][i] = [int(j) for j in
+                                torch.nonzero(err > KV_LIMIT).flatten()]
+    return out
+
+
+def stale_page(flow):
+    """A fault for ``run_workflow``: the pinned row of stage 0's context
+    page ``FAULT_PAGE`` takes the next page's K/V, in every layer."""
+    from repro_torch.serving.prefix_cache import page_digests
+
+    def fault(eng):
+        digs = page_digests(flow[0], eng.page_tokens, eng._pc_ns)
+        dst, src = (eng._pc.entries[digs[j]].row
+                    for j in (FAULT_PAGE, FAULT_PAGE + 1))
+        plane = eng.binding.plane
+        plane.k[:, dst] = plane.k[:, src]
+        plane.v[:, dst] = plane.v[:, src]
+    return fault
+
+
+def phase_prefix(torch, model, flow, matched):
+    """Full-width qwen3-8b serving the workflow, chunked (256) and
+    monolithic, with the prefix cache off and on. The hit stages' suffixes
+    run the chunk kernel (monolithic: one call per layer and stage, all
+    wgmma), their decode the paged kernel over aliased rows. Each hit
+    stage's first-token logits and cached prefix pages must agree with the
+    cache-off run's; a planted stale page must be caught."""
+    from repro_torch.kernels import ops
+
+    rows = 2 * (MAIN["max_slots"] * -(-MAIN["s_max"] // MAIN["page_tokens"])
+                + 1)                              # live rows + the pins
+    hit = list(range(1, len(flow)))
+    prompt_tokens = sum(len(p) for p in flow)
+    result, launches_on = {}, {}
+    for chunk in (MAIN["prefill_chunk_tokens"], 0):
+        mode = "chunked" if chunk else "monolithic"
+        runs = {}
+        for prefix in (False, True):
+            reset_peak(torch)
+            ops.reset_counts()
+            eng, done, first, _ = run_workflow(torch, model, flow,
+                                               device="cuda", chunk=chunk,
+                                               prefix=prefix, rows=rows)
+            launches = launch_counts()
+            variants = variant_counts()
+            plain = dict(ops.plain_calls)
+            require(not any(plain.values()),
+                    f"a plain version ran on the prefix path: {plain}")
+            for i, r in done.items():
+                require(len(r.out) == MAIN["max_new"] and not r.truncated
+                        and all(0 <= t < model.vocab_padded for t in r.out),
+                        f"prefix path request {i}: {len(r.out)} tokens")
+            _, _, _, prof = run_workflow(torch, model, flow, device="cuda",
+                                         chunk=chunk, prefix=prefix,
+                                         rows=rows, profile=True)
+            runs[prefix] = dict(
+                eng=eng, done=done, first=first, launches=launches,
+                variants=variants, plain=plain, profile=prof,
+                ttft=statistics.median(done[i].ttft_s for i in hit))
+            del eng
+        off, on = runs[False], runs[True]
+        avoided = [on["done"][i].prefill_avoided for i in sorted(on["done"])]
+        require(avoided == matched,
+                f"{mode}: prefill avoided {avoided}, not {matched}")
+        require(all(r.prefill_avoided == 0 for r in off["done"].values()),
+                f"{mode}: the cache-off run avoided prefill")
+        eng = on["eng"]
+        require(eng.arena.cow_copies >= 1 and eng.arena.pages_aliased > 0,
+                f"{mode}: cow_copies {eng.arena.cow_copies}, pages_aliased "
+                f"{eng.arena.pages_aliased}")
+        lo = on["launches"]
+        require(lo["chunk_prefill_attention"] > 0 and lo["paged_attention"]
+                > 0, f"{mode}: a kernel of the prefix path never ran: {lo}")
+        require_all_wgmma("chunk_prefill_attention",
+                          lo["chunk_prefill_attention"],
+                          on["variants"]["chunk_prefill_attention"])
+        first_diff = {}
+        for i in hit:
+            a, b = off["done"][i].out, on["done"][i].out
+            first_diff[i] = next((j for j, (x, y) in enumerate(zip(a, b))
+                                  if x != y), None)
+        entry = dict(
+            prompt_tokens=prompt_tokens, prefill_avoided=sum(avoided),
+            prefill_avoided_share=sum(avoided) / prompt_tokens,
+            prefill_avoided_by_stage=avoided,
+            pages_aliased=eng.arena.pages_aliased,
+            cow_copies=eng.arena.cow_copies,
+            prefix_stats=eng._pc.stats(),
+            check_mirror_after_drain=eng.arena.check_mirror(),
+            ttft_median_hit_stages_s=dict(off=off["ttft"], on=on["ttft"]),
+            hit_prefill_device_ms=dict(
+                off=off["profile"]["device_busy_ms"],
+                on=on["profile"]["device_busy_ms"]),
+            hit_prefill_wall_ms=dict(off=off["profile"]["wall_ms"],
+                                     on=on["profile"]["wall_ms"]),
+            hit_prefill_steps=dict(off=off["profile"]["steps"],
+                                   on=on["profile"]["steps"]),
+            launches=dict(off=off["launches"], on=on["launches"]),
+            launches_by_variant=dict(off=off["variants"],
+                                     on=on["variants"]),
+            plain_calls=on["plain"],
+            first_differing_token=first_diff,
+            identical_tokens=all(v is None for v in first_diff.values()),
+            profile_top_on=on["profile"]["top"])
+        errs = hit_errors(torch, off["first"], on["first"], matched, hit)
+        entry.update(first_logits_scaled_err=dict(
+            max=max(errs["logits"].values()), by_stage=errs["logits"]),
+            prefix_kv_scaled_err=dict(max=max(errs["kv"].values()),
+                                      by_stage=errs["kv"]),
+            limits=dict(logits=LOGITS_LIMIT, kv=KV_LIMIT))
+        require(max(errs["kv"].values()) <= KV_LIMIT,
+                f"{mode}: cached prefix pages differ from the cache-off "
+                f"run's: {errs['kv']}, pages {errs['pages_over']}")
+        require(max(errs["logits"].values()) <= LOGITS_LIMIT,
+                f"{mode}: hit-stage first-token logits differ by "
+                f"{errs['logits']} of their magnitude")
+        if not chunk:
+            reset_peak(torch)
+            _, _, bad, _ = run_workflow(torch, model, flow, device="cuda",
+                                        chunk=chunk, prefix=True, rows=rows,
+                                        fault=stale_page(flow))
+            caught = hit_errors(torch, off["first"], bad, matched, hit)
+            entry["planted_stale_page"] = dict(
+                page=FAULT_PAGE, pages_over=caught["pages_over"],
+                prefix_kv_scaled_err=caught["kv"],
+                first_logits_scaled_err=caught["logits"])
+            require(all(p == [FAULT_PAGE]
+                        for p in caught["pages_over"].values()),
+                    f"the planted stale page {FAULT_PAGE} was not caught "
+                    f"alone: {caught['pages_over']}")
+            require(min(caught["logits"].values()) > LOGITS_LIMIT,
+                    f"the planted stale page moved the first-token logits "
+                    f"only {caught['logits']}: the logits limit "
+                    f"{LOGITS_LIMIT} would pass it")
+            del bad
+            n_hits, L = len(hit), model.cfg.n_layers
+            require(lo["chunk_prefill_attention"] == L * n_hits,
+                    f"monolithic hits: chunk launched "
+                    f"{lo['chunk_prefill_attention']}, not {L * n_hits}")
+            require(lo["flash_attention"] == L,
+                    f"monolithic hits: flash launched "
+                    f"{lo['flash_attention']}, not {L} (stage 0 only)")
+        result[mode] = entry
+        launches_on[mode] = lo
+        emit("prefix", model=model.cfg.name, mode=mode,
+             config=dict(max_slots=MAIN["max_slots"], s_max=MAIN["s_max"],
+                         page_tokens=MAIN["page_tokens"],
+                         prefill_chunk_tokens=chunk,
+                         decode_horizon=MAIN["decode_horizon"],
+                         max_new=MAIN["max_new"], workflow=WORKFLOW),
+             prompt_lens=[len(p) for p in flow], **entry)
+        del runs, off, on, eng
+    reset_peak(torch)
+    return launches_on
+
+
+# -------------------------------------------------------------------- node
+NODE = dict(hbm_budget=24e9, max_slots=8, s_max=2048, page_tokens=16,
+            prefill_chunk_tokens=256, decode_horizon=8, requests=4)
+
+
+def h2d_rate(torch, n_bytes: int = 1 << 30, reps: int = 5) -> float:
+    """Pinned host-to-device copy rate in GB/s (median of ``reps`` copies of
+    ``n_bytes``, CUDA events)."""
+    src = torch.empty(n_bytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(n_bytes, dtype=torch.uint8, device="cuda")
+    dst.copy_(src, non_blocking=True)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dst.copy_(src, non_blocking=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    return n_bytes / statistics.median(times) / 1e9
+
+
+def phase_node(torch, qwen, mamba, flow):
+    """A NodeRuntime on the card co-locating the full-width qwen3-8b and
+    mamba2-2.7b under a 24 GB budget, whose GPU tier (0.8 of it) holds
+    either model's weights but not both: a qwen3 batch, a mamba2 batch
+    (which puts qwen3 to sleep), then qwen3 again (which puts mamba2 to
+    sleep and brings qwen3 back from pinned host memory). Each activation's
+    measured seconds stand beside the residency model's prediction, each
+    offload's drop in allocated device memory beside the weight bytes the
+    accountant let go."""
+    from repro_torch.core.runtime.residency import RETRACE_COST_S
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.node_runtime import NodeRuntime
+
+    q, m = MAIN["model"], SSM_MODEL
+    reset_peak(torch)                 # the earlier phases' arenas go first
+    models = {q: qwen, m: mamba}
+    weight_bytes = {n: sum(p.nbytes for p in mdl.parameters())
+                    for n, mdl in models.items()}
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    host = {n: mdl.param_tree() for n, mdl in models.items()}
+    node = NodeRuntime(0, 0, dict(models), host, device="cuda",
+                       prefix_cache=True,
+                       **{k: v for k, v in NODE.items() if k != "requests"})
+    del host
+    torch.cuda.synchronize()
+    build = dict(seconds=time.perf_counter() - t0,
+                 freed=allocated - torch.cuda.memory_allocated(),
+                 weight_bytes=sum(weight_bytes.values()),
+                 host_pinned=all(t.is_pinned() for w in
+                                 node.host_params.values()
+                                 for t in w.values()))
+    require(build["host_pinned"], "the host tier is not pinned")
+    require(build["freed"] >= 0.95 * build["weight_bytes"],
+            f"building the node freed {build['freed']} of "
+            f"{build['weight_bytes']} weight bytes")
+    require(all(node.profiles[n].weight_bytes == weight_bytes[n]
+                for n in models), "profiled weight bytes differ from the "
+            "models' own")
+
+    offloads = []
+    offload = node._offload
+
+    def measured_offload(name):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        dropped = node.acc.weights.get(name, 0.0)
+        offload(name)
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        offloads.append(dict(model=name, accountant_weight_bytes=dropped,
+                             allocated_before=before, allocated_after=after,
+                             freed=before - after,
+                             freed_share=(before - after) / dropped
+                             if dropped else None,
+                             seconds=time.perf_counter() - t0))
+    node._offload = measured_offload
+
+    activations = []
+
+    def activate(name):
+        """``node.activate``'s seconds, and the same without the offloads
+        it ran (with this measurement): the model's own activation, which
+        ``t_act`` predicts."""
+        state = node.residency.state[name].value
+        predicted = node.t_act(name)
+        n0 = len(offloads)
+        seconds = node.activate(name)
+        offload_s = sum(o["seconds"] for o in offloads[n0:])
+        own = seconds - offload_s
+        activations.append(dict(
+            model=name, state_before=state, predicted_s=predicted,
+            measured_s=own, with_offloads_s=seconds, offloads_s=offload_s,
+            weight_bytes=weight_bytes[name],
+            weights_gb_per_s=weight_bytes[name] / own / 1e9))
+
+    def serve_batch(name, prompts, rid0):
+        """The first prompt to its end, then the others together."""
+        out = {}
+        for part, i0 in ((prompts[:1], rid0), (prompts[1:], rid0 + 1)):
+            for i, p in enumerate(part, i0):
+                node.submit(name, Request(req_id=i, tokens=list(p),
+                                          max_new=MAIN["max_new"]))
+            for _ in range(10_000):
+                if not node.has_work():
+                    break
+                for reqs in node.step().values():
+                    out.update({r.req_id: r.out for r in reqs})
+            require(not node.has_work(), f"{name}: the node stalled")
+        require(len(out) == len(prompts) and all(
+            len(o) == MAIN["max_new"] for o in out.values()),
+            f"{name}: {len(out)} of {len(prompts)} requests finished")
+        return out
+
+    n = NODE["requests"]
+    q_prompts = flow[:n]
+    m_prompts = [[t % mamba.cfg.vocab for t in p] for p in flow[n:2 * n]]
+    ops.reset_counts()
+    t_path = time.perf_counter()
+    activate(q)                                   # cold: from host memory
+    first = serve_batch(q, q_prompts, 0)
+    # Algorithm 2's level 0: room for a request that fits once about half
+    # the prefix pins go must come from the index, with no model asleep
+    idx = node.arena.prefix_index
+    pinned, entries = node.acc.ctx["prefix-cache"], len(idx.entries)
+    states = {k: s.value for k, s in node.residency.state.items()}
+    need = node.acc.headroom + pinned / 2
+    node.make_room(need)
+    make_room = dict(r_need=need, pinned_before=pinned,
+                     entries_before=entries, entries_after=len(idx.entries),
+                     pinned_after=node.acc.ctx.get("prefix-cache", 0.0),
+                     states_before=states,
+                     states_after={k: s.value for k, s in
+                                   node.residency.state.items()},
+                     fits=node.acc.can_admit(need))
+    require(make_room["entries_after"] < entries and make_room["fits"]
+            and make_room["states_after"] == states,
+            f"make_room did not trim prefix pins first: {make_room}")
+    activate(m)                                   # qwen3 goes to sleep
+    require(node.residency.state[q].value == "sleeping",
+            f"qwen3 is {node.residency.state[q].value} after mamba2 came")
+    serve_batch(m, m_prompts, 100)
+    activate(q)                                   # mamba2 sleeps, warm qwen3
+    require(node.residency.state[m].value == "sleeping",
+            f"mamba2 is {node.residency.state[m].value} after qwen3 came")
+    again = serve_batch(q, q_prompts, 0)
+    path_s = time.perf_counter() - t_path
+    launches = launch_counts()
+    plain = dict(ops.plain_calls)
+    require(again == first, "qwen3 after a sleep and a reactivation emits "
+            "other tokens")
+    require(not any(plain.values()),
+            f"a plain version ran on the node path: {plain}")
+    for k in ("paged_attention", "chunk_prefill_attention", "ssd_chunk"):
+        require(launches[k] > 0, f"{k} never launched on the node path")
+    require([o["model"] for o in offloads] == [q, m],
+            f"offloads {[o['model'] for o in offloads]}")
+    for o in offloads:
+        require(o["freed_share"] >= 0.95,
+                f"offloading {o['model']} freed {o['freed']} of "
+                f"{o['accountant_weight_bytes']} weight bytes")
+    cold, warm = activations[0]["measured_s"], activations[2]["measured_s"]
+    sig = node.signal()
+    emit("node", models=list(models), config=NODE,
+         hw=dataclasses.asdict(node.profiles[q].hw),
+         build=build, activations=activations, offloads=offloads,
+         h2d_pinned_gb_per_s=h2d_rate(torch),
+         cold_activation_s=cold, warm_activation_s=warm,
+         cold_minus_warm_s=cold - warm, retrace_cost_s_model=RETRACE_COST_S,
+         make_room=make_room,
+         residency_events=[dataclasses.asdict(e)
+                           for e in node.residency.events],
+         residency={k: s.value for k, s in node.residency.state.items()},
+         kv_stats=node.kv_stats(), signal=dataclasses.asdict(sig),
+         launches={k: v for k, v in launches.items() if v},
+         launches_by_variant=variant_counts(), plain_calls=plain,
+         identical_tokens_after_reactivation=True, path_s=path_s,
+         check_mirror=node.arena.check_mirror())
+    return {k: v for k, v in launches.items() if v}
 
 
 def main(argv=None) -> int:
@@ -992,9 +1615,14 @@ def main(argv=None) -> int:
     prompt_lens[-1] = next_prime(prompt_lens[-1])
     prompts = [[int(t) for t in rng.integers(0, vocab, n)]
                for n in prompt_lens]
+    flow, matched = workflow(np.random.default_rng(args.seed + 2), vocab)
+    suffix = int(statistics.median(len(p) - n for p, n in
+                                   zip(flow[1:], matched[1:])))
 
-    checks = phase_kernels(torch, args, prompt_lens)
+    checks = phase_kernels(torch, args, prompt_lens,
+                           (WORKFLOW["context"], suffix))
     phase_reference(torch, args)
+    phase_prefix_reference(torch, args)
     model, launches, variants, tokens_chunked = phase_main(torch, args,
                                                            prompts)
     # the paged kernels' launches are the chunked main path's; flash's the
@@ -1002,9 +1630,14 @@ def main(argv=None) -> int:
     mono, variants["flash_attention"] = phase_dense_monolithic(
         torch, model, prompts, tokens_chunked)
     launches["flash_attention"] = mono["flash_attention"]
-    del model
-    ssm, variants["ssd_chunk"] = phase_ssm_main(torch, args, prompt_lens)
+    prefix = phase_prefix(torch, model, flow, matched)
+    ssm, variants["ssd_chunk"], mamba = phase_ssm_main(torch, args,
+                                                       prompt_lens)
     launches.update(ssm)
+    node = phase_node(torch, model, mamba, flow)
+    del model, mamba
+    by_path = {"prefix_chunked": prefix["chunked"],
+               "prefix_monolithic": prefix["monolithic"], "node": node}
 
     sources = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -1029,7 +1662,10 @@ def main(argv=None) -> int:
             # gathered first, and nothing computes the SSD scan)
             library_ms=c.get("library_ms"),
             # launches on the path by variant; the decode kernel has one
-            variants=variants.get(name)))
+            variants=variants.get(name),
+            # launches on this slice's paths (prefix cache on; the node)
+            launches_by_path={p: n.get(name, 0)
+                              for p, n in by_path.items()}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

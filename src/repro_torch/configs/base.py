@@ -88,6 +88,14 @@ class ArchConfig:
                 total += _ssm_params(self.ssm, d)
         return total + d
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token: all of them (no routed experts in
+        the families the port serves)."""
+        return self.param_count()
+
+    def weight_bytes(self, dtype_bytes: int = 2) -> int:
+        return self.param_count() * dtype_bytes
+
     def kv_bytes_per_token(self, dtype_bytes: int = 2) -> int:
         """alpha(M) of Eq. 3 — per-token KV footprint (ssm: 0, its state
         is O(1))."""

@@ -74,6 +74,20 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.embedding.device
 
+    def param_tree(self) -> Dict[str, Any]:
+        """The weights in the layout the constructor takes (``init_params``'
+        tree), as the parameters' own tensors: no copy."""
+        tree: Dict[str, Any] = {
+            "embed": self.embedding.data, "final_ln": self.final_ln.data,
+            "layers": [{part: {k: p.data for k, p in getattr(blk, part)
+                               .items()}
+                        for part in ("attn", "ffn", "ssm")
+                        if getattr(blk, part) is not None}
+                       for blk in self.layers]}
+        if self.lm_head is not None:
+            tree["lm_head"] = self.lm_head.data
+        return tree
+
     # -------------------------------------------------------------- embedding
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.embedding[tokens.long()]
@@ -150,6 +164,28 @@ class Model(nn.Module):
         x = rms_norm(x, self.final_ln, cfg.norm_eps)
         lanes = torch.arange(tokens.shape[0], device=x.device)
         return self._logits(x[lanes, last_idx.long()])
+
+    def prefill_suffix(self, k_pages, v_pages, tokens, start: int,
+                       block_table, attend) -> torch.Tensor:
+        """Prefill only the unmatched suffix of one prompt whose first
+        ``start`` tokens' K/V already sit in the sequence's pages (a
+        prefix-cache hit): the reference's ``Model.prefill_suffix``, run as
+        one paged chunk of the sequence itself. tokens [1,S] the suffix at
+        positions ``start .. start+S-1``; block_table [1,W] int32 the
+        sequence's row table, whose pages from ``start`` on are private to
+        it. The suffix's K/V is written into those pages (where the
+        reference returns it for the caller to scatter) before ``attend``
+        (``kernels.ops.chunk_prefill_attention``) reads prefix and suffix
+        through the table. Returns the last token's logits [1,Vp] f32."""
+        S = tokens.shape[1]
+        page = k_pages.shape[2]
+        dev = tokens.device
+        pos = torch.arange(start, start + S, dtype=torch.int32,
+                           device=dev)[None]
+        rows = block_table[0].long()[(pos // page).long()].int()
+        return self.prefill_chunk(
+            k_pages, v_pages, tokens, pos, block_table, rows, pos % page,
+            torch.full((1,), S - 1, dtype=torch.int32, device=dev), attend)
 
     # ------------------------------------------------------- paged serving
     @property

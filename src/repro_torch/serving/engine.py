@@ -21,8 +21,17 @@ its recurrent state in a dense per-slot cache instead, registered with the
 accountant, and decodes all ``max_slots`` lanes one token at a time; its
 chunk and horizon knobs degrade to 0 and 1, as the reference's do.
 
-Not ported yet: the prefix cache (``prefix_cache=True`` raises) and the
-hybrid / MoE / cross-attention families.
+With ``prefix_cache`` on, admission matches each prompt against the
+arena's :class:`~repro_torch.serving.prefix_cache.PrefixIndex`: the
+matched pages are aliased into the new sequence (a partially matched page
+is copied on the device first), and prefill starts after them — the
+monolithic path runs the suffix as one paged chunk of the sequence
+(:meth:`Model.prefill_suffix`, the chunk kernel), the chunked path starts
+its first chunk there. A finished prompt publishes its full pages into the
+index. No write ever lands on a shared row: horizon and one-token decode
+writes copy a shared page first.
+
+Not ported yet: the hybrid / MoE / cross-attention families.
 """
 from __future__ import annotations
 
@@ -42,6 +51,9 @@ from repro_torch.core.sched.margins import RhoEstimator
 from repro_torch.kernels import ops
 from repro_torch.models.transformer import Model
 from repro_torch.serving.kv_arena import KVArena
+from repro_torch.serving.prefix_cache import (PrefixCacheConfig,
+                                              PrefixMatch, page_digests,
+                                              root_key)
 
 
 class PromptTooLongError(ValueError):
@@ -64,6 +76,7 @@ class Request:
     out: List[int] = dataclasses.field(default_factory=list)
     eos: Optional[int] = None
     truncated: bool = False               # finished early (KV exhausted)
+    prefill_avoided: int = 0              # prompt tokens served from cache
     submit_s: float = 0.0                 # wall stamp at engine submit
     ttft_s: float = 0.0                   # wall submit -> first kept token
 
@@ -72,14 +85,18 @@ class Engine:
     def __init__(self, model: Model, accountant: MemoryAccountant,
                  max_slots: int = 4, s_max: int = 256,
                  page_tokens: int = 16, arena: Optional[KVArena] = None,
-                 prefix_cache=None,
+                 prefix_cache=None, prefix_ns: Optional[str] = None,
                  max_batch_tokens: Optional[int] = None,
                  prefill_chunk_tokens: int = 0,
                  decode_horizon: int = 1, device=None):
         """``model`` holds its weights (the reference passes ``params``
         beside it). ``arena``: the physical page store (a private one on
         ``device`` is created by default; pass one with ``init_rows`` sized
-        to the peak to avoid plane regrowth). ``prefill_chunk_tokens`` > 0
+        to the peak to avoid plane regrowth). ``prefix_cache``: None/False
+        (off, the default), True, or a :class:`PrefixCacheConfig`; it takes
+        effect only for a model that supports prefix reuse. ``prefix_ns``:
+        the digest namespace of the prefix index (a node passes the serving
+        model name; defaults to the config name). ``prefill_chunk_tokens`` > 0
         switches prefill to fixed-width chunks fused into the decode
         iteration. ``max_batch_tokens``: per-iteration token budget across
         decode positions + prefill chunks (None = unbounded; at least one
@@ -89,9 +106,6 @@ class Engine:
         need every layer's context in paged KV; for a model without it they
         degrade to 0 and 1. ``device``: ``cuda`` unless the caller names
         another; it must be the model's device."""
-        if prefix_cache:
-            raise NotImplementedError(
-                "the prefix cache is not ported to repro_torch yet")
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model is on {model.device}, engine on "
@@ -116,6 +130,15 @@ class Engine:
         self.binding = self.arena.register(
             model.cfg.name, self.pool, s_max=s_max, n_layers=n_layers,
             n_kv_heads=Hkv, head_dim=hd, dtype=kv_dtype)
+        self._pc = None
+        self._pc_ns = prefix_ns or model.cfg.name
+        if prefix_cache:
+            pc_cfg = (prefix_cache if isinstance(prefix_cache,
+                                                 PrefixCacheConfig)
+                      else PrefixCacheConfig())
+            if pc_cfg.enabled and self.paged and model.supports_prefix_reuse:
+                self._pc = self.arena.enable_prefix_cache(accountant, pc_cfg)
+        self._hits: Dict[int, PrefixMatch] = {}
         self.rho = RhoEstimator()
         self.waiting: Deque[Request] = collections.deque()
         self.active: Dict[int, Request] = {}
@@ -180,6 +203,8 @@ class Engine:
                    if (req := self.evict(rid)) is not None]
         self.waiting.extendleft(reversed(evicted))
         self.binding.release_all()
+        if self._pc is not None:       # slept models give back their pins
+            self._pc.flush_model(self._pc_ns)
         if self.cache is not None:
             self.cache = None
             if self._state_bytes:
@@ -211,9 +236,25 @@ class Engine:
             # sequence window (block tables hold ceil(s_max/page) pages)
             need_tokens = min(max(int(need / self.alpha),
                                   len(req.tokens) + 1), self.s_max)
+            hit = alias = None
+            if self._pc is not None:
+                hit = self._prefix_lookup(req)
+                alias = list(hit.rows)
+                if hit.partial_row is not None:
+                    alias.append(hit.partial_row)
+                alias = alias or None
             if not self.binding.alloc_seq(req.req_id, self.model.cfg.name,
-                                          need_tokens):
+                                          need_tokens, alias_rows=alias):
                 break   # memory-infeasible: reject-for-now (backpressure)
+            if hit is not None:
+                # the divergent tail lands mid-page: privatise that page
+                # (copy on the device) before the suffix overwrites it; the
+                # index pin keeps the row shared, so this always copies
+                if (hit.partial_row is not None
+                        and self.binding.make_private(req.req_id,
+                                                      len(hit.rows))):
+                    self._pc.cow_copies += 1
+                self._hits[req.req_id] = hit
             self.waiting.popleft()
             slot = self.free_slots.pop()
             self.slot_of[req.req_id] = slot
@@ -223,6 +264,25 @@ class Engine:
             admitted.append(req)
         return admitted
 
+    def _prefix_lookup(self, req: Request) -> PrefixMatch:
+        """Match the prompt against the prefix index, capped so the final
+        prompt token always runs through prefill (its logits seed
+        decoding)."""
+        digs = page_digests(req.tokens, self.page_tokens, self._pc_ns)
+        m = self._pc.match(self._pc_ns, digs, req.tokens, self.page_tokens)
+        P = len(req.tokens)
+        if m.n_full_tokens >= P:          # whole prompt cached: keep 1 page
+            m.rows.pop()
+            m.n_full_tokens -= self.page_tokens
+            m.partial_row, m.partial_overlap = None, 0
+        if m.partial_row is not None:
+            m.partial_overlap = min(m.partial_overlap,
+                                    P - 1 - m.n_full_tokens)
+            if m.partial_overlap <= 0:
+                m.partial_row, m.partial_overlap = None, 0
+        m.digests = digs
+        return m
+
     # -------------------------------------------------------------- prefill
     def _first_token(self, req: Request, tok: int) -> None:
         req.out.append(tok)
@@ -231,12 +291,29 @@ class Engine:
 
     def _begin_chunked(self, req: Request) -> None:
         """Register a newly admitted request with the chunked-prefill plan:
-        its prompt streams into the arena ``chunk_tokens`` at a time."""
-        self._prefill_pos[req.req_id] = 0
+        its prompt streams into the arena ``chunk_tokens`` at a time,
+        starting after the pages a prefix-cache hit aliased."""
+        hit = self._hits.get(req.req_id)
+        p0 = hit.tokens_matched if hit is not None else 0
+        self._prefill_pos[req.req_id] = p0
+        if p0:
+            req.prefill_avoided = p0
+            self._pc.tokens_avoided += p0
 
-    def _prefill_full(self, req: Request) -> None:
+    def _prefill(self, req: Request) -> None:
+        """Monolithic prefill: of the suffix after a prefix-cache hit, else
+        of the whole prompt; then publish the prompt's full pages."""
         self._ensure_cache()
         slot = self.slot_of[req.req_id]
+        hit = self._hits.pop(req.req_id, None)
+        if hit is not None and hit.tokens_matched > 0:
+            self._prefill_suffix(req, hit, slot)
+        else:
+            self._prefill_full(req, slot)
+        if self._pc is not None:
+            self._index_prompt(req, hit.digests if hit is not None else None)
+
+    def _prefill_full(self, req: Request, slot: int) -> None:
         toks = torch.tensor([req.tokens], dtype=torch.int32,
                             device=self.device)
         logits, k_all, v_all, state = self.model.prefill_with_state(toks)
@@ -250,6 +327,41 @@ class Engine:
         self.positions[slot] = P
         self._tables_dirty = True
         self._first_token(req, int(logits.argmax(dim=-1)[0]))
+
+    def _prefill_suffix(self, req: Request, hit: PrefixMatch,
+                        slot: int) -> None:
+        """Cache-hit prefill: the tokens after the ``M`` matched ones run
+        as one paged chunk of this sequence, reading the aliased prefix
+        pages in place and writing the suffix's K/V behind them."""
+        M = hit.tokens_matched
+        S = len(req.tokens) - M
+        self.stat_prefill_tokens += S
+        toks = torch.tensor([req.tokens[M:]], dtype=torch.int32,
+                            device=self.device)
+        plane = self.binding.plane
+        logits = self.model.prefill_suffix(
+            plane.k, plane.v, toks, M,
+            self._dev(self.binding.row_table(req.req_id)[None]),
+            attend=ops.chunk_prefill_attention)
+        self.positions[slot] = len(req.tokens)
+        self._tables_dirty = True
+        self._first_token(req, int(logits.argmax(dim=-1)[0]))
+        req.prefill_avoided = M
+        self._pc.tokens_avoided += M
+
+    def _index_prompt(self, req: Request, digs=None) -> None:
+        """Publish every full prompt page into the prefix index (pinning its
+        row) so later stages sharing this prefix can alias it."""
+        page = self.page_tokens
+        if digs is None:
+            digs = page_digests(req.tokens, page, self._pc_ns)
+        rows = self.binding.seq_rows(req.req_id)
+        parent = root_key(self._pc_ns)
+        for i, d in enumerate(digs):
+            self._pc.insert(self._pc_ns, d, parent, self.binding.plane,
+                            rows[i], req.tokens[i * page:(i + 1) * page],
+                            n_prefix_tokens=(i + 1) * page)
+            parent = d
 
     def _prefill_chunk_batch(self, rids: List[int]) -> None:
         """One fused chunk forward for the given mid-prefill sequences: each
@@ -297,6 +409,10 @@ class Engine:
             slot = self.slot_of[rid]
             self.positions[slot] = len(req.tokens)
             self._first_token(req, int(nxt[slot]))
+            if self._pc is not None:
+                hit = self._hits.pop(rid, None)
+                self._index_prompt(req, hit.digests if hit is not None
+                                   else None)
 
     # --------------------------------------------------------------- decode
     def step(self) -> List[Request]:
@@ -308,7 +424,7 @@ class Engine:
             if self.chunk_tokens:
                 self._begin_chunked(req)
             else:
-                self._prefill_full(req)
+                self._prefill(req)
         # sequences still streaming their prompt join decode at the NEXT
         # iteration after their final chunk — snapshot the decode set first
         decode_rids = [rid for rid in self.active
@@ -396,6 +512,14 @@ class Engine:
         # covered by pages already granted: record the token high-water
         # mark with the pool (never allocates here, cannot fail)
         self.binding.ensure_tokens(rid, pos + e)
+        if self._pc is not None:
+            # a horizon write must never land on a shared row: privatise
+            # every page the launch will touch before it starts, and point
+            # the persistent device tables at the copies
+            for pidx in range(pos // page, (pos + e - 1) // page + 1):
+                if self.binding.make_private(rid, pidx):
+                    self._pc.cow_copies += 1
+                    self._tables_dirty = True
         return e
 
     def _decode_horizon_batch(self, decode_rids: List[int],
@@ -465,6 +589,10 @@ class Engine:
         for rid in decode_rids:
             slot = self.slot_of[rid]
             pos = int(self.positions[slot])
+            if self._pc is not None and self.binding.make_private(
+                    rid, pos // self.page_tokens):
+                # a decode write must never land on a shared row
+                self._pc.cow_copies += 1
             table = self.binding.row_table(rid)
             bt[slot] = table
             seq_lens[slot] = pos + 1
@@ -507,6 +635,9 @@ class Engine:
             return self.cancel(req_id)
         slot = self.slot_of.pop(req_id)
         self._needs.pop(req_id, None)
+        self._hits.pop(req_id, None)
+        # mid-chunked-prefill eviction drops the streaming cursor too; a
+        # later re-admission restarts the prompt
         self._prefill_pos.pop(req_id, None)
         self.binding.free_seq(req_id)
         self.free_slots.append(slot)

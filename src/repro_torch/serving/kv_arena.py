@@ -12,27 +12,32 @@ rebuilds donated arrays with ``.at[].set``.
 The arena never decides admission: every alloc / grow / free flows through
 the engine's :class:`~repro_torch.core.runtime.kv_pool.VirtualKVPool`, and
 the per-engine :class:`ModelKVBinding` mirrors the pool's page grants 1:1
-onto plane rows (no row is shared until the prefix cache is ported). A
-model with no self-attention layer (pure SSM) gets an accounting-only
-binding: its pool still grants pages, but no plane backs them. Row 0 of
-every plane is the reserved *null row* that idle decode slots and
-chunk pad columns point at; it is never granted.
+onto plane rows. A row may back several mappings at once: a prefix-cache
+hit aliases the rows of a cached prefix (``alloc_seq(alias_rows=)``) and
+the node's :class:`~repro_torch.serving.prefix_cache.PrefixIndex` pins
+them, so each row carries a reference count and a shared row is copied
+on the device before any write lands on it (:meth:`ModelKVBinding.
+make_private`). A model with no self-attention layer (pure SSM) gets an
+accounting-only binding: its pool still grants pages, but no plane backs
+them. Row 0 of every plane is the reserved *null row* that idle decode
+slots and chunk pad columns point at; it is never granted.
 
 Sizing: ``init_rows`` is the initial plane capacity; a full plane doubles
 by copying, so a caller that knows its peak (a full-width model holds
-~2.4 MB per row) passes it up front. Not ported yet: prefix-cache
-aliasing (shared rows, copy-on-write) and the node-level usage metrics.
+~2.4 MB per row) passes it up front.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Set
+from collections import Counter
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import dtype_bytes
 from repro_torch.core.runtime.kv_pool import VirtualKVPool
+from repro_torch.serving.prefix_cache import PrefixCacheConfig, PrefixIndex
 
 NULL_ROW = 0
 
@@ -62,7 +67,7 @@ class ArenaPlane:
         self.k = torch.zeros(self._shape(n), dtype=spec.dtype, device=device)
         self.v = torch.zeros(self._shape(n), dtype=spec.dtype, device=device)
         self.free_rows: List[int] = list(range(n - 1, 0, -1))
-        self.live: Set[int] = set()        # rows granted to a sequence
+        self.refs: Dict[int, int] = {}     # live row -> reference count
 
     def _shape(self, n_rows: int):
         s = self.spec
@@ -76,14 +81,30 @@ class ArenaPlane:
         if not self.free_rows:
             self._grow()
         row = self.free_rows.pop()
-        self.live.add(row)
+        self.refs[row] = 1
         return row
 
+    def share_row(self, row: int) -> None:
+        """Add a reference to a live row (prefix alias or index pin)."""
+        assert row != NULL_ROW and row in self.refs
+        self.refs[row] += 1
+
     def drop_row(self, row: int) -> None:
-        """Return a granted row to the free list."""
+        """Release one reference; the row returns to the free list at zero."""
         assert row != NULL_ROW
-        self.live.remove(row)
-        self.free_rows.append(row)
+        self.refs[row] -= 1
+        if self.refs[row] == 0:
+            del self.refs[row]
+            self.free_rows.append(row)
+
+    def copy_row(self, src: int) -> int:
+        """Copy-on-write: a private copy of a shared row, across every
+        layer, on the device. The take comes first: it may grow the plane,
+        which replaces ``self.k``/``self.v``."""
+        dst = self.take_row()
+        self.k[:, dst] = self.k[:, src]
+        self.v[:, dst] = self.v[:, src]
+        return dst
 
     def _grow(self) -> None:
         """Double capacity by copying into new tensors: callers read
@@ -123,8 +144,9 @@ class ArenaPlane:
 class ModelKVBinding:
     """The 1:1 mirror between one engine's pool grants and arena rows: every
     pool page id maps to exactly one plane row from the moment it is granted
-    until the pool unmaps it (``reclaim``). ``plane`` is None for a model
-    with nothing to page: then no page maps to a row."""
+    until the pool unmaps it (``reclaim``); rows may be shared across
+    mappings (prefix aliases). ``plane`` is None for a model with nothing
+    to page: then no page maps to a row."""
 
     def __init__(self, arena: "KVArena", name: str, pool: VirtualKVPool,
                  plane: Optional[ArenaPlane], n_layers: int, s_max: int):
@@ -137,10 +159,13 @@ class ModelKVBinding:
         self.row_of: Dict[int, int] = {}       # pool page id -> plane row
 
     # -------------------------------------------------------------- grants
-    def alloc_seq(self, seq_id: int, model: str, tokens: int) -> bool:
+    def alloc_seq(self, seq_id: int, model: str, tokens: int,
+                  alias_rows: Optional[List[int]] = None) -> bool:
+        """Grant pages for ``tokens``; the first ``len(alias_rows)`` pages
+        map onto those (cached) rows instead of new ones."""
         if not self.pool.alloc_seq(seq_id, model, tokens):
             return False
-        self._map(seq_id)
+        self._map(seq_id, alias_rows)
         return True
 
     def ensure_tokens(self, seq_id: int, total_tokens: int) -> bool:
@@ -152,12 +177,38 @@ class ModelKVBinding:
             self._map(seq_id)
         return True
 
-    def _map(self, seq_id: int) -> None:
+    def _map(self, seq_id: int,
+             alias_rows: Optional[List[int]] = None) -> None:
+        if self.plane is not None:
+            for i, p in enumerate(self.pool.seqs[seq_id].pages):
+                if p in self.row_of:
+                    continue
+                if alias_rows is not None and i < len(alias_rows):
+                    # prefix-cache hit: share the existing row (no alloc)
+                    self.plane.share_row(alias_rows[i])
+                    self.row_of[p] = alias_rows[i]
+                    self.arena.pages_aliased += 1
+                else:
+                    self.row_of[p] = self.plane.take_row()
+        self.arena.note_usage()
+
+    def make_private(self, seq_id: int, page_idx: int) -> bool:
+        """Copy-on-write: give page ``page_idx`` of the sequence a private
+        row if its current row is shared. Returns True when a copy ran."""
         if self.plane is None:
-            return
-        for p in self.pool.seqs[seq_id].pages:
-            if p not in self.row_of:
-                self.row_of[p] = self.plane.take_row()
+            return False
+        pages = self.pool.seqs[seq_id].pages
+        if page_idx >= len(pages):
+            return False
+        p = pages[page_idx]
+        row = self.row_of[p]
+        if self.plane.refs.get(row, 0) <= 1:
+            return False
+        new = self.plane.copy_row(row)
+        self.plane.drop_row(row)
+        self.row_of[p] = new
+        self.arena.cow_copies += 1
+        return True
 
     # --------------------------------------------------------------- frees
     def free_seq(self, seq_id: int) -> None:
@@ -174,6 +225,7 @@ class ModelKVBinding:
                 if row is not None:
                     self.plane.drop_row(row)
         self.pool.reclaim_unmapped()
+        self.arena.note_usage()
 
     def release_all(self) -> None:
         for sid in list(self.pool.seqs):
@@ -206,7 +258,8 @@ class ModelKVBinding:
     def check_mirror(self) -> bool:
         """Every granted page maps to a live non-null row, and nothing else
         is mapped (pages freed to the pool but not yet reclaimed keep
-        theirs)."""
+        theirs). Rows may be shared: their reference counts are reconciled
+        at the arena level."""
         if self.plane is None:
             return not self.row_of
         pages: set = set()
@@ -234,6 +287,24 @@ class KVArena:
         self.device = device
         self.planes: Dict[PlaneSpec, ArenaPlane] = {}
         self.bindings: Dict[str, ModelKVBinding] = {}
+        self.peak_mapped_pages = 0
+        self.peak_mapped_bytes = 0.0
+        self.peak_rows = 0
+        self.prefix_index: Optional[PrefixIndex] = None
+        self.pages_aliased = 0             # pages granted without allocation
+        self.cow_copies = 0                # shared rows privatised on write
+
+    def enable_prefix_cache(self, accountant,
+                            cfg: Optional[PrefixCacheConfig] = None
+                            ) -> PrefixIndex:
+        """Attach (idempotently) the node-wide prefix index to this arena."""
+        if self.prefix_index is None:
+            self.prefix_index = PrefixIndex(self, accountant,
+                                            cfg or PrefixCacheConfig())
+        return self.prefix_index
+
+    def prefix_digest_summary(self) -> Tuple[str, ...]:
+        return self.prefix_index.summary() if self.prefix_index else ()
 
     def register(self, name: str, pool: VirtualKVPool, s_max: int,
                  n_layers: int, n_kv_heads: int, head_dim: int,
@@ -262,21 +333,64 @@ class KVArena:
     def mapped_pages(self) -> int:
         return sum(b.pool.n_pages for b in self.bindings.values())
 
+    def mapped_bytes(self) -> float:
+        return sum(b.pool.n_pages * b.pool.page_bytes
+                   for b in self.bindings.values())
+
     def mapped_rows(self) -> int:
         return sum(len(b.row_of) for b in self.bindings.values())
+
+    def capacity_rows(self) -> int:
+        return sum(p.n_rows - 1 for p in self.planes.values())
+
+    def capacity_bytes(self) -> float:
+        return sum((p.n_rows - 1) * p.spec.row_bytes
+                   for p in self.planes.values())
+
+    def utilization(self) -> float:
+        """Peak mapped rows over allocated plane capacity."""
+        cap = self.capacity_rows()
+        return self.peak_rows / cap if cap else 0.0
+
+    def note_usage(self) -> None:
+        self.peak_mapped_pages = max(self.peak_mapped_pages,
+                                     self.mapped_pages())
+        self.peak_mapped_bytes = max(self.peak_mapped_bytes,
+                                     self.mapped_bytes())
+        self.peak_rows = max(self.peak_rows, self.mapped_rows())
+
+    def stats(self) -> Dict[str, float]:
+        return {
+            "planes": len(self.planes),
+            "page_tokens": self.page_tokens,
+            "mapped_pages": self.mapped_pages(),
+            "mapped_rows": self.mapped_rows(),
+            "capacity_rows": self.capacity_rows(),
+            "capacity_bytes": self.capacity_bytes(),
+            "peak_mapped_pages": self.peak_mapped_pages,
+            "peak_mapped_bytes": self.peak_mapped_bytes,
+            "utilization": round(self.utilization(), 4),
+            "pages_aliased": self.pages_aliased,
+            "cow_copies": self.cow_copies,
+        }
 
     def check_mirror(self) -> bool:
         if not all(b.check_mirror() for b in self.bindings.values()):
             return False
-        # plane level: each live row is mapped exactly once, and live + free
-        # rows exactly tile the plane (minus the null row)
+        # plane level: the refcount of every live row equals its binding
+        # mappings plus prefix-index pins, and live + free rows exactly tile
+        # each plane (minus the null row)
         for plane in self.planes.values():
-            mapped = [r for b in self.bindings.values() if b.plane is plane
-                      for r in b.row_of.values()]
-            if NULL_ROW in mapped or len(set(mapped)) != len(mapped):
+            expect: Counter = Counter()
+            for b in self.bindings.values():
+                if b.plane is plane:
+                    expect.update(b.row_of.values())
+            if self.prefix_index is not None:
+                expect.update(self.prefix_index.row_pins(plane))
+            if NULL_ROW in expect or dict(plane.refs) != dict(expect):
                 return False
-            if set(mapped) != plane.live or plane.live & set(plane.free_rows):
+            if set(plane.free_rows) & set(plane.refs):
                 return False
-            if len(plane.free_rows) + len(plane.live) != plane.n_rows - 1:
+            if len(plane.free_rows) + len(plane.refs) != plane.n_rows - 1:
                 return False
         return True

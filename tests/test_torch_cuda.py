@@ -490,3 +490,139 @@ def test_mamba2_engine_on_the_card_matches_the_cpu(dev):
     assert got == want
     assert ssd.launches == cfg.n_layers * len(prompts)
     assert not any(ops.plain_calls.values())
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 128),
+                                      (torch.float32, 32)])
+@pytest.mark.parametrize("M,C", [(37, 9), (37, 100), (1030, 301)])
+def test_chunk_kernel_reads_a_copied_page_behind_a_ragged_suffix(dev, dtype,
+                                                                 hd, M, C):
+    """A prefix-cache hit on the card: pages aliased from a cached prompt,
+    the partially matched one copied on the device (on a full plane, so the
+    copy grows it), the suffix's K/V scattered from mid-page, then the
+    chunk kernel at B=1 and a ragged C over the sequence's table — against
+    its plain version. Past the suffix the copied page still holds the
+    other prompt's K/V: the causal mask must hide it."""
+    from repro_torch.core.runtime.accounting import MemoryAccountant
+    from repro_torch.core.runtime.kv_pool import VirtualKVPool
+    from repro_torch.serving.kv_arena import KVArena
+
+    page, L, H, Hkv = 16, 2, 8, 2
+    acc = MemoryAccountant(m_total=1e10)
+    arena = KVArena(page, init_rows=4, device=dev)
+    pool = VirtualKVPool(acc, page_bytes=64, page_tokens=page)
+    b = arena.register("m", pool, s_max=2048, n_layers=L, n_kv_heads=Hkv,
+                       head_dim=hd, dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(M + C)
+    n_cached = M // page + 1                  # full pages + the partial one
+    assert b.alloc_seq(0, "m", n_cached * page)
+    plane = b.plane
+    cached = b.seq_rows(0)
+    for t in (plane.k, plane.v):
+        t[:, cached] = torch.randn((L, n_cached, page, Hkv, hd),
+                                   generator=gen, device=dev).to(dtype)
+    assert b.alloc_seq(1, "m", M + C + 1, alias_rows=cached)
+    while plane.free_rows:                    # the copy must grow the plane
+        plane.take_row()
+    rows_before = plane.n_rows
+    assert b.make_private(1, M // page)
+    assert plane.n_rows == 2 * rows_before
+    copy = b.seq_rows(1)[M // page]
+    assert torch.equal(plane.k[:, copy], plane.k[:, cached[-1]])
+    stale = plane.k[:, cached[-1]].clone()
+    table = torch.from_numpy(b.row_table(1)).to(dev)
+    pos = torch.arange(M, M + C, dtype=torch.int32, device=dev)
+    rows = table.long()[(pos // page).long()]
+    layer = 1
+    for t in (plane.k, plane.v):
+        t[layer, rows, (pos % page).long()] = torch.randn(
+            (C, Hkv, hd), generator=gen, device=dev).to(dtype)
+    q = torch.randn((1, C, H, hd), generator=gen, device=dev).to(dtype)
+    cp.launches_by_variant.update(simt=0, wgmma=0)
+    got = cp.chunk_prefill_attention(q, plane.k[layer], plane.v[layer],
+                                     table[None], pos[None])
+    torch.cuda.synchronize()
+    want = ref.chunk_prefill_attention_ref(
+        q.float(), plane.k[layer].float(), plane.v[layer].float(),
+        table[None], pos[None])
+    _close(got, want, dtype)
+    if dtype == torch.bfloat16:
+        assert _row_err(got, want) <= 2e-2
+    assert cp.launches_by_variant[cp.variant(dtype, hd, page)] == 1
+    # the cached prompt's row kept its contents
+    assert torch.equal(plane.k[:, cached[-1]], stale)
+
+
+@pytest.mark.parametrize("chunk,horizon", [(0, 8), (8, 1)])
+def test_prefix_engine_on_the_card_matches_the_cpu(dev, chunk, horizon):
+    """The reduced qwen3-8b with the prefix cache on: the card and the CPU
+    emit identical tokens and identical hit counters on the workflow of
+    ``tests/test_torch_prefix.py``, and the card's suffix prefill runs the
+    chunk kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime.accounting import MemoryAccountant
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, init_params
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = get_config("qwen3-8b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(5)
+    base = [int(t) for t in rng.integers(0, cfg.vocab, 40)]
+    prompts = [base, base[:32] + [3, 1, 4, 1, 5], base[:16] + [9] * 20,
+               base[:20] + [7] * 11, base[:32] + [3, 1, 4, 1, 5]]
+
+    def run(device):
+        model = build_model(cfg, params, device=device)
+        eng = Engine(model, MemoryAccountant(m_total=1e9), max_slots=2,
+                     s_max=64, prefix_cache=True, prefill_chunk_tokens=chunk,
+                     decode_horizon=horizon, device=device)
+        out = {}
+        for i, p in enumerate(prompts):
+            eng.submit(Request(req_id=i, tokens=p, max_new=8))
+            out.update({r.req_id: (r.out, r.prefill_avoided)
+                        for r in eng.drain()})
+        assert eng.arena.check_mirror()
+        return out, (eng.arena.pages_aliased, eng.arena.cow_copies)
+
+    want = run("cpu")
+    ops.reset_counts()
+    got = run("cuda")
+    assert got == want
+    assert [got[0][i][1] for i in range(5)] == [0, 32, 16, 20, 32]
+    assert cp.launches > 0 and pa.launches > 0
+    assert not any(ops.plain_calls.values())
+
+
+def test_offload_and_activation_move_the_weights(dev):
+    """A node on the card: building it drops the models' device copies,
+    activation copies the pinned host tier back (the same bytes), and an
+    offload frees every byte of the weights the accountant drops."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_params
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.node_runtime import NodeRuntime
+
+    cfg = get_config("qwen3-8b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    model = build_model(cfg, params, device=dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    node = NodeRuntime(0, 0, {"q": model}, {"q": model.param_tree()},
+                       hbm_budget=1e9, max_slots=2, s_max=64, device=dev)
+    weight_bytes = node.profiles["q"].weight_bytes
+    assert before - torch.cuda.memory_allocated() >= weight_bytes
+    assert all(t.is_pinned() for t in node.host_params["q"].values())
+    node.activate("q")
+    for n, p in model.named_parameters():
+        assert p.is_cuda and torch.equal(p.cpu(), node.host_params["q"][n])
+    node.submit("q", Request(req_id=0, tokens=[5, 6, 7], max_new=4))
+    while node.has_work():
+        node.step()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    node.sleep("q")
+    freed = before - torch.cuda.memory_allocated()
+    assert freed >= weight_bytes and "q" not in node.acc.weights
+    assert node.activate("q") > 0
+    assert node.engines["q"].model is model and model.device.type == "cuda"

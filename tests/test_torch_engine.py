@@ -7,6 +7,8 @@ request, with monolithic and chunked prefill and decode horizons 1 and 8.
 The evict-mid-horizon page-leak check and the sync counters are replayed
 from ``tests/test_decode_horizon.py``.
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -121,8 +123,13 @@ def test_engine_defaults_to_cuda_and_refuses_the_unported(tiny):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Engine(tiny, acc)
+    # the prefix cache is ported: it attaches an index to the arena
+    eng = Engine(tiny, acc, prefix_cache=True, device="cpu")
+    assert eng._pc is not None and eng.arena.prefix_index is eng._pc
+    # a family the port does not serve yet is refused by the model
+    moe = dataclasses.replace(tiny.cfg, name="moe-smoke", family="moe")
     with pytest.raises(NotImplementedError):
-        Engine(tiny, acc, prefix_cache=True, device="cpu")
+        build_model(moe, device="cpu")
 
 
 def test_arena_churn_keeps_the_mirror_and_growth_keeps_rows():
