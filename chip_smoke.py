@@ -74,7 +74,31 @@ Phases, each printing one JSON line (and failing the run on any error):
                 the residency model's, each offload's drop in allocated
                 memory against the weight bytes dropped (>= 95%), the pinned
                 host-to-device rate, the residency events, ``kv_stats()`` and
-                ``signal()``.
+                ``signal()``;
+11. gateway_reference -- the reduced default zoo (f32) on two nodes in
+                clusters 0 and 1 under the ``ClusterGateway``'s virtual clock,
+                serving a generated trace of 6 jobs under maestro and fcfs,
+                once on the card (hand kernels) and once on the CPU (plain
+                versions) from the same weights: every stage on the same
+                node with the same tokens and the same ready, dispatch,
+                submit and finish times, and the same metrics but the TTFT
+                percentiles;
+12. gateway  -- two ``NodeRuntime``s on the card (clusters 0 and 1), each
+                with full-width qwen3-8b and mamba2-2.7b under a 24 GB budget
+                (GPU tier: either model, not both) over one pinned host copy
+                per model, serving a generated trace of 16 multi-agent jobs
+                (76 stages; the length predictor trained as
+                ``examples/serve_multi_agent.py`` trains it) under the wall
+                clock, by fcfs and then maestro on fresh nodes: every job
+                must finish inside ``max_run_s``, the paged, chunk (wgmma)
+                and SSD (wgmma) kernels launch and no plain version runs;
+                per policy the SLO attainment, the interactive queue delay,
+                latencies, makespan, TTFT, cold starts, each activation's
+                measured seconds beside the ``t_act`` the gateway waited
+                for, each offload's freed memory (>= 95% of the weight
+                bytes), peak memory and launches; then the maestro-vs-fcfs
+                interactive queue delay line ``benchmarks/gateway.py``
+                prints.
 
 Each serving path zeroes the launch counts just before it runs and reads
 them just after: every kernel of that path must have launched and no plain
@@ -356,16 +380,82 @@ def check_flash(torch, gen, prompt_lens):
                     causal_lens=list(prompt_lens), cross=[300, S]))
 
 
+def ssd_inputs(torch, gen, S, h, p, n, dtype):
+    """One sequence's SSD inputs: x, B and C in ``dtype``, dt and A in
+    f32."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    return (rnd(1, S, h, p).to(dtype),
+            torch.nn.functional.softplus(rnd(1, S, h)),
+            -torch.exp(rnd(h) * 0.3),
+            rnd(1, S, h, n).to(dtype), rnd(1, S, h, n).to(dtype))
+
+
+def scaled_err(got, want) -> float:
+    """The largest error over the largest magnitude."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def head_scaled_err(got, want) -> float:
+    """The largest error of a head over that head's magnitude ([B, S, H,
+    P])."""
+    diff = (got.float() - want.float()).abs().amax(dim=(0, 1, 3))
+    mag = want.float().abs().amax(dim=(0, 1, 3)).clamp_min(1e-30)
+    return float((diff / mag).max())
+
+
+def ssd_errors(torch, gen, lens, where: str) -> dict:
+    """The SSD kernel against its plain version at mamba2-2.7b's heads, one
+    bf16 call (B = 1) per length in ``lens``: y and the final state, each
+    held by its largest error over its largest magnitude (1e-2 for the bf16
+    y, one rounding; 1e-4 for the f32 state, sums in another order over
+    other chunk lengths), y also by each head's error over that head's
+    magnitude (1e-2), so a dropped chunk cannot hide behind one large
+    head."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk as ssd
+
+    cfg = get_config(SSM_MODEL)
+    s = cfg.ssm
+    H, P, N = s.n_heads(cfg.d_model), s.head_dim, s.d_state
+    y_errs, head_errs, st_errs, abs_errs = [], [], [], []
+    for S in lens:
+        args = ssd_inputs(torch, gen, S, H, P, N, torch.bfloat16)
+        y, st = ssd.ssd_chunk(*args, s.chunk)
+        y_ref, st_ref = ref.ssd_chunk_scan(*args, s.chunk)
+        y_errs.append(scaled_err(y, y_ref))
+        head_errs.append(head_scaled_err(y, y_ref))
+        st_errs.append(scaled_err(st, st_ref))
+        abs_errs.append(float((y.float() - y_ref.float()).abs().max()))
+    require(max(y_errs) <= 1e-2 and max(st_errs) <= 1e-4,
+            f"ssd_chunk bf16 at the {where}'s lengths {list(lens)}: scaled "
+            f"errors y {y_errs} state {st_errs}")
+    # bf16 rounding of y gives up to 2^-7 of a head's magnitude; a chunk
+    # dropped or misplaced gives the size of that chunk's share of y
+    require(max(head_errs) <= 1e-2,
+            f"ssd_chunk bf16 at the {where}'s lengths {list(lens)}: "
+            f"per-head y errors {head_errs}")
+    return dict(max_abs_err=max(abs_errs), y_scaled_err=max(y_errs),
+                y_head_scaled_err=max(head_errs),
+                state_scaled_err=max(st_errs))
+
+
+def chunk_errors(got, want) -> tuple:
+    """The chunk kernel's largest error, and each row's error over that
+    row's magnitude (the rounding of P and of the output gives about 5e-3,
+    a dropped or misplaced 64-key tile tenths); ``want`` is f32."""
+    diff = (got.float() - want).abs()
+    row = (diff.amax(-1) / want.abs().amax(-1).clamp_min(1e-30)).max()
+    return float(diff.max()), float(row)
+
+
 def check_ssd(torch, gen, prompt_lens):
     """The SSD kernel against its plain version at mamba2-2.7b's heads, one
-    call per prompt length as each prefill makes it (bf16 x/B/C, f32
-    dt/A), through its wgmma variant: y and the final state, each held by
-    its largest error over its largest magnitude (1e-2 for the bf16 y, one
-    rounding; 1e-4 for the f32 state, sums in another order over other
-    chunk lengths), y also by each head's error over that head's magnitude
-    (1e-2), so a dropped chunk cannot hide behind one large head; an f32
-    case at a small, prime length through the simt variant; then timed at
-    the longest prompt."""
+    call per prompt length as each prefill makes it, through its wgmma
+    variant (:func:`ssd_errors`); an f32 case at a small, prime length
+    through the simt variant; then timed at the longest prompt."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd_chunk as ssd
@@ -374,58 +464,23 @@ def check_ssd(torch, gen, prompt_lens):
     s = cfg.ssm
     H, P, N = s.n_heads(cfg.d_model), s.head_dim, s.d_state
 
-    def inputs(S, h, p, n, dtype):
-        def rnd(*shape):
-            return torch.randn(shape, generator=gen, device="cuda")
-        return (rnd(1, S, h, p).to(dtype),
-                torch.nn.functional.softplus(rnd(1, S, h)),
-                -torch.exp(rnd(h) * 0.3),
-                rnd(1, S, h, n).to(dtype), rnd(1, S, h, n).to(dtype))
-
-    def scaled(got, want):
-        return float((got.float() - want.float()).abs().max()
-                     / want.float().abs().max())
-
-    def per_head(got, want):
-        """The largest error of a head over that head's magnitude."""
-        diff = (got.float() - want.float()).abs().amax(dim=(0, 1, 3))
-        mag = want.float().abs().amax(dim=(0, 1, 3)).clamp_min(1e-30)
-        return float((diff / mag).max())
-
     ops.reset_counts()
-    y_errs, head_errs, st_errs, abs_errs = [], [], [], []
-    for S in prompt_lens:
-        args = inputs(S, H, P, N, torch.bfloat16)
-        y, st = ssd.ssd_chunk(*args, s.chunk)
-        y_ref, st_ref = ref.ssd_chunk_scan(*args, s.chunk)
-        y_errs.append(scaled(y, y_ref))
-        head_errs.append(per_head(y, y_ref))
-        st_errs.append(scaled(st, st_ref))
-        abs_errs.append(float((y.float() - y_ref.float()).abs().max()))
-    args32 = inputs(67, 4, 16, 16, torch.float32)
+    errs = ssd_errors(torch, gen, prompt_lens, "main path")
+    args32 = ssd_inputs(torch, gen, 67, 4, 16, 16, torch.float32)
     y, st = ssd.ssd_chunk(*args32, 32)
     y_ref, st_ref = ref.ssd_chunk_scan(*args32, 32)
-    err32 = max(scaled(y, y_ref), scaled(st, st_ref))
-    require(max(y_errs) <= 1e-2 and max(st_errs) <= 1e-4,
-            f"ssd_chunk bf16 scaled errors y {y_errs} state {st_errs}")
-    # bf16 rounding of y gives up to 2^-7 of a head's magnitude; a chunk
-    # dropped or misplaced gives the size of that chunk's share of y
-    require(max(head_errs) <= 1e-2,
-            f"ssd_chunk bf16 per-head y errors {head_errs}")
+    err32 = max(scaled_err(y, y_ref), scaled_err(st, st_ref))
     require(err32 <= 1e-4, f"ssd_chunk f32 scaled error {err32}")
     checked = dict(ssd.launches_by_variant)
     require(checked == {"wgmma": len(prompt_lens), "simt": 1},
             f"ssd_chunk variants of the checks: {checked}")
     S = max(prompt_lens)
-    args = inputs(S, H, P, N, torch.bfloat16)
+    args = ssd_inputs(torch, gen, S, H, P, N, torch.bfloat16)
     n_bytes, n_flops = ssd_cost(S, H, P, N, min(s.chunk, ssd.MAX_CHUNK), 2)
     b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
     return dict(
         variant=ssd.variant(torch.bfloat16, N, P, s.chunk),
-        check_launches_by_variant=checked,
-        max_abs_err=max(abs_errs), y_scaled_err=max(y_errs),
-        y_head_scaled_err=max(head_errs),
-        state_scaled_err=max(st_errs), scaled_err_f32=err32,
+        check_launches_by_variant=checked, **errs, scaled_err_f32=err32,
         **kernel_times(lambda: ssd.ssd_chunk(*args, s.chunk)),
         plain_ms=time_ms(lambda: ref.ssd_chunk_scan(*args, s.chunk), reps=3,
                          warmup=1),
@@ -437,10 +492,83 @@ def check_ssd(torch, gen, prompt_lens):
                                 if n == next_prime(n)]))
 
 
-def phase_kernels(torch, args, prompt_lens, suffix_shape):
+def check_gateway_shapes(torch, gen, shapes) -> dict:
+    """The paged, chunk and SSD kernels against their plain versions at the
+    shapes the gateway phase's short prompts give them (see
+    :func:`gateway_shapes`), under the main path's limits: paged decode of
+    ``max_slots`` lanes at the trace's sequence lengths, one chunk call of
+    ``max_slots`` lanes whose valid rows start at position 0, and mamba2's
+    whole-prompt SSD prefills. Each check reports the variant it took; the
+    bf16 chunk and SSD calls must take ``wgmma``, as on the path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import chunk_prefill as cp
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_chunk as ssd
+
+    cfg = get_config(MAIN["model"])
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    page = 16       # NodeRuntime's default, which the gateway's nodes keep
+    C = GATEWAY["prefill_chunk_tokens"]
+    W = -(-GATEWAY["s_max"] // page)
+    n_rows = GATEWAY["max_slots"] * W + 1
+    bf16 = torch.bfloat16
+    out = {}
+
+    def taken(mod):
+        return {k: v for k, v in mod.launches_by_variant.items() if v}
+
+    ops.reset_counts()
+    lens = shapes["decode_lens"]
+    q, kp, vp, bt, sl = paged_inputs(torch, gen, lens, H, Hkv, hd, page, W,
+                                     n_rows, bf16)
+    err = float((pa.paged_attention(q, kp, vp, bt, sl).float()
+                 - ref.paged_attention_ref(q, kp, vp, bt, sl).float())
+                .abs().max())
+    require(err <= 2e-2, f"paged_attention bf16 at the gateway's lengths "
+            f"{lens}: max_abs_err {err} > 2e-2")
+    out["paged_attention"] = dict(
+        seq_lens=lens, max_abs_err=err, launches=pa.launches,
+        split=dict(zip(("n_split", "span"),
+                       pa.split_plan(len(lens), Hkv, W, page))))
+    del q, kp, vp
+
+    lens = shapes["chunk_lens"]
+    pos = chunk_positions(torch, lens, C)
+    q = torch.randn((len(lens), C, H, hd), generator=gen,
+                    device="cuda").to(bf16)
+    _, kp, vp, bt, _ = paged_inputs(torch, gen, [1] * len(lens), H, Hkv, hd,
+                                    page, W, n_rows, bf16)
+    got = cp.chunk_prefill_attention(q, kp, vp, bt, pos)
+    want = ref.chunk_prefill_attention_ref(q.float(), kp.float(), vp.float(),
+                                           bt, pos)
+    err, row = chunk_errors(got, want)
+    require(err <= 2e-2 and row <= 2e-2,
+            f"chunk_prefill bf16 at the gateway's prompts {lens}: err {err}, "
+            f"row {row}")
+    out["chunk_prefill_attention"] = dict(
+        valid_rows=lens, C=C, max_abs_err=err, row_scaled_err=row,
+        launches_by_variant=taken(cp))
+    require(out["chunk_prefill_attention"]["launches_by_variant"]
+            == {"wgmma": 1}, f"chunk_prefill at the gateway's prompts: "
+            f"{out['chunk_prefill_attention']['launches_by_variant']}")
+    del q, kp, vp, got, want
+
+    lens = shapes["ssd_lens"]
+    out["ssd_chunk"] = dict(lens=lens, **ssd_errors(torch, gen, lens,
+                                                    "gateway"),
+                            launches_by_variant=taken(ssd))
+    require(out["ssd_chunk"]["launches_by_variant"] == {"wgmma": len(lens)},
+            f"ssd_chunk at the gateway's prompts: "
+            f"{out['ssd_chunk']['launches_by_variant']}")
+    return out
+
+
+def phase_kernels(torch, args, prompt_lens, suffix_shape, gw_shapes):
     """Each kernel against its plain version, then both timed; the chunk
     kernel also at ``suffix_shape`` = (M, C), a prefix-cache hit's suffix
-    of C tokens after M cached ones (B = 1)."""
+    of C tokens after M cached ones (B = 1); the paged, chunk and SSD
+    kernels also at the gateway's shapes (:func:`check_gateway_shapes`)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import chunk_prefill as cp
     from repro_torch.kernels import ops, ref
@@ -510,14 +638,8 @@ def phase_kernels(torch, args, prompt_lens, suffix_shape):
     # on the same bf16-valued inputs
     want = ref.chunk_prefill_attention_ref(q.float(), kp.float(), vp.float(),
                                            bt, pos)
-    diff = (got.float() - want).abs()
-    err = float(diff.max())
+    err, row_err = chunk_errors(got, want)
     require(err <= 2e-2, f"chunk_prefill bf16 max_abs_err {err} > 2e-2")
-    # each row's error over its magnitude, as flash's: the rounding of P and
-    # of the output gives about 5e-3, a dropped or misplaced 64-key tile
-    # tenths
-    row_err = float((diff.amax(-1) / want.abs().amax(-1).clamp_min(1e-30))
-                    .max())
     require(row_err <= 2e-2, f"chunk_prefill bf16 row-scaled err {row_err}")
     pad_finite = bool(torch.isfinite(got).all())
     require(pad_finite, "chunk_prefill output (pad rows included) not finite")
@@ -544,10 +666,7 @@ def phase_kernels(torch, args, prompt_lens, suffix_shape):
     got1 = cp.chunk_prefill_attention(q1, kp1, vp1, bt1, pos1)
     want1 = ref.chunk_prefill_attention_ref(q1.float(), kp1.float(),
                                             vp1.float(), bt1, pos1)
-    diff1 = (got1.float() - want1).abs()
-    err1 = float(diff1.max())
-    row1 = float((diff1.amax(-1) / want1.abs().amax(-1).clamp_min(1e-30))
-                 .max())
+    err1, row1 = chunk_errors(got1, want1)
     require(err1 <= 2e-2 and row1 <= 2e-2,
             f"chunk_prefill at the suffix shape: err {err1}, row {row1}")
     n_bytes, n_flops = chunk_cost(pos1, H, Hkv, hd, W, 2)
@@ -581,6 +700,9 @@ def phase_kernels(torch, args, prompt_lens, suffix_shape):
                         ("ssd_chunk", check_ssd)):
         results[name] = check(torch, gen, prompt_lens)
         emit("kernel_check", name=name, **results[name])
+    for name, got in check_gateway_shapes(torch, gen, gw_shapes).items():
+        results[name]["gateway_shapes"] = got
+        emit("kernel_check_gateway", name=name, **got)
     return results
 
 
@@ -1429,11 +1551,13 @@ def phase_node(torch, qwen, mamba, flow):
     torch.cuda.synchronize()
     allocated = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    host = {n: mdl.param_tree() for n, mdl in models.items()}
+    # one pinned host copy per model: the node keeps these tensors as its
+    # host tier, and the gateway phase's fleet shares them
+    host = {n: pinned_tree(torch, mdl.param_tree())
+            for n, mdl in models.items()}
     node = NodeRuntime(0, 0, dict(models), host, device="cuda",
                        prefix_cache=True,
                        **{k: v for k, v in NODE.items() if k != "requests"})
-    del host
     torch.cuda.synchronize()
     build = dict(seconds=time.perf_counter() - t0,
                  freed=allocated - torch.cuda.memory_allocated(),
@@ -1449,40 +1573,18 @@ def phase_node(torch, qwen, mamba, flow):
                 for n in models), "profiled weight bytes differ from the "
             "models' own")
 
-    offloads = []
-    offload = node._offload
-
-    def measured_offload(name):
-        t0 = time.perf_counter()
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        dropped = node.acc.weights.get(name, 0.0)
-        offload(name)
-        torch.cuda.synchronize()
-        after = torch.cuda.memory_allocated()
-        offloads.append(dict(model=name, accountant_weight_bytes=dropped,
-                             allocated_before=before, allocated_after=after,
-                             freed=before - after,
-                             freed_share=(before - after) / dropped
-                             if dropped else None,
-                             seconds=time.perf_counter() - t0))
-    node._offload = measured_offload
-
     activations = []
 
     def activate(name):
-        """``node.activate``'s seconds, and the same without the offloads
-        it ran (with this measurement): the model's own activation, which
-        ``t_act`` predicts."""
-        state = node.residency.state[name].value
-        predicted = node.t_act(name)
-        n0 = len(offloads)
-        seconds = node.activate(name)
-        offload_s = sum(o["seconds"] for o in offloads[n0:])
-        own = seconds - offload_s
+        """``node.activate``; its record holds the seconds with and
+        without the offloads it ran, the latter the model's own activation,
+        which ``t_act`` predicts."""
+        node.activate(name)
+        a = node.activations[-1]
+        own = a.seconds - a.offload_s
         activations.append(dict(
-            model=name, state_before=state, predicted_s=predicted,
-            measured_s=own, with_offloads_s=seconds, offloads_s=offload_s,
+            model=name, state_before=a.state_before, predicted_s=a.t_act_s,
+            measured_s=own, with_offloads_s=a.seconds, offloads_s=a.offload_s,
             weight_bytes=weight_bytes[name],
             weights_gb_per_s=weight_bytes[name] / own / 1e9))
 
@@ -1545,12 +1647,16 @@ def phase_node(torch, qwen, mamba, flow):
             f"a plain version ran on the node path: {plain}")
     for k in ("paged_attention", "chunk_prefill_attention", "ssd_chunk"):
         require(launches[k] > 0, f"{k} never launched on the node path")
+    require(len(node.activations) == len(activations),
+            f"the node ran {len(node.activations)} activations, "
+            f"{len(activations)} asked for")
+    offloads = offload_rows([node])
     require([o["model"] for o in offloads] == [q, m],
             f"offloads {[o['model'] for o in offloads]}")
     for o in offloads:
-        require(o["freed_share"] >= 0.95,
-                f"offloading {o['model']} freed {o['freed']} of "
-                f"{o['accountant_weight_bytes']} weight bytes")
+        require(o["freed_share"] is not None and o["freed_share"] >= 0.95,
+                f"offloading {o['model']} freed {o['freed_bytes']} of "
+                f"{o['weight_bytes']} weight bytes")
     cold, warm = activations[0]["measured_s"], activations[2]["measured_s"]
     sig = node.signal()
     emit("node", models=list(models), config=NODE,
@@ -1568,7 +1674,404 @@ def phase_node(torch, qwen, mamba, flow):
          launches_by_variant=variant_counts(), plain_calls=plain,
          identical_tokens_after_reactivation=True, path_s=path_s,
          check_mirror=node.arena.check_mirror())
-    return {k: v for k, v in launches.items() if v}
+    return {k: v for k, v in launches.items() if v}, host
+
+
+def offload_rows(fleet) -> list:
+    """Each node's record of its offloads, with the share of the weight
+    bytes the accountant let go that left allocated device memory."""
+    return [dict(node=node.node_id, **dataclasses.asdict(o),
+                 freed_share=(o.freed_bytes / o.weight_bytes
+                              if o.freed_bytes is not None and o.weight_bytes
+                              else None))
+            for node in fleet for o in node.offloads]
+
+
+def pinned_tree(torch, tree):
+    """A copy of a parameter tree in pinned host memory."""
+    if isinstance(tree, dict):
+        return {k: pinned_tree(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [pinned_tree(torch, v) for v in tree]
+    return torch.empty(tree.shape, dtype=tree.dtype,
+                       pin_memory=True).copy_(tree)
+
+
+def tree_tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_tensors(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in tree_tensors(v)]
+    return [tree]
+
+
+# ----------------------------------------------------------------- gateway
+def train_predictor(n_jobs: int = 300, seed: int = 9):
+    """The length predictor trained as ``examples/serve_multi_agent.py``
+    trains it (a recorded trace of 300 jobs, seed 9)."""
+    from repro_torch.core.predictor import MaestroPred, PredictorConfig
+    from repro_torch.core.predictor.gbdt import GBDTConfig
+    from repro_torch.data.tracegen import (generate_trace,
+                                           stratified_temporal_split)
+    train, _ = stratified_temporal_split(generate_trace(n_jobs, seed=seed))
+    cfg = PredictorConfig(
+        cls=GBDTConfig(objective="logloss", n_trees=30, max_leaves=7),
+        reg=GBDTConfig(n_trees=40, max_leaves=15))
+    return MaestroPred(cfg).fit(
+        [s.obs for s in train], np.array([s.true_len for s in train], float),
+        np.array([float(s.tool_call) for s in train]))
+
+
+def gateway_jobs(seed: int):
+    """The gateway phase's traffic: ``generate_trace(16, rate=1.5, seed)``
+    through ``jobs_from_trace`` with token ids below the smallest
+    vocabulary in the fleet (mamba2's 50,280 embedding rows), so any stage
+    can run on either model. Returns the jobs and that vocabulary."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tracegen import generate_trace
+    from repro_torch.serving import cluster
+
+    vocab = min(get_config(n).vocab for n in (MAIN["model"], SSM_MODEL))
+    trace = generate_trace(GATEWAY["jobs"], rate=GATEWAY["rate"], seed=seed)
+    return cluster.jobs_from_trace(
+        trace, vocab=vocab, prompt_cap=GATEWAY["prompt_cap"],
+        gen_cap=GATEWAY["gen_cap"], n_clusters=2, seed=seed), vocab
+
+
+def gateway_shapes(jobs) -> dict:
+    """The kernel shapes the gateway's stages give: ``max_slots`` prompt
+    lengths spread from the shortest to the longest (one chunk call's valid
+    rows), ``max_slots`` sequence lengths from the shortest prompt's first
+    decode token to the longest prompt plus budget (a decode launch's
+    lanes), and the shortest, median and longest prompt, the longest one
+    inside one SSD chunk and one a token short of a chunk (mamba2's
+    whole-prompt prefills)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_chunk import MAX_CHUNK
+
+    lanes = GATEWAY["max_slots"]
+    prompts = sorted(len(s.tokens) for j in jobs for s in j.stages)
+    seqs = sorted({len(s.tokens) + n for j in jobs for s in j.stages
+                   for n in (1, s.max_new)})
+
+    def spread(xs):
+        return [xs[round(i * (len(xs) - 1) / (lanes - 1))]
+                for i in range(lanes)]
+
+    # the scan's chunk as the kernel takes it
+    chunk = min(get_config(SSM_MODEL).ssm.chunk, MAX_CHUNK)
+    inside = [p for p in prompts if p < chunk]
+    # the longest prompt inside one chunk, and one token short of a full
+    # chunk where the prompts reach past it
+    ssd_lens = sorted({prompts[0], prompts[len(prompts) // 2], prompts[-1]}
+                      | set(inside[-1:])
+                      | ({chunk - 1} if prompts[-1] >= chunk else set()))
+    return dict(chunk_lens=spread(prompts), decode_lens=spread(seqs),
+                ssd_lens=ssd_lens)
+
+
+def serve_gateway(torch, fleet, jobs, pred, policy, cfg=None):
+    """One gateway run over ``fleet``. Returns the gateway, its metrics,
+    each stage's (model, tokens, truncated) as the nodes' ``step`` hands
+    its request back, each node's record of its activations beside the
+    ``t_act`` the gateway waited for before submitting the stages each
+    served (from the gateway's telemetry; None where a stage was preempted
+    later, since the telemetry keeps only its last dispatch), and each
+    node's record of its offloads."""
+    from repro_torch.core.topology import DEFAULT_RTT
+    from repro_torch.serving.gateway import ClusterGateway
+
+    gw = ClusterGateway(fleet, DEFAULT_RTT[:2, :2].copy(), predictor=pred,
+                        policy=policy, cfg=cfg)
+    tokens = {}
+    for node in fleet:
+        def step(inner=node.step):
+            out = inner()
+            for model, reqs in out.items():
+                tokens.update({r.req_id: (model, list(r.out), r.truncated)
+                               for r in reqs})
+            return out
+        node.step = step
+    m = gw.run(jobs)
+    events = gw.telemetry.events
+    activations = []
+    for node in fleet:
+        for a in node.activations:
+            waited = [events[i].t_act_s for i in a.req_ids
+                      if i in events and not events[i].preemptions]
+            activations.append(dict(
+                node=node.node_id, **dataclasses.asdict(a),
+                measured_s=a.seconds - a.offload_s,
+                t_act_waited_s=(max(waited) if a.req_ids
+                                and len(waited) == len(a.req_ids)
+                                else None)))
+    return gw, m, tokens, activations, offload_rows(fleet)
+
+
+def stage_rows(gw, tokens):
+    """Per stage: node, tokens, and its ready, dispatch, submit and finish
+    times on the gateway's clock."""
+    return {sid: dict(node=e.node_id, tokens=tokens.get(sid),
+                      ready_t=e.ready_t, dispatch_t=e.dispatch_t,
+                      start_t=e.start_t, finish_t=e.finish_t)
+            for sid, e in gw.telemetry.events.items()}
+
+
+def gateway_state(gw) -> dict:
+    """What holds the unfinished stages: the queue, the stages in flight
+    (node, model, submitted, tokens so far of their budget) and each node's
+    engines (waiting, active), deferred requests and residency."""
+    return dict(
+        queued=sorted(gw._queued),
+        inflight={sid: (r.node_id, r.model, r.submitted, len(r.req.out),
+                        r.stage.max_new) for sid, r in gw.inflight.items()},
+        nodes={nid: dict(engines={k: (len(e.waiting), len(e.active))
+                                  for k, e in n.engines.items()},
+                         deferred={k: len(q) for k, q in n.deferred.items()},
+                         residency={k: v.value for k, v in
+                                    n.residency.state.items()})
+               for nid, n in gw.fleet.items()})
+
+
+# the metrics measured on the host's clock
+WALL_SIDE = ("ttft_p50_s", "ttft_p95_s")
+
+
+def phase_gateway_reference(torch, args, pred):
+    """The reduced default zoo (f32) on two nodes in clusters 0 and 1,
+    under the virtual clock: a small generated trace served under maestro
+    and fcfs with the nodes on the card (the hand kernels' simt variants)
+    and on the CPU (the plain versions), from the same weights. Every
+    stage must run on the same node, emit the same tokens and be ready,
+    dispatched, submitted and finished at the same times, and the metrics
+    must be equal but for the TTFT percentiles (host time)."""
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tracegen import generate_trace
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import cluster
+
+    names = cluster.DEFAULT_ZOO
+    zoo, host = {}, {}
+    for i, n in enumerate(names):
+        cfg = get_config(n).reduced()
+        zoo[n] = types.SimpleNamespace(cfg=cfg)
+        host[n] = init_params(cfg, torch.Generator().manual_seed(
+            args.seed + i), "cpu")
+    knobs = dict(max_slots=2, prefill_chunk_tokens=8, decode_horizon=4)
+    spec = cluster.ClusterSpec(
+        nodes=(cluster.NodeSpec(0, **knobs),
+               cluster.NodeSpec(1, hbm_budget=0.8e9, **knobs)),
+        model_names=names)
+    trace = generate_trace(GATEWAY_REFERENCE["jobs"], rate=2.0,
+                           seed=args.seed)
+    launches = {}
+    for policy in ("maestro", "fcfs"):
+        runs = {}
+        for device in ("cpu", "cuda"):
+            fleet = cluster.build_fleet(spec, zoo=zoo, host=host,
+                                        device=device)
+            jobs = cluster.jobs_from_trace(
+                trace, n_clusters=2, prompt_cap=GATEWAY_REFERENCE["prompt_cap"],
+                gen_cap=GATEWAY_REFERENCE["gen_cap"], seed=args.seed)
+            ops.reset_counts()
+            gw, m, tokens, _, _ = serve_gateway(torch, fleet, jobs, pred,
+                                                policy)
+            runs[device] = (stage_rows(gw, tokens), m.row())
+            if device == "cuda":
+                launches[policy] = {k: n for k, n in launch_counts().items()
+                                    if n}
+                plain = dict(ops.plain_calls)
+            del gw, fleet
+        (cpu_rows, cpu_m), (gpu_rows, gpu_m) = runs["cpu"], runs["cuda"]
+        differ = sorted(s for s in cpu_rows if gpu_rows.get(s) != cpu_rows[s])
+        metrics_differ = sorted(k for k in cpu_m if k not in WALL_SIDE
+                                and gpu_m[k] != cpu_m[k])
+        require(not differ and set(gpu_rows) == set(cpu_rows),
+                f"gateway_reference {policy}: stages {differ} differ "
+                f"between the card and the CPU")
+        require(not metrics_differ, f"gateway_reference {policy}: metrics "
+                f"{metrics_differ} differ between the card and the CPU")
+        require(not any(plain.values()),
+                f"gateway_reference {policy}: a plain version ran on the "
+                f"card: {plain}")
+        require(cpu_m["finished_jobs"] == len(trace),
+                f"gateway_reference {policy}: {cpu_m['finished_jobs']} of "
+                f"{len(trace)} jobs finished")
+        for k in ("paged_attention", "chunk_prefill_attention", "ssd_chunk"):
+            require(launches[policy].get(k, 0) > 0,
+                    f"gateway_reference {policy}: {k} never launched")
+        emit("gateway_reference", policy=policy, models=list(names),
+             jobs=len(trace), stages=len(cpu_rows),
+             identical_stages=len(cpu_rows), identical_metrics=True,
+             finished_jobs=cpu_m["finished_jobs"],
+             makespan_virtual_s=cpu_m["makespan_s"],
+             cold_starts=cpu_m["cold_starts"],
+             preemptions=cpu_m["preemptions"],
+             generated_tokens=cpu_m["generated_tokens"],
+             launches=launches[policy], plain_calls=plain)
+    reset_peak(torch)
+
+
+GATEWAY_REFERENCE = dict(jobs=6, prompt_cap=16, gen_cap=12)
+GATEWAY = dict(jobs=16, rate=1.5, hbm_budget=24e9, max_slots=8, s_max=2048,
+               prefill_chunk_tokens=256, decode_horizon=8, prompt_cap=512,
+               gen_cap=64, max_run_s=240.0, reject_limit=1_000_000)
+
+
+def phase_gateway(torch, args, host, pred):
+    """Full-width qwen3-8b and mamba2-2.7b on two ``NodeRuntime``s that
+    share the card, in clusters 0 and 1 (RTT ``DEFAULT_RTT[:2, :2]``),
+    each under a 24 GB budget whose GPU tier holds either model's weights
+    but not both, with one pinned host copy per model for the whole fleet.
+    A generated multi-agent trace (16 jobs) served under the wall clock by
+    fcfs, then by maestro, each on fresh nodes: every job must finish
+    inside ``max_run_s``, no plain version may run, the paged, chunk
+    (wgmma) and SSD (wgmma) kernels must launch, and every offload must
+    free at least 95% of the weight bytes it drops. Both runs raise the
+    gateway's ``reject_limit`` so that no job is dropped; a third run, fcfs
+    at the default limit, may drop jobs (a node refuses admissions while it
+    drains for a deferred activation) and reports how many. Returns each
+    run's launches."""
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import pad_vocab
+    from repro_torch.serving import cluster
+    from repro_torch.serving.gateway import GatewayConfig
+
+    names = (MAIN["model"], SSM_MODEL)
+    cfgs = {n: get_config(n) for n in names}
+    node_kw = {k: GATEWAY[k] for k in ("hbm_budget", "max_slots", "s_max",
+                                       "prefill_chunk_tokens",
+                                       "decode_horizon")}
+    spec = cluster.ClusterSpec(
+        nodes=(cluster.NodeSpec(0, **node_kw), cluster.NodeSpec(1, **node_kw)),
+        model_names=names)
+    zoo = {n: types.SimpleNamespace(cfg=c) for n, c in cfgs.items()}
+    pinned_ptrs = {n: {t.data_ptr() for t in tree_tensors(host[n])}
+                   for n in names}
+    pinned_bytes = sum(t.nbytes for n in names
+                       for t in tree_tensors(host[n]))
+    launches, results = {}, {}
+    default_limit = GatewayConfig().reject_limit
+    for run, policy, limit in (
+            ("fcfs", "fcfs", GATEWAY["reject_limit"]),
+            ("maestro", "maestro", GATEWAY["reject_limit"]),
+            ("fcfs_default_reject_limit", "fcfs", default_limit)):
+        reset_peak(torch)
+        fleet = cluster.build_fleet(spec, zoo=zoo, host=host, device="cuda")
+        shared = all(t.data_ptr() in pinned_ptrs[n] and t.is_pinned()
+                     for node in fleet for n in names
+                     for t in node.host_params[n].values())
+        require(shared, "a node made its own host copy of the weights")
+        jobs, vocab = gateway_jobs(args.seed)
+        cfg = GatewayConfig(clock="wall", max_run_s=GATEWAY["max_run_s"],
+                            reject_limit=limit)
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        gw, m, tokens, acts, offs = serve_gateway(torch, fleet, jobs, pred,
+                                                  policy, cfg)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = launch_counts()
+        by_variant = variant_counts()
+        plain = dict(ops.plain_calls)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_stages = sum(len(j.stages) for j in jobs)
+        require(m.run_outcome != "deadline_exceeded",
+                f"gateway {run}: the run passed max_run_s "
+                f"({m.run_deadline}; preemptions {m.preemptions}, "
+                f"rejections {m.admission_rejections}; {gateway_state(gw)})")
+        # at the default limit a job may be dropped; every other ends
+        may_drop = limit == default_limit
+        require(m.finished_jobs + m.dropped_jobs == len(jobs)
+                and (may_drop or m.dropped_jobs == 0),
+                f"gateway {run}: {m.finished_jobs} of {len(jobs)} jobs "
+                f"finished, {m.dropped_jobs} dropped")
+        require((may_drop or len(tokens) == n_stages)
+                and m.truncated_stages == 0,
+                f"gateway {run}: {len(tokens)} of {n_stages} stages "
+                f"finished, {m.truncated_stages} truncated")
+        for sid, (model, out, _) in tokens.items():
+            padded = pad_vocab(cfgs[model].vocab, 256)
+            require(0 < len(out) and all(0 <= t < padded for t in out),
+                    f"gateway {run}: stage {sid} emitted {out[:8]}")
+        require(not any(plain.values()),
+                f"gateway {run}: a plain version ran: {plain}")
+        require(counts["paged_attention"] > 0,
+                f"gateway {run}: paged_attention never launched")
+        require_all_wgmma("chunk_prefill_attention",
+                          counts["chunk_prefill_attention"],
+                          by_variant["chunk_prefill_attention"])
+        require_all_wgmma("ssd_chunk", counts["ssd_chunk"],
+                          by_variant["ssd_chunk"])
+        for o in offs:
+            require(o["freed_share"] is not None and o["freed_share"] >= 0.95,
+                    f"gateway {run}: offloading {o['model']} on node "
+                    f"{o['node']} freed {o['freed_bytes']} of "
+                    f"{o['weight_bytes']} weight bytes")
+        launches[run] = {k: n for k, n in counts.items() if n}
+        by_submit = [a for a in acts if a["cause"] == "submit"
+                     and a["t_act_waited_s"] is not None]
+        results[run] = dict(
+            finished_jobs=m.finished_jobs, dropped_jobs=m.dropped_jobs,
+            jobs=len(jobs), stages=n_stages,
+            interactive_jobs=sum(j.interactive for j in jobs),
+            slo_attainment=m.slo_attainment,
+            interactive_queue_delay_s=m.interactive_queue_delay_s,
+            batch_queue_delay_s=m.batch_queue_delay_s,
+            mean_latency_s=m.mean_latency_s, p95_latency_s=m.p95_latency_s,
+            makespan_s=m.makespan_s, wall_makespan_s=m.wall_makespan_s,
+            ttft_p50_s=m.ttft_p50_s, ttft_p95_s=m.ttft_p95_s,
+            cold_starts=m.cold_starts, preemptions=m.preemptions,
+            admission_rejections=m.admission_rejections,
+            generated_tokens=m.generated_tokens,
+            node_busy_frac=m.node_busy_frac,
+            overlap_factor=m.overlap_factor,
+            stages_by_model=m.stages_by_model,
+            tokens_by_model=m.tokens_by_model,
+            run_outcome=m.run_outcome, run_wall_s=wall_s,
+            activations=acts, offloads=offs,
+            deferred_activations=sum(a["cause"] == "deferred"
+                                     for a in acts),
+            t_act_waited_by_submit_s=sum(a["t_act_waited_s"]
+                                         for a in by_submit),
+            activation_measured_by_submit_s=sum(a["measured_s"]
+                                                for a in by_submit),
+            peak_mem_gb=peak_gb, launches=launches[run],
+            launches_by_variant=by_variant, plain_calls=plain,
+            engine_steps=m.engine_steps,
+            engine_horizon_steps=m.engine_horizon_steps,
+            host_syncs_per_token=m.host_syncs_per_token)
+        emit("gateway", run=run, policy=policy, reject_limit=limit,
+             models=list(names),
+             config=dict(GATEWAY, vocab=vocab), clock=m.clock,
+             pinned_host_bytes=pinned_bytes, host_shared=shared,
+             **results[run])
+        del gw, fleet
+    reset_peak(torch)
+    gain = (results["fcfs"]["interactive_queue_delay_s"]
+            - results["maestro"]["interactive_queue_delay_s"])
+    emit("gateway_comparison",
+         fcfs_interactive_queue_delay_s=results["fcfs"][
+             "interactive_queue_delay_s"],
+         maestro_interactive_queue_delay_s=results["maestro"][
+             "interactive_queue_delay_s"],
+         maestro_minus_fcfs_interactive_qd_s=-gain,
+         verdict="better" if gain > 0 else "worse",
+         fcfs_default_reject_limit=dict(
+             reject_limit=default_limit,
+             dropped_jobs=results["fcfs_default_reject_limit"][
+                 "dropped_jobs"],
+             admission_rejections=results["fcfs_default_reject_limit"][
+                 "admission_rejections"],
+             fcfs_admission_rejections=results["fcfs"][
+                 "admission_rejections"]))
+    return launches
 
 
 def main(argv=None) -> int:
@@ -1620,7 +2123,8 @@ def main(argv=None) -> int:
                                    zip(flow[1:], matched[1:])))
 
     checks = phase_kernels(torch, args, prompt_lens,
-                           (WORKFLOW["context"], suffix))
+                           (WORKFLOW["context"], suffix),
+                           gateway_shapes(gateway_jobs(args.seed)[0]))
     phase_reference(torch, args)
     phase_prefix_reference(torch, args)
     model, launches, variants, tokens_chunked = phase_main(torch, args,
@@ -1634,10 +2138,15 @@ def main(argv=None) -> int:
     ssm, variants["ssd_chunk"], mamba = phase_ssm_main(torch, args,
                                                        prompt_lens)
     launches.update(ssm)
-    node = phase_node(torch, model, mamba, flow)
+    node, host = phase_node(torch, model, mamba, flow)
     del model, mamba
+    pred = train_predictor()
+    phase_gateway_reference(torch, args, pred)
+    gateway = phase_gateway(torch, args, host, pred)
+    del host
     by_path = {"prefix_chunked": prefix["chunked"],
-               "prefix_monolithic": prefix["monolithic"], "node": node}
+               "prefix_monolithic": prefix["monolithic"], "node": node,
+               **{f"gateway_{run}": n for run, n in gateway.items()}}
 
     sources = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -1654,7 +2163,10 @@ def main(argv=None) -> int:
         c = checks[name]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name], max_abs_err=c["max_abs_err"],
+            launches=launches[name],
+            # the largest over the main path's shapes and the gateway's
+            max_abs_err=max(c["max_abs_err"], c.get("gateway_shapes", {})
+                            .get("max_abs_err", 0.0)),
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"],
             # SDPA for flash; None where no single PyTorch call computes
@@ -1663,7 +2175,9 @@ def main(argv=None) -> int:
             library_ms=c.get("library_ms"),
             # launches on the path by variant; the decode kernel has one
             variants=variants.get(name),
-            # launches on this slice's paths (prefix cache on; the node)
+            # launches on the later slices' paths (prefix cache on; the
+            # node; the gateway under each policy, and under fcfs at the
+            # default reject_limit)
             launches_by_path={p: n.get(name, 0)
                               for p, n in by_path.items()}))
     print(smi)

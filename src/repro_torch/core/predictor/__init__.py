@@ -1,5 +1,23 @@
 from repro_torch.core.predictor.cost_model import (HardwareSpec,
                                                    ModelProfile,
                                                    profile_from_arch)
+from repro_torch.core.predictor.features import (StageObservation,
+                                                 featurize,
+                                                 featurize_batch,
+                                                 semantic_embedding)
+from repro_torch.core.predictor.gbdt import GBDT, GBDTConfig
+from repro_torch.core.predictor.isotonic import IsotonicCalibrator
+from repro_torch.core.predictor.length_model import (BertMLPBaseline,
+                                                     LinearBaseline, MLP,
+                                                     MaestroPred,
+                                                     MagnusBaseline,
+                                                     PredictorConfig,
+                                                     classification_metrics,
+                                                     regression_metrics)
 
-__all__ = ["HardwareSpec", "ModelProfile", "profile_from_arch"]
+__all__ = ["HardwareSpec", "ModelProfile", "profile_from_arch",
+           "StageObservation", "featurize", "featurize_batch",
+           "semantic_embedding", "GBDT", "GBDTConfig", "IsotonicCalibrator",
+           "BertMLPBaseline", "LinearBaseline", "MLP", "MaestroPred",
+           "MagnusBaseline", "PredictorConfig", "classification_metrics",
+           "regression_metrics"]

@@ -6,19 +6,23 @@ Every node holds the same model zoo (reduced configs, structurally
 faithful) with weights from one shared host registry; cross-cluster
 effects (RTT, cold starts) enter through the gateway's virtual clock.
 Only in-process nodes exist so far: the worker-process and socket backends
-and the trace adapter (``LiveStage``, ``LiveJob``, ``jobs_from_trace``)
-come with the gateway.
+(and ``worker_specs``) come with the worker slice. The trace adapter
+(``LiveStage``, ``LiveJob``, ``jobs_from_trace``) turns generated traces
+into live jobs for the gateway, as the reference's does.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.predictor.features import StageObservation
 from repro_torch.core.topology import DEFAULT_RTT
+from repro_torch.data.tracegen import JobRecord
 from repro_torch.models import build_model, init_params
 from repro_torch.models.transformer import Model
 from repro_torch.serving.node_runtime import NodeRuntime
@@ -109,3 +113,82 @@ def build_fleet(spec: Optional[ClusterSpec] = None,
                                  decode_horizon=ns.decode_horizon,
                                  device=device))
     return fleet
+
+
+# ---------------------------------------------------------------------------
+# Trace adapter: simulator JobRecords -> live jobs with real token prompts
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class LiveStage:
+    stage_id: int
+    job_id: int
+    deps: List[int]
+    obs: StageObservation
+    interactive: bool
+    tokens: List[int]             # real prompt token ids
+    max_new: int                  # decode budget (ground-truth len, capped)
+    nominal_len: int = 0          # uncapped trace-scale output length; the
+                                  # calibration target for L_hat (0 => max_new)
+
+
+@dataclasses.dataclass
+class LiveJob:
+    job_id: int
+    app: str
+    interactive: bool
+    arrival_s: float
+    stages: List[LiveStage]
+    deadline_s: float = 0.0       # filled by the gateway's SLO profiler
+
+
+def _block_tokens(key: str, n: int, vocab: int) -> List[int]:
+    """Token ids of a named prompt block, derived from the key ALONE (an
+    rng seeded from the key's hash) — equal keys materialize to identical
+    tokens in any job/stage, which is precisely the shared-prefix property
+    the cross-stage prefix cache exploits. Does not touch the trace-level
+    rng, so classic (block-free) traces stay byte-identical."""
+    h = hashlib.blake2b(key.encode(), digest_size=8).digest()
+    r = np.random.default_rng(int.from_bytes(h, "big"))
+    return [int(x) for x in r.integers(0, vocab, n)]
+
+
+def jobs_from_trace(trace_jobs: Sequence[JobRecord], vocab: int = 512,
+                    prompt_cap: int = 16, gen_cap: int = 16,
+                    n_clusters: int = 3, seed: int = 0) -> List[LiveJob]:
+    """Instantiate real token payloads for a generated trace. Prompt/output
+    lengths are capped so tiny smoke models execute quickly; the ORIGINAL
+    observation (with its uncapped prompt_len and semantic text) is kept, so
+    the predictor and router see the workload the trace describes.
+
+    Stages carrying ``prompt_blocks`` (team traces) get their tokens from
+    the named blocks instead of the shared rng: block-structured prompts
+    with identical leading blocks share identical leading tokens."""
+    rng = np.random.default_rng(seed)
+    out: List[LiveJob] = []
+    for j in trace_jobs:
+        stages = []
+        for s in j.stages:
+            obs = s.obs
+            if obs.src_cluster >= n_clusters:
+                obs = dataclasses.replace(obs,
+                                          src_cluster=obs.src_cluster
+                                          % n_clusters)
+            blocks = getattr(s, "prompt_blocks", None)
+            if blocks:
+                tokens: List[int] = []
+                for key, n in blocks:
+                    tokens += _block_tokens(key, n, vocab)
+            else:
+                p = int(np.clip(s.obs.prompt_len // 32, 4, prompt_cap))
+                tokens = list(rng.integers(0, vocab, p))
+            stages.append(LiveStage(
+                stage_id=s.stage_id, job_id=j.job_id, deps=list(s.deps),
+                obs=obs, interactive=s.interactive,
+                tokens=tokens,
+                max_new=int(np.clip(s.true_len // 16, 4, gen_cap)),
+                nominal_len=int(s.true_len)))
+        out.append(LiveJob(job_id=j.job_id, app=j.app,
+                           interactive=j.interactive,
+                           arrival_s=j.arrival_s, stages=stages))
+    return out

@@ -12,9 +12,25 @@ engine keeps it across sleep: a Sleeping model keeps its engine object
 (the warm context) while its weights live in host memory. Exports the
 readiness / headroom signals (:class:`NodeSignal`) the cross-cluster
 scheduler consumes.
+
+One difference from the reference: a cold model whose weights the GPU tier
+cannot take while the models it would have to evict are in flight is
+refused by :meth:`NodeRuntime.can_admit`, and a request that reaches
+:meth:`NodeRuntime.submit` in that state waits on the node (``deferred``)
+until :meth:`NodeRuntime.step` can activate its model; meanwhile the node
+admits nothing, so the in-flight work drains. The reference's accountant
+admits such a model when the budget holds both weights, and its ``submit``
+then raises "cannot activate". The two agree wherever the tier holds every
+model the node serves.
+
+The node also keeps a record of each activation and offload it ran
+(:attr:`NodeRuntime.activations`, :attr:`NodeRuntime.offloads`), which the
+reference does not.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 import time
 from typing import Dict, Optional
 
@@ -31,7 +47,7 @@ from repro_torch.core.runtime.residency import (HierarchicalResidency,
                                                 ModelState)
 from repro_torch.core.sched.fitness import NodeSignal
 from repro_torch.models.transformer import Model
-from repro_torch.serving.engine import Engine, Request
+from repro_torch.serving.engine import Engine, PromptTooLongError, Request
 from repro_torch.serving.kv_arena import KVArena
 from repro_torch.serving.prefix_cache import PrefixCacheConfig
 
@@ -40,6 +56,29 @@ Weights = Dict[str, torch.Tensor]       # parameter name -> tensor
 
 def _tree_bytes(weights: Weights) -> int:
     return sum(t.nbytes for t in weights.values())
+
+
+@dataclasses.dataclass
+class Activation:
+    """One activation a node ran."""
+    model: str
+    state_before: str       # the residency state the model left
+    cause: str              # "call", "submit", "deferred" or "self-heal"
+    req_ids: list           # the requests it was run for
+    t_act_s: float          # the residency model's prediction of it
+    seconds: float          # measured, the offloads it ran included
+    offload_s: float        # the part of ``seconds`` those offloads took
+    deferred_s: float = 0.0  # longest wait on the node of those requests
+
+
+@dataclasses.dataclass
+class Offload:
+    """One offload a node ran: the weight bytes the accountant let go and
+    the drop in allocated device memory (None off CUDA)."""
+    model: str
+    weight_bytes: float
+    freed_bytes: Optional[int]
+    seconds: float
 
 
 class NodeRuntime:
@@ -72,6 +111,11 @@ class NodeRuntime:
         for m in zoo.values():
             self._drop_weights(m)
         self.engines: Dict[str, Engine] = {}
+        # requests whose model cannot be activated until the in-flight
+        # models filling the GPU tier drain (see :meth:`submit`)
+        self.deferred: Dict[str, collections.deque] = {}
+        self.activations: list = []     # Activation, in order
+        self.offloads: list = []        # Offload, in order
         self.acc = MemoryAccountant(m_total=hbm_budget, m_other=16 << 20)
         # ONE physical paged-KV arena per node: every colocated engine's
         # pool grants map onto it 1:1 (§III.C spatial multiplexing)
@@ -141,8 +185,15 @@ class NodeRuntime:
         return dev
 
     # ------------------------------------------------------------ residency
-    def activate(self, name: str) -> float:
-        """Make `name` servable; returns measured activation seconds."""
+    def activate(self, name: str, cause: str = "call",
+                 req_ids=(), deferred_s: float = 0.0) -> float:
+        """Make `name` servable; returns measured activation seconds and
+        appends an :class:`Activation` (``cause``, ``req_ids`` and
+        ``deferred_s`` say what it was run for) to :attr:`activations`."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # time this work alone
+        state, t_act = self.residency.state[name].value, self.t_act(name)
+        n_off = len(self.offloads)
         t0 = time.perf_counter()
         # models with ANY queued work are in-flight: evicting one whose
         # requests are still waiting for admission would strand them (step()
@@ -171,14 +222,24 @@ class NodeRuntime:
                 max_batch_tokens=self.max_batch_tokens,
                 prefill_chunk_tokens=self.prefill_chunk_tokens,
                 decode_horizon=self.decode_horizon, device=self.device)
-        return time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+        self.activations.append(Activation(
+            name, state, cause, list(req_ids), t_act, seconds,
+            sum((o.seconds for o in self.offloads[n_off:]), 0.0),
+            deferred_s))
+        return seconds
 
     def _offload(self, name: str) -> None:
         """Device -> host: the weights leave the card (the host tier already
         holds them) and the engine object stays. The engine's KV — arena
         pages, prefix pins, block tables and the dense state cache — is
         freed and de-accounted here: an offloaded model holds no silent
-        device-resident KV."""
+        device-resident KV. Appends an :class:`Offload` to
+        :attr:`offloads`."""
+        on_card = self.device.type == "cuda"
+        t0 = time.perf_counter()
+        before = torch.cuda.memory_allocated(self.device) if on_card else 0
+        weight_bytes = self.acc.weights.get(name, 0.0)
         eng = self.engines.get(name)
         if eng is not None:
             eng.release_kv()
@@ -187,6 +248,10 @@ class NodeRuntime:
         self.acc.unregister_weights(name)
         if self.residency.state[name] is ModelState.CPU:
             self.acc.unregister_context(name)
+        freed = (before - torch.cuda.memory_allocated(self.device)
+                 if on_card else None)
+        self.offloads.append(Offload(name, weight_bytes, freed,
+                                     time.perf_counter() - t0))
 
     def sleep(self, name: str) -> None:
         self.residency.sleep(name)
@@ -194,13 +259,32 @@ class NodeRuntime:
 
     # -------------------------------------------------------------- serving
     def submit(self, model: str, req: Request) -> None:
+        """Hand ``req`` to the model's engine, activating the model first.
+        When the GPU tier cannot take the model until in-flight models
+        drain, the request waits on the node and :meth:`step` submits it
+        once the model can be activated; its TTFT clock starts here."""
         if model not in self.device_params:
-            self.activate(model)
+            if not self._tier_fits(model):
+                if len(req.tokens) > self.s_max - 1:
+                    raise PromptTooLongError(
+                        f"prompt of {len(req.tokens)} tokens exceeds the "
+                        f"engine window (s_max={self.s_max}, >=1 decode "
+                        f"slot required)")
+                if not req.submit_s:
+                    req.submit_s = time.perf_counter()
+                self.deferred.setdefault(model, collections.deque()
+                                         ).append(req)
+                return
+            self.activate(model, "submit", [req.req_id])
         self.engines[model].submit(req)
 
     def preempt(self, model: str, req_id: int) -> Optional[Request]:
         """Boundary-preempt a request on this node (waiting or active);
         returns the withdrawn Request (partial output discarded) or None."""
+        for req in self.deferred.get(model, ()):
+            if req.req_id == req_id:
+                self.deferred[model].remove(req)
+                return req
         eng = self.engines.get(model)
         return None if eng is None else eng.evict(req_id)
 
@@ -213,11 +297,28 @@ class NodeRuntime:
     def _busy_models(self) -> set:
         return {m for m, e in self.engines.items() if e.active or e.waiting}
 
+    def _tier_fits(self, model: str) -> bool:
+        """Whether the GPU tier can take ``model`` now: the resident models
+        with work in flight stay (activation evicts only idle ones), so
+        they and ``model`` must fit its capacity together."""
+        res = self.residency
+        if res.state[model] is ModelState.RUNNING:
+            return True
+        busy = self._busy_models()
+        keep = sum(size for m, size in res.lru["gpu"].items() if m in busy)
+        return keep + res.size(model) <= res.cap["gpu"]
+
     def can_admit(self, r_need: float, model: Optional[str] = None) -> bool:
         """Eviction-aware KV admission feasibility: everything except
         in-flight models' weights and contexts can be reclaimed by
-        degradation levels 1-2 before the stage lands."""
+        degradation levels 1-2 before the stage lands. A cold model the
+        GPU tier cannot take beside the in-flight ones is refused, and so
+        is any model while requests wait for an activation here: the node
+        drains the work that keeps them out."""
         extra = 0.0
+        if model is not None and (not self._tier_fits(model)
+                                  or any(self.deferred.values())):
+            return False
         if model is not None:
             if model not in self.acc.weights:
                 extra += self.profiles[model].weight_bytes
@@ -288,14 +389,29 @@ class NodeRuntime:
                 self.acc.unregister_context(m)
 
     def has_work(self) -> bool:
-        """True while any colocated engine has waiting or active requests."""
-        return any(e.waiting or e.active for e in self.engines.values())
+        """True while any colocated engine has waiting or active requests,
+        or a request waits for its model's activation."""
+        return (any(e.waiting or e.active for e in self.engines.values())
+                or any(self.deferred.values()))
 
     def step(self) -> Dict[str, list]:
         out = {}
+        for name in [m for m, q in self.deferred.items() if q]:
+            # asked again for each model: activating an earlier one in this
+            # loop puts it in flight, and the tier may no longer take this
+            if not self._tier_fits(name):
+                continue
+            reqs = self.deferred.pop(name)
+            if name not in self.device_params:
+                now = time.perf_counter()
+                self.activate(name, "deferred", [r.req_id for r in reqs],
+                              max(now - r.submit_s for r in reqs))
+            for req in reqs:
+                self.engines[name].submit(req)
         for name, eng in self.engines.items():
             if (eng.waiting or eng.active) and name not in self.device_params:
-                self.activate(name)   # self-heal: offloaded with queued work
+                # self-heal: offloaded with queued work
+                self.activate(name, "self-heal")
             if name in self.device_params and (eng.waiting or eng.active):
                 eng.step()
             if eng.finished:
