@@ -98,18 +98,49 @@ Phases, each printing one JSON line (and failing the run on any error):
                 for, each offload's freed memory (>= 95% of the weight
                 bytes), peak memory and launches; then the maestro-vs-fcfs
                 interactive queue delay line ``benchmarks/gateway.py``
-                prints.
+                prints;
+13. sim      -- the port's trace-driven simulator (host numpy, no card;
+                simulated seconds) over ``generate_trace(600, rate=2.0,
+                batch_ratio=0.8)`` on ``SimConfig()`` (3 clusters, 5 nodes)
+                under fcfs, edf and maestro (the predictor of phase 12):
+                one ``SimResult`` row per policy, every job finished, and
+                maestro - edf;
+14. worker_reference -- phase 11's fleet with each node a worker process
+                on the card (``WorkerSpec.device="cuda"``): maestro and fcfs
+                on the process backend, maestro on the socket backend, each
+                equal to phase 11's card run in every stage and every metric
+                but the backend-only keys; the children's ``records()``:
+                paged and chunk (simt) launches summing to the in-process
+                run's, no plain call, no JAX module;
+15. worker_fault -- phase 11's fleet on the socket backend under the wall
+                clock, 12 jobs under maestro, with a ``FaultPlan`` that
+                SIGKILLs node 1's worker once it holds a submitted stage:
+                one death, every job finished, the evacuated stages on node
+                0, ``close_fleet`` safe, and the card's free memory back
+                within 1 GB of its value before the boot;
+16. gateway_process -- phase 12's full-width fleet with each node a
+                freshly booted worker process (``reduced=False``: each child
+                draws both models on the card and keeps its own pinned host
+                copies), the same 16 jobs under maestro and the wall clock,
+                the workers free-running: every job finished, tokens inside
+                the vocabulary, and in each child paged launches, chunk and
+                SSD all ``wgmma``, no plain call, offloads freeing >= 95%,
+                peak allocated within 1.1 x the 24 GB budget; printed beside
+                phase 12's maestro run with boot seconds, host
+                ``MemAvailable`` around the boot, busy fractions, the
+                overlap factor and the IPC counters.
 
 Each serving path zeroes the launch counts just before it runs and reads
 them just after: every kernel of that path must have launched and no plain
 version may have run. The kernels line gives each kernel's launches on the
 main paths and, under ``launches_by_path``, on this slice's paths.
 
-The last lines are the ``nvidia-smi`` line, the ``kernels`` JSON line (each
-kernel with its launches by variant on its path) and
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
-repository around it, the script exits non-zero and prints no result. TF32
-stays off throughout (``torch.backends.cuda.matmul.allow_tf32 = False``).
+A ``timing`` line gives each phase's wall seconds. The last lines are the
+``nvidia-smi`` line, the ``kernels`` JSON line (each kernel with its
+launches by variant on its path) and ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or without the repository around it, the script
+exits non-zero and prints no result. TF32 stays off throughout
+(``torch.backends.cuda.matmul.allow_tf32 = False``).
 """
 from __future__ import annotations
 
@@ -856,24 +887,15 @@ def phase_reference(torch, args):
 
 def launch_counts():
     """Each kernel wrapper's launches since the last ``ops.reset_counts``."""
-    from repro_torch.kernels import chunk_prefill as cp
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import ssd_chunk as ssd
-    return {"paged_attention": pa.launches,
-            "chunk_prefill_attention": cp.launches,
-            "flash_attention": fa.launches, "ssd_chunk": ssd.launches}
+    from repro_torch.kernels import ops
+    return ops.counts()["launches"]
 
 
 def variant_counts():
     """Launches by variant since the last ``ops.reset_counts``, for the
     kernels that have variants."""
-    from repro_torch.kernels import chunk_prefill as cp
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_chunk as ssd
-    return {"chunk_prefill_attention": dict(cp.launches_by_variant),
-            "flash_attention": dict(fa.launches_by_variant),
-            "ssd_chunk": dict(ssd.launches_by_variant)}
+    from repro_torch.kernels import ops
+    return ops.counts()["launches_by_variant"]
 
 
 def require_all_wgmma(name: str, n: int, by_variant: dict) -> None:
@@ -1650,7 +1672,7 @@ def phase_node(torch, qwen, mamba, flow):
     require(len(node.activations) == len(activations),
             f"the node ran {len(node.activations)} activations, "
             f"{len(activations)} asked for")
-    offloads = offload_rows([node])
+    offloads = offload_rows({node.node_id: node_records(node)})
     require([o["model"] for o in offloads] == [q, m],
             f"offloads {[o['model'] for o in offloads]}")
     for o in offloads:
@@ -1677,14 +1699,26 @@ def phase_node(torch, qwen, mamba, flow):
     return {k: v for k, v in launches.items() if v}, host
 
 
-def offload_rows(fleet) -> list:
-    """Each node's record of its offloads, with the share of the weight
-    bytes the accountant let go that left allocated device memory."""
-    return [dict(node=node.node_id, **dataclasses.asdict(o),
-                 freed_share=(o.freed_bytes / o.weight_bytes
-                              if o.freed_bytes is not None and o.weight_bytes
-                              else None))
-            for node in fleet for o in node.offloads]
+def node_records(node) -> dict:
+    """A node's records as plain data: its activations and offloads, read
+    from an in-process node or through a worker's ``records()`` (which
+    also holds the child's launches, plain calls, peak memory and foreign
+    modules)."""
+    if hasattr(node, "records"):
+        return node.records()
+    return dict(activations=[dataclasses.asdict(a) for a in node.activations],
+                offloads=[dataclasses.asdict(o) for o in node.offloads])
+
+
+def offload_rows(records: dict) -> list:
+    """Each node's offloads (``records``: node id -> ``node_records``),
+    with the share of the weight bytes the accountant let go that left
+    allocated device memory."""
+    return [dict(node=nid, **o,
+                 freed_share=(o["freed_bytes"] / o["weight_bytes"]
+                              if o["freed_bytes"] is not None
+                              and o["weight_bytes"] else None))
+            for nid, r in records.items() for o in r["offloads"]]
 
 
 def pinned_tree(torch, tree):
@@ -1770,14 +1804,17 @@ def gateway_shapes(jobs) -> dict:
                 ssd_lens=ssd_lens)
 
 
-def serve_gateway(torch, fleet, jobs, pred, policy, cfg=None):
-    """One gateway run over ``fleet``. Returns the gateway, its metrics,
-    each stage's (model, tokens, truncated) as the nodes' ``step`` hands
-    its request back, each node's record of its activations beside the
-    ``t_act`` the gateway waited for before submitting the stages each
-    served (from the gateway's telemetry; None where a stage was preempted
-    later, since the telemetry keeps only its last dispatch), and each
-    node's record of its offloads."""
+def serve_gateway(torch, fleet, jobs, pred, policy, cfg=None,
+                  fault_plan=None):
+    """One gateway run over ``fleet`` (in-process nodes or worker handles).
+    Returns the gateway, its metrics, each stage's (model, tokens,
+    truncated) as the nodes hand its request back (a node's ``step``, a
+    worker handle's ``step_recv`` and ``drain_ready``), each node's record
+    of its activations beside the ``t_act`` the gateway waited for before
+    submitting the stages each served (from the gateway's telemetry; None
+    where a stage was preempted later, since the telemetry keeps only its
+    last dispatch), each node's record of its offloads, and each live
+    node's ``node_records``."""
     from repro_torch.core.topology import DEFAULT_RTT
     from repro_torch.serving.gateway import ClusterGateway
 
@@ -1785,27 +1822,29 @@ def serve_gateway(torch, fleet, jobs, pred, policy, cfg=None):
                         policy=policy, cfg=cfg)
     tokens = {}
     for node in fleet:
-        def step(inner=node.step):
-            out = inner()
-            for model, reqs in out.items():
-                tokens.update({r.req_id: (model, list(r.out), r.truncated)
-                               for r in reqs})
-            return out
-        node.step = step
-    m = gw.run(jobs)
+        for name in (("step_recv", "drain_ready")
+                     if hasattr(node, "step_send") else ("step",)):
+            def collect(inner=getattr(node, name)):
+                out = inner()
+                for model, reqs in out.items():
+                    tokens.update({r.req_id: (model, list(r.out),
+                                              r.truncated) for r in reqs})
+                return out
+            setattr(node, name, collect)
+    m = gw.run(jobs, fault_plan=fault_plan)
     events = gw.telemetry.events
+    records = {nid: node_records(node) for nid, node in gw.fleet.items()}
     activations = []
-    for node in fleet:
-        for a in node.activations:
-            waited = [events[i].t_act_s for i in a.req_ids
+    for nid, r in records.items():
+        for a in r["activations"]:
+            waited = [events[i].t_act_s for i in a["req_ids"]
                       if i in events and not events[i].preemptions]
             activations.append(dict(
-                node=node.node_id, **dataclasses.asdict(a),
-                measured_s=a.seconds - a.offload_s,
-                t_act_waited_s=(max(waited) if a.req_ids
-                                and len(waited) == len(a.req_ids)
+                node=nid, **a, measured_s=a["seconds"] - a["offload_s"],
+                t_act_waited_s=(max(waited) if a["req_ids"]
+                                and len(waited) == len(a["req_ids"])
                                 else None)))
-    return gw, m, tokens, activations, offload_rows(fleet)
+    return gw, m, tokens, activations, offload_rows(records), records
 
 
 def stage_rows(gw, tokens):
@@ -1844,41 +1883,26 @@ def phase_gateway_reference(torch, args, pred):
     and on the CPU (the plain versions), from the same weights. Every
     stage must run on the same node, emit the same tokens and be ready,
     dispatched, submitted and finished at the same times, and the metrics
-    must be equal but for the TTFT percentiles (host time)."""
-    import types
-
-    from repro_torch.configs import get_config
-    from repro_torch.data.tracegen import generate_trace
+    must be equal but for the TTFT percentiles (host time). Returns the
+    card's runs by policy: stage rows, metrics and launches."""
     from repro_torch.kernels import ops
-    from repro_torch.models import init_params
     from repro_torch.serving import cluster
 
-    names = cluster.DEFAULT_ZOO
-    zoo, host = {}, {}
-    for i, n in enumerate(names):
-        cfg = get_config(n).reduced()
-        zoo[n] = types.SimpleNamespace(cfg=cfg)
-        host[n] = init_params(cfg, torch.Generator().manual_seed(
-            args.seed + i), "cpu")
-    knobs = dict(max_slots=2, prefill_chunk_tokens=8, decode_horizon=4)
-    spec = cluster.ClusterSpec(
-        nodes=(cluster.NodeSpec(0, **knobs),
-               cluster.NodeSpec(1, hbm_budget=0.8e9, **knobs)),
-        model_names=names)
-    trace = generate_trace(GATEWAY_REFERENCE["jobs"], rate=2.0,
-                           seed=args.seed)
-    launches = {}
+    spec = reference_spec()
+    names = spec.model_names
+    # the zoo a worker of this fleet builds from the same seed
+    zoo, host = cluster.build_zoo(names, seed=args.seed)
+    trace = reference_trace(args.seed)
+    launches, card = {}, {}
     for policy in ("maestro", "fcfs"):
         runs = {}
         for device in ("cpu", "cuda"):
             fleet = cluster.build_fleet(spec, zoo=zoo, host=host,
                                         device=device)
-            jobs = cluster.jobs_from_trace(
-                trace, n_clusters=2, prompt_cap=GATEWAY_REFERENCE["prompt_cap"],
-                gen_cap=GATEWAY_REFERENCE["gen_cap"], seed=args.seed)
+            jobs = reference_jobs(trace, args.seed)
             ops.reset_counts()
-            gw, m, tokens, _, _ = serve_gateway(torch, fleet, jobs, pred,
-                                                policy)
+            gw, m, tokens, _, _, _ = serve_gateway(torch, fleet, jobs,
+                                                   pred, policy)
             runs[device] = (stage_rows(gw, tokens), m.row())
             if device == "cuda":
                 launches[policy] = {k: n for k, n in launch_counts().items()
@@ -1912,10 +1936,39 @@ def phase_gateway_reference(torch, args, pred):
              preemptions=cpu_m["preemptions"],
              generated_tokens=cpu_m["generated_tokens"],
              launches=launches[policy], plain_calls=plain)
+        card[policy] = (gpu_rows, gpu_m, launches[policy])
     reset_peak(torch)
+    return card
 
 
 GATEWAY_REFERENCE = dict(jobs=6, prompt_cap=16, gen_cap=12)
+
+
+def reference_spec():
+    """The reduced default zoo (f32) on two nodes in clusters 0 and 1,
+    chunk 8, horizon 4 (phases gateway_reference, worker_reference and
+    worker_fault)."""
+    from repro_torch.serving import cluster
+
+    knobs = dict(max_slots=2, prefill_chunk_tokens=8, decode_horizon=4)
+    return cluster.ClusterSpec(
+        nodes=(cluster.NodeSpec(0, **knobs),
+               cluster.NodeSpec(1, hbm_budget=0.8e9, **knobs)),
+        model_names=cluster.DEFAULT_ZOO)
+
+
+def reference_trace(seed: int, n_jobs: int = GATEWAY_REFERENCE["jobs"],
+                    rate: float = 2.0):
+    from repro_torch.data.tracegen import generate_trace
+    return generate_trace(n_jobs, rate=rate, seed=seed)
+
+
+def reference_jobs(trace, seed: int):
+    """Live jobs of ``trace`` at the reduced zoo's short prompts."""
+    from repro_torch.serving import cluster
+    return cluster.jobs_from_trace(
+        trace, n_clusters=2, prompt_cap=GATEWAY_REFERENCE["prompt_cap"],
+        gen_cap=GATEWAY_REFERENCE["gen_cap"], seed=seed)
 GATEWAY = dict(jobs=16, rate=1.5, hbm_budget=24e9, max_slots=8, s_max=2048,
                prefill_chunk_tokens=256, decode_horizon=8, prompt_cap=512,
                gen_cap=64, max_run_s=240.0, reject_limit=1_000_000)
@@ -1939,19 +1992,12 @@ def phase_gateway(torch, args, host, pred):
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models.common import pad_vocab
     from repro_torch.serving import cluster
     from repro_torch.serving.gateway import GatewayConfig
 
-    names = (MAIN["model"], SSM_MODEL)
-    cfgs = {n: get_config(n) for n in names}
-    node_kw = {k: GATEWAY[k] for k in ("hbm_budget", "max_slots", "s_max",
-                                       "prefill_chunk_tokens",
-                                       "decode_horizon")}
-    spec = cluster.ClusterSpec(
-        nodes=(cluster.NodeSpec(0, **node_kw), cluster.NodeSpec(1, **node_kw)),
-        model_names=names)
-    zoo = {n: types.SimpleNamespace(cfg=c) for n, c in cfgs.items()}
+    spec = gateway_spec()
+    names = spec.model_names
+    zoo = {n: types.SimpleNamespace(cfg=get_config(n)) for n in names}
     pinned_ptrs = {n: {t.data_ptr() for t in tree_tensors(host[n])}
                    for n in names}
     pinned_bytes = sum(t.nbytes for n in names
@@ -1973,8 +2019,8 @@ def phase_gateway(torch, args, host, pred):
                             reject_limit=limit)
         ops.reset_counts()
         t0 = time.perf_counter()
-        gw, m, tokens, acts, offs = serve_gateway(torch, fleet, jobs, pred,
-                                                  policy, cfg)
+        gw, m, tokens, acts, offs, _ = serve_gateway(torch, fleet, jobs,
+                                                     pred, policy, cfg)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         counts = launch_counts()
@@ -1996,10 +2042,7 @@ def phase_gateway(torch, args, host, pred):
                 and m.truncated_stages == 0,
                 f"gateway {run}: {len(tokens)} of {n_stages} stages "
                 f"finished, {m.truncated_stages} truncated")
-        for sid, (model, out, _) in tokens.items():
-            padded = pad_vocab(cfgs[model].vocab, 256)
-            require(0 < len(out) and all(0 <= t < padded for t in out),
-                    f"gateway {run}: stage {sid} emitted {out[:8]}")
+        require_tokens_in_vocab(f"gateway {run}", tokens)
         require(not any(plain.values()),
                 f"gateway {run}: a plain version ran: {plain}")
         require(counts["paged_attention"] > 0,
@@ -2071,7 +2114,440 @@ def phase_gateway(torch, args, host, pred):
                  "admission_rejections"],
              fcfs_admission_rejections=results["fcfs"][
                  "admission_rejections"]))
-    return launches
+    return launches, results
+
+
+def gateway_spec():
+    """Phase gateway's fleet: two nodes in clusters 0 and 1, each with
+    full-width qwen3-8b and mamba2-2.7b under a 24 GB budget, chunk 256,
+    horizon 8."""
+    from repro_torch.serving import cluster
+
+    node_kw = {k: GATEWAY[k] for k in ("hbm_budget", "max_slots", "s_max",
+                                       "prefill_chunk_tokens",
+                                       "decode_horizon")}
+    return cluster.ClusterSpec(
+        nodes=(cluster.NodeSpec(0, **node_kw), cluster.NodeSpec(1, **node_kw)),
+        model_names=(MAIN["model"], SSM_MODEL))
+
+
+def require_tokens_in_vocab(where: str, tokens: dict) -> None:
+    """Every finished stage emitted at least one token, each inside its
+    model's padded vocabulary."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import pad_vocab
+
+    for sid, (model, out, _) in tokens.items():
+        padded = pad_vocab(get_config(model).vocab, 256)
+        require(0 < len(out) and all(0 <= t < padded for t in out),
+                f"{where}: stage {sid} emitted {out[:8]}")
+
+
+# ------------------------------------------------------------ simulator
+SIM = dict(jobs=600, rate=2.0, batch_ratio=0.8,
+           policies=("fcfs", "edf", "maestro"))
+
+
+def phase_sim(args, pred):
+    """The port's trace-driven simulator over ``generate_trace(600,
+    rate=2.0, batch_ratio=0.8, seed)`` on ``SimConfig()`` (3 clusters, 5
+    nodes, the modelled A100 profiles of ``default_profiles``) under fcfs,
+    edf and maestro (the smoke's trained predictor): each policy's
+    ``SimResult`` row, every job finished, then maestro - edf. Host numpy
+    only: the seconds are simulated, not measured on the card."""
+    from repro_torch.core.sched.policies import make_policy
+    from repro_torch.data.tracegen import generate_trace
+    from repro_torch.sim.simulator import SimConfig, Simulator
+
+    rows = {}
+    for name in SIM["policies"]:
+        jobs = generate_trace(SIM["jobs"], rate=SIM["rate"],
+                              batch_ratio=SIM["batch_ratio"], seed=args.seed)
+        t0 = time.perf_counter()
+        r = Simulator(jobs, make_policy(name, predictor=pred),
+                      SimConfig()).run()
+        host_s = time.perf_counter() - t0
+        require(r.finished_jobs == len(jobs),
+                f"sim {name}: {r.finished_jobs} of {len(jobs)} jobs finished")
+        rows[name] = r.row()
+        emit("sim", device="none (host numpy; simulated seconds)",
+             jobs=len(jobs), stages=sum(len(j.stages) for j in jobs),
+             config=dict(SIM, policies=None, sim=dataclasses.asdict(
+                 SimConfig())),
+             host_seconds=host_s, **rows[name])
+    m, e, f = rows["maestro"], rows["edf"], rows["fcfs"]
+    emit("sim_comparison", device="none (host numpy; simulated seconds)",
+         maestro_minus_edf_slo_attainment=m["slo_attainment"]
+         - e["slo_attainment"],
+         maestro_minus_fcfs_slo_attainment=m["slo_attainment"]
+         - f["slo_attainment"],
+         maestro_minus_edf_interactive_queue_delay_s=(
+             m["interactive_queue_delay_s"] - e["interactive_queue_delay_s"]),
+         maestro_minus_edf_mean_latency_s=(m["mean_latency_s"]
+                                           - e["mean_latency_s"]))
+
+
+# --------------------------------------------------------------- workers
+# the GatewayMetrics keys a worker fleet may differ in (those of
+# tests/test_worker.py), and the jit-compile count the port reports as 0
+BACKEND_ONLY = ("node_backend", "ipc_calls", "ipc_wall_s",
+                "worker_step_wall_s", "worker_stats", "rpc_bytes_sent",
+                "rpc_bytes_recv", "ttft_p50_s", "ttft_p95_s",
+                "engine_prefill_compiles")
+WORKER_REFERENCE = (("maestro", "process"), ("fcfs", "process"),
+                    ("maestro", "socket"))
+
+
+def child_launches(records: dict) -> tuple:
+    """Per child and summed over the children: the nonzero launches, the
+    launches by variant, and the plain calls, from ``records()``."""
+    per_child, total, by_variant = {}, {}, {}
+    for nid, r in records.items():
+        per_child[nid] = {k: n for k, n in r["launches"].items() if n}
+        for k, n in per_child[nid].items():
+            total[k] = total.get(k, 0) + n
+        for k, v in r["launches_by_variant"].items():
+            acc = by_variant.setdefault(k, {})
+            for var, n in v.items():
+                acc[var] = acc.get(var, 0) + n
+    return per_child, total, by_variant
+
+
+def require_clean_children(where: str, records: dict) -> None:
+    """No plain version ran in any child, and no child loaded JAX or the
+    JAX package."""
+    for nid, r in records.items():
+        require(not any(r["plain_calls"].values()),
+                f"{where}: a plain version ran in node {nid}'s worker: "
+                f"{r['plain_calls']}")
+        require(not r["foreign_modules"],
+                f"{where}: node {nid}'s worker loaded "
+                f"{r['foreign_modules']}")
+
+
+def phase_worker_reference(torch, args, pred, card):
+    """The fleet of phase gateway_reference (reduced zoo, f32, two nodes,
+    chunk 8, horizon 4, virtual clock, its 6 jobs) with each node in a
+    worker process of its own on the card: maestro and fcfs on the process
+    backend, maestro on the socket backend. Each run must equal the card's
+    in-process run of gateway_reference: every stage's node, tokens and
+    times, and every metric but the backend-only keys. The children's
+    records must show the paged and chunk kernels (simt), their launches
+    summed over the children equal to the in-process run's, no plain call
+    and no JAX module. Returns each run's launches, summed and per
+    child."""
+    from repro_torch.serving import cluster
+    from repro_torch.serving.gateway import GatewayConfig
+    from repro_torch.serving.worker import close_fleet
+
+    spec = reference_spec()
+    trace = reference_trace(args.seed)
+    paths = {}
+    for policy, backend in WORKER_REFERENCE:
+        where = f"worker_reference {policy} {backend}"
+        want_rows, want_m, want_launches = card[policy]
+        t0 = time.perf_counter()
+        fleet = cluster.build_fleet(spec, seed=args.seed, backend=backend,
+                                    device="cuda")
+        boot_s = time.perf_counter() - t0
+        try:
+            for node in fleet:
+                node.reset_records()
+            gw, m, tokens, _, _, records = serve_gateway(
+                torch, fleet, reference_jobs(trace, args.seed), pred,
+                policy, GatewayConfig(node_backend=backend))
+            rows = stage_rows(gw, tokens)
+        finally:
+            close_fleet(fleet)
+        row = m.row()
+        differ = sorted(s for s in want_rows if rows.get(s) != want_rows[s])
+        metrics_differ = sorted(k for k in want_m if k not in BACKEND_ONLY
+                                and row[k] != want_m[k])
+        require(not differ and set(rows) == set(want_rows),
+                f"{where}: stages {differ} differ from the in-process run")
+        require(not metrics_differ, f"{where}: metrics {metrics_differ} "
+                f"differ from the in-process run")
+        require_clean_children(where, records)
+        per_child, total, by_variant = child_launches(records)
+        chunk = by_variant["chunk_prefill_attention"]
+        require(total.get("paged_attention", 0) > 0
+                and chunk["simt"] > 0 and chunk["wgmma"] == 0,
+                f"{where}: paged {total.get('paged_attention', 0)}, chunk "
+                f"by variant {chunk}")
+        require(total == want_launches, f"{where}: the children launched "
+                f"{total}, the in-process fleet {want_launches}")
+        emit("worker_reference", policy=policy, backend=backend,
+             jobs=len(trace), stages=len(rows), identical_stages=len(rows),
+             identical_metrics=True, finished_jobs=m.finished_jobs,
+             makespan_virtual_s=m.makespan_s, boot_s=boot_s,
+             ipc_calls=m.ipc_calls, ipc_wall_s=m.ipc_wall_s,
+             worker_step_wall_s=m.worker_step_wall_s,
+             rpc_bytes_sent=m.rpc_bytes_sent, rpc_bytes_recv=m.rpc_bytes_recv,
+             launches=total, launches_by_child=per_child,
+             launches_by_variant=by_variant, inproc_launches=want_launches,
+             foreign_modules=sorted({k for r in records.values()
+                                     for k in r["foreign_modules"]}))
+        run = f"worker_reference_{policy}_{backend}"
+        paths[run] = total
+        paths.update({f"{run}_node{nid}": n for nid, n in per_child.items()})
+    reset_peak(torch)
+    return paths
+
+
+WORKER_FAULT = dict(jobs=12, rate=4.0, max_run_s=120.0, heartbeat_s=0.05,
+                    victim=1, memory_slack_bytes=1e9, memory_wait_s=30.0)
+
+
+def free_device_bytes(torch) -> int:
+    """Free bytes of the card as ``torch.cuda.mem_get_info`` reports
+    them, after this process returned its own cached blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info()[0]
+
+
+def phase_worker_fault(torch, args, pred):
+    """The reduced fleet of gateway_reference on the socket backend (each
+    node a worker process on the card) under the wall clock, serving 12
+    jobs under maestro with a ``FaultPlan`` that SIGKILLs node 1's worker
+    once node 1 holds a submitted stage (its model's weights and KV on the
+    card): one node death, every job finished, node 1's evacuated stages
+    finished on node 0, ``close_fleet`` safe twice, and the card's free
+    memory, read after the fleet is closed, back within 1 GB of its value
+    before the boot."""
+    from repro_torch.serving import cluster
+    from repro_torch.serving.faultplan import FaultPlan, KillWorker
+    from repro_torch.serving.gateway import GatewayConfig
+    from repro_torch.serving.worker import close_fleet
+
+    @dataclasses.dataclass
+    class KillWhenBusy(KillWorker):
+        """``KillWorker`` that waits, re-checking every ``poll_s``, until
+        its node holds a submitted stage."""
+        poll_s: float = 0.01
+        outcome: str = ""
+        killed_at: float = -1.0
+
+        def fire(self, gw, now):
+            if not any(r.submitted and r.node_id == self.node_id
+                       for r in gw.inflight.values()):
+                gw.clock.call_at(now + self.poll_s,
+                                 lambda t: self.fire(gw, t))
+                return f"kill node {self.node_id}: waiting for a stage"
+            self.killed_at = now
+            self.outcome = KillWorker.fire(self, gw, now)
+            return self.outcome
+
+    victim = WORKER_FAULT["victim"]
+    reset_peak(torch)
+    free_before = free_device_bytes(torch)
+    fleet = cluster.build_fleet(reference_spec(), seed=args.seed,
+                                backend="socket", device="cuda")
+    free_booted = free_device_bytes(torch)
+    kill = KillWhenBusy(at_s=0.0, node_id=victim)
+    trace = reference_trace(args.seed, WORKER_FAULT["jobs"],
+                            WORKER_FAULT["rate"])
+    cfg = GatewayConfig(node_backend="socket", clock="wall",
+                        heartbeat_s=WORKER_FAULT["heartbeat_s"],
+                        max_run_s=WORKER_FAULT["max_run_s"],
+                        reject_limit=GATEWAY["reject_limit"])
+    try:
+        gw, m, tokens, _, _, records = serve_gateway(
+            torch, fleet, reference_jobs(trace, args.seed), pred, "maestro",
+            cfg, fault_plan=FaultPlan([kill]))
+    finally:
+        close_fleet(fleet)
+        close_fleet(fleet)                 # safe twice, after a death
+    t0 = time.perf_counter()
+    free_after = free_device_bytes(torch)
+    while (free_before - free_after > WORKER_FAULT["memory_slack_bytes"]
+           and time.perf_counter() - t0 < WORKER_FAULT["memory_wait_s"]):
+        time.sleep(0.5)
+        free_after = free_device_bytes(torch)
+    returned_s = time.perf_counter() - t0
+    n_stages = sum(len(j.stages) for j in trace)
+    require("SIGKILL" in kill.outcome,
+            f"worker_fault: node {victim} was not killed ({kill.outcome!r})")
+    require(m.node_deaths == 1 and m.death_events[0].node_id == victim,
+            f"worker_fault: {m.node_deaths} node deaths")
+    death = m.death_events[0]
+    require(m.run_outcome == "completed" and m.finished_jobs == len(trace)
+            and m.finished_stages == n_stages,
+            f"worker_fault: {m.finished_jobs} of {len(trace)} jobs, "
+            f"{m.finished_stages} of {n_stages} stages ({m.run_outcome})")
+    require(death.requeued_stages and all(
+        gw.telemetry.events[s].node_id != victim
+        and gw.telemetry.events[s].finish_t > 0
+        for s in death.requeued_stages),
+        f"worker_fault: evacuated stages {death.requeued_stages} not "
+        f"finished on a survivor")
+    require_tokens_in_vocab("worker_fault", tokens)
+    require_clean_children("worker_fault", records)
+    require(free_before - free_after <= WORKER_FAULT["memory_slack_bytes"],
+            f"worker_fault: {(free_before - free_after) / 1e9:.3f} GB of "
+            f"the card's memory not returned {returned_s:.1f} s after "
+            f"close_fleet")
+    emit("worker_fault", policy="maestro", backend="socket", clock="wall",
+         config=WORKER_FAULT, jobs=len(trace), stages=n_stages,
+         finished_jobs=m.finished_jobs, node_deaths=m.node_deaths,
+         killed_at_s=kill.killed_at, kill=kill.outcome,
+         requeued_stages=list(death.requeued_stages),
+         recovery_time_s=m.recovery_time_s, liveness=m.liveness,
+         makespan_s=m.makespan_s, run_outcome=m.run_outcome,
+         free_gb_before_boot=free_before / 1e9,
+         free_gb_booted=free_booted / 1e9,
+         free_gb_after_close=free_after / 1e9,
+         not_returned_gb=(free_before - free_after) / 1e9,
+         seconds_to_return=returned_s,
+         survivor_launches=child_launches(records)[0])
+
+
+def mem_available_gb() -> float:
+    """The host's ``MemAvailable`` in GB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def phase_gateway_process(torch, args, pred, inproc):
+    """Phase gateway's full-width fleet with each node a worker process of
+    its own on the card (``reduced=False``: each child draws qwen3-8b and
+    mamba2-2.7b on the card and keeps one pinned host copy of each), freshly
+    booted, serving the same 16 jobs under maestro and the wall clock with
+    the raised ``reject_limit``; the workers free-run. Every job finished,
+    every token inside its vocabulary; in each child the paged kernel
+    launched, every chunk and SSD launch took ``wgmma``, no plain version
+    ran, no JAX module loaded, every offload freed at least 95% of its
+    weight bytes and the peak allocated memory stayed within 1.1 times the
+    node's budget. Printed beside ``inproc``, the in-process maestro run of
+    phase gateway. Returns the launches, summed and per child."""
+    from repro_torch.serving import cluster
+    from repro_torch.serving.gateway import GatewayConfig
+    from repro_torch.serving.worker import NodeHandle, close_fleet, spawn_fleet
+
+    spec = gateway_spec()
+    specs = cluster.worker_specs(spec, seed=args.seed, device="cuda",
+                                 reduced=False)
+    host_empty = (getattr(torch.accelerator, "empty_host_cache", None)
+                  or getattr(torch._C, "_host_emptyCache", None))
+    if host_empty is not None:
+        host_empty()              # the earlier phases' pinned host blocks
+    reset_peak(torch)
+    host_before = mem_available_gb()
+    # each child's ready time as the parent sees it (spawn_fleet starts
+    # every child, then waits on each in turn)
+    ready_s, wait_ready = {}, NodeHandle.wait_ready
+
+    def timed_wait_ready(self):
+        out = wait_ready(self)
+        ready_s.setdefault(self.node_id, time.perf_counter() - t0)
+        return out
+
+    NodeHandle.wait_ready = timed_wait_ready
+    t0 = time.perf_counter()
+    try:
+        fleet = spawn_fleet(specs, backend="process")
+    finally:
+        NodeHandle.wait_ready = wait_ready
+    boot_s = time.perf_counter() - t0
+    host_after = mem_available_gb()
+    jobs, vocab = gateway_jobs(args.seed)
+    cfg = GatewayConfig(clock="wall", max_run_s=GATEWAY["max_run_s"],
+                        reject_limit=GATEWAY["reject_limit"],
+                        node_backend="process")
+    try:
+        for node in fleet:
+            node.reset_records()
+        t0 = time.perf_counter()
+        gw, m, tokens, acts, offs, records = serve_gateway(
+            torch, fleet, jobs, pred, "maestro", cfg)
+        wall_s = time.perf_counter() - t0
+    finally:
+        close_fleet(fleet)
+    host_closed = mem_available_gb()
+    n_stages = sum(len(j.stages) for j in jobs)
+    require(m.run_outcome == "completed" and m.finished_jobs == len(jobs)
+            and len(tokens) == n_stages and m.truncated_stages == 0,
+            f"gateway_process: {m.finished_jobs} of {len(jobs)} jobs, "
+            f"{len(tokens)} of {n_stages} stages, {m.truncated_stages} "
+            f"truncated ({m.run_outcome})")
+    require_tokens_in_vocab("gateway_process", tokens)
+    require_clean_children("gateway_process", records)
+    per_child, total, by_variant = child_launches(records)
+    budget = GATEWAY["hbm_budget"]
+    for nid, r in records.items():
+        v = r["launches_by_variant"]
+        require(per_child[nid].get("paged_attention", 0) > 0,
+                f"gateway_process: paged_attention never launched in node "
+                f"{nid}'s worker")
+        require(v["chunk_prefill_attention"]["simt"] == 0
+                and v["ssd_chunk"]["simt"] == 0,
+                f"gateway_process: node {nid}'s worker took simt: {v}")
+        require(r["max_memory_allocated"] <= 1.1 * budget,
+                f"gateway_process: node {nid}'s worker peaked at "
+                f"{r['max_memory_allocated'] / 1e9:.2f} GB, over 1.1 x its "
+                f"{budget / 1e9:.0f} GB budget")
+    require_all_wgmma("chunk_prefill_attention",
+                      total.get("chunk_prefill_attention", 0),
+                      by_variant["chunk_prefill_attention"])
+    require_all_wgmma("ssd_chunk", total.get("ssd_chunk", 0),
+                      by_variant["ssd_chunk"])
+    for o in offs:
+        require(o["freed_share"] is not None and o["freed_share"] >= 0.95,
+                f"gateway_process: offloading {o['model']} on node "
+                f"{o['node']} freed {o['freed_bytes']} of "
+                f"{o['weight_bytes']} weight bytes")
+    by_submit = [a for a in acts if a["cause"] == "submit"
+                 and a["t_act_waited_s"] is not None]
+    process = dict(
+        finished_jobs=m.finished_jobs, jobs=len(jobs), stages=n_stages,
+        slo_attainment=m.slo_attainment,
+        interactive_queue_delay_s=m.interactive_queue_delay_s,
+        batch_queue_delay_s=m.batch_queue_delay_s,
+        mean_latency_s=m.mean_latency_s, p95_latency_s=m.p95_latency_s,
+        makespan_s=m.makespan_s, ttft_p50_s=m.ttft_p50_s,
+        ttft_p95_s=m.ttft_p95_s, cold_starts=m.cold_starts,
+        preemptions=m.preemptions,
+        admission_rejections=m.admission_rejections,
+        generated_tokens=m.generated_tokens,
+        node_busy_frac=m.node_busy_frac,
+        node_busy_frac_sum=sum(m.node_busy_frac.values()),
+        overlap_factor=m.overlap_factor, ipc_calls=m.ipc_calls,
+        ipc_wall_s=m.ipc_wall_s, worker_step_wall_s=m.worker_step_wall_s,
+        run_outcome=m.run_outcome, run_wall_s=wall_s,
+        activations=acts, offloads=offs,
+        deferred_activations=sum(a["cause"] == "deferred" for a in acts),
+        t_act_waited_by_submit_s=sum(a["t_act_waited_s"]
+                                     for a in by_submit),
+        activation_measured_by_submit_s=sum(a["measured_s"]
+                                            for a in by_submit),
+        peak_allocated_gb={nid: r["max_memory_allocated"] / 1e9
+                           for nid, r in records.items()},
+        reserved_gb={nid: r["memory_reserved"] / 1e9
+                     for nid, r in records.items()},
+        launches=total, launches_by_child=per_child,
+        launches_by_variant=by_variant)
+    keys = ("finished_jobs", "slo_attainment", "interactive_queue_delay_s",
+            "batch_queue_delay_s", "mean_latency_s", "p95_latency_s",
+            "makespan_s", "ttft_p50_s", "ttft_p95_s", "cold_starts",
+            "preemptions", "node_busy_frac", "overlap_factor",
+            "deferred_activations", "t_act_waited_by_submit_s",
+            "activation_measured_by_submit_s", "peak_mem_gb")
+    emit("gateway_process", policy="maestro", backend="process",
+         clock=m.clock, models=list(spec.model_names),
+         config=dict(GATEWAY, vocab=vocab), boot_s=boot_s,
+         ready_s_by_child=ready_s,
+         host_cache_emptied_by=getattr(host_empty, "__name__", None),
+         host_mem_available_gb_before=host_before,
+         host_mem_available_gb_after=host_after,
+         host_mem_available_gb_after_close=host_closed, **process,
+         inproc_maestro={k: inproc.get(k) for k in keys})
+    reset_peak(torch)
+    return {"gateway_process": total,
+            **{f"gateway_process_node{nid}": n
+               for nid, n in per_child.items()}}
 
 
 def main(argv=None) -> int:
@@ -2122,31 +2598,59 @@ def main(argv=None) -> int:
     suffix = int(statistics.median(len(p) - n for p, n in
                                    zip(flow[1:], matched[1:])))
 
+    # wall seconds of each phase since the one before
+    seconds, last = {}, [time.perf_counter()]
+
+    def mark(phase):
+        now = time.perf_counter()
+        seconds[phase], last[0] = now - last[0], now
+
     checks = phase_kernels(torch, args, prompt_lens,
                            (WORKFLOW["context"], suffix),
                            gateway_shapes(gateway_jobs(args.seed)[0]))
+    mark("kernels")
     phase_reference(torch, args)
     phase_prefix_reference(torch, args)
+    mark("reference")
     model, launches, variants, tokens_chunked = phase_main(torch, args,
                                                            prompts)
+    mark("main")
     # the paged kernels' launches are the chunked main path's; flash's the
     # monolithic path's
     mono, variants["flash_attention"] = phase_dense_monolithic(
         torch, model, prompts, tokens_chunked)
     launches["flash_attention"] = mono["flash_attention"]
+    mark("dense_monolithic")
     prefix = phase_prefix(torch, model, flow, matched)
+    mark("prefix")
     ssm, variants["ssd_chunk"], mamba = phase_ssm_main(torch, args,
                                                        prompt_lens)
     launches.update(ssm)
+    mark("ssm_main")
     node, host = phase_node(torch, model, mamba, flow)
     del model, mamba
+    mark("node")
     pred = train_predictor()
-    phase_gateway_reference(torch, args, pred)
-    gateway = phase_gateway(torch, args, host, pred)
-    del host
+    card = phase_gateway_reference(torch, args, pred)
+    mark("gateway_reference")
+    gateway, gateway_runs = phase_gateway(torch, args, host, pred)
+    del host                  # two workers' pinned copies need the room
+    mark("gateway")
+    phase_sim(args, pred)
+    mark("sim")
+    workers = phase_worker_reference(torch, args, pred, card)
+    mark("worker_reference")
+    phase_worker_fault(torch, args, pred)
+    mark("worker_fault")
+    workers.update(phase_gateway_process(torch, args, pred,
+                                         gateway_runs["maestro"]))
+    mark("gateway_process")
+    emit("timing", seconds_by_phase=seconds,
+         total_s=time.perf_counter() - t0)
     by_path = {"prefix_chunked": prefix["chunked"],
                "prefix_monolithic": prefix["monolithic"], "node": node,
-               **{f"gateway_{run}": n for run, n in gateway.items()}}
+               **{f"gateway_{run}": n for run, n in gateway.items()},
+               **workers}
 
     sources = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -2177,7 +2681,8 @@ def main(argv=None) -> int:
             variants=variants.get(name),
             # launches on the later slices' paths (prefix cache on; the
             # node; the gateway under each policy, and under fcfs at the
-            # default reject_limit)
+            # default reject_limit; the worker fleets, summed over their
+            # children and per child)
             launches_by_path={p: n.get(name, 0)
                               for p, n in by_path.items()}))
     print(smi)

@@ -1,6 +1,7 @@
-from repro_torch.core.predictor.cost_model import (HardwareSpec,
+from repro_torch.core.predictor.cost_model import (A100_40G, HardwareSpec,
                                                    ModelProfile,
-                                                   profile_from_arch)
+                                                   profile_from_arch,
+                                                   synthetic_profile)
 from repro_torch.core.predictor.features import (StageObservation,
                                                  featurize,
                                                  featurize_batch,
@@ -15,9 +16,9 @@ from repro_torch.core.predictor.length_model import (BertMLPBaseline,
                                                      classification_metrics,
                                                      regression_metrics)
 
-__all__ = ["HardwareSpec", "ModelProfile", "profile_from_arch",
-           "StageObservation", "featurize", "featurize_batch",
-           "semantic_embedding", "GBDT", "GBDTConfig", "IsotonicCalibrator",
-           "BertMLPBaseline", "LinearBaseline", "MLP", "MaestroPred",
-           "MagnusBaseline", "PredictorConfig", "classification_metrics",
-           "regression_metrics"]
+__all__ = ["A100_40G", "HardwareSpec", "ModelProfile", "profile_from_arch",
+           "synthetic_profile", "StageObservation", "featurize",
+           "featurize_batch", "semantic_embedding", "GBDT", "GBDTConfig",
+           "IsotonicCalibrator", "BertMLPBaseline", "LinearBaseline", "MLP",
+           "MaestroPred", "MagnusBaseline", "PredictorConfig",
+           "classification_metrics", "regression_metrics"]

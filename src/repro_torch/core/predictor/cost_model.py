@@ -1,7 +1,7 @@
 """Translation of predicted output length to system metrics (§III.B, Eq. 2-3)
 via calibrated per-model profiles; the port's copy of
-``repro/core/predictor/cost_model.py`` (``HardwareSpec``, ``ModelProfile``,
-``profile_from_arch``).
+``repro/core/predictor/cost_model.py`` (``HardwareSpec``, ``A100_40G``,
+``ModelProfile``, ``profile_from_arch``, ``synthetic_profile``).
 
     T_exec(T) = t_pre(P, M) + t_dec(M) * L_hat          (Eq. 2)
     R_kv(T)   = alpha(M) * (P + L_hat)                  (Eq. 3)
@@ -34,6 +34,10 @@ class HardwareSpec:
     remote_bw: float = 1e9
     mfu: float = 0.5                 # realized fraction of peak in prefill
     mbu: float = 0.7                 # realized fraction of HBM bw in decode
+
+
+A100_40G = HardwareSpec(name="a100-40g", peak_flops=312e12, hbm_bw=1555e9,
+                        hbm_capacity=40e9, host_link_bw=25e9)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,3 +86,17 @@ def profile_from_arch(cfg: ArchConfig, hw: HardwareSpec = HardwareSpec(),
         decode_bytes_per_token=2.0 * n_active + alpha * 1024,
         hw=hw,
     )
+
+
+def synthetic_profile(name: str, params_b: float,
+                      hw: HardwareSpec = HardwareSpec(),
+                      n_layers: int = 32, n_kv: int = 8, head_dim: int = 128,
+                      ctx_bytes: int = 200 << 20) -> ModelProfile:
+    """Profile for a model named only by size (the sim's small Qwen3 zoo)."""
+    n = params_b * 1e9
+    alpha = int(n_layers * 2 * n_kv * head_dim * 2)
+    return ModelProfile(
+        name=name, weight_bytes=int(2 * n), ctx_bytes=ctx_bytes,
+        alpha_bytes_per_token=alpha, state_bytes=0,
+        prefill_flops_per_token=2.0 * n,
+        decode_bytes_per_token=2.0 * n + alpha * 1024, hw=hw)

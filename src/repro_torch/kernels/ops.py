@@ -63,6 +63,21 @@ def ssd_chunk(x, dt, A, Bm, Cm, chunk: int):
     return _ssd.ssd_chunk(x, dt, A, Bm, Cm, chunk)
 
 
+def counts() -> dict:
+    """Launches by kernel and by variant, and plain-version calls, since the
+    last :func:`reset_counts`, as plain dicts."""
+    return {"launches": {"paged_attention": _pa.launches,
+                         "chunk_prefill_attention": _cp.launches,
+                         "flash_attention": _fa.launches,
+                         "ssd_chunk": _ssd.launches},
+            "launches_by_variant": {
+                name: dict(mod.launches_by_variant)
+                for name, mod in (("chunk_prefill_attention", _cp),
+                                  ("flash_attention", _fa),
+                                  ("ssd_chunk", _ssd))},
+            "plain_calls": dict(plain_calls)}
+
+
 def reset_counts() -> None:
     """Zero every launch and plain-call count."""
     _pa.launches = 0

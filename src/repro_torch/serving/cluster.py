@@ -5,10 +5,12 @@ across simulated-RTT clusters; the port of the fleet half of
 Every node holds the same model zoo (reduced configs, structurally
 faithful) with weights from one shared host registry; cross-cluster
 effects (RTT, cold starts) enter through the gateway's virtual clock.
-Only in-process nodes exist so far: the worker-process and socket backends
-(and ``worker_specs``) come with the worker slice. The trace adapter
-(``LiveStage``, ``LiveJob``, ``jobs_from_trace``) turns generated traces
-into live jobs for the gateway, as the reference's does.
+Nodes live in the gateway's process (``backend="inproc"``), in worker
+processes of their own (``"process"``), or behind the socket transport
+(``"socket"``), each worker building its node from the picklable spec of
+:func:`worker_specs`. The trace adapter (``LiveStage``, ``LiveJob``,
+``jobs_from_trace``) turns generated traces into live jobs for the
+gateway, as the reference's does.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core.predictor.features import StageObservation
 from repro_torch.core.topology import DEFAULT_RTT
@@ -65,36 +68,107 @@ class ClusterSpec:
         return int(max(n.cluster_id for n in self.nodes)) + 1
 
 
-def build_zoo(model_names: Sequence[str] = DEFAULT_ZOO, seed: int = 1
+def build_zoo(model_names: Sequence[str] = DEFAULT_ZOO, seed: int = 1,
+              reduced: bool = True, device=None
               ) -> Tuple[Dict[str, Model], Dict[str, Any]]:
     """Tiny real models (reduced configs) + their host-memory parameter
     trees, drawn by :func:`init_params` from ``seed + i`` for the i-th
     model. The host trees are shared by every node of the fleet (a model
-    registry), as weights would be fetched from common storage."""
+    registry), as weights would be fetched from common storage.
+
+    ``reduced=False`` builds the full-width configs instead: each model's
+    weights are drawn on ``device`` (``cuda`` unless the caller names
+    another), as the full-width serving runs draw them, and copied into one
+    host tree, pinned when drawn on CUDA. A full-width worker builds its
+    zoo so; ``device`` is ignored for the reduced configs."""
     zoo, host = {}, {}
     for i, name in enumerate(model_names):
-        cfg = get_config(name).reduced()
-        gen = torch.Generator().manual_seed(seed + i)
-        host[name] = init_params(cfg, gen, "cpu")
+        cfg = get_config(name)
+        if reduced:
+            cfg = cfg.reduced()
+            gen = torch.Generator().manual_seed(seed + i)
+            host[name] = init_params(cfg, gen, "cpu")
+        else:
+            dev = resolve_device(device)
+            drawn = build_model(cfg, device=dev, seed=seed + i)
+            host[name] = _host_copy(drawn.param_tree())
+            del drawn
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()     # the drawn copy's blocks
         zoo[name] = build_model(cfg, host[name], device="cpu")
     return zoo, host
+
+
+def _host_copy(tree):
+    """A parameter tree in host memory: CUDA leaves copied into pinned
+    host tensors, CPU leaves kept as they are."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_host_copy(v) for v in tree]
+    if not tree.is_cuda:
+        return tree
+    return torch.empty(tree.shape, dtype=tree.dtype,
+                       pin_memory=True).copy_(tree)
+
+
+def worker_specs(spec: ClusterSpec, seed: int = 1, device=None,
+                 reduced: bool = True) -> List[Any]:
+    """The picklable per-node ``WorkerSpec`` list for a cluster spec —
+    what both worker backends ship to their children, and what
+    ``connect_fleet`` sends to standalone remote workers. ``device``: each
+    node's device (``cuda`` when None); ``reduced=False``: full-width
+    models (see :func:`build_zoo`)."""
+    from repro_torch.serving.worker import WorkerSpec
+    return [WorkerSpec(node_id=nid, cluster_id=ns.cluster_id,
+                       model_names=tuple(spec.model_names),
+                       hbm_budget=ns.hbm_budget, max_slots=ns.max_slots,
+                       s_max=ns.s_max, seed=seed,
+                       prefix_cache=ns.prefix_cache or None,
+                       prefix_cache_pages=(ns.prefix_cache_pages
+                                           if ns.prefix_cache else None),
+                       max_batch_tokens=ns.max_batch_tokens,
+                       prefill_chunk_tokens=(ns.prefill_chunk_tokens
+                                             or None),
+                       decode_horizon=(ns.decode_horizon
+                                       if ns.decode_horizon > 1 else None),
+                       device=None if device is None else str(device),
+                       reduced=reduced)
+            for nid, ns in enumerate(spec.nodes)]
 
 
 def build_fleet(spec: Optional[ClusterSpec] = None,
                 zoo: Optional[Dict[str, Model]] = None,
                 host: Optional[Dict[str, Any]] = None,
                 seed: int = 1, backend: str = "inproc",
-                device=None) -> List[NodeRuntime]:
-    """Instantiate the fleet; node ids are positional. ``zoo`` supplies the
-    models' configs and ``host`` their weights (both from
-    :func:`build_zoo` by default); each node serves Models of its own over
-    the shared host trees. Only ``backend="inproc"`` exists in the port.
-    ``device``: ``cuda`` unless the caller names another."""
+                device=None,
+                worker_addresses: Optional[Sequence[Any]] = None
+                ) -> List[Any]:
+    """Instantiate the fleet; node ids are positional.
+
+    ``backend="inproc"`` (default) returns in-process ``NodeRuntime``
+    objects: ``zoo`` supplies the models' configs and ``host`` their
+    weights (both from :func:`build_zoo` by default), and each node serves
+    Models of its own over the shared host trees. ``backend="process"``
+    spawns one worker process per node and returns ``NodeHandle`` proxies
+    (each child builds its own zoo from the same ``model_names`` + ``seed``,
+    so the fleets are numerically identical — ``zoo``/``host`` are ignored
+    there); ``backend="socket"`` speaks the same protocol over the framed
+    TCP transport — localhost children by default, or, when
+    ``worker_addresses`` gives one "host:port" per node, workers already
+    listening elsewhere (started with ``python -m
+    repro_torch.serving.worker --listen``). ``device``: every node's
+    device, ``cuda`` unless the caller names another; a worker gets it in
+    its spec."""
     spec = spec or ClusterSpec()
+    if worker_addresses is not None and backend != "socket":
+        raise ValueError("worker_addresses requires backend='socket'")
     if backend in ("process", "socket"):
-        raise NotImplementedError(
-            f"backend {backend!r}: the worker-process and socket backends "
-            f"come with the worker slice of the port")
+        from repro_torch.serving.worker import connect_fleet, spawn_fleet
+        specs = worker_specs(spec, seed=seed, device=device)
+        if worker_addresses is not None:
+            return connect_fleet(worker_addresses, specs)
+        return spawn_fleet(specs, backend=backend)
     if backend != "inproc":
         raise ValueError(f"unknown node backend {backend!r} "
                          "(expected 'inproc', 'process' or 'socket')")

@@ -27,6 +27,17 @@ from repro_torch.models import build_model
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.kv_arena import KVArena
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch intra-op thread: test processes that each spin a pool of
+    threads on a shared host slow one another down a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MODELS = ("qwen3-8b", "starcoder2-15b")
 
 

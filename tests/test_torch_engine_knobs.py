@@ -18,6 +18,7 @@ import itertools
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jax_config
 from repro.core.runtime.accounting import MemoryAccountant as JaxAccountant
@@ -29,6 +30,17 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core.runtime.accounting import MemoryAccountant
 from repro_torch.models import build_model
 from repro_torch.serving.engine import Engine, Request
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch intra-op thread: test processes that each spin a pool of
+    threads on a shared host slow one another down a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 STATS = ("stat_prefill_tokens", "stat_decode_tokens", "stat_steps",
          "stat_fused_steps", "stat_horizon_steps", "stat_decode_syncs")

@@ -21,6 +21,17 @@ from repro.models.layers import blockwise_attention as jax_blockwise
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch intra-op thread: test processes that each spin a pool of
+    threads on a shared host slow one another down a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32 = dict(rtol=2e-5, atol=2e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
 

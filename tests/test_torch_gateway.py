@@ -17,6 +17,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from _stubs import StubPred
 from repro.configs import get_config as jax_config
@@ -40,6 +41,17 @@ from repro_torch.models import build_model
 from repro_torch.serving import cluster, gateway
 from repro_torch.serving.clock import WallClock
 from repro_torch.serving.engine import Request
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch intra-op thread: test processes that each spin a pool of
+    threads on a shared host slow one another down a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ZOO = cluster.DEFAULT_ZOO
 REF_HW = cm.HardwareSpec(**dataclasses.asdict(jax_cm.HardwareSpec()))
@@ -309,7 +321,9 @@ def test_worker_backend_over_an_inproc_fleet_is_refused(zoos):
             gateway.ClusterGateway(
                 fleet, RTT, policy="fcfs",
                 cfg=gateway.GatewayConfig(node_backend=backend))
-    with pytest.raises(NotImplementedError):
+    # a worker builds its node on the card unless its spec names the CPU:
+    # without one the fleet refuses to boot
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         cluster.build_fleet(backend="process")
 
 

@@ -36,5 +36,38 @@ def test_no_module_of_the_port_imports_jax_or_repro():
                  "repro_torch.core.sched.srtf",
                  "repro_torch.core.predictor.length_model",
                  "repro_torch.data.tracegen", "repro_torch.data.apps",
-                 "repro_torch.distributed.fault"):
+                 "repro_torch.distributed.fault",
+                 "repro_torch.serving.transport",
+                 "repro_torch.serving.faultplan",
+                 "repro_torch.sim.cluster", "repro_torch.sim.simulator"):
         assert name in got["modules"], name
+
+
+# the worker's entry point as ``python -m`` runs it, then the modules loaded
+HELP_PROBE = """
+import contextlib, io, json, runpy, sys
+sys.argv = ["worker", "--help"]
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    try:
+        runpy.run_module("repro_torch.serving.worker", run_name="__main__")
+    except SystemExit as e:
+        code = e.code
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"code": code, "help": out.getvalue(), "bad": bad}))
+"""
+
+
+def test_the_worker_entry_point_imports_neither_jax_nor_repro():
+    """``python -m repro_torch.serving.worker --help``: the standalone
+    worker's entry point loads only the port."""
+    src = pathlib.Path(__file__).resolve().parent.parent / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    out = subprocess.run([sys.executable, "-c", HELP_PROBE], env=env,
+                         text=True, capture_output=True, timeout=300,
+                         check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["code"] == 0
+    assert "--listen" in got["help"] and "--once" in got["help"]
+    assert got["bad"] == []

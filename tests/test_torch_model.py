@@ -22,6 +22,17 @@ from repro_torch.convert import params_from_jax
 from repro_torch.kernels import ops
 from repro_torch.models import build_model, init_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch intra-op thread: test processes that each spin a pool of
+    threads on a shared host slow one another down a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MODELS = ("qwen3-8b", "starcoder2-15b")
 ATOL = dict(rtol=0, atol=1e-4)
 PAGE, ROWS, C = 4, 12, 6

@@ -41,6 +41,17 @@ from repro_torch.serving import cluster
 from repro_torch.serving.engine import Request
 from repro_torch.serving.node_runtime import NodeRuntime
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch intra-op thread: test processes that each spin a pool of
+    threads on a shared host slow one another down a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ZOO = cluster.DEFAULT_ZOO
 # the reference's hardware values, so the modelled seconds compare
 REF_HW = cm.HardwareSpec(**dataclasses.asdict(jax_cm.HardwareSpec()))
@@ -295,6 +306,9 @@ def test_build_fleet_inproc_over_the_default_zoo():
     fleet[0].sleep("qwen3-8b")                  # must not touch node 1
     outs.append(_run(fleet[1], Request, "qwen3-8b", [[5, 6, 7, 8]], 0))
     assert outs[0] == outs[1] == outs[2] and len(outs[0][0]) == 6
-    for backend in ("process", "socket"):
-        with pytest.raises(NotImplementedError, match="worker"):
-            cluster.build_fleet(spec, backend=backend, device="cpu")
+    # the worker backends build the same nodes from these specs
+    specs = cluster.worker_specs(spec, device="cpu")
+    assert [(s.node_id, s.cluster_id, s.hbm_budget) for s in specs] == \
+        [(n.node_id, n.cluster_id, n.acc.m_total) for n in fleet]
+    assert all(s.device == "cpu" and s.reduced
+               and s.model_names == tuple(spec.model_names) for s in specs)

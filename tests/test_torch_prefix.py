@@ -35,6 +35,17 @@ from repro_torch.serving.kv_arena import KVArena
 from repro_torch.serving.prefix_cache import (PrefixCacheConfig,
                                               page_digests, root_key)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch intra-op thread: test processes that each spin a pool of
+    threads on a shared host slow one another down a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MODELS = ("qwen3-8b", "starcoder2-15b")
 GEO = dict(n_layers=2, n_kv_heads=2, head_dim=32, dtype=torch.float32)
 ALPHA = 2 * 2 * 2 * 32 * 4

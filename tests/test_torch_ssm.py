@@ -42,6 +42,17 @@ from repro_torch.kernels import ssd_chunk as ssd
 from repro_torch.models import build_model, init_params
 from repro_torch.serving.engine import Engine, Request
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch intra-op thread: test processes that each spin a pool of
+    threads on a shared host slow one another down a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 NAME = "mamba2-2.7b"
 ATOL = dict(rtol=0, atol=1e-4)
 
