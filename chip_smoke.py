@@ -128,12 +128,50 @@ Phases, each printing one JSON line (and failing the run on any error):
                 peak allocated within 1.1 x the 24 GB budget; printed beside
                 phase 12's maestro run with boot seconds, host
                 ``MemAvailable`` around the boot, busy fractions, the
-                overlap factor and the IPC counters.
+                overlap factor and the IPC counters;
+17. kernels_zoo -- paged decode, the chunk kernel and flash (both wgmma)
+                in bf16 at the (H, Hkv) of the MoE and large dense configs
+                -- (16, 16), (40, 8), (64, 8), hd 128 -- against their
+                plain versions at the main path's shapes, each timed beside
+                its bound (flash beside SDPA); the SSD scan at jamba's
+                widths (N 16, P 64, 128 heads, bf16: the simt variant) at
+                the 8 prompt lengths with its final state;
+18. zoo_reference -- reduced moonshot-v1-16b-a3b and llama4-scout-17b-a16e
+                (chunked and monolithic), qwen3-32b, qwen1.5-110b (random
+                non-zero q/k/v biases) and jamba-v0.1-52b (knobs degrade)
+                served on the card and the CPU from the same weights:
+                identical greedy tokens;
+19. moe_main -- full-width moonshot-v1-16b-a3b (48 layers, 64 experts top
+                6, bf16) serving the main path's 8 requests chunked (256)
+                at horizon 8, then at horizon 1 (identical tokens), then
+                monolithic (flash; its tokens against the chunked run's or
+                the first difference); a profile of the first chunk step
+                and one horizon launch with each kernel's share and the
+                MoE's (routing: router product, top-k, argsorts, gathers;
+                the expert products), and the expert bytes one decode
+                iteration reads (every expert's, the dense bucket) against
+                those of the experts routed to;
+20. moe_llama4 -- llama4-scout-17b-a16e at its published widths, 8 of 48
+                layers (top-1 of 16, GQA 5), the same requests chunked;
+21. dense_large -- full-width qwen3-32b (64 layers) with 4 of the requests
+                and 32 new tokens each, chunked at horizon 8; then
+                qwen1.5-110b at its widths, 8 of 80 layers, with random
+                non-zero biases;
+22. hybrid_main -- jamba-v0.1-52b at its published widths, 16 of 32 layers
+                (2 attention, 14 Mamba2, 8 MoE): the 8 prompt lengths, the
+                chunk and horizon knobs degrading to 0 and 1, every prefill
+                through flash and the SSD scan (simt), decode through paged
+                attention and the state cache; a profile of its first step
+                with the SSD, flash and MoE shares.
+
+The models of phases 19-22 are drawn on the card one at a time, each
+freed before the next.
 
 Each serving path zeroes the launch counts just before it runs and reads
 them just after: every kernel of that path must have launched and no plain
 version may have run. The kernels line gives each kernel's launches on the
-main paths and, under ``launches_by_path``, on this slice's paths.
+main paths and, under ``launches_by_path``, on the later paths, and under
+``zoo_shapes`` its numbers at phase 17's shapes.
 
 A ``timing`` line gives each phase's wall seconds. The last lines are the
 ``nvidia-smi`` line, the ``kernels`` JSON line (each kernel with its
@@ -436,9 +474,10 @@ def head_scaled_err(got, want) -> float:
     return float((diff / mag).max())
 
 
-def ssd_errors(torch, gen, lens, where: str) -> dict:
-    """The SSD kernel against its plain version at mamba2-2.7b's heads, one
-    bf16 call (B = 1) per length in ``lens``: y and the final state, each
+def ssd_errors(torch, gen, lens, where: str, model: str = SSM_MODEL) -> dict:
+    """The SSD kernel against its plain version at ``model``'s heads
+    (mamba2-2.7b's by default), one bf16 call (B = 1) per length in
+    ``lens``: y and the final state, each
     held by its largest error over its largest magnitude (1e-2 for the bf16
     y, one rounding; 1e-4 for the f32 state, sums in another order over
     other chunk lengths), y also by each head's error over that head's
@@ -448,7 +487,7 @@ def ssd_errors(torch, gen, lens, where: str) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_chunk as ssd
 
-    cfg = get_config(SSM_MODEL)
+    cfg = get_config(model)
     s = cfg.ssm
     H, P, N = s.n_heads(cfg.d_model), s.head_dim, s.d_state
     y_errs, head_errs, st_errs, abs_errs = [], [], [], []
@@ -474,9 +513,10 @@ def ssd_errors(torch, gen, lens, where: str) -> dict:
 
 
 def chunk_errors(got, want) -> tuple:
-    """The chunk kernel's largest error, and each row's error over that
-    row's magnitude (the rounding of P and of the output gives about 5e-3,
-    a dropped or misplaced 64-key tile tenths); ``want`` is f32."""
+    """An attention kernel's largest error, and each row's (one query
+    token's head) error over that row's magnitude (the rounding of P and
+    of the output gives about 5e-3, a dropped or misplaced tile or page,
+    or one kv group's share read from another, tenths); ``want`` is f32."""
     diff = (got.float() - want).abs()
     row = (diff.amax(-1) / want.abs().amax(-1).clamp_min(1e-30)).max()
     return float(diff.max()), float(row)
@@ -619,9 +659,11 @@ def phase_kernels(torch, args, prompt_lens, suffix_shape, gw_shapes):
     q, kp, vp, bt, sl = paged_inputs(torch, gen, seq_lens, H, Hkv, hd, page,
                                      W, n_rows, bf16)
     got = pa.paged_attention(q, kp, vp, bt, sl)
-    want = ref.paged_attention_ref(q, kp, vp, bt, sl)
-    err = float((got.float() - want.float()).abs().max())
-    require(err <= 2e-2, f"paged_attention bf16 max_abs_err {err} > 2e-2")
+    want = ref.paged_attention_ref(q.float(), kp.float(), vp.float(), bt, sl)
+    err, row_err = chunk_errors(got, want)
+    require(err <= 2e-2 and row_err <= 2e-2,
+            f"paged_attention bf16: max_abs_err {err}, row-scaled {row_err}")
+    del want
     # splice: bitwise equal to scattering k_new/v_new first
     k_new = torch.randn((len(seq_lens), Hkv, hd), generator=gen,
                         device="cuda").to(bf16)
@@ -645,7 +687,8 @@ def phase_kernels(torch, args, prompt_lens, suffix_shape, gw_shapes):
     n_bytes, n_flops = paged_cost(seq_lens, H, Hkv, hd, W, 2)
     b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
     results["paged_attention"] = dict(
-        max_abs_err=err, max_abs_err_f32=err32, splice_bitwise=True,
+        max_abs_err=err, row_scaled_err=row_err, max_abs_err_f32=err32,
+        splice_bitwise=True,
         split=dict(zip(("n_split", "span"),
                        pa.split_plan(len(seq_lens), Hkv, W, page))),
         **kernel_times(lambda: pa.paged_attention(q, kp, vp, bt, sl)),
@@ -737,10 +780,11 @@ def phase_kernels(torch, args, prompt_lens, suffix_shape, gw_shapes):
     return results
 
 
-def serve(torch, model, prompts, *, device, arena_rows=None, **kw):
-    """Drain ``prompts`` through a fresh engine. Returns the engine, the
-    finished requests by id, and per step (wall seconds, prefill tokens,
-    decode tokens)."""
+def serve(torch, model, prompts, *, device, arena_rows=None,
+          max_new=MAIN["max_new"], **kw):
+    """Drain ``prompts`` through a fresh engine, ``max_new`` tokens each.
+    Returns the engine, the finished requests by id, and per step (wall
+    seconds, prefill tokens, decode tokens)."""
     from repro_torch.core.runtime.accounting import MemoryAccountant
     from repro_torch.serving.engine import Engine, Request
     from repro_torch.serving.kv_arena import KVArena
@@ -750,7 +794,7 @@ def serve(torch, model, prompts, *, device, arena_rows=None, **kw):
     eng = Engine(model, MemoryAccountant(m_total=60e9), arena=arena,
                  device=device, **kw)
     for i, p in enumerate(prompts):
-        eng.submit(Request(req_id=i, tokens=list(p), max_new=MAIN["max_new"]))
+        eng.submit(Request(req_id=i, tokens=list(p), max_new=max_new))
     steps = []
     while eng.waiting or eng.active:
         pre, dec = eng.stat_prefill_tokens, eng.stat_decode_tokens
@@ -803,8 +847,14 @@ def profile_steps(torch, eng, more):
             n += 1
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
+    kernels, ranges = [], {}
     for ev in prof.key_averages():
+        if ev.key.startswith(RANGE_PREFIX):
+            # a range of moe_ranges: its kernels' time, from the host side
+            # (the device side's annotation is not a kernel)
+            if not str(ev.device_type).endswith("CUDA"):
+                ranges[ev.key] = ev.device_time_total / 1e3
+            continue
         if not str(ev.device_type).endswith("CUDA"):
             continue
         us = getattr(ev, "self_device_time_total", None)
@@ -816,10 +866,15 @@ def profile_steps(torch, eng, more):
     share = {k: sum(ms for ms, name, _ in kernels
                     if any(part in name for part in parts)) / busy_ms
              for k, parts in KERNEL_NAMES.items()}
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, steps=n,
-                idle_share=1 - busy_ms / wall_ms, device_share=share,
-                top=[dict(kernel=name[:90], ms=ms, calls=n)
-                     for ms, name, n in kernels[:8]])
+    out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms, steps=n,
+               idle_share=1 - busy_ms / wall_ms, device_share=share,
+               top=[dict(kernel=name[:90], ms=ms, calls=n)
+                    for ms, name, n in kernels[:8]])
+    if ranges:
+        out["moe_ms"] = {k[len(RANGE_PREFIX):]: ms
+                         for k, ms in ranges.items()}
+        out["moe_share"] = {k: ms / busy_ms for k, ms in out["moe_ms"].items()}
+    return out
 
 
 def phase_profile(torch, model, prompts, rows, kw):
@@ -2550,6 +2605,584 @@ def phase_gateway_process(torch, args, pred, inproc):
                for nid, n in per_child.items()}}
 
 
+# ------------------------------------------ MoE, hybrid and large dense
+ZOO = dict(moe="moonshot-v1-16b-a3b", llama4="llama4-scout-17b-a16e",
+           qwen32="qwen3-32b", qwen110="qwen1.5-110b",
+           hybrid="jamba-v0.1-52b")
+# layers run on the card at the published widths where all of them would
+# not fit one card's 80 GB (moonshot and qwen3-32b run whole)
+ZOO_LAYERS = {ZOO["llama4"]: 8, ZOO["qwen110"]: 8, ZOO["hybrid"]: 16}
+# (H, Hkv) of moonshot (g = 1), llama4-scout (g = 5), qwen3-32b and
+# qwen1.5-110b (g = 8); hd 128 in all
+ZOO_HEADS = ((16, 16), (40, 8), (64, 8))
+DENSE_LARGE = dict(n_requests=4, max_new=32)
+RANGE_PREFIX = "moe::"
+# the port's MoE functions under each profiler range of moe_ranges
+MOE_RANGES = {"routing": ("_route_and_bucket", "_combine"),
+              "experts": ("_expert_ffn",)}
+
+
+def zoo_config(name: str):
+    """``name``'s config at its published widths, cut to the layers of
+    :data:`ZOO_LAYERS` where it has an entry."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    n = ZOO_LAYERS.get(name)
+    return dataclasses.replace(cfg, n_layers=n) if n else cfg
+
+
+def random_biases(torch, tree, seed: int) -> None:
+    """Draw non-zero q/k/v biases into a parameter tree in place (``init``
+    draws them as zeros, as the reference does, which would leave the bias
+    branch idle)."""
+    gen = None
+    for lp in tree["layers"]:
+        attn = lp.get("attn") or {}
+        for k in ("bq", "bk", "bv"):
+            if k not in attn:
+                continue
+            t = attn[k]
+            if gen is None:
+                gen = torch.Generator(device=t.device).manual_seed(seed)
+            t.copy_(0.5 * torch.randn(t.shape, generator=gen,
+                                      device=t.device))
+
+
+def path_kernels(model, chunk: int) -> set:
+    """The kernels a serving path of ``model`` must launch: paged decode
+    and the chunk kernel (chunked) or flash (monolithic) for a model with
+    attention layers, the SSD scan for one with SSM layers."""
+    names = set()
+    if model.paged_kv_layout()[0]:
+        names.add("paged_attention")
+        names.add("chunk_prefill_attention"
+                  if chunk and model.supports_chunked_prefill
+                  else "flash_attention")
+    if model.n_ssm_layers:
+        names.add("ssd_chunk")
+    return names
+
+
+def require_path(where: str, model, chunk: int) -> dict:
+    """After a path: each of its kernels launched, no other kernel and no
+    plain version. Returns the launches of its kernels."""
+    from repro_torch.kernels import ops
+    launches = launch_counts()
+    want = path_kernels(model, chunk)
+    got = {k for k, n in launches.items() if n}
+    require(got == want, f"{where}: kernels launched {sorted(got)}, the "
+            f"path's are {sorted(want)}")
+    require(not any(ops.plain_calls.values()),
+            f"{where}: a plain version ran on the card: {ops.plain_calls}")
+    return {k: launches[k] for k in sorted(want)}
+
+
+@contextlib.contextmanager
+def moe_ranges(torch):
+    """The port's MoE routing (router product, top-k, argsorts, gathers)
+    and expert products each under a profiler range (``moe::routing``,
+    ``moe::experts``), so :func:`profile_steps` gives their device time."""
+    from repro_torch.models import moe
+    saved = {}
+    for label, fns in MOE_RANGES.items():
+        for fn in fns:
+            saved[fn] = getattr(moe, fn)
+
+            def ranged(*a, _orig=saved[fn], _label=RANGE_PREFIX + label,
+                       **k):
+                with torch.profiler.record_function(_label):
+                    return _orig(*a, **k)
+            setattr(moe, fn, ranged)
+    try:
+        yield
+    finally:
+        for fn, orig in saved.items():
+            setattr(moe, fn, orig)
+
+
+def expert_use(torch, eng) -> dict:
+    """One engine step with the distinct experts of each MoE call counted:
+    the bytes of expert weights a step reads (every expert's, the dense
+    bucket) against those of the experts its rows were routed to."""
+    from repro_torch.models import moe
+    orig, used = moe._route_and_bucket, []
+
+    def counting(xt, router, E, K, C):
+        buf, info = orig(xt, router, E, K, C)
+        used.append(int(torch.unique(info[0]).numel()))
+        return buf, info
+
+    moe._route_and_bucket = counting
+    try:
+        eng.step()
+    finally:
+        moe._route_and_bucket = orig
+    cfg = eng.model.cfg
+    m = cfg.moe
+    per_expert = 3 * cfg.d_model * m.d_ff_expert * 2
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    iters = len(used) // n_moe
+    return dict(calls=len(used), iterations=iters,
+                distinct_experts_mean=statistics.mean(used),
+                distinct_experts_max=max(used),
+                bytes_read_per_iteration=n_moe * m.n_experts * per_expert,
+                bytes_routed_per_iteration=sum(used) * per_expert / iters)
+
+
+def check_zoo_kernels(torch, gen, prompt_lens) -> dict:
+    """Paged decode, the chunk kernel (wgmma) and flash (wgmma) at each
+    (H, Hkv) of :data:`ZOO_HEADS` against their plain versions, at the main
+    path's shapes (paged: 8 lanes mid-decode; chunk: each prompt's last
+    full 256-row chunk; flash: the shortest, prime and longest prompt),
+    each timed at its widest shape beside its bound; then the SSD scan at
+    jamba's widths (N 16, P 64, H 128, bf16: the simt variant) at the 8
+    prompt lengths with its final state."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import chunk_prefill as cp
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_chunk as ssd
+
+    hd, page, C = 128, MAIN["page_tokens"], MAIN["prefill_chunk_tokens"]
+    W = -(-MAIN["s_max"] // page)
+    n_rows = MAIN["max_slots"] * W + 1
+    bf16 = torch.bfloat16
+    seq_lens = [P + MAIN["max_new"] // 2 for P in prompt_lens]
+    pos = chunk_positions(torch, prompt_lens, C)
+    flash_lens = sorted({min(prompt_lens), max(prompt_lens)}
+                        | {n for n in prompt_lens if n == next_prime(n)})
+    out = {k: {} for k in ("paged_attention", "chunk_prefill_attention",
+                           "flash_attention")}
+    ops.reset_counts()
+    for H, Hkv in ZOO_HEADS:
+        key = f"{H}/{Hkv}"
+        q, kp, vp, bt, sl = paged_inputs(torch, gen, seq_lens, H, Hkv, hd,
+                                         page, W, n_rows, bf16)
+        err, row_err = chunk_errors(
+            pa.paged_attention(q, kp, vp, bt, sl),
+            ref.paged_attention_ref(q.float(), kp.float(), vp.float(), bt,
+                                    sl))
+        require(err <= 2e-2 and row_err <= 2e-2,
+                f"paged_attention at heads {key}: max_abs_err {err}, "
+                f"row-scaled {row_err}")
+        b_ms, b_by = bound(*paged_cost(seq_lens, H, Hkv, hd, W, 2),
+                           BF16_FLOPS)
+        out["paged_attention"][key] = dict(
+            max_abs_err=err, row_scaled_err=row_err,
+            split=pa.split_plan(len(seq_lens), Hkv, W, page),
+            **kernel_times(lambda: pa.paged_attention(q, kp, vp, bt, sl)),
+            plain_ms=time_ms(lambda: ref.paged_attention_ref(q, kp, vp, bt,
+                                                             sl)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        qc = torch.randn((len(prompt_lens), C, H, hd), generator=gen,
+                         device="cuda").to(bf16)
+        got = cp.chunk_prefill_attention(qc, kp, vp, bt, pos)
+        want = ref.chunk_prefill_attention_ref(qc.float(), kp.float(),
+                                               vp.float(), bt, pos)
+        err, row_err = chunk_errors(got, want)
+        require(err <= 2e-2 and row_err <= 2e-2
+                and bool(torch.isfinite(got).all()),
+                f"chunk_prefill at heads {key}: err {err}, row {row_err}")
+        b_ms, b_by = bound(*chunk_cost(pos, H, Hkv, hd, W, 2), BF16_FLOPS)
+        out["chunk_prefill_attention"][key] = dict(
+            max_abs_err=err, row_scaled_err=row_err,
+            variant=cp.variant(bf16, hd, page),
+            **kernel_times(lambda: cp.chunk_prefill_attention(qc, kp, vp, bt,
+                                                              pos)),
+            plain_ms=time_ms(lambda: ref.chunk_prefill_attention_ref(
+                qc, kp, vp, bt, pos), reps=5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del q, kp, vp, qc, got, want
+        errs = []
+        for S in flash_lens:
+            qf, kf, vf = (torch.randn((1, S, h, hd), generator=gen,
+                                      device="cuda").to(bf16)
+                          for h in (H, Hkv, Hkv))
+            got = fa.flash_attention(qf, kf, vf, causal=True)
+            want = ref.blockwise_attention(qf.float(), kf.float(),
+                                           vf.float(), True)
+            errs.append(chunk_errors(got, want))
+        err, row_err = max(e[0] for e in errs), max(e[1] for e in errs)
+        require(err <= 2e-2 and row_err <= 2e-2,
+                f"flash_attention at heads {key}: err {err}, row {row_err}")
+        qt, kt, vt = (t.transpose(1, 2) for t in (qf, kf, vf))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+        b_ms, b_by = bound(*flash_cost(S, S, H, Hkv, hd, True, 2),
+                           BF16_FLOPS)
+        out["flash_attention"][key] = dict(
+            max_abs_err=err, row_scaled_err=row_err, lens=flash_lens,
+            variant=fa.variant(bf16, hd),
+            **kernel_times(lambda: fa.flash_attention(qf, kf, vf,
+                                                      causal=True)),
+            plain_ms=time_ms(lambda: ref.blockwise_attention(qf, kf, vf,
+                                                             True), reps=3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(sdpa),
+            library_ms_no_spin=time_ms(sdpa, spin=False))
+        del qf, kf, vf, qt, kt, vt
+        for name in out:
+            emit("kernel_check_zoo", name=name, heads=key, **out[name][key])
+    variants = variant_counts()
+    for name in ("chunk_prefill_attention", "flash_attention"):
+        require(variants[name]["simt"] == 0 and variants[name]["wgmma"],
+                f"{name} at the zoo's heads by variant: {variants[name]}")
+
+    cfg = zoo_config(ZOO["hybrid"])
+    s = cfg.ssm
+    Hs, P, N = s.n_heads(cfg.d_model), s.head_dim, s.d_state
+    ops.reset_counts()
+    errs = ssd_errors(torch, gen, prompt_lens, "jamba", model=ZOO["hybrid"])
+    checked = variant_counts()["ssd_chunk"]
+    require(checked == {"simt": len(prompt_lens), "wgmma": 0},
+            f"ssd_chunk at jamba's widths by variant: {checked}")
+    S = max(prompt_lens)
+    args = ssd_inputs(torch, gen, S, Hs, P, N, bf16)
+    b_ms, b_by = bound(*ssd_cost(S, Hs, P, N, min(s.chunk, ssd.MAX_CHUNK),
+                                 2), BF16_FLOPS)
+    out["ssd_chunk"] = {f"N{N}/P{P}/H{Hs}": dict(
+        variant=ssd.variant(bf16, N, P, s.chunk), lens=list(prompt_lens),
+        **errs, **kernel_times(lambda: ssd.ssd_chunk(*args, s.chunk)),
+        plain_ms=time_ms(lambda: ref.ssd_chunk_scan(*args, s.chunk),
+                         reps=3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)}
+    emit("kernel_check_zoo", name="ssd_chunk", heads=f"N{N}/P{P}/H{Hs}",
+         **out["ssd_chunk"][f"N{N}/P{P}/H{Hs}"])
+    return out
+
+
+def phase_zoo_reference(torch, args):
+    """The reduced models of the five new configs served on the card
+    (kernels) and on the CPU (plain versions) from the same weights:
+    identical greedy tokens; the MoE configs chunked and monolithic,
+    qwen1.5-110b with non-zero biases, jamba with its knobs degrading."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, init_params
+    from repro_torch.configs import get_config
+
+    lens = (3, 17, 40, 9, 25, 33)
+    cases = ((ZOO["moe"], 16), (ZOO["moe"], 0), (ZOO["llama4"], 16),
+             (ZOO["llama4"], 0), (ZOO["qwen32"], 16), (ZOO["qwen110"], 16),
+             (ZOO["hybrid"], 16))
+    for name, chunk in cases:
+        cfg = get_config(name).reduced()
+        params = init_params(cfg, torch.Generator().manual_seed(args.seed),
+                             "cpu")
+        if cfg.qkv_bias:
+            random_biases(torch, params, args.seed)
+        cpu = build_model(cfg, params, device="cpu")
+        gpu = build_model(cfg, params, device="cuda")
+        rng = np.random.default_rng(args.seed)
+        prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)]
+                   for n in lens]
+        kw = dict(max_slots=4, s_max=128, page_tokens=8,
+                  prefill_chunk_tokens=chunk, decode_horizon=4)
+        _, want, _ = serve(torch, cpu, prompts, device="cpu", **kw)
+        ops.reset_counts()
+        eng, got, _ = serve(torch, gpu, prompts, device="cuda", **kw)
+        launches = require_path(f"reduced {name} (chunk {chunk})", gpu,
+                                chunk)
+        same = all(got[i].out == want[i].out for i in want)
+        require(same, f"reduced {name} (chunk {chunk}): card tokens differ "
+                f"from the CPU's")
+        emit("zoo_reference", model=cfg.name, prefill_chunk_tokens=chunk,
+             engine_chunk=eng.chunk_tokens, engine_horizon=eng.horizon,
+             nonzero_biases=cfg.qkv_bias, requests=len(prompts),
+             identical_tokens=same, launches=launches)
+
+
+def build_timed(torch, cfg, seed: int, biases: bool = False):
+    """The model drawn on the card from ``seed``; its build seconds."""
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=seed)
+    if biases:
+        random_biases(torch, model.param_tree(), seed)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def check_outputs(where: str, model, done, n: int, max_new: int) -> None:
+    require(len(done) == n, f"{where}: {len(done)} of {n} requests finished")
+    for i, r in done.items():
+        require(len(r.out) == max_new and not r.truncated,
+                f"{where}: request {i} emitted {len(r.out)} tokens")
+        require(all(0 <= t < model.vocab_padded for t in r.out),
+                f"{where}: request {i} emitted a token outside the "
+                f"vocabulary")
+
+
+def check_prefill_logits(torch, where: str, model, prompt) -> None:
+    logits, _, _ = model.prefill(torch.tensor([prompt[:64]], device="cuda"))
+    require(tuple(logits.shape) == (1, model.vocab_padded)
+            and bool(torch.isfinite(logits).all()),
+            f"{where}: prefill logits not finite or misshapen")
+
+
+def serve_path(torch, where, model, prompts, *, chunk, horizon,
+               max_new=MAIN["max_new"], arena_rows=None):
+    """One serving path on the card between a reset of the counts and the
+    peak and a read of both: the engine, its requests, and the path's
+    numbers (launches by kernel and variant, rates, peak memory, engine
+    counters)."""
+    from repro_torch.kernels import ops
+    kw = {k: MAIN[k] for k in ("max_slots", "s_max", "page_tokens")}
+    reset_peak(torch)
+    ops.reset_counts()
+    eng, done, steps = serve(torch, model, prompts, device="cuda",
+                             arena_rows=arena_rows, max_new=max_new,
+                             prefill_chunk_tokens=chunk,
+                             decode_horizon=horizon, **kw)
+    launches = require_path(where, model, chunk)
+    by_variant = {k: v for k, v in variant_counts().items()
+                  if k in launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_outputs(where, model, done, len(prompts), max_new)
+    numbers = dict(
+        config={**kw, "prefill_chunk_tokens": chunk,
+                "decode_horizon": horizon, "max_new": max_new},
+        engine_chunk=eng.chunk_tokens, engine_horizon=eng.horizon,
+        launches=launches, launches_by_variant=by_variant,
+        **serving_rates(done, steps), peak_mem_gb=peak_gb,
+        stat_steps=eng.stat_steps, stat_decode_syncs=eng.stat_decode_syncs,
+        stat_horizon_steps=eng.stat_horizon_steps,
+        stat_prefill_tokens=eng.stat_prefill_tokens,
+        stat_decode_tokens=eng.stat_decode_tokens)
+    return eng, done, numbers
+
+
+def phase_moe_main(torch, args, prompts):
+    """Full-width moonshot-v1-16b-a3b (48 layers, bf16): the main path's 8
+    requests chunked (256) at horizon 8, then at horizon 1 (identical
+    tokens), then monolithic (flash); a profile of the first chunk step
+    and one horizon launch with each kernel's and the MoE's share; the
+    expert bytes one decode iteration reads against those routed to.
+    Returns this slice's launches by path and the chunk kernel's
+    variants."""
+    cfg = zoo_config(ZOO["moe"])
+    model, build_s = build_timed(torch, cfg, args.seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    W = -(-MAIN["s_max"] // MAIN["page_tokens"])
+    rows = MAIN["max_slots"] * W + 1
+    C, Hz = MAIN["prefill_chunk_tokens"], MAIN["decode_horizon"]
+    eng, done, chunked = serve_path(torch, "moe_main", model, prompts,
+                                    chunk=C, horizon=Hz, arena_rows=rows)
+    require_all_wgmma("chunk_prefill_attention",
+                      chunked["launches"]["chunk_prefill_attention"],
+                      chunked["launches_by_variant"][
+                          "chunk_prefill_attention"])
+    tokens = {i: r.out for i, r in done.items()}
+    arena_gb = rows * eng.binding.plane.spec.row_bytes / 1e9
+    del eng
+    check_prefill_logits(torch, "moe_main", model, prompts[0])
+    eng1, done1, h1 = serve_path(torch, "moe_main horizon 1", model,
+                                 prompts, chunk=C, horizon=1,
+                                 arena_rows=rows)
+    same = all(done1[i].out == tokens[i] for i in tokens)
+    require(same, "moe_main: horizon 8 tokens differ from horizon 1")
+    del eng1
+    engm, donem, mono = serve_path(torch, "moe_main monolithic", model,
+                                   prompts, chunk=0, horizon=Hz,
+                                   arena_rows=rows)
+    expected = cfg.n_layers * len(prompts)
+    require(mono["launches"]["flash_attention"] == expected,
+            f"moe_main monolithic: flash launched "
+            f"{mono['launches']['flash_attention']} times, not {expected}")
+    require_all_wgmma("flash_attention", expected,
+                      mono["launches_by_variant"]["flash_attention"])
+    del engm
+    diff = first_difference(torch, model, prompts, tokens,
+                            {i: r.out for i, r in donem.items()})
+    kw = {k: MAIN[k] for k in ("max_slots", "s_max", "page_tokens",
+                               "prefill_chunk_tokens")}
+    with moe_ranges(torch):
+        prof, use = profile_moe(torch, model, prompts, rows, kw)
+    emit("moe_main", model=cfg.name, params=n_params,
+         weights_gb=n_params * 2 / 1e9, model_build_s=build_s,
+         prompt_lens=[len(p) for p in prompts], arena_rows=rows,
+         arena_gb=arena_gb, **chunked,
+         horizon1=dict(identical_tokens=same, launches=h1["launches"],
+                       stat_decode_syncs=h1["stat_decode_syncs"],
+                       decode_tok_s=h1["decode_tok_s"]),
+         profile=prof, expert_use=use)
+    emit("moe_monolithic", model=cfg.name, **mono,
+         identical_to_chunked=diff is None, first_difference=diff)
+    del model
+    reset_peak(torch)
+    return ({"moe_main_chunked": chunked["launches"],
+             "moe_main_horizon1": h1["launches"],
+             "moe_main_monolithic": mono["launches"]},
+            chunked["launches_by_variant"]["chunk_prefill_attention"])
+
+
+def profile_moe(torch, model, prompts, rows, kw):
+    """The first step (every prompt's first chunk) and one pure-decode
+    horizon launch under the profiler, then :func:`expert_use` over the
+    next horizon launch."""
+    from repro_torch.core.runtime.accounting import MemoryAccountant
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.kv_arena import KVArena
+
+    eng = Engine(model, MemoryAccountant(m_total=60e9),
+                 arena=KVArena(kw["page_tokens"], init_rows=rows,
+                               device="cuda"),
+                 decode_horizon=MAIN["decode_horizon"], device="cuda", **kw)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(req_id=i, tokens=list(p), max_new=MAIN["max_new"]))
+    chunk = profile_step(torch, eng)
+    while eng._prefill_pos:
+        eng.step()
+    require(len(eng.active) == len(prompts), "a request ended in prefill")
+    horizon = profile_step(torch, eng)
+    require(eng.stat_horizon_steps == 1, "profiled step was not a horizon")
+    use = expert_use(torch, eng)
+    for rid in list(eng.active):
+        eng.evict(rid)
+    return dict(chunk_step=chunk, decode_horizon_step=horizon), use
+
+
+def phase_moe_llama4(torch, args, prompts):
+    """llama4-scout-17b-a16e at its published widths, 8 of 48 layers (top-1
+    of 16 experts, g = 5), the main path's requests chunked at horizon 8.
+    Returns its launches."""
+    cfg = zoo_config(ZOO["llama4"])
+    model, build_s = build_timed(torch, cfg, args.seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    eng, _, num = serve_path(torch, "moe_llama4", model, prompts,
+                             chunk=MAIN["prefill_chunk_tokens"],
+                             horizon=MAIN["decode_horizon"])
+    require_all_wgmma("chunk_prefill_attention",
+                      num["launches"]["chunk_prefill_attention"],
+                      num["launches_by_variant"]["chunk_prefill_attention"])
+    del eng
+    check_prefill_logits(torch, "moe_llama4", model, prompts[0])
+    emit("moe_llama4", model=cfg.name, n_layers=cfg.n_layers,
+         params=n_params, weights_gb=n_params * 2 / 1e9,
+         model_build_s=build_s, **num)
+    del model
+    reset_peak(torch)
+    return num["launches"]
+
+
+def phase_dense_large(torch, args, prompts):
+    """Full-width qwen3-32b (64 layers) serving 4 of the main path's
+    requests, 32 new tokens each, chunked at horizon 8; then qwen1.5-110b
+    at its widths, 8 of 80 layers, with non-zero q/k/v biases, the same
+    way. Returns the launches by model."""
+    out = {}
+    for key in ("qwen32", "qwen110"):
+        cfg = zoo_config(ZOO[key])
+        model, build_s = build_timed(torch, cfg, args.seed,
+                                     biases=cfg.qkv_bias)
+        n_params = sum(p.numel() for p in model.parameters())
+        reqs = prompts[:DENSE_LARGE["n_requests"]]
+        eng, _, num = serve_path(torch, f"dense_large {cfg.name}", model,
+                                 reqs, chunk=MAIN["prefill_chunk_tokens"],
+                                 horizon=MAIN["decode_horizon"],
+                                 max_new=DENSE_LARGE["max_new"])
+        require_all_wgmma("chunk_prefill_attention",
+                          num["launches"]["chunk_prefill_attention"],
+                          num["launches_by_variant"][
+                              "chunk_prefill_attention"])
+        del eng
+        check_prefill_logits(torch, f"dense_large {cfg.name}", model,
+                             reqs[0])
+        emit("dense_large", model=cfg.name, n_layers=cfg.n_layers,
+             params=n_params, weights_gb=n_params * 2 / 1e9,
+             nonzero_biases=cfg.qkv_bias, model_build_s=build_s, **num)
+        out[cfg.name] = num["launches"]
+        del model
+        reset_peak(torch)
+    return out
+
+
+def phase_hybrid_main(torch, args, prompt_lens):
+    """jamba-v0.1-52b at its published widths, 16 of 32 layers (2
+    attention, 14 Mamba2, 8 MoE), serving the main path's 8 prompt lengths:
+    the chunk and horizon knobs (256, 8) degrade to 0 and 1; every prefill
+    runs flash on the attention layers and the SSD scan (simt at N = 16)
+    on the SSM layers; decode runs paged attention and steps the state
+    cache. Then a profile of its first step (the prefills) and of one
+    decode step, with the SSD, flash and MoE shares. Returns its
+    launches."""
+    from repro_torch.configs import dtype_bytes
+
+    cfg = zoo_config(ZOO["hybrid"])
+    model, build_s = build_timed(torch, cfg, args.seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(args.seed + 3)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)]
+               for n in prompt_lens]
+    eng, _, num = serve_path(torch, "hybrid_main", model, prompts,
+                             chunk=MAIN["prefill_chunk_tokens"],
+                             horizon=MAIN["decode_horizon"])
+    require(eng.chunk_tokens == 0 and eng.horizon == 1 and eng.paged,
+            f"hybrid knobs did not degrade: chunk {eng.chunk_tokens}, "
+            f"horizon {eng.horizon}")
+    n_attn = cfg.n_attn_layers
+    want = dict(flash_attention=n_attn * len(prompts),
+                ssd_chunk=(cfg.n_layers - n_attn) * len(prompts))
+    for k, n in want.items():
+        require(num["launches"][k] == n,
+                f"hybrid_main: {k} launched {num['launches'][k]} times, "
+                f"not {n}")
+    require(num["launches_by_variant"]["ssd_chunk"] == {
+        "simt": want["ssd_chunk"], "wgmma": 0},
+        f"hybrid_main: ssd_chunk by variant "
+        f"{num['launches_by_variant']['ssd_chunk']}")
+    require_all_wgmma("flash_attention", want["flash_attention"],
+                      num["launches_by_variant"]["flash_attention"])
+    s = cfg.ssm
+    state_bytes = eng._state_bytes
+    require(state_bytes == MAIN["max_slots"] * (
+        cfg.ssm_state_bytes() + (cfg.n_layers - n_attn) * (s.conv_dim - 1)
+        * s.d_inner(cfg.d_model) * dtype_bytes(cfg.dtype)),
+        f"hybrid state cache of {state_bytes} bytes")
+    del eng
+    check_prefill_logits(torch, "hybrid_main", model, prompts[0])
+    kw = {k: MAIN[k] for k in ("max_slots", "s_max", "page_tokens",
+                               "prefill_chunk_tokens", "decode_horizon")}
+    with moe_ranges(torch):
+        prof = profile_first_step(torch, model, prompts, **kw)
+    first = prof["first_step"]
+    emit("hybrid_main", model=cfg.name, n_layers=cfg.n_layers,
+         attn_layers=n_attn, params=n_params, weights_gb=n_params * 2 / 1e9,
+         model_build_s=build_s, prompt_lens=list(prompt_lens),
+         degraded=dict(prefill_chunk_tokens=0, decode_horizon=1),
+         state_cache_gb=state_bytes / 1e9, **num,
+         ssd_share_of_first_step=first["device_share"]["ssd_chunk"],
+         flash_share_of_first_step=first["device_share"]["flash_attention"],
+         moe_share_of_first_step=first.get("moe_share"),
+         profile_first_step=prof)
+    del model
+    reset_peak(torch)
+    return num["launches"]
+
+
+def zoo_phases(torch, args, prompt_lens, prompts, mark):
+    """The phases of the MoE, hybrid and large dense configs. Returns the
+    kernel checks at their shapes, their launches by path, and the chunk
+    kernel's variants on moe_main."""
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 5)
+    checks = check_zoo_kernels(torch, gen, prompt_lens)
+    mark("kernels_zoo")
+    phase_zoo_reference(torch, args)
+    mark("zoo_reference")
+    by_path, moe_variants = phase_moe_main(torch, args, prompts)
+    mark("moe_main")
+    by_path["moe_llama4"] = phase_moe_llama4(torch, args, prompts)
+    mark("moe_llama4")
+    for name, n in phase_dense_large(torch, args, prompts).items():
+        by_path[f"dense_large_{name}"] = n
+    mark("dense_large")
+    by_path["hybrid_main"] = phase_hybrid_main(torch, args, prompt_lens)
+    mark("hybrid_main")
+    return checks, by_path, moe_variants
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2645,12 +3278,14 @@ def main(argv=None) -> int:
     workers.update(phase_gateway_process(torch, args, pred,
                                          gateway_runs["maestro"]))
     mark("gateway_process")
+    zoo_checks, zoo_paths, moe_variants = zoo_phases(
+        torch, args, prompt_lens, prompts, mark)
     emit("timing", seconds_by_phase=seconds,
          total_s=time.perf_counter() - t0)
     by_path = {"prefix_chunked": prefix["chunked"],
                "prefix_monolithic": prefix["monolithic"], "node": node,
                **{f"gateway_{run}": n for run, n in gateway.items()},
-               **workers}
+               **workers, **zoo_paths}
 
     sources = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -2665,12 +3300,15 @@ def main(argv=None) -> int:
     kernels = []
     for name, (src, replaces) in sources.items():
         c = checks[name]
+        zoo = zoo_checks[name]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name],
-            # the largest over the main path's shapes and the gateway's
-            max_abs_err=max(c["max_abs_err"], c.get("gateway_shapes", {})
-                            .get("max_abs_err", 0.0)),
+            # the largest over the main path's shapes, the gateway's and
+            # the zoo's
+            max_abs_err=max([c["max_abs_err"], c.get("gateway_shapes", {})
+                             .get("max_abs_err", 0.0)]
+                            + [z["max_abs_err"] for z in zoo.values()]),
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"],
             # SDPA for flash; None where no single PyTorch call computes
@@ -2684,7 +3322,15 @@ def main(argv=None) -> int:
             # default reject_limit; the worker fleets, summed over their
             # children and per child)
             launches_by_path={p: n.get(name, 0)
-                              for p, n in by_path.items()}))
+                              for p, n in by_path.items()},
+            # each number at the zoo's shapes, by (H, Hkv) (the SSD scan:
+            # by its N, P and heads); moonshot's chunk launches by variant
+            zoo_shapes={shape: {k: z[k] for k in (
+                "max_abs_err", "ms", "ms_no_spin", "host_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")}
+                for shape, z in zoo.items()},
+            **({"moe_main_variants": moe_variants}
+               if name == "chunk_prefill_attention" else {})))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

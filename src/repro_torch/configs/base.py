@@ -1,17 +1,36 @@
 """Architecture configuration of the PyTorch port.
 
-The port's own copy of ``repro.configs.base.ArchConfig`` and ``SSMConfig``,
-restricted to the two families this package serves: dense self-attention
-stacks and attention-free Mamba2 (SSD) stacks. Every field keeps its
-meaning and default, and ``dtype`` is a ``torch.dtype``. The hybrid, MoE,
-cross-attention and encoder fields arrive with those families.
+The port's own copy of ``repro.configs.base.ArchConfig``, ``MoEConfig`` and
+``SSMConfig``, restricted to the four decoder families this package
+serves:
+
+  dense   -- decoder-only transformer (GQA, optional qk_norm / qkv bias)
+  moe     -- the dense skeleton with MoE FFN layers
+  ssm     -- attention-free Mamba2 (SSD) stack
+  hybrid  -- interleaved Mamba2 + attention (+ optional MoE)
+
+Every field keeps its meaning and default, and ``dtype`` is a
+``torch.dtype``. The cross-attention and encoder fields (the ``vlm`` and
+``encdec`` families) are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    # MoE FFN on the layers where (layer_idx % every) == offset
+    every: int = 1
+    offset: int = 0
+    capacity_factor: float = 1.25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,7 +52,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense | ssm (the families the port serves)
+    family: str                  # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -47,7 +66,12 @@ class ArchConfig:
     rope_theta: float = 1e6
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    # hybrid: attention on layers where (idx % attn_every) == attn_offset,
+    # Mamba2 elsewhere. attn_every=1 => all attention.
+    attn_every: int = 1
+    attn_offset: int = 0
     max_seq_len: int = 1 << 20
     dtype: torch.dtype = torch.bfloat16
     source: str = ""
@@ -58,13 +82,27 @@ class ArchConfig:
         return self.head_dim or (self.d_model // self.n_heads)
 
     def is_attn_layer(self, idx: int) -> bool:
-        return self.family != "ssm"
+        if self.family == "ssm":
+            return False
+        if self.family == "hybrid":
+            return idx % self.attn_every == self.attn_offset
+        return True
+
+    def is_moe_layer(self, idx: int) -> bool:
+        if self.moe is None:
+            return False
+        return idx % self.moe.every == self.moe.offset
 
     @property
     def layer_pattern_period(self) -> int:
-        """Smallest repeating layer pattern. Every layer of a dense or a
-        pure-SSM stack is the same, so the period is 1."""
-        return 1
+        """Smallest period covering the layer heterogeneity: the lcm of the
+        hybrid's attention period and the MoE period."""
+        p = 1
+        if self.family == "hybrid":
+            p = math.lcm(p, self.attn_every)
+        if self.moe is not None:
+            p = math.lcm(p, self.moe.every)
+        return p
 
     @property
     def n_attn_layers(self) -> int:
@@ -83,27 +121,33 @@ class ArchConfig:
                 total += qkv + (self.n_heads * hd) * d + d
                 if self.qk_norm:
                     total += 2 * hd
-                total += (2 if self.ffn_gelu else 3) * d * self.d_ff + d
-            else:                       # the Mamba2 block subsumes the FFN
+            elif self.ssm is not None:
                 total += _ssm_params(self.ssm, d)
+            total += _ffn_params(self, i, d)
         return total + d
 
     def active_param_count(self) -> int:
-        """Parameters touched per token: all of them (no routed experts in
-        the families the port serves)."""
-        return self.param_count()
+        """Parameters touched per token: all but the experts a token is not
+        routed to."""
+        if self.moe is None:
+            return self.param_count()
+        per_expert = 3 * self.d_model * self.moe.d_ff_expert
+        n_moe = sum(1 for i in range(self.n_layers) if self.is_moe_layer(i))
+        return self.param_count() - (
+            n_moe * (self.moe.n_experts - self.moe.top_k) * per_expert)
 
     def weight_bytes(self, dtype_bytes: int = 2) -> int:
         return self.param_count() * dtype_bytes
 
     def kv_bytes_per_token(self, dtype_bytes: int = 2) -> int:
-        """alpha(M) of Eq. 3 — per-token KV footprint (ssm: 0, its state
-        is O(1))."""
+        """alpha(M) of Eq. 3 — per-token KV footprint (hybrid: attention
+        layers only; ssm: 0, its state is O(1))."""
         return (self.n_attn_layers * 2 * self.n_kv_heads * self.head_dim_
                 * dtype_bytes)
 
     def ssm_state_bytes(self, dtype_bytes: int = 4) -> int:
-        """Constant per-sequence recurrent state of the SSM layers."""
+        """Constant per-sequence recurrent state of the SSM layers (ssm and
+        hybrid)."""
         if self.ssm is None:
             return 0
         n_ssm = self.n_layers - self.n_attn_layers
@@ -111,7 +155,8 @@ class ArchConfig:
         return n_ssm * h * self.ssm.head_dim * self.ssm.d_state * dtype_bytes
 
     def reduced(self) -> "ArchConfig":
-        """Smoke-test variant: the reference's widths, in float32."""
+        """Smoke-test variant of the same family: the reference's widths, in
+        float32."""
         changes: Dict[str, Any] = dict(
             name=self.name + "-smoke",
             n_layers=min(self.n_layers, 2 * self.layer_pattern_period),
@@ -124,10 +169,25 @@ class ArchConfig:
             dtype=torch.float32,
             max_seq_len=4096,
         )
+        if self.moe is not None:
+            changes["moe"] = dataclasses.replace(
+                self.moe, n_experts=min(self.moe.n_experts, 4),
+                top_k=min(self.moe.top_k, 2), d_ff_expert=128)
         if self.ssm is not None:
             changes["ssm"] = dataclasses.replace(
                 self.ssm, d_state=16, head_dim=16, chunk=32)
         return dataclasses.replace(self, **changes)
+
+
+def _ffn_params(cfg: ArchConfig, idx: int, d: int) -> int:
+    if cfg.is_moe_layer(idx):
+        m = cfg.moe
+        return m.n_experts * 3 * d * m.d_ff_expert + d * m.n_experts + d
+    if not cfg.is_attn_layer(idx):
+        return 0              # the Mamba2 block subsumes the FFN role
+    if cfg.ffn_gelu:
+        return 2 * d * cfg.d_ff + d         # GELU: up + down, + norm
+    return 3 * d * cfg.d_ff + d             # SwiGLU: gate + up + down, + norm
 
 
 def _ssm_params(s: SSMConfig, d: int) -> int:
@@ -144,7 +204,10 @@ def _ssm_params(s: SSMConfig, d: int) -> int:
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 
-_ARCH_MODULES = ["qwen3_8b", "starcoder2_15b", "mamba2_2_7b"]
+_ARCH_MODULES = [
+    "qwen3_32b", "starcoder2_15b", "qwen3_8b", "qwen1_5_110b", "mamba2_2_7b",
+    "moonshot_v1_16b_a3b", "llama4_scout_17b_a16e", "jamba_v0_1_52b",
+]
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

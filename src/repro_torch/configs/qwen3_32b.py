@@ -1,0 +1,20 @@
+"""qwen3-32b — dense, 64L d_model=5120 64H (GQA kv=8) d_ff=25600 vocab=151936.
+
+qk_norm, GQA, head_dim=128. [hf:Qwen/Qwen3-8B; hf]
+"""
+from repro_torch.configs.base import ArchConfig, register
+
+QWEN3_32B = register(ArchConfig(
+    name="qwen3-32b",
+    family="dense",
+    n_layers=64,
+    d_model=5120,
+    n_heads=64,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=25600,
+    vocab=151936,
+    qk_norm=True,
+    rope_theta=1e6,
+    source="hf:Qwen/Qwen3-8B; hf",
+))

@@ -1,10 +1,11 @@
 """Weights of the JAX reference, as numpy arrays, into the port's layout.
 
-The reference stacks each repeated layer group on a leading axis
-(``params["groups"]["slot0"]`` for a dense or a pure-SSM stack, one entry
-per layer); the port keeps one dict per layer. Values are copied
-unchanged, each leaf in the dtype its spec gives (the config's, or float32
-for a Mamba2 layer's ``A_log``/``dt_bias``/``D_skip``), so the two packages
+The reference stacks each slot of the repeating layer period on a leading
+group axis (``params["groups"]["slot{s}"]``, ``n_groups = n_layers //
+period`` entries each); the port keeps one dict per layer: layer ``i`` is
+group ``i // period`` of slot ``i % period``. Values are copied unchanged,
+each leaf in the dtype its spec gives (the config's, or float32 for a
+Mamba2 layer's ``A_log``/``dt_bias``/``D_skip``), so the two packages
 compute with the same numbers.
 """
 from __future__ import annotations
@@ -36,17 +37,17 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
     Returns the port's parameter dict on ``device``."""
     device = resolve_device(device)
     groups = tree["groups"]
-    if set(groups) != {"slot0"}:
-        raise NotImplementedError(
-            f"{cfg.name}: only dense and pure-SSM stacks (one layer slot) "
-            f"convert, got slots {sorted(groups)}")
-    slot = groups["slot0"]
+    period = cfg.layer_pattern_period
+    if set(groups) != {f"slot{s}" for s in range(period)}:
+        raise ValueError(f"{cfg.name}: a period of {period} layer slots, "
+                         f"got slots {sorted(groups)}")
     t = lambda a: _tensor(a, cfg.dtype, device)          # noqa: E731
     layers = []
     for i in range(cfg.n_layers):
         specs = layer_specs(cfg, i)
+        slot, g = groups[f"slot{i % period}"], i // period
         layers.append({
-            part: {k: _tensor(v[i], specs[part][k].dtype or cfg.dtype,
+            part: {k: _tensor(v[g], specs[part][k].dtype or cfg.dtype,
                               device) for k, v in slot[part].items()}
             for part in specs})
     params: Dict[str, Any] = {

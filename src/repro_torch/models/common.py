@@ -10,9 +10,12 @@ of the reference's stacked ``groups``::
                  "ffn": {"ln", "w_up", "w_down", ("w_gate")}}, ...]}
 
 A Mamba2 layer holds ``{"ssm": {"ln", "wx", "wz", "wB", "wC", "wdt",
-"conv", "A_log", "dt_bias", "D_skip", "gn", "wout"}}`` instead; its
-``A_log``, ``dt_bias`` and ``D_skip`` are float32 whatever the config's
-dtype, as in the reference's ``ssm_defs``.
+"conv", "A_log", "dt_bias", "D_skip", "gn", "wout"}}`` in place of
+``attn``; its ``A_log``, ``dt_bias`` and ``D_skip`` are float32 whatever
+the config's dtype, as in the reference's ``ssm_defs``. A MoE layer holds
+``{"moe": {"ln", "router" [D,E], "w_gate", "w_up" [E,D,F], "w_down"
+[E,F,D]}}`` in place of ``ffn``; an SSM layer of a hybrid or pure-SSM
+stack has no FFN part at all (:func:`layer_specs`).
 """
 from __future__ import annotations
 
@@ -91,11 +94,29 @@ def ssm_specs(cfg: ArchConfig) -> Dict[str, Spec]:
     }
 
 
+def moe_specs(cfg: ArchConfig) -> Dict[str, Spec]:
+    m = cfg.moe
+    D, E, F = cfg.d_model, m.n_experts, m.d_ff_expert
+    return {
+        "ln": Spec((D,), "ones"),
+        "router": Spec((D, E)),
+        "w_gate": Spec((E, D, F)),
+        "w_up": Spec((E, D, F)),
+        "w_down": Spec((E, F, D)),
+    }
+
+
 def layer_specs(cfg: ArchConfig, idx: int) -> Dict[str, Dict[str, Spec]]:
-    """Layer ``idx``'s parts: attention + FFN, or one Mamba2 block."""
-    if cfg.is_attn_layer(idx):
-        return {"attn": attn_specs(cfg), "ffn": ffn_specs(cfg)}
-    return {"ssm": ssm_specs(cfg)}
+    """Layer ``idx``'s parts, as the reference's ``slot_kinds`` gives them:
+    the mixer (``attn`` or ``ssm``), then the FFN: ``moe`` on a MoE layer,
+    none on an SSM layer of a pure-SSM or hybrid stack, else ``ffn``."""
+    attn = cfg.is_attn_layer(idx)
+    specs = {"attn": attn_specs(cfg)} if attn else {"ssm": ssm_specs(cfg)}
+    if cfg.is_moe_layer(idx):
+        specs["moe"] = moe_specs(cfg)
+    elif attn:
+        specs["ffn"] = ffn_specs(cfg)
+    return specs
 
 
 def _init_leaf(spec: Spec, dtype: torch.dtype, generator: torch.Generator,

@@ -1,13 +1,17 @@
-"""Model assembly for dense self-attention stacks and attention-free Mamba2
-stacks: embedding / LM head, monolithic prefill, chunked prefill and paged
-decode through the KV arena, the on-device multi-token decode horizon, and
-the dense one-token decode of a recurrent state cache.
+"""Model assembly for the decoder families: dense and MoE self-attention
+stacks, attention-free Mamba2 stacks and hybrids of the two. Embedding / LM
+head, monolithic prefill, chunked prefill and paged decode through the KV
+arena, the on-device multi-token decode horizon, and the one-token decode
+of a recurrent state cache.
 
 The reference (``repro/models/transformer.py``) stacks the layers of each
-repeated group and scans over them; here the layers are an
-``nn.ModuleList`` walked by a Python loop. Attention layer ``a`` (counted
-among attention layers) is layer ``a`` of the arena plane, and SSM layer
-``j`` (counted among SSM layers) is entry ``j`` of the state cache.
+repeated period slot by slot and scans over the groups; here the layers are
+an ``nn.ModuleList`` walked by a Python loop. Layer ``i`` is group ``i //
+period``, slot ``i % period``; its arena layer is the reference's
+``bases[slot] + group`` (attention slot ``a``, in slot order, group ``g``
+at ``a * n_groups + g``), and SSM layer ``j`` (counted among SSM layers) is
+entry ``j`` of the state cache. Each layer applies its own FFN: dense, MoE,
+or none on an SSM layer.
 """
 from __future__ import annotations
 
@@ -19,33 +23,46 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
-from repro_torch.models.common import pad_vocab, rms_norm
+from repro_torch.models import moe as MOE
+from repro_torch.models.common import layer_specs, pad_vocab, rms_norm
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+PARTS = ("attn", "ssm", "ffn", "moe")
+
+
 class Block(nn.Module):
-    """One layer's parameters in the reference's names and layout: ``attn``
-    and ``ffn`` for an attention layer, ``ssm`` for a Mamba2 layer (which
-    has no FFN); the parts a layer lacks are None."""
+    """One layer's parameters in the reference's names and layout: the
+    mixer ``attn`` or ``ssm``, and the FFN ``ffn`` (dense), ``moe`` or none
+    (an SSM layer of a pure-SSM or hybrid stack); the parts a layer lacks
+    are None."""
 
     def __init__(self, parts: Dict[str, Dict[str, torch.Tensor]]):
         super().__init__()
         self.mixer = "attn" if "attn" in parts else "ssm"
-        for name in ("attn", "ffn", "ssm"):
+        for name in PARTS:
             leaves = parts.get(name)
             setattr(self, name, None if leaves is None else nn.ParameterDict(
                 {k: _frozen(v) for k, v in leaves.items()}))
 
+    def ffn_apply(self, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+        """The residual stream after this layer's FFN, whatever its kind."""
+        if self.ffn is not None:
+            return x + L.ffn_apply(self.ffn, x, cfg)
+        if self.moe is not None:
+            return x + MOE.moe_apply(self.moe, x, cfg)
+        return x
+
 
 class Model(nn.Module):
     """A decoder bound to one ``ArchConfig`` and holding its weights
-    (inference only: no parameter requires a gradient): a dense
-    self-attention stack or an attention-free Mamba2 stack.
+    (inference only: no parameter requires a gradient): a dense or MoE
+    self-attention stack, an attention-free Mamba2 stack, or a hybrid.
 
     The serving methods take and update in place the arena planes
     ``k_pages``/``v_pages`` ``[n_attn_layers, n_rows, page, Hkv, hd]`` and
@@ -68,7 +85,23 @@ class Model(nn.Module):
         if len(self.layers) != cfg.n_layers:
             raise ValueError(f"{len(self.layers)} layers of parameters for "
                              f"a {cfg.n_layers}-layer config")
+        for i, blk in enumerate(self.layers):
+            parts = {p for p in PARTS if getattr(blk, p) is not None}
+            if parts != set(layer_specs(cfg, i)):
+                raise ValueError(f"layer {i} of {cfg.name} holds {parts}, "
+                                 f"not {set(layer_specs(cfg, i))}")
         self.n_ssm_layers = sum(b.mixer == "ssm" for b in self.layers)
+        self.kv_layer = self._kv_layout()
+
+    def _kv_layout(self) -> Dict[int, int]:
+        """Layer index -> arena layer of each attention layer, in the
+        reference's stacked order: attention slot ``a`` (among the period's
+        attention slots), group ``g`` at ``a * n_groups + g``."""
+        period = self.cfg.layer_pattern_period
+        n_groups = self.cfg.n_layers // period
+        slots = [s for s in range(period) if self.cfg.is_attn_layer(s)]
+        return {i: slots.index(i % period) * n_groups + i // period
+                for i, blk in enumerate(self.layers) if blk.mixer == "attn"}
 
     @property
     def device(self) -> torch.device:
@@ -81,7 +114,7 @@ class Model(nn.Module):
             "embed": self.embedding.data, "final_ln": self.final_ln.data,
             "layers": [{part: {k: p.data for k, p in getattr(blk, part)
                                .items()}
-                        for part in ("attn", "ffn", "ssm")
+                        for part in PARTS
                         if getattr(blk, part) is not None}
                        for blk in self.layers]}
         if self.lm_head is not None:
@@ -114,23 +147,23 @@ class Model(nn.Module):
     def prefill_with_state(self, tokens: torch.Tensor):
         """:meth:`prefill`, plus the SSM layers' decode cache: ``{"state":
         [n_ssm_layers, B, H, N, P] f32, "conv": [n_ssm_layers, B,
-        conv_dim-1, di]}``, or None for a model without SSM layers."""
+        conv_dim-1, di]}``, or None for a model without SSM layers. The K/V
+        stack is in arena-layer order."""
         cfg = self.cfg
         x = self.embed(tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
-        ks, vs, states, convs = [], [], [], []
-        for blk in self.layers:
+        n_kv = len(self.kv_layer)
+        ks, vs = [None] * n_kv, [None] * n_kv
+        states, convs = [], []
+        for i, blk in enumerate(self.layers):
             if blk.mixer == "attn":
                 o, k, v = L.attn_full(blk.attn, x, cfg, positions)
-                x = x + o
-                ks.append(k)
-                vs.append(v)
-                x = x + L.ffn_apply(blk.ffn, x, cfg)
+                ks[self.kv_layer[i]], vs[self.kv_layer[i]] = k, v
             else:
                 o, c = M2.ssm_full(blk.ssm, x, cfg)
-                x = x + o
                 states.append(c["state"])
                 convs.append(c["conv"])
+            x = blk.ffn_apply(x + o, cfg)
         x = rms_norm(x, self.final_ln, cfg.norm_eps)
         kv = (torch.stack(ks), torch.stack(vs)) if ks else (None, None)
         state = ({"state": torch.stack(states), "conv": torch.stack(convs)}
@@ -149,18 +182,21 @@ class Model(nn.Module):
         """One fixed-width prefill chunk per sequence through the paged
         arena. tokens/positions [B,C] (pad columns repeat token and
         position 0 and write to the null row); block_tables [B,W] int32;
-        rows/offs [B,C] the chunk's write coordinates; last_idx [B] the
-        in-chunk index of each sequence's last real token. ``attend`` is the
-        chunk attention (``kernels.ops.chunk_prefill_attention``).
+        rows/offs [B,C] the chunk's write coordinates, distinct wherever a
+        row reads them (a scatter on the card lands duplicates in any
+        order: ``Engine`` sends the pad columns' to an unread slot but
+        one); last_idx [B] the in-chunk index of each sequence's last real
+        token. ``attend`` is the chunk attention
+        (``kernels.ops.chunk_prefill_attention``).
         Returns the last-token logits [B,Vp] f32."""
         self._require_paged("chunked prefill")
         cfg = self.cfg
         x = self.embed(tokens)
         for i, blk in enumerate(self.layers):
             x = x + L.attn_chunk_paged(blk.attn, x, cfg, positions, k_pages,
-                                       v_pages, i, block_tables, rows, offs,
-                                       attend)
-            x = x + L.ffn_apply(blk.ffn, x, cfg)
+                                       v_pages, self.kv_layer[i],
+                                       block_tables, rows, offs, attend)
+            x = blk.ffn_apply(x, cfg)
         x = rms_norm(x, self.final_ln, cfg.norm_eps)
         lanes = torch.arange(tokens.shape[0], device=x.device)
         return self._logits(x[lanes, last_idx.long()])
@@ -190,8 +226,9 @@ class Model(nn.Module):
     # ------------------------------------------------------- paged serving
     @property
     def supports_prefix_reuse(self) -> bool:
-        """Only a pure causal self-attention stack can resume a prompt from
-        cached pages: SSM state is positionally recurrent."""
+        """Only a pure causal self-attention stack (dense or MoE) can resume
+        a prompt from cached pages: SSM state is positionally recurrent, so
+        a hybrid cannot."""
         return self.n_ssm_layers == 0
 
     @property
@@ -203,14 +240,14 @@ class Model(nn.Module):
     @property
     def supports_decode_horizon(self) -> bool:
         """The horizon loop carries only pages and positions between
-        iterations: the prefix-reuse rule (SSM models decode one token at
-        a time)."""
+        iterations: the prefix-reuse rule (SSM and hybrid models decode one
+        token at a time)."""
         return self.supports_prefix_reuse
 
     def paged_kv_layout(self) -> Tuple[int, int, int, torch.dtype]:
         """Self-attention KV geometry for the serving arena:
-        ``(n_layers, Hkv, hd, dtype)``; attention layer ``a`` is layer ``a``
-        of the plane. ``n_layers == 0`` means nothing to page (a pure-SSM
+        ``(n_layers, Hkv, hd, dtype)``; layer ``i`` writes plane layer
+        ``kv_layer[i]``. ``n_layers == 0`` means nothing to page (a pure-SSM
         model holds recurrent state only)."""
         cfg = self.cfg
         return (cfg.n_layers - self.n_ssm_layers, cfg.n_kv_heads,
@@ -218,20 +255,34 @@ class Model(nn.Module):
 
     def decode_step_paged(self, k_pages, v_pages, block_tables, seq_lens,
                           rows, offs, tokens, positions, attend,
-                          inline: bool = False) -> torch.Tensor:
+                          inline: bool = False,
+                          state_cache: Optional[Dict[str, torch.Tensor]]
+                          = None) -> torch.Tensor:
         """One token for every sequence through the paged arena.
         tokens [B,1]; positions [B] the new token's position; seq_lens [B]
         int32 (positions + 1, 1 for idle lanes); rows/offs [B] its write
         coordinate. ``attend`` is the paged attention
-        (``kernels.ops.paged_attention``). Returns logits [B,Vp] f32."""
-        self._require_paged("paged decode")
+        (``kernels.ops.paged_attention``). A hybrid's SSM layers step
+        ``state_cache`` (:meth:`state_cache`) in place, every lane, idle
+        ones too, as the reference's do. Returns logits [B,Vp] f32."""
+        if not self.kv_layer:
+            raise NotImplementedError(
+                f"{self.cfg.name}: no attention layer to page "
+                f"(decode_step decodes from the state cache)")
         cfg = self.cfg
         x = self.embed(tokens)
+        j = 0
         for i, blk in enumerate(self.layers):
-            x = x + L.attn_decode_paged(blk.attn, x, cfg, positions, k_pages,
-                                        v_pages, i, block_tables, seq_lens,
-                                        rows, offs, attend, inline=inline)
-            x = x + L.ffn_apply(blk.ffn, x, cfg)
+            if blk.mixer == "attn":
+                x = x + L.attn_decode_paged(
+                    blk.attn, x, cfg, positions, k_pages, v_pages,
+                    self.kv_layer[i], block_tables, seq_lens, rows, offs,
+                    attend, inline=inline)
+            else:
+                x = x + M2.ssm_decode(blk.ssm, x, state_cache["state"][j],
+                                      state_cache["conv"][j], cfg)
+                j += 1
+            x = blk.ffn_apply(x, cfg)
         x = rms_norm(x, self.final_ln, cfg.norm_eps)
         return self._logits(x[:, 0])
 
@@ -319,5 +370,6 @@ class Model(nn.Module):
         for j, blk in enumerate(self.layers):
             x = x + M2.ssm_decode(blk.ssm, x, state_cache["state"][j],
                                   state_cache["conv"][j], cfg)
+            x = blk.ffn_apply(x, cfg)
         x = rms_norm(x, self.final_ln, cfg.norm_eps)
         return self._logits(x[:, 0])

@@ -1,5 +1,6 @@
 """Continuous-batching inference engine — the port of
-``repro/serving/engine.py`` for dense self-attention and pure-SSM models.
+``repro/serving/engine.py`` for the decoder families: dense and MoE
+self-attention stacks, pure-SSM stacks and hybrids.
 
 Iteration-level scheduling: each ``step()`` admits waiting requests into
 free slots (admission is prediction-guided through the Maestro accountant +
@@ -16,10 +17,13 @@ K/V lives in the paged :class:`~repro_torch.serving.kv_arena.KVArena`;
 decode and chunk attention read it through per-sequence block tables via
 :mod:`repro_torch.kernels.ops`, which launches the CUDA kernels for tensors
 on the card and runs their plain versions for tensors on the CPU. A model
-with nothing to page (pure SSM, ``paged_kv_layout()`` of 0 layers) keeps
-its recurrent state in a dense per-slot cache instead, registered with the
-accountant, and decodes all ``max_slots`` lanes one token at a time; its
-chunk and horizon knobs degrade to 0 and 1, as the reference's do.
+with SSM layers keeps their recurrent state in a dense per-slot cache,
+registered with the accountant: a pure-SSM model (``paged_kv_layout()`` of
+0 layers) holds nothing else and decodes from it alone; a hybrid is paged
+and holds both, its monolithic prefill writing the prompt's K/V and the
+state, its paged decode stepping the state of every lane. Either decodes
+all ``max_slots`` lanes one token at a time: the chunk and horizon knobs
+degrade to 0 and 1, as the reference's do.
 
 With ``prefix_cache`` on, admission matches each prompt against the
 arena's :class:`~repro_torch.serving.prefix_cache.PrefixIndex`: the
@@ -31,7 +35,7 @@ its first chunk there. A finished prompt publishes its full pages into the
 index. No write ever lands on a shared row: horizon and one-token decode
 writes copy a shared page first.
 
-Not ported yet: the hybrid / MoE / cross-attention families.
+Not ported: the cross-attention families (``vlm``, ``encdec``).
 """
 from __future__ import annotations
 
@@ -79,6 +83,27 @@ class Request:
     prefill_avoided: int = 0              # prompt tokens served from cache
     submit_s: float = 0.0                 # wall stamp at engine submit
     ttft_s: float = 0.0                   # wall submit -> first kept token
+
+
+def pad_writes(offs: np.ndarray, last_idx: np.ndarray, slots: List[int],
+               page: int) -> None:
+    """Spread a chunk's pad columns over the null row so that one of them
+    lands where a row reads it. offs [B,C] the chunk's write offsets, set
+    in place; ``slots`` the lanes advancing, each with real columns up to
+    ``last_idx``. Every pad column writes the null row, of which rows read
+    only offset 0 (an idle lane's pad rows, at position 0). A sequential
+    scatter (the reference's) leaves there the last pad column in row-major
+    order; a scatter on the card lands duplicates in any order, and MoE
+    routing gives pad rows capacity, so tokens would depend on the order.
+    That last column keeps offset 0; the others write the null row's last
+    offset (``page`` >= 2), which nothing reads."""
+    pad = np.ones(offs.shape, bool)
+    for s in slots:
+        pad[s, :last_idx[s] + 1] = False
+    cols = np.flatnonzero(pad)
+    if cols.size:
+        offs[pad] = page - 1
+        offs.flat[cols[-1]] = 0
 
 
 class Engine:
@@ -395,6 +420,8 @@ class Engine:
             self._prefill_pos[rid] = p0 + n
             self.stat_prefill_tokens += n
         self._tables_dirty = True
+        pad_writes(offs, last_idx, [self.slot_of[rid] for rid in rids],
+                   page)
         plane = self.binding.plane
         logits = self.model.prefill_chunk(
             plane.k, plane.v, self._dev(toks), self._dev(pos), self._dev(bt),
@@ -602,7 +629,8 @@ class Engine:
         return self.model.decode_step_paged(
             plane.k, plane.v, self._dev(bt), self._dev(seq_lens),
             self._dev(rows), self._dev(offs), self._dev(toks),
-            self._dev(self.positions.copy()), attend=ops.paged_attention)
+            self._dev(self.positions.copy()), attend=ops.paged_attention,
+            state_cache=self.cache)
 
     def _release(self, rid: int) -> None:
         req = self.active.pop(rid)

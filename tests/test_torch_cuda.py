@@ -626,3 +626,113 @@ def test_offload_and_activation_move_the_weights(dev):
     assert freed >= weight_bytes and "q" not in node.acc.weights
     assert node.activate("q") > 0
     assert node.engines["q"].model is model and model.device.type == "cuda"
+
+
+# ------------------------------------------- the MoE and hybrid configs
+# (H, Hkv) of moonshot-v1-16b-a3b (g = 1), llama4-scout-17b-a16e (g = 5)
+# and qwen3-32b / qwen1.5-110b (g = 8), all at hd 128
+ZOO_HEADS = [(16, 16), (40, 8), (64, 8)]
+
+
+@pytest.mark.parametrize("H,Hkv", ZOO_HEADS)
+def test_attention_kernels_at_the_zoo_group_sizes(dev, H, Hkv):
+    """Paged decode (8 lanes, splice on), the chunk kernel's wgmma variant
+    (a 256-row chunk with pad rows) and flash's wgmma variant (causal, a
+    prime length) in bf16 at each group size, against their plain
+    versions held at f32 on the same values."""
+    rng = np.random.default_rng(H + Hkv)
+    bf16, hd, page, slots = torch.bfloat16, 128, 16, 32
+    q, kp, vp, bt, sl = _paged_inputs(rng, 8, H, Hkv, hd, page, slots, bf16,
+                                      dev)
+    k_new = _t(rng.standard_normal((8, Hkv, hd), np.float32), dev, bf16)
+    v_new = _t(rng.standard_normal((8, Hkv, hd), np.float32), dev, bf16)
+    got = pa.paged_attention(q, kp, vp, bt, sl, k_new=k_new, v_new=v_new)
+    w = (sl.clamp_min(1) - 1).long()
+    rows = bt[torch.arange(8, device=dev), w // page].long()
+    kp[rows, w % page], vp[rows, w % page] = k_new, v_new
+    _close(got, ref.paged_attention_ref(q, kp, vp, bt, sl), bf16)
+    C = 256
+    qc = _t(rng.standard_normal((3, C, H, hd), np.float32), dev, bf16)
+    pos = 100 + 7 * np.arange(3)[:, None] + np.arange(C)[None, :]
+    pos[-1, C // 2:] = 0
+    pos = _t(pos.astype(np.int32), dev)
+    assert cp.variant(bf16, hd, page) == "wgmma"
+    got = cp.chunk_prefill_attention(qc, kp, vp, bt[:3], pos)
+    exp = ref.chunk_prefill_attention_ref(qc.float(), kp.float(), vp.float(),
+                                          bt[:3], pos)
+    assert bool(torch.isfinite(got).all())
+    _close(got, exp, bf16)
+    assert _row_err(got, exp) <= 2e-2
+    S = 397
+    qf = _t(rng.standard_normal((1, S, H, hd), np.float32), dev, bf16)
+    kf = _t(rng.standard_normal((1, S, Hkv, hd), np.float32), dev, bf16)
+    vf = _t(rng.standard_normal((1, S, Hkv, hd), np.float32), dev, bf16)
+    assert fa.variant(bf16, hd) == "wgmma"
+    got = fa.flash_attention(qf, kf, vf, causal=True)
+    exp = ref.blockwise_attention(qf.float(), kf.float(), vf.float(), True)
+    torch.cuda.synchronize()
+    _close(got, exp, bf16)
+    assert _row_err(got, exp) <= 2e-2
+
+
+@pytest.mark.parametrize("S", [1, 13, 64, 65, 397])
+def test_ssd_chunk_kernel_at_jamba_widths(dev, S):
+    """jamba-v0.1-52b's scan in bf16: N = 16, P = 64, 128 heads, chunk 256
+    capped at 64, which only the simt variant takes; y by its scaled and
+    per-head error (1e-2), the f32 state 1e-4."""
+    rng = np.random.default_rng(S)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, 1, S, 128, 64, 16, torch.bfloat16,
+                                   dev)
+    assert ssd.variant(torch.bfloat16, 16, 64, 256) == "simt"
+    before = dict(ssd.launches_by_variant)
+    y, state = ssd.ssd_chunk(x, dt, A, Bm, Cm, 256)
+    assert ssd.launches_by_variant["simt"] == before["simt"] + 1
+    y_ref, state_ref = ref.ssd_chunk_scan(x, dt, A, Bm, Cm, 256)
+    torch.cuda.synchronize()
+    assert _scaled_err(y, y_ref) < 1e-2
+    assert _head_err(y, y_ref) < 1e-2
+    assert _scaled_err(state, state_ref) < 1e-4
+
+
+@pytest.mark.parametrize("name,chunk,horizon", [
+    ("moonshot-v1-16b-a3b", 16, 4), ("moonshot-v1-16b-a3b", 0, 4),
+    ("jamba-v0.1-52b", 16, 4)])
+def test_moe_and_hybrid_engines_on_the_card_match_the_cpu(dev, name, chunk,
+                                                          horizon):
+    """Reduced moonshot (chunked and monolithic) and jamba (its knobs
+    degrade: monolithic prefill, one-token decode) from one set of
+    weights: identical greedy tokens on the card and the CPU, every kernel
+    of the path launched and no plain version on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime.accounting import MemoryAccountant
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, init_params
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = get_config(name).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(14)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)]
+               for n in (3, 17, 41, 9)]
+
+    def run(device):
+        model = build_model(cfg, params, device=device)
+        eng = Engine(model, MemoryAccountant(m_total=1e9), max_slots=3,
+                     s_max=128, page_tokens=8, prefill_chunk_tokens=chunk,
+                     decode_horizon=horizon, device=device)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(req_id=i, tokens=p, max_new=10))
+        return {r.req_id: r.out for r in eng.drain()}
+
+    want = run("cpu")
+    ops.reset_counts()
+    got = run("cuda")
+    assert got == want
+    assert pa.launches > 0 and not any(ops.plain_calls.values())
+    if cfg.family == "hybrid":
+        assert fa.launches == cfg.n_attn_layers * len(prompts)
+        assert ssd.launches == (cfg.n_layers - cfg.n_attn_layers) * len(
+            prompts)
+    else:
+        assert (cp.launches > 0) == bool(chunk)
+        assert (fa.launches > 0) == (not chunk)

@@ -138,9 +138,10 @@ def test_engine_defaults_to_cuda_and_refuses_the_unported(tiny):
     eng = Engine(tiny, acc, prefix_cache=True, device="cpu")
     assert eng._pc is not None and eng.arena.prefix_index is eng._pc
     # a family the port does not serve yet is refused by the model
-    moe = dataclasses.replace(tiny.cfg, name="moe-smoke", family="moe")
+    encdec = dataclasses.replace(tiny.cfg, name="encdec-smoke",
+                                 family="encdec")
     with pytest.raises(NotImplementedError):
-        build_model(moe, device="cpu")
+        build_model(encdec, device="cpu")
 
 
 def test_arena_churn_keeps_the_mirror_and_growth_keeps_rows():

@@ -1,0 +1,220 @@
+"""The port's hybrid (Mamba2 + attention + MoE) model against the JAX
+package's, on the CPU: reduced jamba-v0.1-52b, 16 layers in two periods
+of 8 (attention on slot 4, MoE on the odd slots, no FFN on the other SSM
+slots).
+
+``params_from_jax`` unstacks all eight slots of the reference's tree. The
+prefill logits, the attention layers' K/V and the SSM layers' state and
+conv window, and one paged decode step that steps the state cache, are
+held to the reference by their largest error over the largest magnitude,
+below 2e-4 at float32: the SSD scans' f32 rounding (about 1e-6 of the
+magnitude after the first layer) grows with depth through fourteen SSM
+layers. The engines' greedy tokens must be identical, with the chunk and
+horizon knobs degrading to 0 and 1 on both sides, for prompts of at least
+``conv_dim - 1`` = 3 tokens: on a shorter prompt the reference's engine
+broadcasts the one pre-conv row it has into the whole conv window (1
+token) or raises (2 tokens), where the port pads the window with the
+zeros the causal conv reads (ROADMAP §3). The port's 1- and 2-token
+prompts are held instead to a prefill of the longer sequence.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config
+from repro.core.runtime.accounting import MemoryAccountant as JaxAccountant
+from repro.kernels import ref as jref
+from repro.models import build_model as jax_build
+from repro.serving.engine import Engine as JaxEngine
+from repro.serving.engine import Request as JaxRequest
+from repro_torch.configs import get_config
+from repro_torch.convert import params_from_jax
+from repro_torch.core.runtime.accounting import MemoryAccountant
+from repro_torch.kernels import ops
+from repro_torch.models import build_model
+from repro_torch.serving.engine import Engine, Request
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch intra-op thread: test processes that each spin a pool of
+    threads on a shared host slow one another down a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+NAME = "jamba-v0.1-52b"
+SCALED = 2e-4
+PAGE, ROWS = 4, 12
+
+
+def _scaled(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jm = jax_build(jax_config(NAME).reduced())
+    jparams = jm.init(jax.random.PRNGKey(0))
+    cfg = get_config(NAME).reduced()
+    model = build_model(cfg, params_from_jax(
+        jax.tree.map(np.asarray, jparams), cfg, device="cpu"), device="cpu")
+    return jm, jparams, model
+
+
+def _ssm_slots(jm):
+    return [f"slot{s}" for s, (mx, _, _) in enumerate(jm.kinds)
+            if mx == "ssm"]
+
+
+def _ref_state(jm, jcache, name):
+    """The reference's per-slot state [G, B, ...] in the port's order: SSM
+    layers in layer order, group by group."""
+    return np.concatenate([np.stack([np.asarray(jcache[s][name][g])
+                                     for s in _ssm_slots(jm)])
+                           for g in range(jm.n_groups)])
+
+
+def test_every_slot_converts(pair):
+    jm, jparams, model = pair
+    cfg = model.cfg
+    assert (cfg.n_layers, cfg.layer_pattern_period, jm.n_groups) == (16, 8, 2)
+    assert model.n_ssm_layers == 14 and model.kv_layer == {4: 0, 12: 1}
+    parts = {s: sorted(p) for s, p in jparams["groups"].items()}
+    assert parts["slot4"] == ["attn", "ffn"]
+    assert parts["slot1"] == parts["slot3"] == ["moe", "ssm"]
+    assert parts["slot0"] == parts["slot2"] == ["ssm"]
+    for i, blk in enumerate(model.layers):
+        slot = jparams["groups"][f"slot{i % 8}"]
+        for part, leaves in slot.items():
+            for k, v in leaves.items():
+                np.testing.assert_array_equal(
+                    getattr(blk, part)[k].numpy(), np.asarray(v[i // 8]))
+    assert not (model.supports_chunked_prefill
+                or model.supports_decode_horizon
+                or model.supports_prefix_reuse)
+
+
+def test_prefill_logits_kv_and_state_match(pair):
+    jm, jparams, model = pair
+    toks = np.random.default_rng(0).integers(0, 512, (2, 11)).astype(np.int32)
+    jlogits, jcache = jm.prefill(jparams, jnp.asarray(toks))
+    logits, k, v, state = model.prefill_with_state(torch.from_numpy(toks))
+    assert _scaled(logits, jlogits) < SCALED
+    assert _scaled(k, jcache["slot4"]["k"]) < SCALED
+    assert _scaled(v, jcache["slot4"]["v"]) < SCALED
+    for name in ("state", "conv"):
+        assert _scaled(state[name], _ref_state(jm, jcache, name)) < SCALED
+
+
+def test_paged_decode_steps_the_state_cache(pair):
+    """Prefill two sequences, put the reference's K/V into pages and its
+    state into both caches, then one paged decode step each: logits, the
+    new token's K/V and the stepped state agree."""
+    jm, jparams, model = pair
+    cfg = model.cfg
+    B, P = 2, 7
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab, (B, P)).astype(np.int32)
+    _, jcache = jm.prefill(jparams, jnp.asarray(toks))
+    bt = np.array([[3, 5, 7, 0], [2, 4, 6, 0]], np.int32)
+    shape = (2, ROWS, PAGE, cfg.n_kv_heads, cfg.head_dim_)
+    kp, vp = np.zeros(shape, np.float32), np.zeros(shape, np.float32)
+    for g in range(2):
+        for b in range(B):
+            for t in range(P):
+                kp[g, bt[b, t // PAGE], t % PAGE] = jcache["slot4"]["k"][g, b, t]
+                vp[g, bt[b, t // PAGE], t % PAGE] = jcache["slot4"]["v"][g, b, t]
+    jstate = {s: {n: jcache[s][n] for n in ("state", "conv")}
+              for s in _ssm_slots(jm)}
+    state = {n: torch.from_numpy(_ref_state(jm, jcache, n).copy())
+             for n in ("state", "conv")}
+    dpos = np.full(B, P, np.int32)
+    dtoks = rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32)
+    drows = bt[np.arange(B), dpos // PAGE]
+    doffs = (dpos % PAGE).astype(np.int32)
+    seq_lens = dpos + 1
+    jl, jstate, jkp, _ = jm.decode_step_paged(
+        jparams, jstate, jnp.asarray(kp), jnp.asarray(vp), *map(
+            jnp.asarray, (bt, seq_lens, drows, doffs, dtoks, dpos)),
+        attend=jref.paged_attention_ref)
+    t = torch.from_numpy
+    kp_t, vp_t = t(kp), t(vp)
+    logits = model.decode_step_paged(
+        kp_t, vp_t, t(bt), t(seq_lens), t(drows), t(doffs), t(dtoks),
+        t(dpos), attend=ops.paged_attention, state_cache=state)
+    assert _scaled(logits, jl) < SCALED
+    assert _scaled(kp_t, jkp) < SCALED
+    for name in ("state", "conv"):
+        assert _scaled(state[name], _ref_state(jm, jstate, name)) < SCALED
+
+
+@pytest.mark.parametrize("n", [1, 2, 5])
+def test_decode_after_a_short_prefill_equals_a_longer_prefill(pair, n):
+    """Prefill n tokens, decode the next one through the paged arena and the
+    state cache: the logits of a prefill of all n + 1 tokens. The MoE
+    layers take a capacity that drops nothing here (decode never drops, a
+    prefill at 1.25 may)."""
+    _, _, model = pair
+    m = model.cfg.moe
+    cfg = dataclasses.replace(model.cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+    model = build_model(cfg, model.param_tree(), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(n).integers(
+        0, cfg.vocab, (1, n + 1)).astype(np.int32))
+    _, k, v, state = model.prefill_with_state(toks[:, :n])
+    shape = (2, ROWS, PAGE, cfg.n_kv_heads, cfg.head_dim_)
+    kp, vp = torch.zeros(shape), torch.zeros(shape)
+    bt = torch.tensor([[1, 2, 3, 0]], dtype=torch.int32)
+    for t in range(n):
+        kp[:, bt[0, t // PAGE], t % PAGE] = k[:, 0, t]
+        vp[:, bt[0, t // PAGE], t % PAGE] = v[:, 0, t]
+    pos = torch.tensor([n], dtype=torch.int32)
+    got = model.decode_step_paged(
+        kp, vp, bt, pos + 1, bt[:, n // PAGE], pos % PAGE, toks[:, n:], pos,
+        attend=ops.paged_attention, state_cache=state)
+    want, _, _ = model.prefill(toks)
+    assert _scaled(got, want) < SCALED
+
+
+def _prompts(seed=0):
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(0, 512, p)]
+            for p in (3, 7, 12, 5, 9, 14, 4)]
+
+
+@pytest.mark.parametrize("chunk,horizon", [(0, 1), (8, 4)])
+def test_engine_greedy_tokens_match_jax_engine(pair, chunk, horizon):
+    jm, jparams, model = pair
+    kw = dict(max_slots=3, s_max=64, prefill_chunk_tokens=chunk,
+              decode_horizon=horizon)
+    jacc = JaxAccountant(m_total=512e6)
+    jeng = JaxEngine(jm, jparams, jacc, kv_backend="ref", prefix_cache=True,
+                     **kw)
+    acc = MemoryAccountant(m_total=512e6)
+    eng = Engine(model, acc, device="cpu", prefix_cache=True, **kw)
+    assert (eng.chunk_tokens, eng.horizon) == (jeng.chunk_tokens,
+                                               jeng.horizon) == (0, 1)
+    assert eng.paged and eng._pc is None and jeng._pc is None
+    assert eng._state_bytes == jeng._state_bytes > 0
+    for i, p in enumerate(_prompts()):
+        jeng.submit(JaxRequest(req_id=i, tokens=list(p), max_new=10))
+        eng.submit(Request(req_id=i, tokens=list(p), max_new=10))
+    want = {r.req_id: r.out for r in jeng.drain()}
+    got = {r.req_id: r.out for r in eng.drain()}
+    assert got == want
+    counters = ("stat_decode_syncs", "stat_horizon_steps", "stat_fused_steps",
+                "stat_prefill_tokens", "stat_decode_tokens", "stat_steps")
+    assert ([getattr(eng, c) for c in counters]
+            == [getattr(jeng, c) for c in counters])
+    assert eng.arena.mapped_pages() == 0 and eng.arena.check_mirror()
+    assert acc.ctx == jacc.ctx
+    eng.release_kv()
+    assert eng.cache is None and acc.ctx == {}

@@ -39,7 +39,12 @@ def test_no_module_of_the_port_imports_jax_or_repro():
                  "repro_torch.distributed.fault",
                  "repro_torch.serving.transport",
                  "repro_torch.serving.faultplan",
-                 "repro_torch.sim.cluster", "repro_torch.sim.simulator"):
+                 "repro_torch.sim.cluster", "repro_torch.sim.simulator",
+                 "repro_torch.models.moe", "repro_torch.configs.qwen3_32b",
+                 "repro_torch.configs.qwen1_5_110b",
+                 "repro_torch.configs.moonshot_v1_16b_a3b",
+                 "repro_torch.configs.llama4_scout_17b_a16e",
+                 "repro_torch.configs.jamba_v0_1_52b"):
         assert name in got["modules"], name
 
 

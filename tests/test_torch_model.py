@@ -162,8 +162,8 @@ def test_default_device_is_cuda_and_never_silently_cpu():
 
 
 def test_non_dense_families_are_refused():
-    """Dense and pure-SSM stacks are served; the mixed families are not."""
-    for family in ("hybrid", "moe", "encdec", "vlm"):
+    """The decoder families are served; the cross-attention ones are not."""
+    for family in ("encdec", "vlm"):
         cfg = dataclasses.replace(get_config("qwen3-8b").reduced(),
                                   family=family)
         with pytest.raises(NotImplementedError):
