@@ -135,7 +135,16 @@ Phases, each printing one JSON line (and failing the run on any error):
                 plain versions at the main path's shapes, each timed beside
                 its bound (flash beside SDPA); the SSD scan at jamba's
                 widths (N 16, P 64, 128 heads, bf16: the simt variant) at
-                the 8 prompt lengths with its final state;
+                the 8 prompt lengths with its final state; then flash
+                (wgmma) at the shapes of the cross-attention paths:
+                whisper's encoder (1,500 x 1,500, 16/16, hd 64), whisper's
+                causal decoder prefill of its shortest and longest prompt,
+                the cross prefill of the longest prompt over whisper's
+                1,500 frames and vision's 1,601 patches (32/8, hd 128),
+                and the cross decode of 8 lanes (one query row each) over
+                each, timed beside its bound and SDPA; and paged decode at
+                whisper's heads (16/16, hd 64) with its 8 lanes
+                mid-decode, timed beside its bound;
 18. zoo_reference -- reduced moonshot-v1-16b-a3b and llama4-scout-17b-a16e
                 (chunked and monolithic), qwen3-32b, qwen1.5-110b (random
                 non-zero q/k/v biases) and jamba-v0.1-52b (knobs degrade)
@@ -162,9 +171,27 @@ Phases, each printing one JSON line (and failing the run on any error):
                 chunk and horizon knobs degrading to 0 and 1, every prefill
                 through flash and the SSD scan (simt), decode through paged
                 attention and the state cache; a profile of its first step
-                with the SSD, flash and MoE shares.
+                with the SSD, flash and MoE shares;
+23. cross_reference -- reduced whisper-medium and llama-3.2-vision-11b
+                served on the card and the CPU from the same weights, each
+                request with the same frames or patch embeddings: identical
+                greedy tokens, the knobs degrading;
+24. encdec_main -- full-width whisper-medium (24 decoder and 24 encoder
+                layers, bf16) serving the 8 prompt lengths, scaled into
+                its 448-token decoder context less the 64 new tokens,
+                without extras (the engine's stub frames, 1,500 x 1,024):
+                the knobs (256, 8) degrade to 0 and 1; paged decode and
+                flash (wgmma) the
+                only kernels, flash once per prompt for every self,
+                encoder and cross layer and once per decode step for every
+                cross layer; decode tokens/s, TTFT, peak memory; the cross
+                cache's bytes against the formula; a profile of the first
+                step with the encoder's and the cross prefill's shares, and
+                of one decode step with the cross decode's;
+25. vlm_main -- the same for full-width llama-3.2-vision-11b (40 layers, 8
+                cross, 1,601 x 4,096 stub patch embeddings, 20.2 GB).
 
-The models of phases 19-22 are drawn on the card one at a time, each
+The models of phases 19-25 are drawn on the card one at a time, each
 freed before the next.
 
 Each serving path zeroes the launch counts just before it runs and reads
@@ -781,10 +808,12 @@ def phase_kernels(torch, args, prompt_lens, suffix_shape, gw_shapes):
 
 
 def serve(torch, model, prompts, *, device, arena_rows=None,
-          max_new=MAIN["max_new"], **kw):
-    """Drain ``prompts`` through a fresh engine, ``max_new`` tokens each.
-    Returns the engine, the finished requests by id, and per step (wall
-    seconds, prefill tokens, decode tokens)."""
+          max_new=MAIN["max_new"], extras=None, **kw):
+    """Drain ``prompts`` through a fresh engine, ``max_new`` tokens each;
+    ``extras``: request i's frames or patch embeddings, row i of each
+    numpy array (None: the engine's stub). Returns the engine, the finished
+    requests by id, and per step (wall seconds, prefill tokens, decode
+    tokens)."""
     from repro_torch.core.runtime.accounting import MemoryAccountant
     from repro_torch.serving.engine import Engine, Request
     from repro_torch.serving.kv_arena import KVArena
@@ -794,7 +823,11 @@ def serve(torch, model, prompts, *, device, arena_rows=None,
     eng = Engine(model, MemoryAccountant(m_total=60e9), arena=arena,
                  device=device, **kw)
     for i, p in enumerate(prompts):
-        eng.submit(Request(req_id=i, tokens=list(p), max_new=max_new))
+        ex = None if extras is None else {
+            k: torch.from_numpy(a[i:i + 1]).to(device, model.cfg.dtype)
+            for k, a in extras.items()}
+        eng.submit(Request(req_id=i, tokens=list(p), max_new=max_new,
+                           extras=ex))
     steps = []
     while eng.waiting or eng.active:
         pre, dec = eng.stat_prefill_tokens, eng.stat_decode_tokens
@@ -849,11 +882,13 @@ def profile_steps(torch, eng, more):
     wall_ms = (time.perf_counter() - t0) * 1e3
     kernels, ranges = [], {}
     for ev in prof.key_averages():
-        if ev.key.startswith(RANGE_PREFIX):
-            # a range of moe_ranges: its kernels' time, from the host side
-            # (the device side's annotation is not a kernel)
+        group, sep, label = ev.key.partition("::")
+        if sep and group in RANGE_GROUPS:
+            # a range of moe_ranges or cross_ranges: its kernels' time, from
+            # the host side (the device side's annotation is not a kernel)
             if not str(ev.device_type).endswith("CUDA"):
-                ranges[ev.key] = ev.device_time_total / 1e3
+                ranges.setdefault(group, {})[label] = (
+                    ev.device_time_total / 1e3)
             continue
         if not str(ev.device_type).endswith("CUDA"):
             continue
@@ -870,10 +905,9 @@ def profile_steps(torch, eng, more):
                idle_share=1 - busy_ms / wall_ms, device_share=share,
                top=[dict(kernel=name[:90], ms=ms, calls=n)
                     for ms, name, n in kernels[:8]])
-    if ranges:
-        out["moe_ms"] = {k[len(RANGE_PREFIX):]: ms
-                         for k, ms in ranges.items()}
-        out["moe_share"] = {k: ms / busy_ms for k, ms in out["moe_ms"].items()}
+    for group, ms in ranges.items():
+        out[f"{group}_ms"] = ms
+        out[f"{group}_share"] = {k: t / busy_ms for k, t in ms.items()}
     return out
 
 
@@ -2616,7 +2650,8 @@ ZOO_LAYERS = {ZOO["llama4"]: 8, ZOO["qwen110"]: 8, ZOO["hybrid"]: 16}
 # qwen1.5-110b (g = 8); hd 128 in all
 ZOO_HEADS = ((16, 16), (40, 8), (64, 8))
 DENSE_LARGE = dict(n_requests=4, max_new=32)
-RANGE_PREFIX = "moe::"
+# profiler ranges (``group::label``) that profile_steps reads
+RANGE_GROUPS = ("moe", "cross")
 # the port's MoE functions under each profiler range of moe_ranges
 MOE_RANGES = {"routing": ("_route_and_bucket", "_combine"),
               "experts": ("_expert_ffn",)}
@@ -2651,7 +2686,9 @@ def random_biases(torch, tree, seed: int) -> None:
 def path_kernels(model, chunk: int) -> set:
     """The kernels a serving path of ``model`` must launch: paged decode
     and the chunk kernel (chunked) or flash (monolithic) for a model with
-    attention layers, the SSD scan for one with SSM layers."""
+    attention layers, the SSD scan for one with SSM layers. A
+    cross-attention model does not chunk: flash runs its prefill, its
+    encoder, its cross prefill and its cross decode."""
     names = set()
     if model.paged_kv_layout()[0]:
         names.add("paged_attention")
@@ -2688,8 +2725,7 @@ def moe_ranges(torch):
         for fn in fns:
             saved[fn] = getattr(moe, fn)
 
-            def ranged(*a, _orig=saved[fn], _label=RANGE_PREFIX + label,
-                       **k):
+            def ranged(*a, _orig=saved[fn], _label=f"moe::{label}", **k):
                 with torch.profiler.record_function(_label):
                     return _orig(*a, **k)
             setattr(moe, fn, ranged)
@@ -2915,8 +2951,10 @@ def check_outputs(where: str, model, done, n: int, max_new: int) -> None:
                 f"vocabulary")
 
 
-def check_prefill_logits(torch, where: str, model, prompt) -> None:
-    logits, _, _ = model.prefill(torch.tensor([prompt[:64]], device="cuda"))
+def check_prefill_logits(torch, where: str, model, prompt,
+                         extras=None) -> None:
+    logits, _, _ = model.prefill(torch.tensor([prompt[:64]], device="cuda"),
+                                 extras)
     require(tuple(logits.shape) == (1, model.vocab_padded)
             and bool(torch.isfinite(logits).all()),
             f"{where}: prefill logits not finite or misshapen")
@@ -3162,12 +3200,300 @@ def phase_hybrid_main(torch, args, prompt_lens):
     return num["launches"]
 
 
+# ------------------------------------------- encoder-decoder and vlm
+CROSS = dict(encdec="whisper-medium", vlm="llama-3.2-vision-11b")
+# a decoder's published context where the main path's prompts exceed it:
+# Whisper's n_text_ctx, 448 tokens in every published Whisper model
+TEXT_CTX = {"whisper-medium": 448}
+
+
+def cross_prompt_lens(name: str, prompt_lens) -> list:
+    """``name``'s prompt lengths on its main path: the main path's, scaled
+    into the decoder's context less the new tokens where the model has a
+    short one (whisper: 448 - 64 = 384 at the longest)."""
+    ctx = TEXT_CTX.get(name)
+    if ctx is None:
+        return list(prompt_lens)
+    cap = ctx - MAIN["max_new"]
+    return [max(1, P * cap // MAIN["prompt_max"]) for P in prompt_lens]
+
+
+def cross_flash_shapes(prompt_lens) -> dict:
+    """The flash kernel's shapes on the cross-attention paths, by label:
+    (B, Sq, Sk, H, Hkv, hd, causal). Whisper's encoder self-attention over
+    its frames; whisper's causal decoder prefill of its shortest and
+    longest prompt (vision's decoder has qwen3-8b's heads: the main
+    path's check); each model's cross prefill of its longest prompt over
+    its context; each model's cross decode, one query row per lane of the
+    main path's 8."""
+    from repro_torch.configs import get_config
+    B = MAIN["max_slots"]
+    out = {}
+    w = get_config(CROSS["encdec"])
+    n, heads = w.n_ctx, f"{w.n_heads}/{w.n_kv_heads} hd{w.head_dim_}"
+    out[f"encoder {n}x{n} {heads}"] = (
+        1, n, n, w.n_heads, w.n_kv_heads, w.head_dim_, False)
+    lens = cross_prompt_lens(w.name, prompt_lens)
+    for S in sorted({min(lens), max(lens)}):
+        out[f"decoder prefill {S} {heads} causal"] = (
+            1, S, S, w.n_heads, w.n_kv_heads, w.head_dim_, True)
+    for key in ("encdec", "vlm"):
+        c = get_config(CROSS[key])
+        P = max(cross_prompt_lens(c.name, prompt_lens))
+        heads = f"{c.n_heads}/{c.n_kv_heads} hd{c.head_dim_}"
+        out[f"cross prefill {P}x{c.n_ctx} {heads}"] = (
+            1, P, c.n_ctx, c.n_heads, c.n_kv_heads, c.head_dim_, False)
+        out[f"cross decode {B}x1x{c.n_ctx} {heads}"] = (
+            B, 1, c.n_ctx, c.n_heads, c.n_kv_heads, c.head_dim_, False)
+    return out
+
+
+def check_cross_kernels(torch, gen, prompt_lens) -> dict:
+    """Flash (wgmma, bf16) at each shape of :func:`cross_flash_shapes`, and
+    paged decode (bf16) at whisper's heads (16/16, hd 64) with the 8 lanes
+    of its main path mid-decode, each against its plain version, timed
+    beside its bound (flash beside SDPA). Returns both kernels' numbers by
+    label."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    bf16 = torch.bfloat16
+    out = {"flash_attention": {}, "paged_attention": {}}
+    for label, (B, Sq, Sk, H, Hkv, hd, causal) in cross_flash_shapes(
+            prompt_lens).items():
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(bf16)
+                   for shape in ((B, Sq, H, hd), (B, Sk, Hkv, hd),
+                                 (B, Sk, Hkv, hd)))
+        require(fa.variant(bf16, hd) == "wgmma",
+                f"flash_attention at {label}: the {fa.variant(bf16, hd)} "
+                f"variant")
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = ref.blockwise_attention(q.float(), k.float(), v.float(),
+                                       causal)
+        err, row_err = chunk_errors(got, want)
+        require(err <= 2e-2 and row_err <= 2e-2,
+                f"flash_attention at {label}: err {err}, row {row_err}")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa(qt=qt, kt=kt, vt=vt, causal=causal):
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal,
+                                                  enable_gqa=True)
+
+        n_bytes, n_flops = flash_cost(Sq, Sk, H, Hkv, hd, causal, 2)
+        b_ms, b_by = bound(B * n_bytes, B * n_flops, BF16_FLOPS)
+        out["flash_attention"][label] = dict(
+            max_abs_err=err, row_scaled_err=row_err,
+            shape=dict(B=B, Sq=Sq, Sk=Sk, H=H, Hkv=Hkv, hd=hd,
+                       causal=causal),
+            variant=fa.variant(bf16, hd),
+            **kernel_times(lambda: fa.flash_attention(q, k, v,
+                                                      causal=causal)),
+            plain_ms=time_ms(lambda: ref.blockwise_attention(q, k, v,
+                                                             causal),
+                             reps=3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(sdpa),
+            library_ms_no_spin=time_ms(sdpa, spin=False))
+        emit("kernel_check_zoo", name="flash_attention", heads=label,
+             **out["flash_attention"][label])
+        del q, k, v, qt, kt, vt, got, want
+
+    w = get_config(CROSS["encdec"])
+    H, Hkv, hd = w.n_heads, w.n_kv_heads, w.head_dim_
+    page = MAIN["page_tokens"]
+    W = -(-MAIN["s_max"] // page)
+    n_rows = MAIN["max_slots"] * W + 1
+    seq_lens = [P + MAIN["max_new"] // 2
+                for P in cross_prompt_lens(w.name, prompt_lens)]
+    label = f"whisper decode {len(seq_lens)} lanes {H}/{Hkv} hd{hd}"
+    q, kp, vp, bt, sl = paged_inputs(torch, gen, seq_lens, H, Hkv, hd, page,
+                                     W, n_rows, bf16)
+    err, row_err = chunk_errors(
+        pa.paged_attention(q, kp, vp, bt, sl),
+        ref.paged_attention_ref(q.float(), kp.float(), vp.float(), bt, sl))
+    require(err <= 2e-2 and row_err <= 2e-2,
+            f"paged_attention at {label}: max_abs_err {err}, row-scaled "
+            f"{row_err}")
+    b_ms, b_by = bound(*paged_cost(seq_lens, H, Hkv, hd, W, 2), BF16_FLOPS)
+    out["paged_attention"][label] = dict(
+        max_abs_err=err, row_scaled_err=row_err, seq_lens=seq_lens,
+        split=pa.split_plan(len(seq_lens), Hkv, W, page),
+        **kernel_times(lambda: pa.paged_attention(q, kp, vp, bt, sl)),
+        plain_ms=time_ms(lambda: ref.paged_attention_ref(q, kp, vp, bt,
+                                                         sl)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    emit("kernel_check_zoo", name="paged_attention", heads=label,
+         **out["paged_attention"][label])
+    return out
+
+
+def cross_extras(cfg, n: int, seed: int) -> dict:
+    """Frames or patch embeddings for ``n`` requests, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    return {cfg.ctx_key: rng.standard_normal((n, cfg.n_ctx, cfg.ctx_width),
+                                             np.float32)}
+
+
+def phase_cross_reference(torch, args):
+    """Reduced whisper-medium and llama-3.2-vision-11b served on the card
+    (kernels) and on the CPU (plain versions) from the same weights, each
+    request with the same frames or patch embeddings on both: identical
+    greedy tokens, the knobs degrading to 0 and 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, init_params
+
+    lens = (3, 17, 40, 9, 25, 33)
+    for name in CROSS.values():
+        cfg = get_config(name).reduced()
+        params = init_params(cfg, torch.Generator().manual_seed(args.seed),
+                             "cpu")
+        cpu = build_model(cfg, params, device="cpu")
+        gpu = build_model(cfg, params, device="cuda")
+        rng = np.random.default_rng(args.seed)
+        prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)]
+                   for n in lens]
+        extras = cross_extras(cfg, len(prompts), args.seed + 6)
+        kw = dict(max_slots=4, s_max=128, page_tokens=8,
+                  prefill_chunk_tokens=16, decode_horizon=4, extras=extras)
+        _, want, _ = serve(torch, cpu, prompts, device="cpu", **kw)
+        ops.reset_counts()
+        eng, got, _ = serve(torch, gpu, prompts, device="cuda", **kw)
+        launches = require_path(f"reduced {name}", gpu, 16)
+        require(eng.chunk_tokens == 0 and eng.horizon == 1,
+                f"reduced {name}: knobs did not degrade")
+        same = all(got[i].out == want[i].out for i in want)
+        require(same, f"reduced {name}: card tokens differ from the CPU's")
+        emit("cross_reference", model=cfg.name, requests=len(prompts),
+             engine_chunk=eng.chunk_tokens, engine_horizon=eng.horizon,
+             identical_tokens=same, launches=launches)
+
+
+@contextlib.contextmanager
+def cross_ranges(torch):
+    """The encoder (``cross::encoder``), each cross prefill sub-layer
+    (``cross::prefill``: projections, flash and output product) and each
+    cross decode sub-layer (``cross::decode``) under a profiler range, so
+    :func:`profile_steps` gives their device time."""
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import Model
+    rf = torch.profiler.record_function
+    encode, full = Model.encode, layers.attn_full
+    dec = layers.attn_decode_cross
+
+    def ranged_encode(*a, **k):
+        with rf("cross::encoder"):
+            return encode(*a, **k)
+
+    def ranged_full(*a, **k):
+        if k.get("kv_src") is None:
+            return full(*a, **k)
+        with rf("cross::prefill"):
+            return full(*a, **k)
+
+    def ranged_decode(*a, **k):
+        with rf("cross::decode"):
+            return dec(*a, **k)
+
+    Model.encode, layers.attn_full = ranged_encode, ranged_full
+    layers.attn_decode_cross = ranged_decode
+    try:
+        yield
+    finally:
+        Model.encode, layers.attn_full = encode, full
+        layers.attn_decode_cross = dec
+
+
+def phase_cross_main(torch, args, key: str, prompt_lens):
+    """Full-width whisper-medium (``key`` encdec: 24 decoder and 24 encoder
+    layers) or llama-3.2-vision-11b (vlm: 40 layers, 8 cross), bf16, at
+    full depth: the main path's 8 prompt lengths (whisper's scaled into
+    its 448-token decoder context: :func:`cross_prompt_lens`), 64 new
+    tokens each, without extras (the engine's stub: 1,500 x 1,024 frames,
+    or 1,601 x 4,096 patch embeddings); the chunk and horizon knobs (256,
+    8) degrade to 0 and 1; paged decode and flash, all wgmma, are the only
+    kernels: flash once per prompt for every self-attention, encoder and
+    cross layer and once per decode step for every cross layer. Then the
+    cross cache's bytes against the formula, and a profile of the first
+    step (the prefills and a decode) with the encoder's and the cross
+    sub-layers' shares, and of one decode step with the cross decode's.
+    Returns the path's launches."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(CROSS[key])
+    where = f"{key}_main"
+    prompt_lens = cross_prompt_lens(cfg.name, prompt_lens)
+    model, build_s = build_timed(torch, cfg, args.seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(args.seed + 4)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)]
+               for n in prompt_lens]
+    eng, done, num = serve_path(torch, where, model, prompts,
+                                chunk=MAIN["prefill_chunk_tokens"],
+                                horizon=MAIN["decode_horizon"])
+    require(eng.chunk_tokens == 0 and eng.horizon == 1 and eng.paged,
+            f"{where}: knobs did not degrade: chunk {eng.chunk_tokens}, "
+            f"horizon {eng.horizon}")
+    n_enc = cfg.encoder.n_layers if cfg.encoder is not None else 0
+    n_cross = len(model.cross_layer)
+    steps = eng.stat_decode_syncs
+    want = dict(flash_attention=len(prompts) * (cfg.n_layers + n_cross
+                                                + n_enc) + steps * n_cross,
+                paged_attention=steps * cfg.n_layers)
+    for k, n in want.items():
+        require(num["launches"][k] == n,
+                f"{where}: {k} launched {num['launches'][k]} times, not {n}")
+    require_all_wgmma("flash_attention", want["flash_attention"],
+                      num["launches_by_variant"]["flash_attention"])
+    cross_bytes = eng._state_bytes
+    formula = (n_cross * 2 * MAIN["max_slots"] * cfg.n_ctx * cfg.n_kv_heads
+               * cfg.head_dim_ * 2)
+    require(cross_bytes == formula,
+            f"{where}: cross cache of {cross_bytes} bytes, not {formula}")
+    extras = eng._modal_extras
+    stub = next(iter(extras.values()))
+    require(tuple(stub.shape) == (1, cfg.n_ctx, cfg.ctx_width)
+            and stub.dtype == torch.bfloat16, f"{where}: stub {stub.shape}")
+    del eng
+    check_prefill_logits(torch, where, model, prompts[0], extras)
+    kw = {k: MAIN[k] for k in ("max_slots", "s_max", "page_tokens",
+                               "prefill_chunk_tokens", "decode_horizon")}
+    with cross_ranges(torch):
+        prof = profile_first_step(torch, model, prompts, **kw)
+    first, dec = prof["first_step"], prof["decode_step"]
+    emit(where, model=cfg.name, n_layers=cfg.n_layers, encoder_layers=n_enc,
+         cross_layers=n_cross, params=n_params,
+         weights_gb=n_params * 2 / 1e9, model_build_s=build_s,
+         prompt_lens=list(prompt_lens), stub_shape=list(stub.shape),
+         degraded=dict(prefill_chunk_tokens=0, decode_horizon=1),
+         cross_cache_bytes=cross_bytes, cross_cache_bytes_formula=formula,
+         **num,
+         encoder_share_of_first_step=first.get("cross_share", {}).get(
+             "encoder"),
+         cross_prefill_share_of_first_step=first.get("cross_share", {}).get(
+             "prefill"),
+         flash_share_of_first_step=first["device_share"]["flash_attention"],
+         cross_decode_share_of_decode_step=dec.get("cross_share", {}).get(
+             "decode"),
+         paged_share_of_decode_step=dec["device_share"]["paged_attention"],
+         profile_first_step=prof)
+    del model, extras, stub
+    reset_peak(torch)
+    return num["launches"]
+
+
 def zoo_phases(torch, args, prompt_lens, prompts, mark):
-    """The phases of the MoE, hybrid and large dense configs. Returns the
-    kernel checks at their shapes, their launches by path, and the chunk
-    kernel's variants on moe_main."""
+    """The phases of the MoE, hybrid, large dense and cross-attention
+    configs. Returns the kernel checks at their shapes, their launches by
+    path, and the chunk kernel's variants on moe_main."""
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 5)
     checks = check_zoo_kernels(torch, gen, prompt_lens)
+    for name, by_label in check_cross_kernels(torch, gen,
+                                              prompt_lens).items():
+        checks[name].update(by_label)
     mark("kernels_zoo")
     phase_zoo_reference(torch, args)
     mark("zoo_reference")
@@ -3180,6 +3506,12 @@ def zoo_phases(torch, args, prompt_lens, prompts, mark):
     mark("dense_large")
     by_path["hybrid_main"] = phase_hybrid_main(torch, args, prompt_lens)
     mark("hybrid_main")
+    phase_cross_reference(torch, args)
+    mark("cross_reference")
+    for key in CROSS:
+        by_path[f"{key}_main"] = phase_cross_main(torch, args, key,
+                                                  prompt_lens)
+        mark(f"{key}_main")
     return checks, by_path, moe_variants
 
 

@@ -1,5 +1,7 @@
 from repro_torch.configs.base import (
     ArchConfig,
+    CrossAttnConfig,
+    EncoderConfig,
     MoEConfig,
     SSMConfig,
     dtype_bytes,
@@ -7,5 +9,5 @@ from repro_torch.configs.base import (
     register,
 )
 
-__all__ = ["ArchConfig", "MoEConfig", "SSMConfig", "dtype_bytes",
-           "get_config", "register"]
+__all__ = ["ArchConfig", "CrossAttnConfig", "EncoderConfig", "MoEConfig",
+           "SSMConfig", "dtype_bytes", "get_config", "register"]

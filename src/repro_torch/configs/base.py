@@ -1,17 +1,21 @@
 """Architecture configuration of the PyTorch port.
 
-The port's own copy of ``repro.configs.base.ArchConfig``, ``MoEConfig`` and
-``SSMConfig``, restricted to the four decoder families this package
-serves:
+The port's own copy of ``repro.configs.base.ArchConfig``, ``MoEConfig``,
+``SSMConfig``, ``CrossAttnConfig`` and ``EncoderConfig``, for the six
+families of the reference:
 
   dense   -- decoder-only transformer (GQA, optional qk_norm / qkv bias)
   moe     -- the dense skeleton with MoE FFN layers
   ssm     -- attention-free Mamba2 (SSD) stack
   hybrid  -- interleaved Mamba2 + attention (+ optional MoE)
+  encdec  -- encoder-decoder (Whisper-style): an encoder over precomputed
+             frame embeddings (the conv frontend is a stub) and a
+             cross-attention sub-layer in every decoder layer
+  vlm     -- decoder with interleaved cross-attention layers over
+             precomputed patch embeddings (the vision tower is a stub)
 
 Every field keeps its meaning and default, and ``dtype`` is a
-``torch.dtype``. The cross-attention and encoder fields (the ``vlm`` and
-``encdec`` families) are not ported.
+``torch.dtype``.
 """
 from __future__ import annotations
 
@@ -50,9 +54,24 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class CrossAttnConfig:
+    """Interleaved cross-attention (vlm) or enc-dec cross-attention."""
+    every: int = 5            # a cross-attention layer every `every` (vlm)
+    offset: int = 0
+    n_ctx_tokens: int = 1601  # patch / frame embedding count
+    ctx_dim: int = 0          # 0 => d_model
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    n_layers: int = 24
+    n_frames: int = 1500      # precomputed frame embeddings (stub frontend)
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense | moe | ssm | hybrid
+    family: str                  # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -68,6 +87,8 @@ class ArchConfig:
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    cross_attn: Optional[CrossAttnConfig] = None
+    encoder: Optional[EncoderConfig] = None
     # hybrid: attention on layers where (idx % attn_every) == attn_offset,
     # Mamba2 elsewhere. attn_every=1 => all attention.
     attn_every: int = 1
@@ -93,15 +114,26 @@ class ArchConfig:
             return False
         return idx % self.moe.every == self.moe.offset
 
+    def is_cross_layer(self, idx: int) -> bool:
+        """An interleaved (vlm) cross-attention layer. False for encdec,
+        whose every decoder layer holds a cross-attention sub-layer of its
+        own (``models.common.layer_specs``), as the reference counts it."""
+        if self.cross_attn is None or self.family == "encdec":
+            return False
+        return idx % self.cross_attn.every == self.cross_attn.offset
+
     @property
     def layer_pattern_period(self) -> int:
         """Smallest period covering the layer heterogeneity: the lcm of the
-        hybrid's attention period and the MoE period."""
+        hybrid's attention period, the MoE period and the vlm's
+        cross-attention period."""
         p = 1
         if self.family == "hybrid":
             p = math.lcm(p, self.attn_every)
         if self.moe is not None:
             p = math.lcm(p, self.moe.every)
+        if self.cross_attn is not None and self.family != "encdec":
+            p = math.lcm(p, self.cross_attn.every)
         return p
 
     @property
@@ -123,8 +155,22 @@ class ArchConfig:
                     total += 2 * hd
             elif self.ssm is not None:
                 total += _ssm_params(self.ssm, d)
+            if self.is_cross_layer(i):
+                cd = self.cross_attn.ctx_dim or d
+                total += (d * (self.n_heads * hd)
+                          + 2 * cd * (self.n_kv_heads * hd)
+                          + (self.n_heads * hd) * d + d)
             total += _ffn_params(self, i, d)
-        return total + d
+        total += d                                  # final norm
+        if self.encoder is not None:
+            # encoder layers: q/k/v/o, the GELU FFN and two norms
+            total += self.encoder.n_layers * (
+                4 * d * (self.n_heads * hd) + 2 * d * self.d_ff + 2 * d)
+            # one cross-attention block per decoder layer, its final norm
+            total += self.n_layers * (
+                2 * d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd)
+                + d) + d
+        return total
 
     def active_param_count(self) -> int:
         """Parameters touched per token: all but the experts a token is not
@@ -176,7 +222,43 @@ class ArchConfig:
         if self.ssm is not None:
             changes["ssm"] = dataclasses.replace(
                 self.ssm, d_state=16, head_dim=16, chunk=32)
+        if self.cross_attn is not None:
+            changes["cross_attn"] = dataclasses.replace(
+                self.cross_attn, n_ctx_tokens=24, ctx_dim=0)
+        if self.encoder is not None:
+            changes["encoder"] = dataclasses.replace(
+                self.encoder, n_layers=2, n_frames=24)
         return dataclasses.replace(self, **changes)
+
+    @property
+    def n_ctx(self) -> int:
+        """Context rows a cross-attention layer reads: the encoder's frames
+        (encdec) or the patch embeddings (vlm); 0 without either."""
+        if self.encoder is not None:
+            return self.encoder.n_frames
+        if self.cross_attn is not None:
+            return self.cross_attn.n_ctx_tokens
+        return 0
+
+    @property
+    def ctx_key(self) -> str:
+        """The ``extras`` key of what the cross-attention layers read:
+        ``"frames"`` (encdec: the encoder runs over them) or
+        ``"ctx_embeds"`` (vlm: the patch embeddings); "" without either."""
+        if self.encoder is not None:
+            return "frames"
+        return "ctx_embeds" if self.cross_attn is not None else ""
+
+    @property
+    def ctx_width(self) -> int:
+        """The row width of :attr:`ctx_key`'s input [B, n_ctx, width]: the
+        model width for frames, ``ctx_dim`` (or the model width) for patch
+        embeddings; 0 without either."""
+        if self.encoder is not None:
+            return self.d_model
+        if self.cross_attn is not None:
+            return self.cross_attn.ctx_dim or self.d_model
+        return 0
 
 
 def _ffn_params(cfg: ArchConfig, idx: int, d: int) -> int:
@@ -205,7 +287,8 @@ def _ssm_params(s: SSMConfig, d: int) -> int:
 _REGISTRY: Dict[str, ArchConfig] = {}
 
 _ARCH_MODULES = [
-    "qwen3_32b", "starcoder2_15b", "qwen3_8b", "qwen1_5_110b", "mamba2_2_7b",
+    "qwen3_32b", "starcoder2_15b", "qwen3_8b", "qwen1_5_110b",
+    "whisper_medium", "llama3_2_vision_11b", "mamba2_2_7b",
     "moonshot_v1_16b_a3b", "llama4_scout_17b_a16e", "jamba_v0_1_52b",
 ]
 

@@ -3,10 +3,12 @@
 The reference stacks each slot of the repeating layer period on a leading
 group axis (``params["groups"]["slot{s}"]``, ``n_groups = n_layers //
 period`` entries each); the port keeps one dict per layer: layer ``i`` is
-group ``i // period`` of slot ``i % period``. Values are copied unchanged,
-each leaf in the dtype its spec gives (the config's, or float32 for a
-Mamba2 layer's ``A_log``/``dt_bias``/``D_skip``), so the two packages
-compute with the same numbers.
+group ``i // period`` of slot ``i % period``, its ``cross`` part included.
+The encoder's layers, stacked on a leading ``[n_enc]`` axis in the
+reference, become one dict per encoder layer likewise. Values are copied
+unchanged, each leaf in the dtype its spec gives (the config's, or
+float32 for a Mamba2 layer's ``A_log``/``dt_bias``/``D_skip``), so the
+two packages compute with the same numbers.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import layer_specs
+from repro_torch.models.common import encoder_layer_specs, layer_specs
 
 
 def _tensor(a: Any, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -57,4 +59,13 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
     }
     if "lm_head" in tree:
         params["lm_head"] = t(tree["lm_head"])
+    if cfg.encoder is not None:
+        enc = tree["encoder"]
+        specs = encoder_layer_specs(cfg)
+        params["encoder"] = {
+            "layers": [{part: {k: t(v[i]) for k, v in enc["layers"][part]
+                               .items()}
+                        for part in specs}
+                       for i in range(cfg.encoder.n_layers)],
+            "ln": t(enc["ln"])}
     return params

@@ -15,7 +15,11 @@ A Mamba2 layer holds ``{"ssm": {"ln", "wx", "wz", "wB", "wC", "wdt",
 the config's dtype, as in the reference's ``ssm_defs``. A MoE layer holds
 ``{"moe": {"ln", "router" [D,E], "w_gate", "w_up" [E,D,F], "w_down"
 [E,F,D]}}`` in place of ``ffn``; an SSM layer of a hybrid or pure-SSM
-stack has no FFN part at all (:func:`layer_specs`).
+stack has no FFN part at all (:func:`layer_specs`). A cross-attention layer
+(every decoder layer of an encdec model, the interleaved ones of a vlm)
+also holds ``{"cross": {"ln", "wq", "wk", "wv", "wo"}}``, its ``wk``/``wv``
+of ``ctx_dim`` rows where the config sets one. An encdec model has
+``{"encoder": {"layers": [{"attn", "ffn" (GELU)}, ...], "ln": [D]}}``.
 """
 from __future__ import annotations
 
@@ -41,33 +45,41 @@ def pad_vocab(vocab: int, multiple: int = 512) -> int:
     return ((vocab + multiple - 1) // multiple) * multiple
 
 
-def attn_specs(cfg: ArchConfig) -> Dict[str, Spec]:
+def attn_specs(cfg: ArchConfig, cross: bool = False) -> Dict[str, Spec]:
+    """Self-attention, or (``cross``) cross-attention: k/v projected from
+    ``ctx_dim`` rows where the config sets one, no bias, no qk-norm."""
     D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    d_ctx = D
+    if cross and cfg.cross_attn is not None and cfg.cross_attn.ctx_dim:
+        d_ctx = cfg.cross_attn.ctx_dim
     specs: Dict[str, Spec] = {
         "ln": Spec((D,), "ones"),
         "wq": Spec((D, H * hd), "normal"),
-        "wk": Spec((D, Hkv * hd), "normal"),
-        "wv": Spec((D, Hkv * hd), "normal"),
+        "wk": Spec((d_ctx, Hkv * hd), "normal"),
+        "wv": Spec((d_ctx, Hkv * hd), "normal"),
         "wo": Spec((H * hd, D), "normal"),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         specs["bq"] = Spec((H * hd,), "zeros")
         specs["bk"] = Spec((Hkv * hd,), "zeros")
         specs["bv"] = Spec((Hkv * hd,), "zeros")
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         specs["qn"] = Spec((hd,), "ones")
         specs["kn"] = Spec((hd,), "ones")
     return specs
 
 
-def ffn_specs(cfg: ArchConfig) -> Dict[str, Spec]:
+def ffn_specs(cfg: ArchConfig, gelu: Optional[bool] = None
+              ) -> Dict[str, Spec]:
+    """SwiGLU, or the GELU MLP where ``gelu`` (default ``cfg.ffn_gelu``;
+    the encoder's is always GELU)."""
     D, F = cfg.d_model, cfg.d_ff
     specs: Dict[str, Spec] = {
         "ln": Spec((D,), "ones"),
         "w_up": Spec((D, F), "normal"),
         "w_down": Spec((F, D), "normal"),
     }
-    if not cfg.ffn_gelu:  # SwiGLU
+    if not (cfg.ffn_gelu if gelu is None else gelu):  # SwiGLU
         specs["w_gate"] = Spec((D, F), "normal")
     return specs
 
@@ -108,15 +120,24 @@ def moe_specs(cfg: ArchConfig) -> Dict[str, Spec]:
 
 def layer_specs(cfg: ArchConfig, idx: int) -> Dict[str, Dict[str, Spec]]:
     """Layer ``idx``'s parts, as the reference's ``slot_kinds`` gives them:
-    the mixer (``attn`` or ``ssm``), then the FFN: ``moe`` on a MoE layer,
-    none on an SSM layer of a pure-SSM or hybrid stack, else ``ffn``."""
+    the mixer (``attn`` or ``ssm``), the ``cross`` attention of a vlm's
+    cross layer and of every encdec decoder layer, then the FFN: ``moe`` on
+    a MoE layer, none on an SSM layer of a pure-SSM or hybrid stack, else
+    ``ffn``."""
     attn = cfg.is_attn_layer(idx)
     specs = {"attn": attn_specs(cfg)} if attn else {"ssm": ssm_specs(cfg)}
+    if cfg.is_cross_layer(idx) or cfg.family == "encdec":
+        specs["cross"] = attn_specs(cfg, cross=True)
     if cfg.is_moe_layer(idx):
         specs["moe"] = moe_specs(cfg)
     elif attn:
         specs["ffn"] = ffn_specs(cfg)
     return specs
+
+
+def encoder_layer_specs(cfg: ArchConfig) -> Dict[str, Dict[str, Spec]]:
+    """One encoder layer's parts: self-attention and the GELU FFN."""
+    return {"attn": attn_specs(cfg), "ffn": ffn_specs(cfg, gelu=True)}
 
 
 def _init_leaf(spec: Spec, dtype: torch.dtype, generator: torch.Generator,
@@ -160,6 +181,13 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = _init_leaf(Spec((D, Vp)), dt,
                                        generator, device)
+    if cfg.encoder is not None:
+        params["encoder"] = {
+            "layers": [{part: {k: _init_leaf(s, dt, generator, device)
+                               for k, s in specs.items()}
+                        for part, specs in encoder_layer_specs(cfg).items()}
+                       for _ in range(cfg.encoder.n_layers)],
+            "ln": _init_leaf(Spec((D,), "ones"), dt, generator, device)}
     return params
 
 

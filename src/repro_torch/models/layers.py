@@ -1,6 +1,6 @@
-"""Transformer building blocks: GQA attention (full, paged decode, paged
-chunk) and the dense SwiGLU / GELU FFNs. (The Mamba2 block is
-``models/mamba2.py``.)
+"""Transformer building blocks: GQA attention (full self- or
+cross-attention, paged decode, paged chunk, cross decode) and the dense
+SwiGLU / GELU FFNs. (The Mamba2 block is ``models/mamba2.py``.)
 
 Plain functions on tensors, one per reference function in
 ``repro/models/layers.py``, with the same arguments minus the sharding
@@ -10,7 +10,7 @@ new (donated) plane.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -21,37 +21,63 @@ from repro_torch.models.common import apply_rope, rms_norm
 
 
 def _project_qkv(p: Mapping[str, torch.Tensor], h: torch.Tensor,
-                 cfg: ArchConfig):
-    """Project to q [B,S,H,hd], k/v [B,S,Hkv,hd]; apply qk-norm + biases."""
+                 src: torch.Tensor, cfg: ArchConfig, cross: bool = False):
+    """Project to q [B,S,H,hd] from ``h``, k/v [B,Sk,Hkv,hd] from ``src``
+    (``h`` itself for self-attention); apply qk-norm + biases, which a
+    cross-attention has not."""
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     q = h @ p["wq"]
-    k = h @ p["wk"]
-    v = h @ p["wv"]
-    if cfg.qkv_bias:
+    k = src @ p["wk"]
+    v = src @ p["wv"]
+    if cfg.qkv_bias and not cross:
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
     q = q.reshape(*h.shape[:-1], H, hd)
-    k = k.reshape(*h.shape[:-1], Hkv, hd)
-    v = v.reshape(*h.shape[:-1], Hkv, hd)
-    if cfg.qk_norm:
+    k = k.reshape(*src.shape[:-1], Hkv, hd)
+    v = v.reshape(*src.shape[:-1], Hkv, hd)
+    if cfg.qk_norm and not cross:
         q = rms_norm(q, p["qn"], cfg.norm_eps)
         k = rms_norm(k, p["kn"], cfg.norm_eps)
     return q, k, v
 
 
-def attn_full(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
-    """Full-sequence causal self-attention (monolithic prefill) through
+def attn_full(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+              kv_src: Optional[torch.Tensor] = None, causal: bool = True):
+    """Full-sequence self- or cross-attention through
     :func:`repro_torch.kernels.ops.flash_attention` on the un-repeated K/V.
-    Returns (output [B,S,D], k, v [B,S,Hkv,hd] for the cache)."""
+
+    Self-attention (``kv_src`` None) projects q/k/v from the normed ``x``
+    and ropes them at ``positions``: the decoder's prefill is causal, the
+    encoder's not. Cross-attention projects k/v from the raw ``kv_src``
+    [B,Sk,C] (the encoder's output or the patch embeddings) and never
+    ropes; its caller passes ``causal=False``.
+    Returns (output [B,S,D], k, v [B,Sk,Hkv,hd] for the cache)."""
+    cross = kv_src is not None
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k, v = _project_qkv(p, h, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _project_qkv(p, h, kv_src if cross else h, cfg, cross)
+    if not cross:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     o = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            causal=True)
+                            causal=causal)
     o = o.reshape(*x.shape[:-1], cfg.n_heads * cfg.head_dim_)
     return o @ p["wo"], k, v
+
+
+def attn_decode_cross(p, x: torch.Tensor, cfg: ArchConfig,
+                      k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Single-token cross-attention against a lane's static context K/V
+    (the reference's ``attn_decode(..., cross=True)``): x [B,1,D]; k/v
+    [B,n_ctx,Hkv,hd], the prompt's cross K/V in the state cache. No rope,
+    no mask, no write: one query row per lane through
+    :func:`repro_torch.kernels.ops.flash_attention`, non-causal.
+    Returns the output [B,1,D]."""
+    H, hd = cfg.n_heads, cfg.head_dim_
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = (h @ p["wq"]).reshape(*h.shape[:-1], H, hd)
+    o = ops.flash_attention(q.contiguous(), k, v, causal=False)
+    return o.reshape(*x.shape[:-1], H * hd) @ p["wo"]
 
 
 def attn_decode_paged(p, x: torch.Tensor, cfg: ArchConfig,
@@ -74,7 +100,7 @@ def attn_decode_paged(p, x: torch.Tensor, cfg: ArchConfig,
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim_
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k_new, v_new = _project_qkv(p, h, cfg)
+    q, k_new, v_new = _project_qkv(p, h, h, cfg)
     q = apply_rope(q, positions[:, None], cfg.rope_theta)
     k_new = apply_rope(k_new, positions[:, None], cfg.rope_theta)
     k_row = k_new[:, 0].to(k_pages.dtype)
@@ -112,7 +138,7 @@ def attn_chunk_paged(p, x: torch.Tensor, cfg: ArchConfig,
     B, C = x.shape[0], x.shape[1]
     H, hd = cfg.n_heads, cfg.head_dim_
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k_new, v_new = _project_qkv(p, h, cfg)
+    q, k_new, v_new = _project_qkv(p, h, h, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k_new = apply_rope(k_new, positions, cfg.rope_theta)
     rows, offs = rows.long(), offs.long()
@@ -124,12 +150,14 @@ def attn_chunk_paged(p, x: torch.Tensor, cfg: ArchConfig,
     return o @ p["wo"]
 
 
-def ffn_apply(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """SwiGLU, or the 2-matrix GELU MLP (``cfg.ffn_gelu``) with the tanh
+def ffn_apply(p, x: torch.Tensor, cfg: ArchConfig,
+              gelu: Optional[bool] = None) -> torch.Tensor:
+    """SwiGLU, or the 2-matrix GELU MLP (``gelu``, by default
+    ``cfg.ffn_gelu``; the encoder's is always GELU) with the tanh
     approximation that ``jax.nn.gelu`` uses by default."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     up = h @ p["w_up"]
-    if cfg.ffn_gelu:
+    if cfg.ffn_gelu if gelu is None else gelu:
         act = F.gelu(up, approximate="tanh")
     else:
         act = F.silu(h @ p["w_gate"]) * up

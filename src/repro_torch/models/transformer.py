@@ -1,8 +1,10 @@
-"""Model assembly for the decoder families: dense and MoE self-attention
-stacks, attention-free Mamba2 stacks and hybrids of the two. Embedding / LM
-head, monolithic prefill, chunked prefill and paged decode through the KV
-arena, the on-device multi-token decode horizon, and the one-token decode
-of a recurrent state cache.
+"""Model assembly for every family of the zoo: dense and MoE
+self-attention stacks, attention-free Mamba2 stacks and hybrids of the two,
+the Whisper-style encoder-decoder and the decoder with interleaved
+cross-attention layers (vlm). Embedding / LM head, the encoder, monolithic
+prefill, chunked prefill and paged decode through the KV arena, the
+on-device multi-token decode horizon, and the one-token decode of a
+recurrent state cache.
 
 The reference (``repro/models/transformer.py``) stacks the layers of each
 repeated period slot by slot and scans over the groups; here the layers are
@@ -11,7 +13,10 @@ period``, slot ``i % period``; its arena layer is the reference's
 ``bases[slot] + group`` (attention slot ``a``, in slot order, group ``g``
 at ``a * n_groups + g``), and SSM layer ``j`` (counted among SSM layers) is
 entry ``j`` of the state cache. Each layer applies its own FFN: dense, MoE,
-or none on an SSM layer.
+or none on an SSM layer. A layer with cross-attention (every decoder
+layer of an encdec model, the interleaved ones of a vlm) applies it after
+its mixer and before its FFN; cross layer ``j`` (counted among cross
+layers, in layer order) reads entry ``j`` of the state cache's cross K/V.
 """
 from __future__ import annotations
 
@@ -24,23 +29,24 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
-from repro_torch.models.common import layer_specs, pad_vocab, rms_norm
+from repro_torch.models.common import (encoder_layer_specs, layer_specs,
+                                       pad_vocab, rms_norm)
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-PARTS = ("attn", "ssm", "ffn", "moe")
+PARTS = ("attn", "ssm", "cross", "ffn", "moe")
 
 
 class Block(nn.Module):
     """One layer's parameters in the reference's names and layout: the
-    mixer ``attn`` or ``ssm``, and the FFN ``ffn`` (dense), ``moe`` or none
-    (an SSM layer of a pure-SSM or hybrid stack); the parts a layer lacks
-    are None."""
+    mixer ``attn`` or ``ssm``, the ``cross`` attention of a cross layer,
+    and the FFN ``ffn`` (dense), ``moe`` or none (an SSM layer of a
+    pure-SSM or hybrid stack); the parts a layer lacks are None."""
 
     def __init__(self, parts: Dict[str, Dict[str, torch.Tensor]]):
         super().__init__()
@@ -59,10 +65,18 @@ class Block(nn.Module):
         return x
 
 
+def _check_parts(blk: Block, specs, where: str) -> None:
+    parts = {p for p in PARTS if getattr(blk, p) is not None}
+    if parts != set(specs):
+        raise ValueError(f"{where} holds {parts}, not {set(specs)}")
+
+
 class Model(nn.Module):
-    """A decoder bound to one ``ArchConfig`` and holding its weights
+    """A model bound to one ``ArchConfig`` and holding its weights
     (inference only: no parameter requires a gradient): a dense or MoE
-    self-attention stack, an attention-free Mamba2 stack, or a hybrid.
+    self-attention stack, an attention-free Mamba2 stack, a hybrid, an
+    encoder-decoder (``encoder_layers`` and ``encoder_ln`` beside the
+    decoder) or a decoder with cross-attention layers.
 
     The serving methods take and update in place the arena planes
     ``k_pages``/``v_pages`` ``[n_attn_layers, n_rows, page, Hkv, hd]`` and
@@ -86,12 +100,25 @@ class Model(nn.Module):
             raise ValueError(f"{len(self.layers)} layers of parameters for "
                              f"a {cfg.n_layers}-layer config")
         for i, blk in enumerate(self.layers):
-            parts = {p for p in PARTS if getattr(blk, p) is not None}
-            if parts != set(layer_specs(cfg, i)):
-                raise ValueError(f"layer {i} of {cfg.name} holds {parts}, "
-                                 f"not {set(layer_specs(cfg, i))}")
+            _check_parts(blk, layer_specs(cfg, i), f"layer {i} of {cfg.name}")
+        self.encoder_layers = self.encoder_ln = None
+        if cfg.encoder is not None:
+            enc = params["encoder"]
+            self.encoder_layers = nn.ModuleList(
+                Block(lp) for lp in enc["layers"])
+            if len(self.encoder_layers) != cfg.encoder.n_layers:
+                raise ValueError(f"{len(self.encoder_layers)} encoder layers "
+                                 f"of parameters for a "
+                                 f"{cfg.encoder.n_layers}-layer encoder")
+            for i, blk in enumerate(self.encoder_layers):
+                _check_parts(blk, encoder_layer_specs(cfg),
+                             f"encoder layer {i} of {cfg.name}")
+            self.encoder_ln = _frozen(enc["ln"])
         self.n_ssm_layers = sum(b.mixer == "ssm" for b in self.layers)
         self.kv_layer = self._kv_layout()
+        # layer index -> entry of the state cache's cross K/V
+        cross = [i for i, b in enumerate(self.layers) if b.cross is not None]
+        self.cross_layer = {i: j for j, i in enumerate(cross)}
 
     def _kv_layout(self) -> Dict[int, int]:
         """Layer index -> arena layer of each attention layer, in the
@@ -119,6 +146,13 @@ class Model(nn.Module):
                        for blk in self.layers]}
         if self.lm_head is not None:
             tree["lm_head"] = self.lm_head.data
+        if self.encoder_layers is not None:
+            tree["encoder"] = {
+                "layers": [{part: {k: p.data for k, p in getattr(blk, part)
+                                   .items()}
+                            for part in ("attn", "ffn")}
+                           for blk in self.encoder_layers],
+                "ln": self.encoder_ln.data}
         return tree
 
     # -------------------------------------------------------------- embedding
@@ -135,40 +169,84 @@ class Model(nn.Module):
         model dtype, then the upcast (the reference's cast point)."""
         return (last @ self.unembed_weight()).float()
 
+    # ---------------------------------------------------------------- encoder
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper-style encoder over precomputed frame embeddings [B,F,D]:
+        non-causal self-attention roped at ``arange(F)`` (rope stands in
+        for Whisper's learned positions, as in the reference) and the GELU
+        FFN in every layer, then the final norm. -> [B,F,D]."""
+        cfg = self.cfg
+        pos = torch.arange(frames.shape[1], device=frames.device)[None]
+        x = frames
+        for blk in self.encoder_layers:
+            o, _, _ = L.attn_full(blk.attn, x, cfg, pos, causal=False)
+            x = x + o
+            x = x + L.ffn_apply(blk.ffn, x, cfg, gelu=True)
+        return rms_norm(x, self.encoder_ln, cfg.norm_eps)
+
+    def _cross_src(self, extras) -> Optional[torch.Tensor]:
+        """What the cross-attention layers read: the encoder's output over
+        ``extras["frames"]`` (encdec) or ``extras["ctx_embeds"]`` (vlm);
+        None for a model without cross-attention."""
+        if not self.cross_layer:
+            return None
+        key = self.cfg.ctx_key
+        if not extras or key not in extras:
+            raise ValueError(f"{self.cfg.name}: prefill needs "
+                             f"extras[{key!r}]")
+        if self.encoder_layers is not None:
+            return self.encode(extras[key])
+        return extras[key]
+
     # ---------------------------------------------------------------- prefill
-    def prefill(self, tokens: torch.Tensor) -> Tuple[
+    def prefill(self, tokens: torch.Tensor, extras=None) -> Tuple[
             torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
         """tokens [B,P] -> (last-token logits [B,Vp] f32, k, v
         [n_attn_layers, B, P, Hkv, hd]: the prompt's K/V, layer-stacked;
-        None for a model without attention layers)."""
-        logits, k, v, _ = self.prefill_with_state(tokens)
+        None for a model without attention layers). ``extras`` as for
+        :meth:`prefill_with_state`."""
+        logits, k, v, _ = self.prefill_with_state(tokens, extras)
         return logits, k, v
 
-    def prefill_with_state(self, tokens: torch.Tensor):
-        """:meth:`prefill`, plus the SSM layers' decode cache: ``{"state":
-        [n_ssm_layers, B, H, N, P] f32, "conv": [n_ssm_layers, B,
-        conv_dim-1, di]}``, or None for a model without SSM layers. The K/V
-        stack is in arena-layer order."""
+    def prefill_with_state(self, tokens: torch.Tensor, extras=None):
+        """:meth:`prefill`, plus the decode cache the arena does not hold,
+        in :meth:`state_cache`'s layout for the ``B`` lanes: the SSM
+        layers' ``"state"`` [n_ssm_layers, B, H, N, P] f32 and ``"conv"``
+        [n_ssm_layers, B, conv_dim-1, di], and the cross layers'
+        ``"cross_k"``/``"cross_v"`` [n_cross_layers, B, n_ctx, Hkv, hd]; None
+        for a model with neither. The K/V stack is in arena-layer order.
+
+        ``extras``: ``{"frames": [B,F,D]}`` for an encdec model (the
+        encoder runs over them), ``{"ctx_embeds": [B,N,C]}`` for a vlm;
+        each cross layer attends to them after its mixer, before its
+        FFN."""
         cfg = self.cfg
         x = self.embed(tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        src = self._cross_src(extras)
         n_kv = len(self.kv_layer)
         ks, vs = [None] * n_kv, [None] * n_kv
-        states, convs = [], []
+        parts = {"state": [], "conv": [], "cross_k": [], "cross_v": []}
         for i, blk in enumerate(self.layers):
             if blk.mixer == "attn":
                 o, k, v = L.attn_full(blk.attn, x, cfg, positions)
                 ks[self.kv_layer[i]], vs[self.kv_layer[i]] = k, v
             else:
                 o, c = M2.ssm_full(blk.ssm, x, cfg)
-                states.append(c["state"])
-                convs.append(c["conv"])
-            x = blk.ffn_apply(x + o, cfg)
+                parts["state"].append(c["state"])
+                parts["conv"].append(c["conv"])
+            x = x + o
+            if blk.cross is not None:
+                o, ck, cv = L.attn_full(blk.cross, x, cfg, positions,
+                                        kv_src=src, causal=False)
+                x = x + o
+                parts["cross_k"].append(ck)
+                parts["cross_v"].append(cv)
+            x = blk.ffn_apply(x, cfg)
         x = rms_norm(x, self.final_ln, cfg.norm_eps)
         kv = (torch.stack(ks), torch.stack(vs)) if ks else (None, None)
-        state = ({"state": torch.stack(states), "conv": torch.stack(convs)}
-                 if states else None)
-        return (self._logits(x[:, -1]), *kv, state)
+        state = {name: torch.stack(ts) for name, ts in parts.items() if ts}
+        return (self._logits(x[:, -1]), *kv, state or None)
 
     def _require_paged(self, what: str) -> None:
         if not self.supports_chunked_prefill:
@@ -228,8 +306,9 @@ class Model(nn.Module):
     def supports_prefix_reuse(self) -> bool:
         """Only a pure causal self-attention stack (dense or MoE) can resume
         a prompt from cached pages: SSM state is positionally recurrent, so
-        a hybrid cannot."""
-        return self.n_ssm_layers == 0
+        a hybrid cannot, and a cross-attention model's context lives in
+        its state cache, not in pages."""
+        return self.n_ssm_layers == 0 and not self.cross_layer
 
     @property
     def supports_chunked_prefill(self) -> bool:
@@ -264,7 +343,9 @@ class Model(nn.Module):
         coordinate. ``attend`` is the paged attention
         (``kernels.ops.paged_attention``). A hybrid's SSM layers step
         ``state_cache`` (:meth:`state_cache`) in place, every lane, idle
-        ones too, as the reference's do. Returns logits [B,Vp] f32."""
+        ones too, as the reference's do; a cross layer reads its lane's
+        static cross K/V there (:func:`layers.attn_decode_cross`).
+        Returns logits [B,Vp] f32."""
         if not self.kv_layer:
             raise NotImplementedError(
                 f"{self.cfg.name}: no attention layer to page "
@@ -282,6 +363,11 @@ class Model(nn.Module):
                 x = x + M2.ssm_decode(blk.ssm, x, state_cache["state"][j],
                                       state_cache["conv"][j], cfg)
                 j += 1
+            if blk.cross is not None:
+                c = self.cross_layer[i]
+                x = x + L.attn_decode_cross(blk.cross, x, cfg,
+                                            state_cache["cross_k"][c],
+                                            state_cache["cross_v"][c])
             x = blk.ffn_apply(x, cfg)
         x = rms_norm(x, self.final_ln, cfg.norm_eps)
         return self._logits(x[:, 0])
@@ -337,22 +423,29 @@ class Model(nn.Module):
 
     # ------------------------------------------------ dense state decode
     def state_cache(self, batch: int) -> Dict[str, torch.Tensor]:
-        """A zeroed decode cache for the SSM layers of ``batch`` lanes:
-        ``{"state": [n_ssm_layers, batch, H, N, P] f32, "conv":
-        [n_ssm_layers, batch, conv_dim-1, di]}`` (the reference's
-        ``state_cache_specs`` minus the stacking by group); ``{}`` for a
-        model without SSM layers."""
-        if not self.n_ssm_layers:
-            return {}
-        s, D = self.cfg.ssm, self.cfg.d_model
-        n, dev = self.n_ssm_layers, self.device
-        return {
-            "state": torch.zeros((n, batch, s.n_heads(D), s.d_state,
-                                  s.head_dim), dtype=torch.float32,
-                                 device=dev),
-            "conv": torch.zeros((n, batch, s.conv_dim - 1, s.d_inner(D)),
-                                dtype=self.cfg.dtype, device=dev),
-        }
+        """A zeroed decode cache of ``batch`` lanes for what the arena does
+        not hold (the reference's ``state_cache_specs`` minus the stacking
+        by group): the SSM layers' ``{"state": [n_ssm_layers, batch, H, N,
+        P] f32, "conv": [n_ssm_layers, batch, conv_dim-1, di]}`` and the
+        cross layers' static ``{"cross_k", "cross_v": [n_cross_layers,
+        batch, n_ctx, Hkv, hd]}`` in the model dtype; ``{}`` for a model
+        with neither."""
+        cfg, dev = self.cfg, self.device
+        out: Dict[str, torch.Tensor] = {}
+        if self.n_ssm_layers:
+            s, D, n = cfg.ssm, cfg.d_model, self.n_ssm_layers
+            out["state"] = torch.zeros(
+                (n, batch, s.n_heads(D), s.d_state, s.head_dim),
+                dtype=torch.float32, device=dev)
+            out["conv"] = torch.zeros(
+                (n, batch, s.conv_dim - 1, s.d_inner(D)), dtype=cfg.dtype,
+                device=dev)
+        if self.cross_layer:
+            shape = (len(self.cross_layer), batch, cfg.n_ctx,
+                     cfg.n_kv_heads, cfg.head_dim_)
+            out["cross_k"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+            out["cross_v"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+        return out
 
     def decode_step(self, state_cache: Dict[str, torch.Tensor],
                     tokens: torch.Tensor, positions: torch.Tensor

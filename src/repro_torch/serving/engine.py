@@ -1,6 +1,7 @@
 """Continuous-batching inference engine — the port of
-``repro/serving/engine.py`` for the decoder families: dense and MoE
-self-attention stacks, pure-SSM stacks and hybrids.
+``repro/serving/engine.py`` for every family of the zoo: dense and MoE
+self-attention stacks, pure-SSM stacks, hybrids, the encoder-decoder and
+the decoder with cross-attention layers.
 
 Iteration-level scheduling: each ``step()`` admits waiting requests into
 free slots (admission is prediction-guided through the Maestro accountant +
@@ -25,6 +26,15 @@ state, its paged decode stepping the state of every lane. Either decodes
 all ``max_slots`` lanes one token at a time: the chunk and horizon knobs
 degrade to 0 and 1, as the reference's do.
 
+An encdec or vlm model is paged for its self-attention and holds its
+cross-attention K/V in the same dense per-slot cache: the monolithic
+prefill runs the encoder over the request's frames (or takes its patch
+embeddings), writes the prompt's cross K/V at the slot, and every decode
+step reads them there. A request without ``extras`` (the gateway sends
+none) prefills against an engine-constant stub (``_modal_extras``). The
+chunk and horizon knobs degrade to 0 and 1 and the prefix cache stays
+off, as the reference's do.
+
 With ``prefix_cache`` on, admission matches each prompt against the
 arena's :class:`~repro_torch.serving.prefix_cache.PrefixIndex`: the
 matched pages are aliased into the new sequence (a partially matched page
@@ -34,15 +44,13 @@ monolithic path runs the suffix as one paged chunk of the sequence
 its first chunk there. A finished prompt publishes its full pages into the
 index. No write ever lands on a shared row: horizon and one-token decode
 writes copy a shared page first.
-
-Not ported: the cross-attention families (``vlm``, ``encdec``).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import time
-from typing import Deque, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -77,6 +85,9 @@ class Request:
     tokens: List[int]
     max_new: int = 64
     pred_len: Optional[float] = None      # L_hat from the dispatch gateway
+    # modality inputs: {"frames": [1,F,D]} (encdec) or {"ctx_embeds":
+    # [1,N,C]} (vlm) tensors on the engine's device; None takes the stub
+    extras: Optional[Dict[str, Any]] = None
     out: List[int] = dataclasses.field(default_factory=list)
     eos: Optional[int] = None
     truncated: bool = False               # finished early (KV exhausted)
@@ -175,6 +186,7 @@ class Engine:
         self._state_bytes = 0
         self.cache: Optional[Dict[str, torch.Tensor]] = None
         self._ensure_cache()
+        self._modal_extras = self._make_modal_extras()
         self.horizon = (int(decode_horizon)
                         if (decode_horizon and int(decode_horizon) > 1
                             and self.paged and model.supports_decode_horizon)
@@ -207,9 +219,10 @@ class Engine:
 
     # -------------------------------------------------------------- state
     def _ensure_cache(self) -> None:
-        """(Re)allocate the dense per-slot state cache (SSM state / conv;
-        empty for a pure attention model) and register its bytes with the
-        accountant, so engine state is never silently device-resident."""
+        """(Re)allocate the dense per-slot state cache (SSM state / conv,
+        static cross K/V; empty for a pure self-attention model) and
+        register its bytes with the accountant, so engine state is never
+        silently device-resident."""
         if self.cache is not None:
             return
         self.cache = self.model.state_cache(self.max_slots)
@@ -308,6 +321,22 @@ class Engine:
         m.digests = digs
         return m
 
+    def _make_modal_extras(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The stub input of the model's modality frontend (None for a
+        text-only model): frames [1,F,D] (encdec) or patch embeddings
+        [1,N,ctx_dim or D] (vlm), standard normal in the model dtype, drawn
+        from a ``torch.Generator`` seeded 0 on the engine's device, so that
+        an engine's every prefill, and every run, sees the same stub. It
+        has the distribution of the reference's
+        ``jax.random.normal(PRNGKey(0))`` stub, not its bits."""
+        cfg = self.model.cfg
+        if not cfg.ctx_key:
+            return None
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        return {cfg.ctx_key: torch.randn((1, cfg.n_ctx, cfg.ctx_width),
+                                         generator=gen, device=self.device)
+                .to(cfg.dtype)}
+
     # -------------------------------------------------------------- prefill
     def _first_token(self, req: Request, tok: int) -> None:
         req.out.append(tok)
@@ -341,12 +370,13 @@ class Engine:
     def _prefill_full(self, req: Request, slot: int) -> None:
         toks = torch.tensor([req.tokens], dtype=torch.int32,
                             device=self.device)
-        logits, k_all, v_all, state = self.model.prefill_with_state(toks)
+        logits, k_all, v_all, state = self.model.prefill_with_state(
+            toks, req.extras or self._modal_extras)
         P = len(req.tokens)
         self.stat_prefill_tokens += P
         if self.paged:
             self.binding.write_prompt(req.req_id, k_all[:, 0], v_all[:, 0])
-        if state is not None:                    # ssm state / conv
+        if state is not None:            # ssm state / conv, cross K/V
             for name, t in state.items():
                 self.cache[name][:, slot] = t[:, 0]
         self.positions[slot] = P

@@ -69,6 +69,7 @@ def _close(got, exp, dtype):
     (8, 32, 8, 128, 16, 128),     # qwen3-8b decode at s_max 2048: 16 splits
     (132, 8, 8, 64, 16, 8),       # B * Hkv = 1056 blocks: one split
     (2, 12, 1, 128, 16, 64),      # g = 12, 32 splits of 32
+    (8, 16, 16, 64, 16, 128),     # whisper-medium decode at s_max 2048
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_attention_kernel(dev, B, H, Hkv, hd, page, slots, dtype):
@@ -295,6 +296,48 @@ def test_engine_on_the_card_matches_the_cpu(dev, chunk, horizon):
     assert (fa.launches > 0) == (not chunk)    # monolithic prefill
 
 
+@pytest.mark.parametrize("name", ["whisper-medium",
+                                  "llama-3.2-vision-11b"])
+def test_cross_attention_engine_on_the_card_matches_the_cpu(dev, name):
+    """Reduced whisper and vision from one set of weights, each request
+    with the same frames or patch embeddings on both devices: identical
+    greedy tokens, the knobs degrading to 0 and 1, and on the card paged
+    decode and flash (prefill, encoder, cross prefill and cross decode)
+    launching and no plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime.accounting import MemoryAccountant
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, init_params
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = get_config(name).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(5)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)]
+               for n in (3, 17, 40, 9)]
+    key = cfg.ctx_key
+    extras = rng.standard_normal((len(prompts), cfg.n_ctx, cfg.ctx_width),
+                                 np.float32)
+
+    def run(device):
+        model = build_model(cfg, params, device=device)
+        eng = Engine(model, MemoryAccountant(m_total=1e9), max_slots=3,
+                     s_max=96, page_tokens=8, prefill_chunk_tokens=16,
+                     decode_horizon=4, device=device)
+        assert (eng.chunk_tokens, eng.horizon) == (0, 1)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(req_id=i, tokens=p, max_new=10, extras={
+                key: _t(extras[i:i + 1], device)}))
+        return {r.req_id: r.out for r in eng.drain()}
+
+    want = run("cpu")
+    ops.reset_counts()
+    got = run("cuda")
+    assert got == want
+    assert pa.launches > 0 and fa.launches > 0 and cp.launches == 0
+    assert not any(ops.plain_calls.values())
+
+
 @pytest.mark.parametrize("B,Sq,Sk,H,Hkv,hd,causal", [
     (1, 128, 128, 4, 4, 64, True),      # MHA
     (2, 77, 77, 8, 2, 64, True),        # GQA 4x, S not a multiple of 32
@@ -317,6 +360,16 @@ def test_engine_on_the_card_matches_the_cpu(dev, chunk, horizon):
     (2, 200, 333, 16, 2, 64, True),     # hd 64, g = 8, Sq < Sk
     (2, 333, 200, 16, 2, 64, False),    # Sq > Sk
     (1, 77, 77, 4, 2, 32, True),        # hd 32: the simt variant
+    # the cross-attention families: whisper's causal decoder prefill at
+    # its 384-token longest prompt, its encoder self-attention and cross
+    # prefill over its 1,500 frames, vision's cross prefill over 1,601
+    # patches, and both cross decodes (one query row per lane)
+    (1, 384, 384, 16, 16, 64, True),
+    (1, 1500, 1500, 16, 16, 64, False),
+    (1, 397, 1500, 16, 16, 64, False),
+    (1, 397, 1601, 32, 8, 128, False),
+    (8, 1, 1500, 16, 16, 64, False),
+    (8, 1, 1601, 32, 8, 128, False),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel(dev, B, Sq, Sk, H, Hkv, hd, causal, dtype):

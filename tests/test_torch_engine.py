@@ -137,11 +137,11 @@ def test_engine_defaults_to_cuda_and_refuses_the_unported(tiny):
     # the prefix cache is ported: it attaches an index to the arena
     eng = Engine(tiny, acc, prefix_cache=True, device="cpu")
     assert eng._pc is not None and eng.arena.prefix_index is eng._pc
-    # a family the port does not serve yet is refused by the model
-    encdec = dataclasses.replace(tiny.cfg, name="encdec-smoke",
-                                 family="encdec")
-    with pytest.raises(NotImplementedError):
-        build_model(encdec, device="cpu")
+    # a family the reference lacks is refused by the model
+    unknown = dataclasses.replace(tiny.cfg, name="rwkv-smoke",
+                                  family="rwkv")
+    with pytest.raises(NotImplementedError, match="rwkv"):
+        build_model(unknown, device="cpu")
 
 
 def test_arena_churn_keeps_the_mirror_and_growth_keeps_rows():

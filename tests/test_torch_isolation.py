@@ -44,7 +44,9 @@ def test_no_module_of_the_port_imports_jax_or_repro():
                  "repro_torch.configs.qwen1_5_110b",
                  "repro_torch.configs.moonshot_v1_16b_a3b",
                  "repro_torch.configs.llama4_scout_17b_a16e",
-                 "repro_torch.configs.jamba_v0_1_52b"):
+                 "repro_torch.configs.jamba_v0_1_52b",
+                 "repro_torch.configs.whisper_medium",
+                 "repro_torch.configs.llama3_2_vision_11b"):
         assert name in got["modules"], name
 
 

@@ -162,9 +162,10 @@ def test_default_device_is_cuda_and_never_silently_cpu():
 
 
 def test_non_dense_families_are_refused():
-    """The decoder families are served; the cross-attention ones are not."""
-    for family in ("encdec", "vlm"):
+    """Every family of the reference is served; a family it lacks is
+    refused by name."""
+    for family in ("rwkv", "diffusion"):
         cfg = dataclasses.replace(get_config("qwen3-8b").reduced(),
                                   family=family)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match=family):
             build_model(cfg, device="cpu")

@@ -6,6 +6,7 @@ against the in-process fleet under the virtual clock, and the standalone
 ``python -m repro_torch.serving.worker --listen`` entry point reached
 through ``build_fleet(worker_addresses=...)``.
 """
+import dataclasses
 import os
 import re
 import socket
@@ -156,6 +157,21 @@ def test_frames_equal_the_reference_byte_for_byte():
     objs = [("step", ()), ("submit", (3, "qwen3-8b")), (1, 2, -7),
             ("hello", 1, ("a", "bc", 40000)), ("continuous", (True,))]
     assert _wire_bytes(transport, objs) == _wire_bytes(ref_transport, objs)
+
+
+def test_a_request_carries_the_reference_fields_byte_for_byte():
+    """The port's ``Request`` has the reference's fields in its order, with
+    its defaults, ``extras`` (None from the gateway) included: a request's
+    field values travel in frames equal to the reference's."""
+    from repro.serving.engine import Request as RefRequest
+    names = [f.name for f in dataclasses.fields(Request)]
+    assert names == [f.name for f in dataclasses.fields(RefRequest)]
+    kw = dict(req_id=4, tokens=[5, 6, 7], max_new=9, pred_len=11.5)
+    req, ref = Request(**kw), RefRequest(**kw)
+    assert req.extras is None and ref.extras is None
+    objs = [("submit", ("whisper-medium", vars(req)))]
+    assert _wire_bytes(transport, objs) == _wire_bytes(
+        ref_transport, [("submit", ("whisper-medium", vars(ref)))])
 
 
 # ------------------------------------------------- socket backend parity

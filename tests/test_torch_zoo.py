@@ -1,9 +1,10 @@
 """The port's config zoo and its last dense configs against the JAX package.
 
-Every config the port registers equals the reference's of the same name,
-field by field, in ``param_count``, ``active_param_count``,
-``kv_bytes_per_token``, ``ssm_state_bytes`` and ``layer_pattern_period``,
-and so does its ``reduced()`` variant. The reduced qwen3-32b and
+Every config the port registers (all ten of the reference's) equals the
+reference's of the same name, field by field, in ``param_count``,
+``active_param_count``, ``kv_bytes_per_token``, ``ssm_state_bytes``,
+``layer_pattern_period`` and ``is_cross_layer``, and so does its
+``reduced()`` variant. The reduced qwen3-32b and
 qwen1.5-110b take the JAX model's weights through ``params_from_jax`` (for
 qwen1.5, with the same random non-zero q/k/v biases set on both sides: the
 reference initialises them to zero, which would leave the bias branch
@@ -26,6 +27,7 @@ import torch
 
 from _stubs import StubPred
 from repro.configs import get_config as jax_config
+from repro.configs.base import list_configs as jax_list_configs
 from repro.core.predictor import cost_model as jax_cm
 from repro.core.runtime.accounting import MemoryAccountant as JaxAccountant
 from repro.data import tracegen as jax_tg
@@ -84,9 +86,10 @@ def _fields(c):
 
 def test_the_port_registers_the_decoder_zoo():
     assert NAMES == sorted([
-        "jamba-v0.1-52b", "llama4-scout-17b-a16e", "mamba2-2.7b",
-        "moonshot-v1-16b-a3b", "qwen1.5-110b", "qwen3-32b", "qwen3-8b",
-        "starcoder2-15b"])
+        "jamba-v0.1-52b", "llama-3.2-vision-11b", "llama4-scout-17b-a16e",
+        "mamba2-2.7b", "moonshot-v1-16b-a3b", "qwen1.5-110b", "qwen3-32b",
+        "qwen3-8b", "starcoder2-15b", "whisper-medium"])
+    assert NAMES == jax_list_configs()
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -104,6 +107,12 @@ def test_config_matches_reference(name):
         assert c.n_attn_layers == j.n_attn_layers
         assert [c.is_moe_layer(i) for i in range(c.n_layers)] == \
             [j.is_moe_layer(i) for i in range(j.n_layers)]
+        assert [c.is_cross_layer(i) for i in range(c.n_layers)] == \
+            [j.is_cross_layer(i) for i in range(j.n_layers)]
+        assert (c.cross_attn, c.encoder) == (
+            j.cross_attn and type(c.cross_attn)(
+                **dataclasses.asdict(j.cross_attn)),
+            j.encoder and type(c.encoder)(**dataclasses.asdict(j.encoder)))
     assert get_config(name).dtype == torch.bfloat16
     assert get_config(name).reduced().dtype == torch.float32
 
