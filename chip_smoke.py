@@ -6,7 +6,7 @@
 Phases, each printing one JSON line (and failing the run on any error):
 
 1. device    -- the card's name and power limit, as ``nvidia-smi`` prints them;
-2. build     -- the four CUDA kernels compiled from ``src/repro_torch/csrc``,
+2. build     -- the five CUDA kernels compiled from ``src/repro_torch/csrc``,
                 all ``nvcc`` processes at once;
 3. kernels   -- each kernel against its plain PyTorch version on the card, at
                 the main paths' shapes (bf16) and at a small size (f32); the
@@ -191,8 +191,39 @@ Phases, each printing one JSON line (and failing the run on any error):
 25. vlm_main -- the same for full-width llama-3.2-vision-11b (40 layers, 8
                 cross, 1,601 x 4,096 stub patch embeddings, 20.2 GB).
 
+26. kernels_train -- flash's training forward (which also writes each
+                row's log-sum-exp) and the flash backward
+                (``csrc/flash_attention_bwd.cu``) against their plain
+                versions at the training paths' shapes: qwen3-8b causal
+                4,096 (32/8, hd 128, bf16), whisper's encoder, causal
+                decoder and cross attention, vision's cross attention over
+                1,601 rows, and two small f32 cases of ragged lengths: the
+                forward's output bitwise the serving forward's, lse, dq,
+                dk and dv within limits, two backward runs bitwise equal;
+                each bf16 shape timed (backward, forward + backward)
+                beside its bound and SDPA's;
+27. train_reference -- reduced qwen3-8b, moonshot-v1-16b-a3b and
+                whisper-medium in f32: the loss and every gradient leaf on
+                the card (the kernels) against the CPU (plain versions);
+28. train_main -- full-width qwen3-8b in bf16: at 2 layers and 4,096
+                tokens the loss and every gradient leaf with the kernels
+                against the plain attention on the card; then at 12 of its
+                36 layers 12 AdamW steps on one batch of 4 x 4,096 tokens
+                (2 microbatches) under deterministic algorithms: the loss
+                below half its first value; an asynchronous checkpoint
+                after step 6, restored into a fresh model and optimizer,
+                finishes the run with the same losses and parameters, bit
+                for bit; step time, tokens/s, MFU, peak memory, the
+                checkpoint's bytes and seconds, a profiled step with the
+                flash backward's share;
+29. train_whisper -- whisper-medium whole (24 + 24 layers, bf16) a few
+                steps on stub frames and 448-token decoder sequences: the
+                loss falls.
+
 The models of phases 19-25 are drawn on the card one at a time, each
-freed before the next.
+freed before the next; so are the training phases' models. Every
+training path launches flash's training forward and its backward only:
+no serving forward, no plain version.
 
 Each serving path zeroes the launch counts just before it runs and reads
 them just after: every kernel of that path must have launched and no plain
@@ -214,6 +245,8 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3515,11 +3548,592 @@ def zoo_phases(torch, args, prompt_lens, prompts, mark):
     return checks, by_path, moe_variants
 
 
+# ------------------------------------------------- training and checkpoints
+TRAIN = dict(model="qwen3-8b", layers=12, batch=4, n_micro=2, seq=4096,
+             period=256, steps=12, ckpt_at=6, lr=5e-4, warmup=2,
+             grad_layers=2, grad_batch=2)
+WHISPER_TRAIN = dict(batch=4, seq=448, steps=6, lr=1e-3, warmup=2)
+BWD_NAMES = ("delta_kernel", "dkdv_", "dq_")   # the backward's device kernels
+
+
+def bwd_cost(B, Sq, Sk, H, Hkv, hd, causal, esize):
+    """Bytes (q, o, dout, dq and k, v, dk, dv in the I/O dtype; lse f32)
+    and flops (the five products, 10 * hd per visible pair and head) of
+    the flash backward."""
+    _, fwd_flops = flash_cost(Sq, Sk, H, Hkv, hd, causal, esize)
+    n_bytes = B * (4 * Sq * H * hd + 4 * Sk * Hkv * hd) * esize \
+        + B * H * Sq * 4
+    return n_bytes, B * fwd_flops * 10 // 4
+
+
+def grad_errors(got, want) -> tuple:
+    """A gradient's largest error, and each row's (one token's head)
+    error over the larger of that row's magnitude and 1% of the tensor's
+    (a causal first row's dq is zero up to rounding, so its own magnitude
+    is no scale)."""
+    diff = (got.float() - want).abs()
+    floor = 1e-2 * float(want.abs().max())
+    row = diff.amax(-1) / want.abs().amax(-1).clamp_min(max(floor, 1e-30))
+    return float(diff.max()), float(row.max())
+
+
+def train_kernel_shapes() -> dict:
+    """The flash shapes of the training paths, by label: (B, Sq, Sk, H,
+    Hkv, hd, causal, dtype). qwen3-8b's microbatch of train_main; whisper's
+    encoder, causal decoder and cross attention at train_whisper's batch;
+    llama-3.2-vision's cross attention over its 1,601 rows; two small f32
+    cases of ragged lengths."""
+    import torch
+    from repro_torch.configs import get_config
+    q3, w, vis = (get_config(n) for n in (TRAIN["model"], CROSS["encdec"],
+                                          CROSS["vlm"]))
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, Bw, S, Sw = (TRAIN["batch"] // TRAIN["n_micro"],
+                    WHISPER_TRAIN["batch"], TRAIN["seq"],
+                    WHISPER_TRAIN["seq"])
+    wh = (w.n_heads, w.n_kv_heads, w.head_dim_)
+    return {
+        f"qwen3-8b causal {S}": (B, S, S, q3.n_heads, q3.n_kv_heads,
+                                 q3.head_dim_, True, bf16),
+        f"whisper encoder {w.n_ctx}x{w.n_ctx}": (Bw, w.n_ctx, w.n_ctx, *wh,
+                                                 False, bf16),
+        f"whisper decoder causal {Sw}": (Bw, Sw, Sw, *wh, True, bf16),
+        f"whisper cross {Sw}x{w.n_ctx}": (Bw, Sw, w.n_ctx, *wh, False, bf16),
+        f"vision cross 512x{vis.n_ctx}": (1, 512, vis.n_ctx, vis.n_heads,
+                                          vis.n_kv_heads, vis.head_dim_,
+                                          False, bf16),
+        "f32 causal ragged 77x131": (2, 77, 131, 8, 2, 64, True, f32),
+        "f32 cross ragged 50x131": (2, 50, 131, 8, 1, 128, False, f32),
+    }
+
+
+def phase_kernels_train(torch, gen) -> dict:
+    """The training forward (flash with the row log-sum-exp) and the flash
+    backward against their plain versions (``ref.flash_attention_lse``,
+    ``ref.flash_attention_bwd_ref``, all f32 on the same values; the plain
+    backward from the kernel's o and lse) at each shape of
+    :func:`train_kernel_shapes`: the forward's output bitwise equal to the
+    serving forward's and held to the plain one, lse to 1e-4, dq, dk and
+    dv by their largest error and row-scaled error, two backward runs
+    bitwise equal;
+    bf16 through the mma variant, f32 through simt. Then each bf16 shape
+    timed: the backward alone, forward + backward, beside the bound and
+    SDPA's forward + backward and backward alone. Returns the numbers by
+    label."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    out = {}
+    for label, (B, Sq, Sk, H, Hkv, hd, causal, dt) in \
+            train_kernel_shapes().items():
+        q, dout = (torch.randn((B, Sq, H, hd), generator=gen,
+                               device="cuda").to(dt) for _ in range(2))
+        k, v = (torch.randn((B, Sk, Hkv, hd), generator=gen,
+                            device="cuda").to(dt) for _ in range(2))
+        o, lse = fa.flash_attention_fwd(q, k, v, causal)
+        same_fwd = bool(torch.equal(o, fa.flash_attention(q, k, v, causal)))
+        o_ref, lse_ref = ref.flash_attention_lse(q.float(), k.float(),
+                                                 v.float(), causal)
+        lse_err = float((lse - lse_ref).abs().max())
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, dout, causal)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, dout, causal)
+        deterministic = all(bool(torch.equal(a, b))
+                            for a, b in zip(grads, again))
+        o_err = chunk_errors(o, o_ref)
+        # the plain backward on the same inputs: the kernel's o and lse
+        want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                           o.float(), lse, dout.float(),
+                                           causal)
+        errs = {name: grad_errors(g, w)
+                for name, g, w in zip(("dq", "dk", "dv"), grads, want)}
+        del again, want, o_ref, lse_ref
+        bf16 = dt == torch.bfloat16
+        variant = fa.bwd_variant(dt, hd)
+        require(same_fwd, f"flash_attention_fwd at {label}: its output "
+                f"differs from the serving forward's")
+        require(deterministic, f"flash_attention_bwd at {label}: two runs "
+                f"differ")
+        require(variant == ("mma" if bf16 else "simt"),
+                f"flash_attention_bwd at {label}: the {variant} variant")
+        # bf16: inputs rounded once, P and dS rounded to bf16 for their
+        # products and the output once, about 1e-2 of a row; a key tile
+        # dropped or a query head's share misplaced gives tenths. f32:
+        # sums in another order, 1e-5
+        lim_abs, lim_row = (5e-2, 3e-2) if bf16 else (1e-4, 1e-4)
+        require(lse_err <= 1e-4 and o_err[0] <= lim_abs
+                and o_err[1] <= lim_row, f"flash_attention_fwd at {label}: "
+                f"lse error {lse_err}, output {o_err}")
+        for name, (e_abs, e_row) in errs.items():
+            require(e_abs <= lim_abs and e_row <= lim_row,
+                    f"flash_attention_bwd at {label}: {name} error "
+                    f"{e_abs}, row-scaled {e_row}")
+        row = dict(shape=dict(B=B, Sq=Sq, Sk=Sk, H=H, Hkv=Hkv, hd=hd,
+                              causal=causal, dtype=str(dt)),
+                   variant=variant, fwd_bitwise_serving=same_fwd,
+                   deterministic=deterministic, lse_max_abs_err=lse_err,
+                   fwd_max_abs_err=o_err[0], fwd_row_scaled_err=o_err[1],
+                   max_abs_err=max(e[0] for e in errs.values()),
+                   row_scaled_err=max(e[1] for e in errs.values()),
+                   errors={n: dict(max_abs=e[0], row_scaled=e[1])
+                           for n, e in errs.items()})
+        if bf16:
+            n_bytes, n_flops = bwd_cost(B, Sq, Sk, H, Hkv, hd, causal, 2)
+            b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+            fb_bytes, fb_flops = flash_cost(Sq, Sk, H, Hkv, hd, causal, 2)
+            fb_ms, fb_by = bound(n_bytes + B * fb_bytes,
+                                 n_flops + B * fb_flops, BF16_FLOPS)
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            dt_ = dout.transpose(1, 2)
+            with torch.enable_grad():
+                o_sdpa = F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+            def sdpa_bwd():
+                torch.autograd.grad(o_sdpa, (qt, kt, vt), dt_,
+                                    retain_graph=True)
+
+            def sdpa_fwd_bwd():
+                with torch.enable_grad():
+                    oo = F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, enable_gqa=True)
+                    torch.autograd.grad(oo, (qt, kt, vt), dt_)
+
+            def fwd_bwd():
+                oo, ll = fa.flash_attention_fwd(q, k, v, causal)
+                fa.flash_attention_bwd(q, k, v, oo, ll, dout, causal)
+
+            row.update(
+                **kernel_times(lambda: fa.flash_attention_bwd(
+                    q, k, v, o, lse, dout, causal)),
+                plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(
+                    q, k, v, o, lse, dout, causal), reps=3, warmup=1),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(sdpa_bwd),
+                fwd_bwd_ms=time_ms(fwd_bwd), fwd_bwd_bound_ms=fb_ms,
+                fwd_bwd_bound_by=fb_by,
+                library_fwd_bwd_ms=time_ms(sdpa_fwd_bwd))
+            del o_sdpa, qt, kt, vt
+        out[label] = row
+        emit("kernel_check_train", name="flash_attention_bwd", heads=label,
+             **row)
+        del q, k, v, o, lse, dout, grads
+    reset_peak(torch)
+    return out
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Every attention of the models in the plain version on the card
+    (``ref.blockwise_attention``, differentiated by autograd): what a
+    training path with the kernels is held against."""
+    from repro_torch.kernels import ops, ref
+    kernel = ops.flash_attention
+    ops.flash_attention = ref.blockwise_attention
+    try:
+        yield
+    finally:
+        ops.flash_attention = kernel
+
+
+def loss_and_grads(torch, model, batch):
+    """The model's loss and every gradient leaf, by path."""
+    from repro_torch.tree import leaves_with_paths
+    model.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        loss = model.loss(batch["tokens"], batch["labels"],
+                          {k: v for k, v in batch.items()
+                           if k not in ("tokens", "labels")})
+        loss.backward()
+    grads = dict(leaves_with_paths(model.grad_tree()))
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def compare_grads(torch, got: dict, want: dict) -> dict:
+    """Each leaf's error norm over the reference's norm, the largest
+    first."""
+    errs = {}
+    for path, w in want.items():
+        g = got[path].to(w.device).float()
+        w = w.float()
+        errs[path] = float((g - w).norm() / w.norm().clamp_min(1e-30))
+    return dict(sorted(errs.items(), key=lambda kv: -kv[1]))
+
+
+def train_launches(where: str) -> dict:
+    """After a training path on the card: flash's training forward and its
+    backward launched, the serving forward and no plain version did not.
+    Returns the launches by kernel and by variant."""
+    from repro_torch.kernels import ops
+    c = ops.counts()
+    launches = {k: n for k, n in c["launches"].items() if n}
+    require(set(launches) == {"flash_attention_lse", "flash_attention_bwd"},
+            f"{where}: kernels launched {launches}")
+    require(not any(ops.plain_calls.values()),
+            f"{where}: a plain version ran on the card: {ops.plain_calls}")
+    by_variant = {k: c["launches_by_variant"][k] for k in launches}
+    return dict(launches=launches, launches_by_variant=by_variant)
+
+
+def phase_train_reference(torch, args) -> dict:
+    """Reduced qwen3-8b, moonshot-v1-16b-a3b and whisper-medium in f32:
+    the loss and every gradient leaf on the card (the flash kernels, simt)
+    against the CPU (the plain versions), from the same weights and batch.
+    Returns the card runs' launches, summed."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, init_params
+
+    total = {}
+    for name in (TRAIN["model"], ZOO["moe"], CROSS["encdec"]):
+        cfg = dc.replace(get_config(name).reduced(), dtype=torch.float32)
+        params = init_params(cfg, torch.Generator().manual_seed(args.seed),
+                             "cpu")
+        rng = np.random.default_rng(args.seed + 11)
+        toks = rng.integers(0, cfg.vocab, (2, 33))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.cross_attn is not None or cfg.encoder is not None:
+            batch.update(cross_extras(cfg, 2, args.seed + 12))
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            model = build_model(cfg, params, device=dev, trainable=True)
+            b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            ops.reset_counts()
+            runs[dev] = loss_and_grads(torch, model, b)
+            if dev == "cuda":
+                num = train_launches(f"train_reference {name}")
+            del model
+        errs = compare_grads(torch, runs["cuda"][1], runs["cpu"][1])
+        worst = next(iter(errs.items()))
+        loss_err = abs(runs["cuda"][0] - runs["cpu"][0])
+        # f32 on both: sums in other orders, about 1e-6 of a leaf's norm;
+        # a wrong kernel gradient gives its layers' leaves order one
+        require(loss_err <= 1e-4 and worst[1] <= 1e-4,
+                f"train_reference {name}: loss {runs['cuda'][0]} against "
+                f"{runs['cpu'][0]}, worst leaf {worst}")
+        for k, n in num["launches"].items():
+            total[k] = total.get(k, 0) + n
+        emit("train_reference", model=cfg.name, loss_card=runs["cuda"][0],
+             loss_cpu=runs["cpu"][0], loss_abs_err=loss_err,
+             leaves=len(errs), worst_leaf=worst[0],
+             worst_leaf_rel_err=worst[1], **num)
+    return total
+
+
+def synthetic_batch(torch, cfg, batch: int, seq: int, seed: int) -> dict:
+    """``train_lm``'s synthetic data, ``batch`` rows of ``seq`` tokens."""
+    from repro_torch.training.train_lm import synthetic_batch as draw
+    return draw(seed, cfg.vocab, batch, seq + 1, "cuda")
+
+
+def cyclic_batch(torch, cfg, batch: int, seq: int, period: int,
+                 seed: int) -> dict:
+    """``batch`` rows of ``seq`` tokens, each a cycle through the same
+    ``period`` token ids (drawn from the vocabulary) from its own phase: a
+    task a model can learn in a few tens of steps (its next token is a
+    function of its token), whose loss starts near log(vocab)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(cfg.vocab, period, replace=False)
+    rows = [ids[(np.arange(seq + 1) + rng.integers(period)) % period]
+            for _ in range(batch)]
+    toks = torch.tensor(np.stack(rows), dtype=torch.int32, device="cuda")
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def train_flops(cfg, n_params: int, tokens: int, batch: int,
+                seq: int) -> float:
+    """Model flops of one training step: 6 x params x tokens, plus the
+    attention's 3 x its forward (4 * hd per visible pair and head) in every
+    attention layer."""
+    n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    _, fwd = flash_cost(seq, seq, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
+                        True, 2)
+    return 6 * n_params * tokens + 3 * fwd * batch * n_attn
+
+
+def run_steps(torch, step_fn, params, opt, batch, steps, losses, times):
+    """``steps`` train steps on one batch, each loss and wall time kept."""
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    return params, opt
+
+
+def profile_train_step(torch, step_fn, params, opt, batch) -> dict:
+    """Device time of one train step by kernel (torch.profiler): the flash
+    backward's share, the training forward's, and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for ev in prof.key_averages():
+        if str(ev.device_type).endswith("CUDA"):
+            us = getattr(ev, "self_device_time_total", None)
+            kernels.append(((ev.self_cuda_time_total if us is None else us)
+                            / 1e3, ev.key, ev.count))
+    kernels.sort(reverse=True)
+    busy = sum(k[0] for k in kernels)
+    bwd = sum(ms for ms, name, _ in kernels
+              if any(p in name for p in BWD_NAMES))
+    fwd = sum(ms for ms, name, _ in kernels if "DenseKV" in name
+              or "flash_attention_kernel" in name)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                idle_share=1 - busy / wall_ms,
+                flash_bwd_share=bwd / busy, flash_fwd_share=fwd / busy,
+                top=[dict(kernel=name[:90], ms=ms, calls=n)
+                     for ms, name, n in kernels[:8]])
+
+
+def phase_train_main(torch, args) -> dict:
+    """Full-width qwen3-8b in bf16. First the gradient check: at 2 layers,
+    S = 4,096, the loss and every gradient leaf with the kernels against
+    the same model with the plain attention on the card. Then the training
+    run at 12 of its 36 layers: 4 sequences of 4,096 tokens in 2
+    microbatches, AdamW, on one fixed synthetic batch for
+    ``TRAIN["steps"]`` steps under deterministic algorithms, a checkpoint
+    after step ``TRAIN["ckpt_at"]``; the loss must fall below half its
+    first value. Then the checkpoint restored into a fresh model and
+    optimizer finishes the run: its losses and final parameters bitwise
+    equal to the uninterrupted run's. Step time, tokens/s, MFU, peak
+    memory, the checkpoint's bytes and seconds, and a profiled step.
+    Returns the launches of the gradient check and of the training run."""
+    import dataclasses as dc
+    import shutil
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.training import OptConfig, adamw_init, make_train_step
+    from repro_torch.tree import leaves, tree_map
+
+    base = get_config(TRAIN["model"])
+    # ---- gradient check: kernels against the plain attention
+    cfg = dc.replace(base, n_layers=TRAIN["grad_layers"])
+    model = build_model(cfg, device="cuda", seed=args.seed, trainable=True)
+    batch = synthetic_batch(torch, cfg, TRAIN["grad_batch"], TRAIN["seq"],
+                            args.seed)
+    ops.reset_counts()
+    loss_k, grads_k = loss_and_grads(torch, model, batch)
+    grad_num = train_launches("train_main gradient check")
+    with plain_attention():
+        loss_p, grads_p = loss_and_grads(torch, model, batch)
+    errs = compare_grads(torch, grads_k, grads_p)
+    worst = next(iter(errs.items()))
+    # bf16 gradients: P rounded at other places (the plain version rounds
+    # p / l, the kernels P and dS) and sums in other orders, about 1e-2 of
+    # a leaf's norm; an attention gradient gone wrong gives order one
+    require(abs(loss_k - loss_p) <= 1e-2 and worst[1] <= 5e-2,
+            f"train_main gradient check: loss {loss_k} against {loss_p}, "
+            f"worst leaf {worst}")
+    emit("train_main_gradient_check", model=cfg.name, n_layers=cfg.n_layers,
+         batch=TRAIN["grad_batch"], seq=TRAIN["seq"], loss_kernels=loss_k,
+         loss_plain=loss_p, leaves=len(errs), worst_leaf=worst[0],
+         worst_leaf_rel_err=worst[1],
+         rel_err_by_leaf=dict(list(errs.items())[:8]), **grad_num)
+    del model, grads_k, grads_p, batch
+    reset_peak(torch)
+
+    # ---- the training run, then the resume from its checkpoint
+    cfg = dc.replace(base, n_layers=TRAIN["layers"])
+    opt_cfg = OptConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"])
+    batch = cyclic_batch(torch, cfg, TRAIN["batch"], TRAIN["seq"],
+                         TRAIN["period"], args.seed)
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    steps, at = TRAIN["steps"], TRAIN["ckpt_at"]
+    torch.use_deterministic_algorithms(True)
+    # every tensor the run allocates empty is written before it is read
+    # (the kernels' outputs, the optimizer's temporaries): no NaN fill
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        t0 = time.perf_counter()
+        model = build_model(cfg, device="cuda", seed=args.seed,
+                            trainable=True)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        params = model.param_tree()
+        opt = adamw_init(params)
+        step_fn = make_train_step(model, opt_cfg, n_micro=TRAIN["n_micro"])
+        losses, times = [], []
+        ops.reset_counts()
+        reset_peak(torch)
+        params, opt = run_steps(torch, step_fn, params, opt, batch, at,
+                                losses, times)
+        # an asynchronous save: the host copy now, the write in a thread
+        # while the run goes on
+        t0 = time.perf_counter()
+        writer = save(str(ckpt), (params, opt), step=at, extra={"step": at},
+                      async_=True)
+        snapshot_s = time.perf_counter() - t0
+        params, opt = run_steps(torch, step_fn, params, opt, batch,
+                                steps - at, losses, times)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        num = train_launches("train_main")
+        per_step = TRAIN["n_micro"] * cfg.n_layers
+        require(num["launches"] == {"flash_attention_lse": 2 * steps
+                                    * per_step,
+                                    "flash_attention_bwd": steps * per_step},
+                f"train_main: launches {num['launches']}, not a training "
+                f"forward, its recomputation and a backward per layer and "
+                f"microbatch")
+        require(num["launches_by_variant"] == {
+            "flash_attention_lse": {"simt": 0, "wgmma": 2 * steps * per_step},
+            "flash_attention_bwd": {"simt": 0, "mma": steps * per_step}},
+            f"train_main: {num['launches_by_variant']}")
+        final = [t.to("cpu", copy=True) for t in leaves(params)]
+        like = tree_map(lambda t: torch.empty(
+            (), dtype=t.dtype, device="cuda").expand(t.shape), (params, opt))
+        prof = profile_train_step(torch, step_fn, params, opt, batch)
+        del model, params, opt, step_fn
+        reset_peak(torch)
+        writer.join()
+        save_s = time.perf_counter() - t0      # from the save to the publish
+        ckpt_bytes = sum(f.stat().st_size for f in ckpt.rglob("*")
+                         if f.is_file())
+
+        # a fresh model and optimizer from the checkpoint finish the run
+        t0 = time.perf_counter()
+        (params, opt), extra = restore(str(ckpt), like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        model = build_model(cfg, params, device="cuda", trainable=True)
+        params = model.param_tree()
+        step_fn = make_train_step(model, opt_cfg, n_micro=TRAIN["n_micro"])
+        resumed, resumed_times = [], []
+        params, opt = run_steps(torch, step_fn, params, opt, batch,
+                                steps - extra["step"], resumed,
+                                resumed_times)
+        same_losses = resumed == losses[at:]
+        same_params = all(bool(torch.equal(t.cpu(), f))
+                          for t, f in zip(leaves(params), final))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del model, params, opt, step_fn, final, like
+    reset_peak(torch)
+    require(losses[-1] < 0.5 * losses[0],
+            f"train_main: losses {losses}: the last not below half the "
+            f"first")
+    require(same_losses and same_params,
+            f"train_main: the resumed run differs: losses {resumed} against "
+            f"{losses[at:]}, parameters equal {same_params}")
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    step_s = statistics.median(times[1:])
+    flops = train_flops(cfg, n_params, tokens, TRAIN["batch"], TRAIN["seq"])
+    emit("train_main", model=cfg.name, n_layers=cfg.n_layers,
+         params=n_params, batch=TRAIN["batch"], n_micro=TRAIN["n_micro"],
+         seq=TRAIN["seq"], steps=steps, lr=TRAIN["lr"],
+         warmup_steps=TRAIN["warmup"], losses=losses,
+         loss_first=losses[0], loss_last=losses[-1],
+         model_build_s=build_s, first_step_s=times[0], step_s=step_s,
+         step_s_all=times, tokens_per_s=tokens / step_s,
+         model_tflops_per_step=flops / 1e12,
+         mfu=flops / step_s / BF16_FLOPS, peak_gb=peak_gb,
+         checkpoint_step=at, checkpoint_bytes=ckpt_bytes,
+         checkpoint_snapshot_s=snapshot_s,
+         checkpoint_published_after_s=save_s,
+         checkpoint_restore_s=restore_s,
+         resumed_steps=len(resumed), resumed_losses_bitwise=same_losses,
+         resumed_params_bitwise=same_params,
+         deterministic_algorithms=True, profile_step=prof, **num)
+    return dict(grad_check=grad_num["launches"], main=num["launches"],
+                main_variants=num["launches_by_variant"])
+
+
+def phase_train_whisper(torch, args) -> dict:
+    """whisper-medium whole (24 + 24 layers, bf16, 0.91 B parameters) on
+    stub frames (1,500 x 1,024, drawn on the card) and 448-token decoder
+    sequences: a few AdamW steps on one batch; the loss must fall. Every
+    attention (encoder, decoder, cross) trains through the flash kernels.
+    Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.training import OptConfig, adamw_init, make_train_step
+
+    cfg = get_config(CROSS["encdec"])
+    w = WHISPER_TRAIN
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=args.seed, trainable=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = synthetic_batch(torch, cfg, w["batch"], w["seq"], args.seed)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    batch["frames"] = torch.randn((w["batch"], cfg.n_ctx, cfg.ctx_width),
+                                  generator=gen, device="cuda").to(cfg.dtype)
+    params = model.param_tree()
+    opt = adamw_init(params)
+    step_fn = make_train_step(model, OptConfig(lr=w["lr"],
+                                               warmup_steps=w["warmup"]))
+    losses, times = [], []
+    ops.reset_counts()
+    reset_peak(torch)
+    params, opt = run_steps(torch, step_fn, params, opt, batch, w["steps"],
+                            losses, times)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    num = train_launches("train_whisper")
+    n_attn = cfg.n_layers * 2 + cfg.encoder.n_layers   # self, cross, encoder
+    require(num["launches"] == {"flash_attention_lse": 2 * w["steps"]
+                                * n_attn,
+                                "flash_attention_bwd": w["steps"] * n_attn},
+            f"train_whisper: launches {num['launches']}")
+    require(all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0],
+            f"train_whisper: losses {losses} did not fall")
+    del model, params, opt, step_fn, batch
+    reset_peak(torch)
+    emit("train_whisper", model=cfg.name, n_layers=cfg.n_layers,
+         encoder_layers=cfg.encoder.n_layers, params=n_params,
+         batch=w["batch"], seq=w["seq"], frames=[cfg.n_ctx, cfg.ctx_width],
+         steps=w["steps"], lr=w["lr"], losses=losses, model_build_s=build_s,
+         step_s=statistics.median(times[1:]), step_s_all=times,
+         tokens_per_s=w["batch"] * w["seq"] / statistics.median(times[1:]),
+         peak_gb=peak_gb, **num)
+    return num["launches"]
+
+
+def train_phases(torch, args, mark):
+    """The training phases. Returns the backward's checks by label, the
+    training paths' launches, and train_main's launches by variant."""
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 7)
+    with torch.enable_grad():
+        checks = phase_kernels_train(torch, gen)
+        mark("kernels_train")
+        paths = {"train_reference": phase_train_reference(torch, args)}
+        mark("train_reference")
+        main = phase_train_main(torch, args)
+        paths["train_main_gradient_check"] = main["grad_check"]
+        paths["train_main"] = main["main"]
+        mark("train_main")
+        paths["train_whisper"] = phase_train_whisper(torch, args)
+        mark("train_whisper")
+    return checks, paths, main["main_variants"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights, prompts and kernel inputs")
     args = ap.parse_args(argv)
+    # cuBLAS is deterministic only with a fixed workspace, set before torch
+    # loads it; train_main's resume check runs under deterministic
+    # algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -3612,12 +4226,14 @@ def main(argv=None) -> int:
     mark("gateway_process")
     zoo_checks, zoo_paths, moe_variants = zoo_phases(
         torch, args, prompt_lens, prompts, mark)
+    train_checks, train_paths, train_variants = train_phases(torch, args,
+                                                             mark)
     emit("timing", seconds_by_phase=seconds,
          total_s=time.perf_counter() - t0)
     by_path = {"prefix_chunked": prefix["chunked"],
                "prefix_monolithic": prefix["monolithic"], "node": node,
                **{f"gateway_{run}": n for run, n in gateway.items()},
-               **workers, **zoo_paths}
+               **workers, **zoo_paths, **train_paths}
 
     sources = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -3653,8 +4269,12 @@ def main(argv=None) -> int:
             # node; the gateway under each policy, and under fcfs at the
             # default reject_limit; the worker fleets, summed over their
             # children and per child)
-            launches_by_path={p: n.get(name, 0)
-                              for p, n in by_path.items()},
+            # (flash: the serving forward and, on the training paths, the
+            # forward that also writes the row log-sum-exp)
+            launches_by_path={p: n.get(name, 0) + (
+                n.get("flash_attention_lse", 0)
+                if name == "flash_attention" else 0)
+                for p, n in by_path.items()},
             # each number at the zoo's shapes, by (H, Hkv) (the SSD scan:
             # by its N, P and heads); moonshot's chunk launches by variant
             zoo_shapes={shape: {k: z[k] for k in (
@@ -3663,6 +4283,30 @@ def main(argv=None) -> int:
                 for shape, z in zoo.items()},
             **({"moe_main_variants": moe_variants}
                if name == "chunk_prefill_attention" else {})))
+    qwen = next(iter(train_checks.values()))   # train_main's shape
+    kernels.append(dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces=None,
+        replaces_reason=("no Pallas kernel: the reference differentiates "
+                         "its jnp blockwise attention "
+                         "(src/repro/models/layers.py:91) with JAX autodiff"),
+        launches=train_paths["train_main"]["flash_attention_bwd"],
+        max_abs_err=max(c["max_abs_err"] for c in train_checks.values()),
+        ms=qwen["ms"], plain_ms=qwen["plain_ms"], bound_ms=qwen["bound_ms"],
+        bound_by=qwen["bound_by"],
+        # SDPA's backward (autograd of one scaled_dot_product_attention)
+        library_ms=qwen["library_ms"],
+        variants=train_variants["flash_attention_bwd"],
+        launches_by_path={p: n.get("flash_attention_bwd", 0)
+                          for p, n in by_path.items()
+                          if n.get("flash_attention_bwd")},
+        train_shapes={label: {k: c.get(k) for k in (
+            "max_abs_err", "row_scaled_err", "lse_max_abs_err", "variant",
+            "ms", "ms_no_spin", "host_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "fwd_bwd_ms", "fwd_bwd_bound_ms",
+            "library_fwd_bwd_ms")}
+            for label, c in train_checks.items()}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,12 @@
 //   read from the block table one tile ahead.
 // The number of key tiles is the block's largest position plus one, found
 // on the device (no host sync).
+//
+// Given a non-null `lse` ([B, H, Sq] f32), each row also writes the natural
+// log of its softmax denominator in the scaled-score domain, m + log(l)
+// (the row max and sum are kept in log2 units, so m * ln 2): what the
+// backward kernel recomputes P from. The store is the only difference, so a
+// null `lse` leaves every output bit as it was.
 #pragma once
 
 #include <climits>
@@ -161,7 +167,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     attend_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
-                        __nv_bfloat16* __restrict__ out, int B, int Sq, int H,
+                        __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ lse, int B, int Sq, int H,
                         int Hkv, float scale_log2, const Src src) {
   using L = WgLayout<HD>;
   extern __shared__ uint8_t smem_raw[];
@@ -325,6 +332,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int row = row0 + 8 * i;
     if (row >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && col0 == 0)
+      lse[((int64_t)b * H + h) * Sq + row] =
+          m[i] * 0.6931471805599453f + logf(den);
     __nv_bfloat16* orow = out + (((int64_t)b * Sq + row) * H + h) * HD;
 #pragma unroll
     for (int c = 0; c < L::kHalves; ++c)
@@ -338,18 +348,20 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // Launches the loop over tq (q as [B, Sq, H * HD], boxes of 128 rows) and
-// the source's K/V maps; `scale` is the score scale, hd ** -0.5.
+// the source's K/V maps; `scale` is the score scale, hd ** -0.5; `lse` the
+// optional row log-sum-exp output, null when not wanted.
 template <int HD, class Src>
 int launch_attend(const CUtensorMap& tq, const CUtensorMap& tk,
-                  const CUtensorMap& tv, void* out, int B, int Sq, int H,
-                  int Hkv, float scale, const Src& src, cudaStream_t stream) {
+                  const CUtensorMap& tv, void* out, float* lse, int B, int Sq,
+                  int H, int Hkv, float scale, const Src& src,
+                  cudaStream_t stream) {
   const size_t smem = WgLayout<HD>::kSmem;
   cudaError_t err =
       repro_paged::allow_smem(attend_wgmma_kernel<HD, Src>, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = B * H * ((Sq + kBM - 1) / kBM);
   attend_wgmma_kernel<HD, Src><<<blocks, kWgThreads, smem, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)out, B, Sq, H, Hkv,
+      tq, tk, tv, (__nv_bfloat16*)out, lse, B, Sq, H, Hkv,
       scale * 1.4426950408889634f, src);
   return (int)cudaGetLastError();
 }

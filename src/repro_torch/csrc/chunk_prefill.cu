@@ -117,8 +117,8 @@ int launch_wgmma(const void* q, const void* positions, const void* kp,
     return (int)cudaErrorInvalidValue;
   const PagedKV src{(const int32_t*)positions, (const int32_t*)bt, C, W,
                     page, n_rows};
-  return launch_attend<HD>(tq, tk, tv, out, B, C, H, Hkv, scale, src,
-                           stream);
+  return launch_attend<HD>(tq, tk, tv, out, nullptr, B, C, H, Hkv, scale,
+                           src, stream);
 }
 
 }  // namespace repro_paged

@@ -24,6 +24,12 @@
 //   kv head, tile of 32 of the Sq * g query rows), rows regrouped per kv
 //   head as row c * g + j = head kvh * g + j of token c. It keeps f32
 //   products exact (TF32 would not), for the f32 models and checks.
+//
+// Both variants optionally write each row's log-sum-exp, lse [B, H, Sq]
+// f32: the natural log of the softmax denominator in the scaled-score
+// domain (row max plus log of the row sum), which the backward kernel
+// (flash_attention_bwd.cu) recomputes the probabilities from. Training
+// passes it; serving passes null and its outputs are unchanged.
 #include "attend_wgmma.cuh"
 #include "paged_common.cuh"
 
@@ -36,8 +42,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
-                           int Sq, int Sk, int H, int Hkv, int hd, int causal,
-                           float scale) {
+                           float* __restrict__ lse, int Sq, int Sk, int H,
+                           int Hkv, int hd, int causal, float scale) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, kvh = blockIdx.y, g = H / Hkv;
   const int r0 = blockIdx.z * kRows;
@@ -67,27 +73,33 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t head = ((int64_t)b * Sq + row / g) * H + kvh * g + row % g;
     store(out + head * hd + d, s.acc[i] / fmaxf(s.l[r], 1e-30f));
   }
+  if (lse == nullptr) return;
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    const int row = r0 + r;
+    lse[((int64_t)b * H + kvh * g + row % g) * Sq + row / g] =
+        s.m[r] + logf(fmaxf(s.l[r], 1e-30f));
+  }
 }
 
 template <typename T>
-int launch_simt(const void* q, const void* k, const void* v, void* out, int B,
-                int Sq, int Sk, int H, int Hkv, int hd, int causal,
-                float scale, cudaStream_t stream) {
+int launch_simt(const void* q, const void* k, const void* v, void* out,
+                float* lse, int B, int Sq, int Sk, int H, int Hkv, int hd,
+                int causal, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(kRows, hd);
   cudaError_t err = allow_smem(flash_attention_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (Sq * (H / Hkv) + kRows - 1) / kRows;
   flash_attention_kernel<T><<<dim3(B, Hkv, tiles), kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Sk, H, Hkv, hd,
-      causal, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, Sq, Sk, H, Hkv,
+      hd, causal, scale);
   return (int)cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- wgmma
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int B, int Sq, int Sk, int H, int Hkv, int causal,
-                 float scale, cudaStream_t stream) {
+                 float* lse, int B, int Sq, int Sk, int H, int Hkv,
+                 int causal, float scale, cudaStream_t stream) {
   using namespace repro_attend;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
@@ -96,7 +108,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
       !tensor_map(&tk, enc, k, B, Sk, Hkv * HD, kBN) ||
       !tensor_map(&tv, enc, v, B, Sk, Hkv * HD, kBN))
     return (int)cudaErrorInvalidValue;
-  return launch_attend<HD>(tq, tk, tv, out, B, Sq, H, Hkv, scale,
+  return launch_attend<HD>(tq, tk, tv, out, lse, B, Sq, H, Hkv, scale,
                            DenseKV{Sk, causal}, stream);
 }
 
@@ -108,26 +120,28 @@ extern "C" int repro_flash_attention_variant(int dtype, int hd) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16. causal: 0 or 1. scale is the score
-// scale, hd ** -0.5. q/k/v/out 16-byte aligned. Returns the launch's
-// cudaError_t (0 on success).
+// scale, hd ** -0.5. q/k/v/out 16-byte aligned. lse: [B, H, Sq] float32
+// row log-sum-exp output, or null. Returns the launch's cudaError_t (0 on
+// success).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
-                                     const void* v, void* out, int B, int Sq,
-                                     int Sk, int H, int Hkv, int hd,
-                                     int causal, float scale, void* stream) {
+                                     const void* v, void* out, float* lse,
+                                     int B, int Sq, int Sk, int H, int Hkv,
+                                     int hd, int causal, float scale,
+                                     void* stream) {
   using namespace repro_paged;
   const cudaStream_t st = (cudaStream_t)stream;
   if (repro_flash_attention_variant(dtype, hd)) {
     if (hd == 64)
-      return launch_wgmma<64>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, scale,
-                              st);
-    return launch_wgmma<128>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, scale,
-                             st);
+      return launch_wgmma<64>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal,
+                              scale, st);
+    return launch_wgmma<128>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal,
+                             scale, st);
   }
   if (dtype == 0)
-    return launch_simt<float>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, causal,
-                              scale, st);
+    return launch_simt<float>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, hd,
+                              causal, scale, st);
   if (dtype == 1)
-    return launch_simt<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, Hkv, hd,
-                                      causal, scale, st);
+    return launch_simt<__nv_bfloat16>(q, k, v, out, lse, B, Sq, Sk, H, Hkv,
+                                      hd, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -25,11 +25,12 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("paged_attention", "chunk_prefill", "flash_attention",
-           "ssd_chunk")
+           "flash_attention_bwd", "ssd_chunk")
 
 # dtype codes of the C interface, and the widest head the kernels stage
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+MAX_BWD_HEAD_DIM = 128   # the backward's tiles; the forward with lse too
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -9,7 +9,10 @@ reference models compute where the dense flash and SSD kernels stand
 and :func:`ssd_chunk_ref` are twins of the reference oracles. The plain
 versions are what the CPU runs (the dispatch in
 :mod:`repro_torch.kernels.ops` picks them for CPU tensors) and what the
-CUDA kernels are held against on the card.
+CUDA kernels are held against on the card. :func:`flash_attention_lse` and
+:func:`flash_attention_bwd_ref` are the explicit formulas of the training
+forward (with the row log-sum-exp) and of the flash backward; only the
+tests and the smoke call them.
 """
 from __future__ import annotations
 
@@ -137,6 +140,76 @@ def blockwise_attention(q, k, v, causal: bool = True):
         l = p_.sum(dim=-1, keepdim=True)
         outs.append(torch.einsum("bhqk,bkhd->bqhd", (p_ / l).to(v.dtype), v))
     return torch.cat(outs, dim=1)
+
+
+def _scores(qc, k, i0: int, causal: bool):
+    """f32 scaled scores [B,H,qc,Sk] of query rows i0.. (``qc`` [B,qc,H,hd])
+    against ``k`` [B,Sk,H,hd], and the visibility mask (None when every key
+    is visible)."""
+    hd = qc.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", qc.float(), k.float()) * (hd ** -0.5)
+    if not causal:
+        return s, None
+    qpos = i0 + torch.arange(qc.shape[1], device=qc.device)
+    kpos = torch.arange(k.shape[1], device=qc.device)
+    return s, (qpos[:, None] >= kpos[None, :])[None, None]
+
+
+def flash_attention_lse(q, k, v, causal: bool = True):
+    """The training forward's plain version: attention as
+    :func:`flash_attention_ref` (all in f32, output in q's dtype) and each
+    row's log-sum-exp over the scaled scores, lse [B,H,Sq] f32. q
+    [B,Sq,H,hd]; k/v [B,Sk,Hkv,hd]. Scores one chunk of 512 query rows at a
+    time."""
+    B, Sq, H, hd = q.shape
+    k, v = _repeat_kv(k, v, H)
+    outs, lses = [], []
+    for i0 in range(0, Sq, _Q_CHUNK):
+        s, mask = _scores(q[:, i0:i0 + _Q_CHUNK], k, i0, causal)
+        if mask is not None:
+            s = s.masked_fill(~mask, float("-inf"))
+        lse = torch.logsumexp(s, dim=-1)                   # [B,H,qc]
+        p = torch.exp(s - lse[..., None])
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", p, v.float()))
+        lses.append(lse)
+    return torch.cat(outs, dim=1).to(q.dtype), torch.cat(lses, dim=2)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, dout, causal: bool = True):
+    """The backward's plain version, from the forward's output ``o`` and
+    row log-sum-exp ``lse`` [B,H,Sq] (f32): with P = exp(S * scale - lse)
+    under the mask and D = rowsum(dout * o),
+
+        dV = P^T dout,  dS = P * (dout V^T - D),
+        dQ = dS K * scale,  dK = dS^T Q * scale,
+
+    each kv head's dK and dV summed over the H / Hkv query heads that read
+    it. All in f32; -> (dq, dk, dv) in q's dtype. One chunk of 512 query
+    rows at a time."""
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    scale = hd ** -0.5
+    kr, vr = (t.float() for t in _repeat_kv(k, v, H))
+    delta = (dout.float() * o.float()).sum(-1).transpose(1, 2)  # [B,H,Sq]
+    dq = torch.zeros((B, Sq, H, hd), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, Sk, H, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for i0 in range(0, Sq, _Q_CHUNK):
+        i1 = min(i0 + _Q_CHUNK, Sq)
+        qc, gc = q[:, i0:i1].float(), dout[:, i0:i1].float()
+        s, mask = _scores(qc, kr, i0, causal)
+        p = torch.exp(s - lse[:, :, i0:i1, None])
+        if mask is not None:
+            p = p.masked_fill(~mask, 0.0)
+        dv += torch.einsum("bhqk,bqhd->bkhd", p, gc)
+        dp = torch.einsum("bqhd,bkhd->bhqk", gc, vr)
+        ds = p * (dp - delta[:, :, i0:i1, None])
+        dq[:, i0:i1] = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+        dk += torch.einsum("bhqk,bqhd->bkhd", ds, qc) * scale
+    g = H // Hkv
+    dk = dk.reshape(B, Sk, Hkv, g, hd).sum(3)
+    dv = dv.reshape(B, Sk, Hkv, g, hd).sum(3)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def ssd_chunk_ref(x, dt, A, Bm, Cm):

@@ -13,11 +13,11 @@ from repro_torch.models.transformer import Model
 
 def build_model(cfg: Union[str, ArchConfig],
                 params: Optional[Dict[str, Any]] = None, *,
-                device=None, seed: int = 0) -> Model:
+                device=None, seed: int = 0, trainable: bool = False) -> Model:
     """A :class:`Model` on ``device`` (``cuda`` unless the caller names
-    another). Without ``params`` the weights are drawn by
-    :func:`init_params` from a ``torch.Generator`` on the device seeded
-    with ``seed``."""
+    another), frozen unless ``trainable``. Without ``params`` the weights
+    are drawn by :func:`init_params` from a ``torch.Generator`` on the
+    device seeded with ``seed``."""
     if isinstance(cfg, str):
         cfg = get_config(cfg)
     device = resolve_device(device)
@@ -25,7 +25,7 @@ def build_model(cfg: Union[str, ArchConfig],
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         params = init_params(cfg, gen, device)
-    return Model(cfg, params).to(device)
+    return Model(cfg, params, trainable).to(device)
 
 
 __all__ = ["Model", "build_model", "init_params"]

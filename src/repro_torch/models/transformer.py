@@ -17,6 +17,14 @@ or none on an SSM layer. A layer with cross-attention (every decoder
 layer of an encdec model, the interleaved ones of a vlm) applies it after
 its mixer and before its FFN; cross layer ``j`` (counted among cross
 layers, in layer order) reads entry ``j`` of the state cache's cross K/V.
+
+Training (``Model(cfg, params, trainable=True)``): :meth:`Model.backbone`
+recomputes each layer (and each encoder layer) in the backward pass, as the
+reference's ``jax.checkpoint`` over its groups does, and :meth:`Model.loss`
+is the mean next-token cross-entropy with its logits chunked over the
+sequence and recomputed in the backward, so ``[B, S, Vp]`` logits never
+exist. Serving models are frozen: no parameter requires a gradient, so the
+serving methods never build a graph.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -35,11 +44,19 @@ from repro_torch.models.common import (encoder_layer_specs, layer_specs,
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+def _param(t: torch.Tensor, trainable: bool) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=trainable)
 
 
 PARTS = ("attn", "ssm", "cross", "ffn", "moe")
+
+
+def _maybe_remat(remat: bool, fn, *args):
+    """``fn(*args)``, recomputed in the backward pass (nothing it computes
+    is kept but its output) when ``remat`` and grad is enabled."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 class Block(nn.Module):
@@ -48,13 +65,14 @@ class Block(nn.Module):
     and the FFN ``ffn`` (dense), ``moe`` or none (an SSM layer of a
     pure-SSM or hybrid stack); the parts a layer lacks are None."""
 
-    def __init__(self, parts: Dict[str, Dict[str, torch.Tensor]]):
+    def __init__(self, parts: Dict[str, Dict[str, torch.Tensor]],
+                 trainable: bool = False):
         super().__init__()
         self.mixer = "attn" if "attn" in parts else "ssm"
         for name in PARTS:
             leaves = parts.get(name)
             setattr(self, name, None if leaves is None else nn.ParameterDict(
-                {k: _frozen(v) for k, v in leaves.items()}))
+                {k: _param(v, trainable) for k, v in leaves.items()}))
 
     def ffn_apply(self, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         """The residual stream after this layer's FFN, whatever its kind."""
@@ -71,9 +89,21 @@ def _check_parts(blk: Block, specs, where: str) -> None:
         raise ValueError(f"{where} holds {parts}, not {set(specs)}")
 
 
+def _nll_sum(h: torch.Tensor, labels: torch.Tensor,
+             w: torch.Tensor) -> torch.Tensor:
+    """Summed next-token cross-entropy of one chunk: h [B,cq,D] final-normed
+    rows, labels [B,cq], w [D,Vp]. The product in the model dtype, then
+    the f32 log-sum-exp over the padded vocabulary, less the label's
+    logit."""
+    logits = (h @ w).float()
+    picked = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - picked).sum()
+
+
 class Model(nn.Module):
     """A model bound to one ``ArchConfig`` and holding its weights
-    (inference only: no parameter requires a gradient): a dense or MoE
+    (frozen unless ``trainable``: a serving model's parameters require no
+    gradient): a dense or MoE
     self-attention stack, an attention-free Mamba2 stack, a hybrid, an
     encoder-decoder (``encoder_layers`` and ``encoder_ln`` beside the
     decoder) or a decoder with cross-attention layers.
@@ -83,7 +113,8 @@ class Model(nn.Module):
     the state cache of :meth:`state_cache`.
     """
 
-    def __init__(self, cfg: ArchConfig, params: Dict[str, Any]):
+    def __init__(self, cfg: ArchConfig, params: Dict[str, Any],
+                 trainable: bool = False):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
@@ -91,11 +122,12 @@ class Model(nn.Module):
                 f"family {cfg.family!r}")
         self.cfg = cfg
         self.vocab_padded = pad_vocab(cfg.vocab, 256)
-        self.embedding = _frozen(params["embed"])
-        self.final_ln = _frozen(params["final_ln"])
+        self.embedding = _param(params["embed"], trainable)
+        self.final_ln = _param(params["final_ln"], trainable)
         self.lm_head = (None if cfg.tie_embeddings
-                        else _frozen(params["lm_head"]))
-        self.layers = nn.ModuleList(Block(lp) for lp in params["layers"])
+                        else _param(params["lm_head"], trainable))
+        self.layers = nn.ModuleList(Block(lp, trainable)
+                                    for lp in params["layers"])
         if len(self.layers) != cfg.n_layers:
             raise ValueError(f"{len(self.layers)} layers of parameters for "
                              f"a {cfg.n_layers}-layer config")
@@ -105,7 +137,7 @@ class Model(nn.Module):
         if cfg.encoder is not None:
             enc = params["encoder"]
             self.encoder_layers = nn.ModuleList(
-                Block(lp) for lp in enc["layers"])
+                Block(lp, trainable) for lp in enc["layers"])
             if len(self.encoder_layers) != cfg.encoder.n_layers:
                 raise ValueError(f"{len(self.encoder_layers)} encoder layers "
                                  f"of parameters for a "
@@ -113,7 +145,7 @@ class Model(nn.Module):
             for i, blk in enumerate(self.encoder_layers):
                 _check_parts(blk, encoder_layer_specs(cfg),
                              f"encoder layer {i} of {cfg.name}")
-            self.encoder_ln = _frozen(enc["ln"])
+            self.encoder_ln = _param(enc["ln"], trainable)
         self.n_ssm_layers = sum(b.mixer == "ssm" for b in self.layers)
         self.kv_layer = self._kv_layout()
         # layer index -> entry of the state cache's cross K/V
@@ -134,26 +166,37 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.embedding.device
 
-    def param_tree(self) -> Dict[str, Any]:
-        """The weights in the layout the constructor takes (``init_params``'
-        tree), as the parameters' own tensors: no copy."""
+    def _tree(self, leaf) -> Dict[str, Any]:
+        """``leaf(parameter)`` of every parameter, in the constructor's
+        layout."""
         tree: Dict[str, Any] = {
-            "embed": self.embedding.data, "final_ln": self.final_ln.data,
-            "layers": [{part: {k: p.data for k, p in getattr(blk, part)
+            "embed": leaf(self.embedding), "final_ln": leaf(self.final_ln),
+            "layers": [{part: {k: leaf(p) for k, p in getattr(blk, part)
                                .items()}
                         for part in PARTS
                         if getattr(blk, part) is not None}
                        for blk in self.layers]}
         if self.lm_head is not None:
-            tree["lm_head"] = self.lm_head.data
+            tree["lm_head"] = leaf(self.lm_head)
         if self.encoder_layers is not None:
             tree["encoder"] = {
-                "layers": [{part: {k: p.data for k, p in getattr(blk, part)
+                "layers": [{part: {k: leaf(p) for k, p in getattr(blk, part)
                                    .items()}
                             for part in ("attn", "ffn")}
                            for blk in self.encoder_layers],
-                "ln": self.encoder_ln.data}
+                "ln": leaf(self.encoder_ln)}
         return tree
+
+    def param_tree(self) -> Dict[str, Any]:
+        """The weights in the layout the constructor takes (``init_params``'
+        tree), as the parameters' own tensors: no copy."""
+        return self._tree(lambda p: p.data)
+
+    def grad_tree(self) -> Dict[str, Any]:
+        """Each parameter's gradient in :meth:`param_tree`'s layout (zeros,
+        in the parameter's dtype, where the last backward left none)."""
+        return self._tree(lambda p: torch.zeros_like(p) if p.grad is None
+                          else p.grad)
 
     # -------------------------------------------------------------- embedding
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -170,21 +213,28 @@ class Model(nn.Module):
         return (last @ self.unembed_weight()).float()
 
     # ---------------------------------------------------------------- encoder
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+    def _encoder_layer(self, blk: Block, x: torch.Tensor,
+                       pos: torch.Tensor) -> torch.Tensor:
+        o, _, _ = L.attn_full(blk.attn, x, self.cfg, pos, causal=False)
+        x = x + o
+        return x + L.ffn_apply(blk.ffn, x, self.cfg, gelu=True)
+
+    def encode(self, frames: torch.Tensor,
+               remat: bool = False) -> torch.Tensor:
         """Whisper-style encoder over precomputed frame embeddings [B,F,D]:
         non-causal self-attention roped at ``arange(F)`` (rope stands in
         for Whisper's learned positions, as in the reference) and the GELU
-        FFN in every layer, then the final norm. -> [B,F,D]."""
-        cfg = self.cfg
+        FFN in every layer, then the final norm. With ``remat`` (and grad
+        enabled) each layer is recomputed in the backward pass, as the
+        reference's ``jax.checkpoint(body)`` does. -> [B,F,D]."""
         pos = torch.arange(frames.shape[1], device=frames.device)[None]
         x = frames
         for blk in self.encoder_layers:
-            o, _, _ = L.attn_full(blk.attn, x, cfg, pos, causal=False)
-            x = x + o
-            x = x + L.ffn_apply(blk.ffn, x, cfg, gelu=True)
-        return rms_norm(x, self.encoder_ln, cfg.norm_eps)
+            x = _maybe_remat(remat, self._encoder_layer, blk, x, pos)
+        return rms_norm(x, self.encoder_ln, self.cfg.norm_eps)
 
-    def _cross_src(self, extras) -> Optional[torch.Tensor]:
+    def _cross_src(self, extras, remat: bool = False
+                   ) -> Optional[torch.Tensor]:
         """What the cross-attention layers read: the encoder's output over
         ``extras["frames"]`` (encdec) or ``extras["ctx_embeds"]`` (vlm);
         None for a model without cross-attention."""
@@ -195,8 +245,60 @@ class Model(nn.Module):
             raise ValueError(f"{self.cfg.name}: prefill needs "
                              f"extras[{key!r}]")
         if self.encoder_layers is not None:
-            return self.encode(extras[key])
+            return self.encode(extras[key], remat)
         return extras[key]
+
+    # ---------------------------------------------------------------- training
+    def _layer(self, blk: Block, x: torch.Tensor, positions: torch.Tensor,
+               src: Optional[torch.Tensor]) -> torch.Tensor:
+        """One decoder layer over the whole sequence: the mixer (causal
+        self-attention or the Mamba2 scan), the cross sub-layer of a cross
+        layer, the FFN."""
+        cfg = self.cfg
+        if blk.mixer == "attn":
+            o, _, _ = L.attn_full(blk.attn, x, cfg, positions)
+        else:
+            o, _ = M2.ssm_full(blk.ssm, x, cfg)
+        x = x + o
+        if blk.cross is not None:
+            o, _, _ = L.attn_full(blk.cross, x, cfg, positions, kv_src=src,
+                                  causal=False)
+            x = x + o
+        return blk.ffn_apply(x, cfg)
+
+    def backbone(self, tokens: torch.Tensor, extras=None,
+                 remat: bool = True) -> torch.Tensor:
+        """tokens [B,S] -> the final-normed hidden rows [B,S,D]. With
+        ``remat`` (and grad enabled) every layer, and every encoder layer,
+        is recomputed in the backward pass
+        (``torch.utils.checkpoint``), so only each layer's input is
+        kept."""
+        x = self.embed(tokens)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        src = self._cross_src(extras, remat)
+        for blk in self.layers:
+            x = _maybe_remat(remat, self._layer, blk, x, positions, src)
+        return rms_norm(x, self.final_ln, self.cfg.norm_eps)
+
+    def loss(self, tokens: torch.Tensor, labels: torch.Tensor,
+             extras=None) -> torch.Tensor:
+        """Mean next-token cross-entropy (f32 scalar) of tokens [B,S]
+        against labels [B,S], over the padded vocabulary as the reference's
+        ``Model.loss``: the sequence in chunks of the largest divisor of S
+        <= 512, each chunk's ``[B, cq, Vp]`` logits recomputed in the
+        backward pass, the chunks' sums added in order."""
+        hidden = self.backbone(tokens, extras)
+        w = self.unembed_weight()
+        B, S, _ = hidden.shape
+        cq = min(512, S)
+        while S % cq:
+            cq -= 1
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for c0 in range(0, S, cq):
+            total = total + _maybe_remat(True, _nll_sum,
+                                         hidden[:, c0:c0 + cq],
+                                         labels[:, c0:c0 + cq], w)
+        return total / (B * S)
 
     # ---------------------------------------------------------------- prefill
     def prefill(self, tokens: torch.Tensor, extras=None) -> Tuple[

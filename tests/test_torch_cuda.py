@@ -789,3 +789,166 @@ def test_moe_and_hybrid_engines_on_the_card_match_the_cpu(dev, name, chunk,
     else:
         assert (cp.launches > 0) == bool(chunk)
         assert (fa.launches > 0) == (not chunk)
+
+
+# ------------------------------------------------------------- training
+# (B, Sq, Sk, H, Hkv, hd, causal): the training paths' kinds of shape, at
+# a test's size, ragged lengths among them
+BWD_SHAPES = [
+    (2, 256, 256, 8, 2, 128, True),      # qwen3-like, g = 4
+    (2, 200, 200, 16, 16, 64, False),    # whisper's encoder kind
+    (2, 97, 97, 4, 4, 64, True),         # ragged causal
+    (1, 96, 300, 8, 2, 128, False),      # cross, Sq < Sk
+    (1, 150, 70, 4, 1, 64, True),        # causal with Sk < Sq
+    (1, 77, 77, 4, 2, 32, True),         # hd 32: simt in either dtype
+]
+
+
+def _grad_row_err(got, want):
+    """Each row's error over the larger of its magnitude and 1% of the
+    tensor's (a causal first row's dq is zero up to rounding)."""
+    diff = (got.float() - want).abs()
+    floor = 1e-2 * float(want.abs().max())
+    return float((diff.amax(-1) / want.abs().amax(-1).clamp_min(floor))
+                 .max())
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,hd,causal", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernel(dev, B, Sq, Sk, H, Hkv, hd, causal, dtype):
+    """dq, dk, dv against the plain backward on the same inputs (the
+    kernel's o and lse): f32 to 1e-5; bf16 (P and dS rounded for their
+    products) to 3e-2 of each row's magnitude. lse against the plain
+    forward's to 1e-5; the variant the rule gives."""
+    rng = np.random.default_rng(9)
+    q, dout = (_t(rng.standard_normal((B, Sq, H, hd), np.float32), dev,
+                  dtype) for _ in range(2))
+    k, v = (_t(rng.standard_normal((B, Sk, Hkv, hd), np.float32), dev,
+               dtype) for _ in range(2))
+    want_variant = ("mma" if dtype == torch.bfloat16 and hd in (64, 128)
+                    else "simt")
+    assert fa.bwd_variant(dtype, hd) == want_variant
+    before = dict(fa.bwd_launches_by_variant)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, dout, causal)
+    assert fa.bwd_launches_by_variant[want_variant] == \
+        before[want_variant] + 1
+    _, lse_ref = ref.flash_attention_lse(q.float(), k.float(), v.float(),
+                                         causal)
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       o.float(), lse, dout.float(), causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-5)
+    for got, w in zip(grads, want):
+        assert got.dtype == dtype and got.shape == w.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, w, **F32_TOL)
+        else:
+            assert _grad_row_err(got, w) <= 3e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_backward_runs_are_bitwise_equal(dev, dtype):
+    rng = np.random.default_rng(10)
+    q, dout = (_t(rng.standard_normal((2, 300, 8, 128), np.float32), dev,
+                  dtype) for _ in range(2))
+    k, v = (_t(rng.standard_normal((2, 300, 2, 128), np.float32), dev,
+               dtype) for _ in range(2))
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    a = fa.flash_attention_bwd(q, k, v, o, lse, dout, True)
+    b = fa.flash_attention_bwd(q, k, v, o, lse, dout, True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 64),
+                                      (torch.bfloat16, 64),
+                                      (torch.bfloat16, 128)])
+def test_serving_output_is_unchanged_by_the_lse_output(dev, dtype, hd):
+    """The training forward writes lse beside the same output bits: the
+    serving forward (lse pointer null) and it agree bitwise."""
+    rng = np.random.default_rng(11)
+    q = _t(rng.standard_normal((2, 333, 16, hd), np.float32), dev, dtype)
+    k, v = (_t(rng.standard_normal((2, 333, 4, hd), np.float32), dev, dtype)
+            for _ in range(2))
+    for causal in (True, False):
+        served = fa.flash_attention(q, k, v, causal)
+        trained, _ = fa.flash_attention_fwd(q, k, v, causal)
+        assert torch.equal(served, trained)
+
+
+def test_flash_attention_fn_equals_autograd_of_the_plain_version(dev):
+    """Under grad on the card, ``ops.flash_attention`` is the training
+    forward and the backward kernel (f32: to 1e-5 of autograd through the
+    plain version); without grad, the serving forward."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(12)
+    ts = [_t(rng.standard_normal(s, np.float32), dev).requires_grad_()
+          for s in ((2, 50, 8, 64), (2, 50, 2, 64), (2, 50, 2, 64))]
+    dout = _t(rng.standard_normal((2, 50, 8, 64), np.float32), dev)
+    ops.reset_counts()
+    ops.flash_attention(*ts, causal=True).backward(dout)
+    got = [t.grad.clone() for t in ts]
+    c = ops.counts()
+    assert c["launches"]["flash_attention_lse"] == 1
+    assert c["launches"]["flash_attention_bwd"] == 1
+    assert c["launches"]["flash_attention"] == 0
+    assert not any(ops.plain_calls.values())
+    for t in ts:
+        t.grad = None
+    ref.blockwise_attention(*ts, True).backward(dout)
+    for g, t in zip(got, ts):
+        torch.testing.assert_close(g, t.grad, **F32_TOL)
+    with torch.no_grad():
+        ops.flash_attention(*ts, causal=True)
+    assert ops.counts()["launches"]["flash_attention"] == 1
+
+
+def test_ssd_chunk_raises_under_grad_on_the_card(dev):
+    """No SSD backward kernel yet: a Mamba2 layer does not train on the
+    card, and the scan does not fall back to the plain version."""
+    from repro_torch.kernels import ops
+    x, dt, A, Bm, Cm = _ssd_inputs(np.random.default_rng(13), 1, 16, 2, 16,
+                                   8, torch.float32, dev)
+    x.requires_grad_()
+    ops.reset_counts()
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.ssd_chunk(x, dt, A, Bm, Cm, 8)
+    assert not any(ops.plain_calls.values())
+    with torch.no_grad():
+        ops.ssd_chunk(x, dt, A, Bm, Cm, 8)
+
+
+def test_a_train_step_on_the_card_equals_the_cpu(dev):
+    """Reduced qwen3-8b in f32: one ``make_train_step`` (two microbatches)
+    on the card (the flash kernels) and on the CPU (the plain versions)
+    from the same weights and batch: loss, grad norm and parameters to
+    1e-5."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, init_params
+    from repro_torch.training import OptConfig, adamw_init, make_train_step
+    from repro_torch.tree import leaves, tree_map
+    cfg = dataclasses.replace(get_config("qwen3-8b").reduced(),
+                              dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab, (4, 33)).astype(np.int32))
+    out = {}
+    for d in ("cpu", dev):
+        model = build_model(cfg, tree_map(torch.clone, params), device=d,
+                            trainable=True)
+        p = model.param_tree()
+        opt = adamw_init(p)
+        batch = {"tokens": toks[:, :-1].to(d), "labels": toks[:, 1:].to(d)}
+        ops.reset_counts()
+        p, opt, m = make_train_step(model, OptConfig(eps=1e-6), 2)(
+            p, opt, batch)
+        out[str(d)] = ([t.cpu() for t in leaves(p)],
+                       {k: float(v) for k, v in m.items()})
+    assert not any(ops.plain_calls.values())
+    (pc, mc), (pg, mg) = out["cpu"], out[str(dev)]
+    for k in mc:
+        assert abs(mc[k] - mg[k]) <= 1e-5 * max(1.0, abs(mc[k])), k
+    for a, b in zip(pc, pg):
+        torch.testing.assert_close(b, a, **F32_TOL)

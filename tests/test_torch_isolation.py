@@ -46,7 +46,11 @@ def test_no_module_of_the_port_imports_jax_or_repro():
                  "repro_torch.configs.llama4_scout_17b_a16e",
                  "repro_torch.configs.jamba_v0_1_52b",
                  "repro_torch.configs.whisper_medium",
-                 "repro_torch.configs.llama3_2_vision_11b"):
+                 "repro_torch.configs.llama3_2_vision_11b",
+                 "repro_torch.tree", "repro_torch.training.optimizer",
+                 "repro_torch.training.train_step",
+                 "repro_torch.training.train_lm",
+                 "repro_torch.checkpoint.checkpoint"):
         assert name in got["modules"], name
 
 
