@@ -199,9 +199,12 @@ Phases, each printing one JSON line (and failing the run on any error):
                 decoder and cross attention, vision's cross attention over
                 1,601 rows, and two small f32 cases of ragged lengths: the
                 forward's output bitwise the serving forward's, lse, dq,
-                dk and dv within limits, two backward runs bitwise equal;
-                each bf16 shape timed (backward, forward + backward)
-                beside its bound and SDPA's;
+                dk and dv within limits, two backward runs bitwise equal,
+                bf16 through the backward's wgmma variant and f32 through
+                simt; each bf16 shape timed (backward, forward + backward)
+                beside its bound and SDPA's, with the share of the bound
+                reached (``bound_share``) and the time over SDPA's
+                backward (``library_ratio``);
 27. train_reference -- reduced qwen3-8b, moonshot-v1-16b-a3b and
                 whisper-medium in f32: the loss and every gradient leaf on
                 the card (the kernels) against the CPU (plain versions);
@@ -215,7 +218,7 @@ Phases, each printing one JSON line (and failing the run on any error):
                 finishes the run with the same losses and parameters, bit
                 for bit; step time, tokens/s, MFU, peak memory, the
                 checkpoint's bytes and seconds, a profiled step with the
-                flash backward's share;
+                flash backward's share and its time by device kernel;
 29. train_whisper -- whisper-medium whole (24 + 24 layers, bf16) a few
                 steps on stub frames and 448-token decoder sequences: the
                 loss falls.
@@ -3553,7 +3556,10 @@ TRAIN = dict(model="qwen3-8b", layers=12, batch=4, n_micro=2, seq=4096,
              period=256, steps=12, ckpt_at=6, lr=5e-4, warmup=2,
              grad_layers=2, grad_batch=2)
 WHISPER_TRAIN = dict(batch=4, seq=448, steps=6, lr=1e-3, warmup=2)
-BWD_NAMES = ("delta_kernel", "dkdv_", "dq_")   # the backward's device kernels
+# the backward's device kernels: the D pre-pass, then both passes of each
+# variant
+BWD_NAMES = ("delta_kernel", "dkdv_wgmma", "dq_wgmma", "dkdv_simt",
+             "dq_simt")
 
 
 def bwd_cost(B, Sq, Sk, H, Hkv, hd, causal, esize):
@@ -3564,6 +3570,22 @@ def bwd_cost(B, Sq, Sk, H, Hkv, hd, causal, esize):
     n_bytes = B * (4 * Sq * H * hd + 4 * Sk * Hkv * hd) * esize \
         + B * H * Sq * 4
     return n_bytes, B * fwd_flops * 10 // 4
+
+
+def bwd_ptxas() -> dict:
+    """ptxas's report (registers, spills, stack, wgmma serialized) of each
+    device kernel of the flash backward as this run built it, by a short
+    name (``dkdv_wgmma<128>``)."""
+    import re
+    from repro_torch.kernels import _build
+    args = {"Li64E": "64", "Li128E": "128", "fE": "float",
+            "13__nv_bfloat16E": "bf16"}
+    out = {}
+    for mangled, r in _build.ptxas_report("flash_attention_bwd").items():
+        m = re.search(r"repro_flash_bwd\d+(\w+?)I(Li\d+E|fE|13__nv_bfloat16E)",
+                      mangled)
+        out[f"{m.group(1)}<{args[m.group(2)]}>" if m else mangled] = r
+    return out
 
 
 def grad_errors(got, want) -> tuple:
@@ -3616,10 +3638,11 @@ def phase_kernels_train(torch, gen) -> dict:
     serving forward's and held to the plain one, lse to 1e-4, dq, dk and
     dv by their largest error and row-scaled error, two backward runs
     bitwise equal;
-    bf16 through the mma variant, f32 through simt. Then each bf16 shape
+    bf16 through the wgmma variant, f32 through simt. Then each bf16 shape
     timed: the backward alone, forward + backward, beside the bound and
-    SDPA's forward + backward and backward alone. Returns the numbers by
-    label."""
+    SDPA's forward + backward and backward alone, with the bound's share
+    of the backward's time and the backward's time over SDPA's. Returns
+    the numbers by label."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -3654,7 +3677,7 @@ def phase_kernels_train(torch, gen) -> dict:
                 f"differs from the serving forward's")
         require(deterministic, f"flash_attention_bwd at {label}: two runs "
                 f"differ")
-        require(variant == ("mma" if bf16 else "simt"),
+        require(variant == ("wgmma" if bf16 else "simt"),
                 f"flash_attention_bwd at {label}: the {variant} variant")
         # bf16: inputs rounded once, P and dS rounded to bf16 for their
         # products and the output once, about 1e-2 of a row; a key tile
@@ -3714,11 +3737,15 @@ def phase_kernels_train(torch, gen) -> dict:
                 fwd_bwd_ms=time_ms(fwd_bwd), fwd_bwd_bound_ms=fb_ms,
                 fwd_bwd_bound_by=fb_by,
                 library_fwd_bwd_ms=time_ms(sdpa_fwd_bwd))
+            # the share of the bound reached, and the time over SDPA's
+            row.update(bound_share=b_ms / row["ms"],
+                       library_ratio=row["ms"] / row["library_ms"])
             del o_sdpa, qt, kt, vt
         out[label] = row
         emit("kernel_check_train", name="flash_attention_bwd", heads=label,
              **row)
         del q, k, v, o, lse, dout, grads
+    emit("ptxas", name="flash_attention_bwd", kernels=bwd_ptxas())
     reset_peak(torch)
     return out
 
@@ -3854,6 +3881,22 @@ def train_flops(cfg, n_params: int, tokens: int, batch: int,
     return 6 * n_params * tokens + 3 * fwd * batch * n_attn
 
 
+def encdec_train_flops(cfg, enc_params: int, dec_params: int, batch: int,
+                       seq: int) -> float:
+    """Model flops of one encoder-decoder training step: 6 x parameters x
+    the tokens each side runs (the encoder over its n_ctx frames, the
+    decoder over ``seq`` tokens), plus 3 x the attention's forward in every
+    encoder layer (frames x frames), decoder layer (causal) and cross layer
+    (tokens x frames)."""
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    _, enc = flash_cost(cfg.n_ctx, cfg.n_ctx, H, Hkv, hd, False, 2)
+    _, self_ = flash_cost(seq, seq, H, Hkv, hd, True, 2)
+    _, cross = flash_cost(seq, cfg.n_ctx, H, Hkv, hd, False, 2)
+    attn = cfg.encoder.n_layers * enc + cfg.n_layers * (self_ + cross)
+    return (6 * (enc_params * cfg.n_ctx + dec_params * seq) * batch
+            + 3 * attn * batch)
+
+
 def run_steps(torch, step_fn, params, opt, batch, steps, losses, times):
     """``steps`` train steps on one batch, each loss and wall time kept."""
     for _ in range(steps):
@@ -3867,7 +3910,8 @@ def run_steps(torch, step_fn, params, opt, batch, steps, losses, times):
 
 def profile_train_step(torch, step_fn, params, opt, batch) -> dict:
     """Device time of one train step by kernel (torch.profiler): the flash
-    backward's share, the training forward's, and the idle share."""
+    backward's share and its milliseconds by device kernel, the training
+    forward's share, and the idle share."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3884,13 +3928,16 @@ def profile_train_step(torch, step_fn, params, opt, batch) -> dict:
                             / 1e3, ev.key, ev.count))
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
-    bwd = sum(ms for ms, name, _ in kernels
-              if any(p in name for p in BWD_NAMES))
+    bwd_by = {p: sum(ms for ms, name, _ in kernels if p in name)
+              for p in BWD_NAMES}
+    bwd = sum(bwd_by.values())
     fwd = sum(ms for ms, name, _ in kernels if "DenseKV" in name
               or "flash_attention_kernel" in name)
     return dict(wall_ms=wall_ms, device_busy_ms=busy,
                 idle_share=1 - busy / wall_ms,
                 flash_bwd_share=bwd / busy, flash_fwd_share=fwd / busy,
+                flash_bwd_ms_by_kernel={p: ms for p, ms in bwd_by.items()
+                                        if ms},
                 top=[dict(kernel=name[:90], ms=ms, calls=n)
                      for ms, name, n in kernels[:8]])
 
@@ -3991,7 +4038,7 @@ def phase_train_main(torch, args) -> dict:
                 f"microbatch")
         require(num["launches_by_variant"] == {
             "flash_attention_lse": {"simt": 0, "wgmma": 2 * steps * per_step},
-            "flash_attention_bwd": {"simt": 0, "mma": steps * per_step}},
+            "flash_attention_bwd": {"simt": 0, "wgmma": steps * per_step}},
             f"train_main: {num['launches_by_variant']}")
         final = [t.to("cpu", copy=True) for t in leaves(params)]
         like = tree_map(lambda t: torch.empty(
@@ -4059,11 +4106,13 @@ def phase_train_whisper(torch, args) -> dict:
     stub frames (1,500 x 1,024, drawn on the card) and 448-token decoder
     sequences: a few AdamW steps on one batch; the loss must fall. Every
     attention (encoder, decoder, cross) trains through the flash kernels.
-    Returns the launches."""
+    Step time, tokens/s, MFU, peak memory and a profiled step (the flash
+    backward's share). Returns the launches."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.training import OptConfig, adamw_init, make_train_step
+    from repro_torch.tree import leaves
 
     cfg = get_config(CROSS["encdec"])
     w = WHISPER_TRAIN
@@ -4072,6 +4121,7 @@ def phase_train_whisper(torch, args) -> dict:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
+    enc_params = sum(t.numel() for t in leaves(model.param_tree()["encoder"]))
     batch = synthetic_batch(torch, cfg, w["batch"], w["seq"], args.seed)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     batch["frames"] = torch.randn((w["batch"], cfg.n_ctx, cfg.ctx_width),
@@ -4095,15 +4145,21 @@ def phase_train_whisper(torch, args) -> dict:
     require(all(math.isfinite(x) for x in losses)
             and losses[-1] < losses[0],
             f"train_whisper: losses {losses} did not fall")
+    prof = profile_train_step(torch, step_fn, params, opt, batch)
     del model, params, opt, step_fn, batch
     reset_peak(torch)
+    step_s = statistics.median(times[1:])
+    flops = encdec_train_flops(cfg, enc_params, n_params - enc_params,
+                               w["batch"], w["seq"])
     emit("train_whisper", model=cfg.name, n_layers=cfg.n_layers,
          encoder_layers=cfg.encoder.n_layers, params=n_params,
-         batch=w["batch"], seq=w["seq"], frames=[cfg.n_ctx, cfg.ctx_width],
-         steps=w["steps"], lr=w["lr"], losses=losses, model_build_s=build_s,
-         step_s=statistics.median(times[1:]), step_s_all=times,
-         tokens_per_s=w["batch"] * w["seq"] / statistics.median(times[1:]),
-         peak_gb=peak_gb, **num)
+         encoder_params=enc_params, batch=w["batch"], seq=w["seq"],
+         frames=[cfg.n_ctx, cfg.ctx_width], steps=w["steps"], lr=w["lr"],
+         losses=losses, model_build_s=build_s, step_s=step_s,
+         step_s_all=times, tokens_per_s=w["batch"] * w["seq"] / step_s,
+         model_tflops_per_step=flops / 1e12,
+         mfu=flops / step_s / BF16_FLOPS, peak_gb=peak_gb,
+         profile_step=prof, **num)
     return num["launches"]
 
 
@@ -4301,11 +4357,13 @@ def main(argv=None) -> int:
         launches_by_path={p: n.get("flash_attention_bwd", 0)
                           for p, n in by_path.items()
                           if n.get("flash_attention_bwd")},
+        # ptxas's registers and spills of the backward's device kernels
+        ptxas=bwd_ptxas(),
         train_shapes={label: {k: c.get(k) for k in (
             "max_abs_err", "row_scaled_err", "lse_max_abs_err", "variant",
             "ms", "ms_no_spin", "host_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "fwd_bwd_ms", "fwd_bwd_bound_ms",
-            "library_fwd_bwd_ms")}
+            "bound_by", "bound_share", "library_ms", "library_ratio",
+            "fwd_bwd_ms", "fwd_bwd_bound_ms", "library_fwd_bwd_ms")}
             for label, c in train_checks.items()}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

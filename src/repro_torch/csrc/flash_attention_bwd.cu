@@ -23,21 +23,54 @@
 // atomics, so two runs give the same bits.
 //
 // Bound on the H100: the five products, 10 * hd flops per visible (query,
-// key) pair and head (this design does seven: S and dO V^T are recomputed
-// in both passes); the bytes of q, k, v, o, dout, lse and the three
-// gradients are small beside them at training lengths. Two variants by
-// (dtype, hd), the forward's rule:
+// key) pair and head (this design does seven: S and dP = dO V^T are
+// recomputed in the second pass); the bytes of q, k, v, o, dout, lse and
+// the three gradients are small beside them at training lengths. Two
+// variants by (dtype, hd), the forward's rule:
 //
-// * mma (bf16, hd 64 or 128): 64-row query and key tiles in shared memory,
-//   the products on the tensor cores through warp-level wmma (bf16 in, f32
-//   accumulators), P and dS rounded to bf16 for their products (as the
-//   forward rounds P for P V); the gradient being summed stays in registers.
+// * wgmma (bf16, hd 64 or 128): both passes on the forward's Hopper
+//   building blocks (hopper.cuh): TMA tensor maps over [B, S, heads * hd]
+//   with 64-column, 128-byte-swizzled boxes, an mbarrier ring of 2 stages,
+//   and two warpgroups of 64 rows running m64n64k16 wgmma, bf16 in and f32
+//   accumulators in registers. Every product reads its shared-memory tiles
+//   as loaded: a box read along its rows is a K-major operand, down its
+//   columns an MN-major one, and an accumulator packed to bf16 pairs is
+//   the register A operand of the next product, so nothing is transposed
+//   or staged through shared memory.
+//   - dkdv_wgmma: a block holds 128 keys of K and V (64 per warpgroup) and
+//     streams the 64-row Q and dO tiles of the g query heads, with their
+//     lse and D, through the ring. Each warpgroup computes S^T = K Q^T and
+//     dP^T = V dO^T (both K-major), P^T = exp2(S^T scale log2 e - lse
+//     log2 e) and dS^T = P^T o (dP^T - D) in registers (lse and D by
+//     column), then dV += P^T dO and dK += dS^T Q from registers (dO and Q
+//     MN-major). dK and dV stay in registers over the whole walk and are
+//     stored once. Registers bound this pass: at hd 128 a thread holds dK
+//     and dV (128 f32) beside S^T and dP^T (64). So the block has no
+//     producer: its 256 threads may hold 255 registers each (ptxas gives
+//     the consumers 240 at hd 128 and keeps nothing in local memory), and
+//     warp 0 issues the ring's loads itself, one stage ahead: the Q and dO
+//     boxes by TMA and the tile's lse and D by cp.async, all completing on
+//     the stage's barrier. (A producer warpgroup handing its registers to
+//     the consumers with setmaxnreg, 24 / 240, left ptxas short at hd 128:
+//     it spilled and issued the wgmma one at a time.)
+//   - dq_wgmma: the forward's tile loop (attend_wgmma.cuh) with its
+//     producer warp: a block holds 128 query rows of Q and dO and streams
+//     64-key K / V tiles; S = Q K^T, dP = dO V^T, dS in registers, dQ +=
+//     dS K (K MN-major).
+//   Causal: whole tiles that no row sees are skipped, only the diagonal
+//   and the ragged tiles are masked, and the heaviest blocks go first. A
+//   query row past Sq arrives as zeros (its Q, dO, lse and D), so in dkdv
+//   its dS and its share of P^T dO are 0, and dq does not store it; a key
+//   past Sk is masked in dq and only reaches dK / dV rows that are not
+//   stored. P^T and dS^T (dS) are rounded to bf16 for their products, as
+//   the forward rounds P for P V.
 // * simt (f32, other widths): 32-row tiles staged as f32 and CUDA-core
 //   FMAs, so f32 gradients stay exact for the f32 models and checks.
 //
-// A wgmma/TMA redesign (the forward's attend_wgmma.cuh loop) is later work.
-#include <mma.h>
-
+// Not done: one fused pass whose dQ goes through atomics (FlashAttention-3)
+// is not deterministic; an ordered f32 reduction of dQ across key blocks
+// (a semaphore per query tile) would save the recomputation, later.
+#include "hopper.cuh"
 #include "paged_common.cuh"  // to_float, store, allow_smem
 
 namespace repro_flash_bwd {
@@ -250,270 +283,512 @@ int launch_simt(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// -------------------------------------------------------------------- mma
+// ------------------------------------------------------------------ wgmma
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-template <class Layout>
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, Layout>;
-template <class Layout>
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, Layout>;
+using namespace repro_hopper;
 
-constexpr int kMt = 64;        // query and key rows per tile
-constexpr int kFld = kMt + 4;  // row stride of the f32 [64][64] tiles
-constexpr int kPld = kMt + 8;  // row stride of the bf16 [64][64] tiles
+constexpr int kTile = 64;         // rows of a streamed tile and of a warpgroup
+constexpr int kStages = 2;        // ring depth of both passes
+constexpr int kConsumers = 256;   // two consumer warpgroups
+constexpr int kQThreads = kConsumers + 32;    // dq: + a producer warp
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared-memory layout of the mma kernels (bytes), for head width HD:
-// four bf16 row tiles [64][HD + 8] (Q, dO, K, V), two f32 score tiles
-// [64][68] (S, then dO V^T; reused to stage the result), two bf16 tiles
-// [64][72] (P and dS), and the 64 rows' lse and D.
+// A float2 of shared memory, read where it stands: the compiler may not
+// hoist it across the wgmma asm around it and keep it live there.
+__device__ __forceinline__ float2 lds2(const float* p) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(smem_u32(p)));
+  return v;
+}
+
+// Four bytes from global to shared memory with cp.async, the first n of
+// them read (n = 0: zeros).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+// Arrives on `bar` once this thread's earlier cp.async copies have landed
+// (the barrier's pending count is raised first, so its count at init need
+// not include it).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// dkdv's shared memory: the block's 128 keys of K and of V (one [128][64]
+// box per 64 columns), then per ring stage a [64][hd] Q tile and a dO tile
+// (one [64][64] box per 64 columns), then per stage the tile's 64 lse and
+// 64 D, then the barriers.
 template <int HD>
-struct MmaLayout {
-  static constexpr int kTld = HD + 8;
-  static constexpr int kRowTile = kMt * kTld * 2;
-  static constexpr int kScore = kMt * kFld * 4;
-  static constexpr int kProb = kMt * kPld * 2;
-  static constexpr int kOld = HD + 4;  // f32 staging of a [64][HD] result
-  static constexpr size_t kSmem =
-      128 /* alignment slack */ + 4 * kRowTile + 2 * kScore + 2 * kProb +
-      2 * 4 * kMt;
-  static_assert(kMt * kOld * 4 <= 2 * kScore, "result staging fits");
+struct DkdvLayout {
+  static constexpr int kHalves = HD / 64;
+  static constexpr int kKvBytes = 2 * kTile * HD * 2;   // K (or V)
+  static constexpr int kRowBytes = kTile * HD * 2;      // a Q (or dO) tile
+  static constexpr int kStageBytes = 2 * kRowBytes;     // Q, then dO
+  static constexpr int kBars = 2 * kStages + 1;         // full, empty, kv
+  static constexpr size_t kSmem = 1024 /* alignment slack */ +
+                                  2 * kKvBytes + kStages * kStageBytes +
+                                  kStages * 2 * kTile * 4 + 8 * kBars;
 };
 
-// Loads up to 64 rows of HD bf16 (row stride `stride` elements) with
-// 16-byte vectors; rows past n are zeros.
+// dq's: the block's 128 rows of Q and of dO ([128][64] boxes), then per
+// ring stage a [64][hd] K tile and a V tile, then the barriers.
 template <int HD>
-__device__ void load_rows(bf16* dst, const bf16* __restrict__ src,
-                          int64_t stride, int n) {
-  constexpr int kVec = HD / 8;
-  for (int i = threadIdx.x; i < kMt * kVec; i += kThreads) {
-    const int r = i / kVec, c = i - r * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n)
-      val = *reinterpret_cast<const uint4*>(src + r * stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * (HD + 8) + c * 8) = val;
-  }
-}
+struct DqLayout {
+  static constexpr int kHalves = HD / 64;
+  static constexpr int kRowsBytes = 2 * kTile * HD * 2;  // Q (or dO)
+  static constexpr int kTileBytes = kTile * HD * 2;      // a K (or V) tile
+  static constexpr int kBars = 2 * kStages + 1;          // full, empty, q
+  static constexpr size_t kSmem = 1024 + 2 * kRowsBytes +
+                                  2 * kStages * kTileBytes + 8 * kBars;
+};
 
-// S = Q K^T and dP = dO V^T for the [64][64] tile (each warp two 16 x 16
-// tiles of each), into the f32 tiles S and dP.
+// Issues ring tile tt of dkdv's walk into stage tt % kStages, by one warp
+// of the consumers: once both warpgroups have released the stage, each lane
+// copies two rows' lse and D with cp.async (rows past Sq zero-filled; their
+// Q and dO arrive as zeros, so P (dP - D) and P^T dO vanish there), the
+// copies completing on the stage's full barrier, then lane 0 adds the TMA
+// boxes of the tile's Q and dO.
 template <int HD>
-__device__ void mma_scores(const bf16* Qs, const bf16* dOs, const bf16* Ks,
-                           const bf16* Vs, float* S, float* dP, int warp) {
-  constexpr int ld = HD + 8;
+__device__ __forceinline__ void dkdv_issue(
+    int tt, const CUtensorMap* tq, const CUtensorMap* tdo,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const Dims& d, uint32_t sring, uint32_t srow, uint32_t full0,
+    uint32_t empty0, int b, int kvh, int g, int q_first, int n_qt, int lane) {
+  using L = DkdvLayout<HD>;
+  const int s = tt % kStages;
+  const int h = kvh * g + tt / n_qt;
+  const int q0 = q_first + (tt % n_qt) * kTile;
+  mbar_wait(empty0 + 8 * s, ((tt / kStages) & 1) ^ 1);
+  const float* lrow = lse + ((int64_t)b * d.H + h) * d.Sq;
+  const float* drow = delta + ((int64_t)b * d.H + h) * d.Sq;
+  const uint32_t sl = srow + s * 2 * kTile * 4;
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int t = warp + kWarps * j, tr = t / 4, tc = t % 4;
-    FragC s, dp;
-    wmma::fill_fragment(s, 0.f);
-    wmma::fill_fragment(dp, 0.f);
+  for (int r = lane; r < kTile; r += 32) {
+    const int row = min(q0 + r, d.Sq - 1);
+    const int n = q0 + r < d.Sq ? 4 : 0;
+    cp_async4(sl + 4 * r, lrow + row, n);
+    cp_async4(sl + 4 * (kTile + r), drow + row, n);
+  }
+  cp_async_arrive(full0 + 8 * s);
+  __syncwarp();  // every lane's copies are on the barrier before it can flip
+  if (lane == 0) {
+    mbar_expect_tx(full0 + 8 * s, L::kStageBytes);
+    const uint32_t qd = sring + s * L::kStageBytes;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      FragA<wmma::row_major> a;
-      FragB<wmma::col_major> bt;  // element (x, key) at K[key][x]: K^T
-      wmma::load_matrix_sync(a, Qs + tr * 16 * ld + kk * 16, ld);
-      wmma::load_matrix_sync(bt, Ks + tc * 16 * ld + kk * 16, ld);
-      wmma::mma_sync(s, a, bt, s);
-      wmma::load_matrix_sync(a, dOs + tr * 16 * ld + kk * 16, ld);
-      wmma::load_matrix_sync(bt, Vs + tc * 16 * ld + kk * 16, ld);
-      wmma::mma_sync(dp, a, bt, dp);
+    for (int c = 0; c < L::kHalves; ++c) {
+      tma_load(qd + c * kBoxBytes, tq, full0 + 8 * s, h * HD + c * 64, q0, b);
+      tma_load(qd + L::kRowBytes + c * kBoxBytes, tdo, full0 + 8 * s,
+               h * HD + c * 64, q0, b);
     }
-    wmma::store_matrix_sync(S + tr * 16 * kFld + tc * 16, s, kFld,
-                            wmma::mem_row_major);
-    wmma::store_matrix_sync(dP + tr * 16 * kFld + tc * 16, dp, kFld,
-                            wmma::mem_row_major);
   }
 }
 
-// P = exp(S * scale - lse) under the mask and dS = P * (dP - D), rounded
-// to bf16 (P only where p is not null).
-__device__ void mma_probs(const Dims& d, const float* S, const float* dP,
-                          const float* sl, const float* sd, int q0, int k0,
-                          bf16* p, bf16* ds) {
-  for (int e = threadIdx.x; e < kMt * kMt; e += kThreads) {
-    const int r = e / kMt, c = e % kMt;
-    const float pv = visible(d, q0 + r, k0 + c)
-                         ? expf(S[r * kFld + c] * d.scale - sl[r])
-                         : 0.f;
-    if (p != nullptr) p[r * kPld + c] = __float2bfloat16(pv);
-    ds[r * kPld + c] = __float2bfloat16(pv * (dP[r * kFld + c] - sd[r]));
-  }
-}
-
-// Writes the warps' [64][HD] f32 result (times mul) through the staging
-// tile as up to n rows of bf16, row stride `stride`.
+// Pass 1: one block per (128-key tile, kv head, sequence), the key tiles
+// with the most queries first; two warpgroups and no producer, so that
+// every thread may hold 255 registers. tq/tdo map q/dout as [B, Sq, H * hd],
+// tk/tv k/v as [B, Sk, Hkv * hd], every box 64 rows.
 template <int HD>
-__device__ void write_result(FragC (&acc)[HD / 32], float mul, float* stage,
-                             bf16* __restrict__ dst, int64_t stride, int n,
-                             int warp) {
-  constexpr int ld = HD + 4;
-  __syncthreads();  // the staging tile's last readers are done
-#pragma unroll
-  for (int j = 0; j < HD / 32; ++j) {
-    const int t = warp + kWarps * j, tr = t / (HD / 16), tc = t % (HD / 16);
-#pragma unroll
-    for (int e = 0; e < acc[j].num_elements; ++e) acc[j].x[e] *= mul;
-    wmma::store_matrix_sync(stage + tr * 16 * ld + tc * 16, acc[j], ld,
-                            wmma::mem_row_major);
+__global__ void __launch_bounds__(kConsumers, 1)
+    dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap tdo,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta, bf16* __restrict__ dk,
+               bf16* __restrict__ dv, Dims d) {
+  using L = DkdvLayout<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sk = smem_u32(base), sv = sk + L::kKvBytes;
+  const uint32_t sring = sv + L::kKvBytes;
+  // stage s: lse at [128 s], D at [128 s + 64]
+  float* srow = reinterpret_cast<float*>(base + 2 * L::kKvBytes +
+                                         kStages * L::kStageBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(srow + kStages * 2 * kTile);
+  const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * kStages;
+  const uint32_t kvbar = full0 + 16 * kStages;
+
+  const int nbh = d.B * d.Hkv, g = d.H / d.Hkv;
+  const int k0 = (blockIdx.x / nbh) * 2 * kTile;
+  const int b = (blockIdx.x % nbh) / d.Hkv, kvh = blockIdx.x % d.Hkv;
+  // query tiles from the first with a row that sees key k0, for each of
+  // the g query heads that read kv head kvh
+  const int q_first = d.causal ? k0 : 0;
+  const int n_qt = d.Sq > q_first ? (d.Sq - q_first + kTile - 1) / kTile : 0;
+  const int n_t = g * n_qt;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);  // lane 0's arrival, its bytes, copies
+      mbar_init(empty0 + 8 * s, kConsumers / 32);  // one per warp
+    }
+    mbar_init(kvbar, 1);
+    mbar_init_fence();
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < n * HD; e += kThreads) {
-    const int r = e / HD, c = e - r * HD;
-    dst[r * stride + c] = __float2bfloat16(stage[r * ld + c]);
-  }
-}
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
-    dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, const bf16* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             bf16* __restrict__ dk, bf16* __restrict__ dv, Dims d) {
-  using L = MmaLayout<HD>;
-  constexpr int ld = L::kTld;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* base = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
-  bf16 *Ks = (bf16*)base, *Vs = Ks + kMt * ld, *Qs = Vs + kMt * ld,
-       *dOs = Qs + kMt * ld;
-  float *S = (float*)(dOs + kMt * ld), *dP = S + kMt * kFld;
-  bf16 *P = (bf16*)(dP + kMt * kFld), *dS = P + kMt * kPld;
-  float *sl = (float*)(dS + kMt * kPld), *sd = sl + kMt;
-  const int warp = threadIdx.x / 32, g = d.H / d.Hkv;
-  const int k0 = blockIdx.x * kMt, kvh = blockIdx.y, b = blockIdx.z;
-  const int nk = min(kMt, d.Sk - k0);
-  const int64_t kstride = (int64_t)d.Hkv * HD, qstride = (int64_t)d.H * HD;
-  const int64_t koff = (((int64_t)b * d.Sk + k0) * d.Hkv + kvh) * HD;
-  load_rows<HD>(Ks, k + koff, kstride, nk);
-  load_rows<HD>(Vs, v + koff, kstride, nk);
-  // warp w sums the 16 x 16 tiles w, w + 8, ... of dK and dV [64][HD]
-  FragC acc_k[HD / 32], acc_v[HD / 32];
+  // warpgroup wg owns keys kw .. kw + 63; warp 0 also issues the loads
+  const int wg = threadIdx.x / 128, t128 = threadIdx.x % 128;
+  const int rl = 16 * (t128 / 32) + lane / 4;  // the thread's keys: rl, rl + 8
+  const int col0 = 2 * (lane % 4);
+  const int kw = k0 + kTile * wg;
+  const uint32_t ka = sk + kTile * wg * kSwzRow;
+  const uint32_t va = sv + kTile * wg * kSwzRow;
+  const uint32_t srow_a = smem_u32(srow);
+  const float scale_log2 = d.scale * kLog2e;
+
+  if (warp == 0 && n_t > 0) {
+    if (lane == 0) {
+      mbar_expect_tx(kvbar, 2 * L::kKvBytes);
 #pragma unroll
-  for (int j = 0; j < HD / 32; ++j) {
-    wmma::fill_fragment(acc_k[j], 0.f);
-    wmma::fill_fragment(acc_v[j], 0.f);
-  }
-  const int q_first = d.causal ? k0 : 0;
-  for (int hh = 0; hh < g; ++hh) {
-    const int h = kvh * g + hh;
-    for (int q0 = q_first; q0 < d.Sq; q0 += kMt) {
-      const int nq = min(kMt, d.Sq - q0);
-      __syncthreads();
-      const int64_t qoff = (((int64_t)b * d.Sq + q0) * d.H + h) * HD;
-      load_rows<HD>(Qs, q + qoff, qstride, nq);
-      load_rows<HD>(dOs, dout + qoff, qstride, nq);
-      if (threadIdx.x < kMt) {
-        const int r = threadIdx.x;
-        const int64_t at = ((int64_t)b * d.H + h) * d.Sq + q0 + r;
-        sl[r] = r < nq ? lse[at] : 0.f;
-        sd[r] = r < nq ? delta[at] : 0.f;
-      }
-      __syncthreads();
-      mma_scores<HD>(Qs, dOs, Ks, Vs, S, dP, warp);
-      __syncthreads();
-      mma_probs(d, S, dP, sl, sd, q0, k0, P, dS);
-      __syncthreads();
+      for (int c = 0; c < L::kHalves; ++c)
 #pragma unroll
-      for (int j = 0; j < HD / 32; ++j) {
-        const int t = warp + kWarps * j, tr = t / (HD / 16),
-                  tc = t % (HD / 16);
-#pragma unroll
-        for (int kk = 0; kk < kMt / 16; ++kk) {
-          // element (key, row) at P[row][key]: P^T, likewise dS^T
-          FragA<wmma::col_major> a;
-          FragB<wmma::row_major> bm;
-          wmma::load_matrix_sync(a, P + kk * 16 * kPld + tr * 16, kPld);
-          wmma::load_matrix_sync(bm, dOs + kk * 16 * ld + tc * 16, ld);
-          wmma::mma_sync(acc_v[j], a, bm, acc_v[j]);
-          wmma::load_matrix_sync(a, dS + kk * 16 * kPld + tr * 16, kPld);
-          wmma::load_matrix_sync(bm, Qs + kk * 16 * ld + tc * 16, ld);
-          wmma::mma_sync(acc_k[j], a, bm, acc_k[j]);
+        for (int half = 0; half < 2; ++half) {
+          const uint32_t off = c * 2 * kBoxBytes + half * kBoxBytes;
+          tma_load(sk + off, &tk, kvbar, kvh * HD + c * 64,
+                   k0 + half * kTile, b);
+          tma_load(sv + off, &tv, kvbar, kvh * HD + c * 64,
+                   k0 + half * kTile, b);
         }
+    }
+    for (int tt = 0; tt < kStages - 1 && tt < n_t; ++tt)
+      dkdv_issue<HD>(tt, &tq, &tdo, lse, delta, d, sring, srow_a, full0,
+                     empty0, b, kvh, g, q_first, n_qt, lane);
+  }
+
+  float acc_k[L::kHalves][32], acc_v[L::kHalves][32];
+#pragma unroll
+  for (int c = 0; c < L::kHalves; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc_k[c][e] = acc_v[c][e] = 0.f;
+
+  if (n_t > 0) mbar_wait(kvbar, 0);
+  for (int t = 0; t < n_t; ++t) {
+    // the tile kStages - 1 ahead goes into the stage tile t - 1 used
+    if (warp == 0 && t + kStages - 1 < n_t)
+      dkdv_issue<HD>(t + kStages - 1, &tq, &tdo, lse, delta, d, sring,
+                     srow_a, full0, empty0, b, kvh, g, q_first, n_qt, lane);
+    const int s = t % kStages;
+    const int q0 = q_first + (t % n_qt) * kTile;
+    mbar_wait(full0 + 8 * s, (t / kStages) & 1);
+    // causal: a query tile wholly before this warpgroup's keys adds nothing
+    if (!d.causal || q0 + kTile > kw) {
+      const uint32_t qd = sring + s * L::kStageBytes;
+      const uint32_t dod = qd + L::kRowBytes;
+      const float* sl = srow + s * 2 * kTile;
+      // S^T = K Q^T and dP^T = V dO^T, keys down the rows, queries across
+      float st[32], dpt[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) st[e] = dpt[e] = 0.f;
+      pin(st);
+      pin(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;  // 16 bf16 along the row
+        wgmma_ss(st, sw128_desc(ka + (kk / 4) * 2 * kTile * kSwzRow + off),
+                 sw128_desc(qd + (kk / 4) * kTile * kSwzRow + off), kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss(dpt, sw128_desc(va + (kk / 4) * 2 * kTile * kSwzRow + off),
+                 sw128_desc(dod + (kk / 4) * kTile * kSwzRow + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // S^T is in; dP^T may still be running
+      pin(st);
+      // P^T = exp2(S^T scale log2 e - lse log2 e), in place. Register e
+      // holds key rl + 8 ((e >> 1) & 1) and query 8 (e >> 2) + col0 +
+      // (e & 1) of the tile; on the causal diagonal tile (q0 == kw) a key
+      // past the query is masked. Keys past Sk (zeros from TMA) only reach
+      // dK and dV rows that are never stored.
+      const bool diag = d.causal && q0 == kw;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const float2 l = lds2(sl + 8 * (e >> 2) + col0);
+        const float p =
+            exp2f(st[e] * scale_log2 - ((e & 1) ? l.y : l.x) * kLog2e);
+        st[e] = diag && rl + 8 * ((e >> 1) & 1) > 8 * (e >> 2) + col0 + (e & 1)
+                    ? 0.f
+                    : p;
+      }
+      wgmma_wait<0>();
+      pin(dpt);
+      // P^T and dS^T = P^T o (dP^T - D) (D by column), packed to bf16 A
+      // fragments in one sweep, so S^T and dP^T die as they are read
+      uint32_t pa[16], dsa[16];
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const float2 dd = lds2(sl + kTile + 8 * (e >> 2) + col0);
+        pa[e / 2] = pack_bf16(st[e], st[e + 1]);
+        dsa[e / 2] = pack_bf16(st[e] * (dpt[e] - dd.x),
+                               st[e + 1] * (dpt[e + 1] - dd.y));
+      }
+      // dV += P^T dO and dK += dS^T Q, dO and Q as MN-major B
+#pragma unroll
+      for (int c = 0; c < L::kHalves; ++c) {
+        pin(acc_v[c]);
+        pin(acc_k[c]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kTile / 16; ++j)
+#pragma unroll
+        for (int c = 0; c < L::kHalves; ++c) {
+          wgmma_rs(acc_v[c], pa + 4 * j,
+                   sw128_desc(dod + c * kTile * kSwzRow + j * 16 * kSwzRow));
+          wgmma_rs(acc_k[c], dsa + 4 * j,
+                   sw128_desc(qd + c * kTile * kSwzRow + j * 16 * kSwzRow));
+        }
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int c = 0; c < L::kHalves; ++c) {
+        pin(acc_v[c]);
+        pin(acc_k[c]);
       }
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
   }
-  write_result<HD>(acc_v, 1.f, S, dv + koff, kstride, nk, warp);
-  write_result<HD>(acc_k, d.scale, S, dk + koff, kstride, nk, warp);
+
+  // dK (times scale) and dV, rows past Sk not stored
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = kw + rl + 8 * i;
+    if (key >= d.Sk) continue;
+    const int64_t off = (((int64_t)b * d.Sk + key) * d.Hkv + kvh) * HD;
+#pragma unroll
+    for (int c = 0; c < L::kHalves; ++c)
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        const int e = 4 * nb + 2 * i, x = c * 64 + 8 * nb + col0;
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + x) =
+            __floats2bfloat162_rn(acc_k[c][e] * d.scale,
+                                  acc_k[c][e + 1] * d.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + x) =
+            __floats2bfloat162_rn(acc_v[c][e], acc_v[c][e + 1]);
+      }
+  }
 }
 
+// Pass 2: one block per (128-query tile, head, sequence), the tiles with
+// the most keys (the last, when causal) first.
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
-    dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, const bf16* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
-           bf16* __restrict__ dq, Dims d) {
-  using L = MmaLayout<HD>;
-  constexpr int ld = L::kTld;
+__global__ void __launch_bounds__(kQThreads, 1)
+    dq_wgmma(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv,
+             const __grid_constant__ CUtensorMap tdo,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             bf16* __restrict__ dq, Dims d) {
+  using L = DqLayout<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
-  bf16 *Qs = (bf16*)base, *dOs = Qs + kMt * ld, *Ks = dOs + kMt * ld,
-       *Vs = Ks + kMt * ld;
-  float *S = (float*)(Vs + kMt * ld), *dP = S + kMt * kFld;
-  bf16* dS = (bf16*)(dP + kMt * kFld);
-  float *sl = (float*)(dS + kMt * kPld), *sd = sl + kMt;
-  const int warp = threadIdx.x / 32;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMt;  // most keys first
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (d.H / d.Hkv);
-  const int nq = min(kMt, d.Sq - q0);
-  const int64_t kstride = (int64_t)d.Hkv * HD, qstride = (int64_t)d.H * HD;
-  const int64_t qoff = (((int64_t)b * d.Sq + q0) * d.H + h) * HD;
-  load_rows<HD>(Qs, q + qoff, qstride, nq);
-  load_rows<HD>(dOs, dout + qoff, qstride, nq);
-  if (threadIdx.x < kMt) {
-    const int r = threadIdx.x;
-    const int64_t at = ((int64_t)b * d.H + h) * d.Sq + q0 + r;
-    sl[r] = r < nq ? lse[at] : 0.f;
-    sd[r] = r < nq ? delta[at] : 0.f;
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sq = smem_u32(base), sdo = sq + L::kRowsBytes;
+  const uint32_t sring = sdo + L::kRowsBytes;  // stage s: K at 2 s, V at 2 s + 1
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      base + 2 * L::kRowsBytes + 2 * kStages * L::kTileBytes);
+  const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * kStages;
+  const uint32_t qbar = full0 + 16 * kStages;
+
+  const int nqt = (d.Sq + 2 * kTile - 1) / (2 * kTile);
+  const int bh = blockIdx.x % (d.B * d.H);
+  const int q0 = (nqt - 1 - blockIdx.x / (d.B * d.H)) * 2 * kTile;
+  const int b = bh / d.H, h = bh % d.H, kvh = h / (d.H / d.Hkv);
+  const int n_kt = ((d.causal ? min(q0 + 2 * kTile, d.Sk) : d.Sk) + kTile -
+                    1) / kTile;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers / 32);
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
   }
-  FragC acc[HD / 32];
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // ---- producer: one thread
+    if (lane != 0) return;
+    mbar_expect_tx(qbar, 2 * L::kRowsBytes);
 #pragma unroll
-  for (int j = 0; j < HD / 32; ++j) wmma::fill_fragment(acc[j], 0.f);
-  const int k_end = d.causal ? min(q0 + nq, d.Sk) : d.Sk;
-  for (int k0 = 0; k0 < k_end; k0 += kMt) {
-    const int nk = min(kMt, d.Sk - k0);
-    __syncthreads();
-    const int64_t koff = (((int64_t)b * d.Sk + k0) * d.Hkv + kvh) * HD;
-    load_rows<HD>(Ks, k + koff, kstride, nk);
-    load_rows<HD>(Vs, v + koff, kstride, nk);
-    __syncthreads();
-    mma_scores<HD>(Qs, dOs, Ks, Vs, S, dP, warp);
-    __syncthreads();
-    mma_probs(d, S, dP, sl, sd, q0, k0, nullptr, dS);
-    __syncthreads();
+    for (int c = 0; c < L::kHalves; ++c)
 #pragma unroll
-    for (int j = 0; j < HD / 32; ++j) {
-      const int t = warp + kWarps * j, tr = t / (HD / 16), tc = t % (HD / 16);
+      for (int half = 0; half < 2; ++half) {
+        const uint32_t off = c * 2 * kBoxBytes + half * kBoxBytes;
+        tma_load(sq + off, &tq, qbar, h * HD + c * 64, q0 + half * kTile, b);
+        tma_load(sdo + off, &tdo, qbar, h * HD + c * 64, q0 + half * kTile,
+                 b);
+      }
+    for (int t = 0; t < n_kt; ++t) {
+      const int s = t % kStages;
+      mbar_wait(empty0 + 8 * s, ((t / kStages) & 1) ^ 1);
+      mbar_expect_tx(full0 + 8 * s, 2 * L::kTileBytes);
+      const uint32_t kd = sring + 2 * s * L::kTileBytes;
 #pragma unroll
-      for (int kk = 0; kk < kMt / 16; ++kk) {
-        FragA<wmma::row_major> a;
-        FragB<wmma::row_major> bm;
-        wmma::load_matrix_sync(a, dS + tr * 16 * kPld + kk * 16, kPld);
-        wmma::load_matrix_sync(bm, Ks + kk * 16 * ld + tc * 16, ld);
-        wmma::mma_sync(acc[j], a, bm, acc[j]);
+      for (int c = 0; c < L::kHalves; ++c) {
+        tma_load(kd + c * kBoxBytes, &tk, full0 + 8 * s, kvh * HD + c * 64,
+                 t * kTile, b);
+        tma_load(kd + L::kTileBytes + c * kBoxBytes, &tv, full0 + 8 * s,
+                 kvh * HD + c * 64, t * kTile, b);
       }
     }
+    return;
   }
-  write_result<HD>(acc, d.scale, S, dq + qoff, qstride, nq, warp);
+
+  // ---- consumers: warpgroup wg owns rows qw .. qw + 63
+  const int wg = threadIdx.x / 128, t128 = threadIdx.x % 128;
+  const int rl = 16 * (t128 / 32) + lane / 4;  // the thread's rows rl, rl + 8
+  const int col0 = 2 * (lane % 4);
+  const int qw = q0 + kTile * wg;
+  const uint32_t qa = sq + kTile * wg * kSwzRow, doa = sdo + kTile * wg * kSwzRow;
+  const float scale_log2 = d.scale * kLog2e;
+  // per row: lse * log2 e and D (0 past Sq: such a row is not stored), and
+  // the last key it sees, less col0
+  float l2[2], dd[2];
+  int lim[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = qw + rl + 8 * i;
+    const int64_t at = ((int64_t)b * d.H + h) * d.Sq + row;
+    l2[i] = row < d.Sq ? lse[at] * kLog2e : 0.f;
+    dd[i] = row < d.Sq ? delta[at] : 0.f;
+    lim[i] = (d.causal ? min(row, d.Sk - 1) : d.Sk - 1) - col0;
+  }
+  // the last key that any row of the warpgroup sees, and that all do
+  const int wg_last = d.causal ? min(qw + kTile - 1, d.Sk - 1) : d.Sk - 1;
+  const int wg_all = d.causal ? min(qw, d.Sk - 1) : d.Sk - 1;
+
+  float acc[L::kHalves][32];
+#pragma unroll
+  for (int c = 0; c < L::kHalves; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
+
+  mbar_wait(qbar, 0);
+  for (int t = 0; t < n_kt; ++t) {
+    const int s = t % kStages, k0 = t * kTile;
+    mbar_wait(full0 + 8 * s, (t / kStages) & 1);
+    if (k0 <= wg_last) {
+      const uint32_t kd = sring + 2 * s * L::kTileBytes;
+      const uint32_t vd = kd + L::kTileBytes;
+      // S = Q K^T and dP = dO V^T
+      float sc[32], dp[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.f;
+      pin(sc);
+      pin(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss(sc, sw128_desc(qa + (kk / 4) * 2 * kTile * kSwzRow + off),
+                 sw128_desc(kd + (kk / 4) * kTile * kSwzRow + off), kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss(dp, sw128_desc(doa + (kk / 4) * 2 * kTile * kSwzRow + off),
+                 sw128_desc(vd + (kk / 4) * kTile * kSwzRow + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      pin(sc);
+      // P = exp2(S scale log2 e - lse log2 e); register e holds row
+      // rl + 8 ((e >> 1) & 1), key k0 + col0 + 8 (e >> 2) + (e & 1). Only
+      // a tile past a row's last key (the causal diagonal, or past Sk)
+      // is masked.
+      const bool edge = k0 + kTile - 1 > wg_all;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int i = (e >> 1) & 1;
+        const float p = exp2f(sc[e] * scale_log2 - l2[i]);
+        sc[e] = edge && 8 * (e >> 2) + (e & 1) > lim[i] - k0 ? 0.f : p;
+      }
+      wgmma_wait<0>();
+      pin(dp);
+      uint32_t dsa[16];
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int i = (e >> 1) & 1;
+        dsa[e / 2] = pack_bf16(sc[e] * (dp[e] - dd[i]),
+                               sc[e + 1] * (dp[e + 1] - dd[i]));
+      }
+      // dQ += dS K, K as MN-major B
+#pragma unroll
+      for (int c = 0; c < L::kHalves; ++c) pin(acc[c]);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kTile / 16; ++j)
+#pragma unroll
+        for (int c = 0; c < L::kHalves; ++c)
+          wgmma_rs(acc[c], dsa + 4 * j,
+                   sw128_desc(kd + c * kTile * kSwzRow + j * 16 * kSwzRow));
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int c = 0; c < L::kHalves; ++c) pin(acc[c]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = qw + rl + 8 * i;
+    if (row >= d.Sq) continue;
+    bf16* out = dq + (((int64_t)b * d.Sq + row) * d.H + h) * HD;
+#pragma unroll
+    for (int c = 0; c < L::kHalves; ++c)
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        const int e = 4 * nb + 2 * i;
+        *reinterpret_cast<__nv_bfloat162*>(out + c * 64 + 8 * nb + col0) =
+            __floats2bfloat162_rn(acc[c][e] * d.scale,
+                                  acc[c][e + 1] * d.scale);
+      }
+  }
 }
 
 template <int HD>
-int launch_mma(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dq, void* dk,
-               void* dv, const Dims& d, cudaStream_t st) {
-  const size_t smem = MmaLayout<HD>::kSmem;
-  cudaError_t err = allow_smem(dkdv_mma<HD>, smem);
-  if (err == cudaSuccess) err = allow_smem(dq_mma<HD>, smem);
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 void* dq, void* dk, void* dv, const Dims& d,
+                 cudaStream_t st) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tensor_map(&tq, enc, q, d.B, d.Sq, d.H * HD, kTile) ||
+      !tensor_map(&tk, enc, k, d.B, d.Sk, d.Hkv * HD, kTile) ||
+      !tensor_map(&tv, enc, v, d.B, d.Sk, d.Hkv * HD, kTile) ||
+      !tensor_map(&tdo, enc, dout, d.B, d.Sq, d.H * HD, kTile))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem_kv = DkdvLayout<HD>::kSmem, smem_q = DqLayout<HD>::kSmem;
+  cudaError_t err = allow_smem(dkdv_wgmma<HD>, smem_kv);
+  if (err == cudaSuccess) err = allow_smem(dq_wgmma<HD>, smem_q);
   if (err != cudaSuccess) return (int)err;
-  dkdv_mma<HD><<<dim3((d.Sk + kMt - 1) / kMt, d.Hkv, d.B), kThreads, smem,
-                 st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                       (const bf16*)dout, lse, delta, (bf16*)dk, (bf16*)dv,
-                       d);
+  const int key_tiles = (d.Sk + 2 * kTile - 1) / (2 * kTile);
+  dkdv_wgmma<HD><<<d.B * d.Hkv * key_tiles, kConsumers, smem_kv, st>>>(
+      tq, tk, tv, tdo, lse, delta, (bf16*)dk, (bf16*)dv, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dq_mma<HD><<<dim3((d.Sq + kMt - 1) / kMt, d.H, d.B), kThreads, smem,
-               st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                     (const bf16*)dout, lse, delta, (bf16*)dq, d);
+  const int query_tiles = (d.Sq + 2 * kTile - 1) / (2 * kTile);
+  dq_wgmma<HD><<<d.B * d.H * query_tiles, kQThreads, smem_q, st>>>(
+      tq, tk, tv, tdo, lse, delta, (bf16*)dq, d);
   return (int)cudaGetLastError();
 }
 
@@ -528,7 +803,7 @@ int launch_delta(const void* o, const void* dout, float* delta, const Dims& d,
 
 }  // namespace repro_flash_bwd
 
-// 1 when (dtype, hd) takes the mma variant, 0 for the simt one.
+// 1 when (dtype, hd) takes the wgmma variant, 0 for the simt one.
 extern "C" int repro_flash_attention_bwd_variant(int dtype, int hd) {
   return dtype == 1 && (hd == 64 || hd == 128) ? 1 : 0;
 }
@@ -552,8 +827,8 @@ extern "C" int repro_flash_attention_bwd(
   if (err != 0) return err;
   if (repro_flash_attention_bwd_variant(dtype, hd)) {
     if (hd == 64)
-      return launch_mma<64>(q, k, v, dout, lse, delta, dq, dk, dv, d, st);
-    return launch_mma<128>(q, k, v, dout, lse, delta, dq, dk, dv, d, st);
+      return launch_wgmma<64>(q, k, v, dout, lse, delta, dq, dk, dv, d, st);
+    return launch_wgmma<128>(q, k, v, dout, lse, delta, dq, dk, dv, d, st);
   }
   if (dtype == 0)
     return launch_simt<float>(q, k, v, dout, lse, delta, dq, dk, dv, d, st);

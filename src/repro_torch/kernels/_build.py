@@ -5,13 +5,16 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds), under ``build/repro_torch/`` at the repository root. A library's
 file name carries a hash of its sources and flags, so an edited source
 rebuilds and an unchanged one loads the library already built.
-:func:`build_all` starts every ``nvcc`` at once.
+:func:`build_all` starts every ``nvcc`` at once. Each build keeps ptxas's
+report (registers, spills and stack of every kernel) beside its library,
+read by :func:`ptxas_report`.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("paged_attention", "chunk_prefill", "flash_attention",
            "flash_attention_bwd", "ssd_chunk")
 
@@ -69,6 +72,7 @@ def _finish(name: str, proc: subprocess.Popen) -> None:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     out = _target(name)
+    out.with_suffix(".log").write_text(log)
     os.replace(out.with_suffix(f".{os.getpid()}.tmp"), out)
 
 
@@ -82,6 +86,46 @@ def build_all(names: List[str] = SOURCES) -> None:
             _finish(n, p)
         for n in todo:
             _libs[n] = ctypes.CDLL(str(_target(n)))
+
+
+def ptxas_report(name: str) -> Dict[str, dict]:
+    """ptxas's report of each kernel of ``csrc/<name>.cu`` as built here
+    (mangled name -> registers, spill stores and loads, stack bytes, and
+    whether ptxas serialized its wgmma for want of registers), from the
+    log its build kept; empty when the library was built elsewhere."""
+    log = _target(name).with_suffix(".log")
+    if not log.exists():
+        return {}
+    out: Dict[str, dict] = {}
+    serialized = set()
+    kernel = None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = m.group(1)
+            out[kernel] = {"registers": 0, "spill_stores": 0,
+                           "spill_loads": 0, "stack": 0,
+                           "wgmma_serialized": False}
+            continue
+        m = re.search(r"wgmma.mma_async instructions are serialized.*'(\w+)'",
+                      line)
+        if m:
+            serialized.add(m.group(1))
+            continue
+        if kernel is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[kernel].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[kernel]["registers"] = int(m.group(1))
+    for k in serialized & set(out):
+        out[k]["wgmma_serialized"] = True
+    return out
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -14,8 +14,9 @@ attention with JAX autodiff.
 
 The forward's launcher picks one of two variants from (dtype, hd) alone:
 ``wgmma`` (bf16 with hd 64 or 128: tensor cores, TMA) or ``simt`` (f32 and
-other widths: the CUDA-core tile loop); the backward's likewise, ``mma``
-(bf16 with hd 64 or 128: warp-level tensor-core products) or ``simt``.
+other widths: the CUDA-core tile loop); the backward's likewise, ``wgmma``
+(bf16 with hd 64 or 128: two deterministic passes of ``wgmma`` fed by TMA)
+or ``simt``.
 Each wrapper counts its launches, in total and by variant: the serving
 forward (:func:`flash_attention`), the forward that also writes the row
 log-sum-exp (:func:`flash_attention_fwd`) and the backward
@@ -32,7 +33,7 @@ from repro_torch.kernels import _build
 
 _NAME = "flash_attention"
 VARIANTS = ("simt", "wgmma")   # indexed by repro_flash_attention_variant
-BWD_VARIANTS = ("simt", "mma")  # by repro_flash_attention_bwd_variant
+BWD_VARIANTS = ("simt", "wgmma")  # by repro_flash_attention_bwd_variant
 # kernel launches since the caller last reset them: the serving forward, the
 # forward with the row log-sum-exp, and the backward
 launches = 0

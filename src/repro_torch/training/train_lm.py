@@ -8,12 +8,18 @@ checkpoint and restart (kill and resume), and straggler detection.
 The port of ``examples/train_lm.py``. One difference: a checkpoint is
 named by the number of steps it holds (the reference saves the state after
 step ``s`` under ``s`` and resumes by running step ``s`` again), so a run
-resumed from any checkpoint equals the uninterrupted run.
+resumed from any checkpoint equals the uninterrupted run. On the card
+that needs deterministic kernels: :func:`main` turns on
+``torch.use_deterministic_algorithms`` and cuBLAS's fixed workspace
+(``CUBLAS_WORKSPACE_CONFIG=:4096:8``, unless the caller set one) for the
+run, and the flash backward sums without atomics.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
 import time
 from pathlib import Path
 
@@ -51,6 +57,23 @@ def default_config():
         dtype=torch.float32, name="qwen3-100m")
 
 
+@contextlib.contextmanager
+def deterministic(device: str):
+    """On ``cuda``, deterministic algorithms for the block (restored after)
+    and a fixed cuBLAS workspace, set before cuBLAS first runs in a fresh
+    process; on the CPU nothing changes."""
+    if device != "cuda":
+        yield
+        return
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
 def main(argv=None, cfg=None) -> dict:
     """Trains ``cfg`` (:func:`default_config` unless given) from the last
     checkpoint under ``--ckpt`` (or from step 0) to ``--steps``, saving
@@ -65,8 +88,11 @@ def main(argv=None, cfg=None) -> dict:
     ap.add_argument("--ckpt", default=str(DEFAULT_CKPT))
     ap.add_argument("--ckpt-every", type=int, default=100)
     args = ap.parse_args(argv)
+    with deterministic(args.device):
+        return _train(args, cfg or default_config())
 
-    cfg = cfg or default_config()
+
+def _train(args, cfg) -> dict:
     model = build_model(cfg, device=args.device, seed=0, trainable=True)
     print(f"[train] {cfg.name}: {cfg.param_count() / 1e6:.1f}M params, "
           f"{args.steps} steps, microbatch x{args.n_micro}, {args.device}")

@@ -825,7 +825,7 @@ def test_flash_backward_kernel(dev, B, Sq, Sk, H, Hkv, hd, causal, dtype):
                   dtype) for _ in range(2))
     k, v = (_t(rng.standard_normal((B, Sk, Hkv, hd), np.float32), dev,
                dtype) for _ in range(2))
-    want_variant = ("mma" if dtype == torch.bfloat16 and hd in (64, 128)
+    want_variant = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128)
                     else "simt")
     assert fa.bwd_variant(dtype, hd) == want_variant
     before = dict(fa.bwd_launches_by_variant)
@@ -858,6 +858,50 @@ def test_two_backward_runs_are_bitwise_equal(dev, dtype):
     a = fa.flash_attention_bwd(q, k, v, o, lse, dout, True)
     b = fa.flash_attention_bwd(q, k, v, o, lse, dout, True)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# the wgmma backward's tile edges: 128-key blocks of dkdv (64 keys per
+# warpgroup), 64-row query tiles, 128-row blocks of dq: (Sq, Sk, causal)
+BWD_EDGES = [
+    (96, 127, False),    # a block one key short
+    (128, 128, True),    # exactly one block, the diagonal
+    (131, 129, True),    # one key into a second block
+    (40, 128, True),     # Sq < 64: one ragged query tile
+    (40, 129, False),
+    (300, 127, True),    # causal with Sk < Sq
+    (257, 129, False),   # Sq > Sk, one row into a third dq block
+]
+
+
+@pytest.mark.parametrize("Sq,Sk,causal", BWD_EDGES)
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("g", [1, 4])
+def test_flash_backward_wgmma_at_its_tile_edges(dev, Sq, Sk, causal, hd, g):
+    """The bf16 wgmma variant at B = 2, two kv heads: dq, dk and dv against
+    the plain backward on the kernel's o and lse, each row's error over
+    its magnitude to 3e-2 and the largest to 5e-2 (chip_smoke.py's
+    limits), and two runs bitwise equal."""
+    B, Hkv, bf16 = 2, 2, torch.bfloat16
+    H = g * Hkv
+    rng = np.random.default_rng(Sq * 1000 + Sk + hd + g)
+    q, dout = (_t(rng.standard_normal((B, Sq, H, hd), np.float32), dev,
+                  bf16) for _ in range(2))
+    k, v = (_t(rng.standard_normal((B, Sk, Hkv, hd), np.float32), dev,
+               bf16) for _ in range(2))
+    assert fa.bwd_variant(bf16, hd) == "wgmma"
+    before = fa.bwd_launches_by_variant["wgmma"]
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, dout, causal)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, dout, causal)
+    assert fa.bwd_launches_by_variant["wgmma"] == before + 2
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       o.float(), lse, dout.float(), causal)
+    torch.cuda.synchronize()
+    for got, w, a in zip(grads, want, again):
+        assert got.dtype == bf16 and got.shape == w.shape
+        assert torch.equal(got, a)
+        assert float((got.float() - w).abs().max()) <= 5e-2
+        assert _grad_row_err(got, w) <= 3e-2
 
 
 @pytest.mark.parametrize("dtype,hd", [(torch.float32, 64),
@@ -952,3 +996,63 @@ def test_a_train_step_on_the_card_equals_the_cpu(dev):
         assert abs(mc[k] - mg[k]) <= 1e-5 * max(1.0, abs(mc[k])), k
     for a, b in zip(pc, pg):
         torch.testing.assert_close(b, a, **F32_TOL)
+
+
+def test_train_lm_killed_and_resumed_on_the_card_equals_an_uninterrupted_run(
+        dev, tmp_path, monkeypatch):
+    """``train_lm.main`` on the card (it turns on deterministic algorithms
+    and cuBLAS's fixed workspace itself): a reduced qwen3-8b in bf16 at hd
+    64, so every attention trains through flash's wgmma variants, killed in
+    its fourth step and resumed from the checkpoint of step 2, ends with
+    the uninterrupted run's loss, grad norm and parameters, bit for bit."""
+    import dataclasses
+    from repro_torch.checkpoint import latest_step, restore
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.training import train_lm
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(get_config("qwen3-8b").reduced(), head_dim=64,
+                              dtype=torch.bfloat16, name="qwen3-tiny-bf16")
+    args = ["--device", "cuda", "--steps", "6", "--batch", "4", "--seq",
+            "129", "--n-micro", "2", "--ckpt-every", "2"]
+    was = torch.are_deterministic_algorithms_enabled()
+    ops.reset_counts()
+    whole = train_lm.main(args + ["--ckpt", str(tmp_path / "a")], cfg)
+    assert torch.are_deterministic_algorithms_enabled() == was
+    assert whole["start"] == 0 and np.isfinite(whole["loss"])
+    c = ops.counts()
+    assert c["launches_by_variant"]["flash_attention_bwd"] == {
+        "simt": 0, "wgmma": 6 * 2 * cfg.n_layers}
+    assert not any(ops.plain_calls.values())
+
+    make = train_lm.make_train_step
+    calls = []
+
+    class Killed(Exception):
+        pass
+
+    def dying(*a, **k):
+        step = make(*a, **k)
+
+        def run(*args):
+            calls.append(1)
+            if len(calls) == 4:
+                raise Killed
+            return step(*args)
+        return run
+
+    monkeypatch.setattr(train_lm, "make_train_step", dying)
+    with pytest.raises(Killed):
+        train_lm.main(args + ["--ckpt", str(tmp_path / "b")], cfg)
+    assert latest_step(str(tmp_path / "b")) == 2
+    monkeypatch.setattr(train_lm, "make_train_step", make)
+    resumed = train_lm.main(args + ["--ckpt", str(tmp_path / "b")], cfg)
+    assert resumed["start"] == 2
+    assert resumed["loss"] == whole["loss"]
+    assert resumed["grad_norm"] == whole["grad_norm"]
+    model = train_lm.build_model(cfg, device="cpu", trainable=True)
+    like = (model.param_tree(), train_lm.adamw_init(model.param_tree()))
+    a = restore(str(tmp_path / "a"), like)[0]
+    b = restore(str(tmp_path / "b"), like)[0]
+    assert all(x.dtype == y.dtype and torch.equal(x, y)
+               for x, y in zip(leaves(a), leaves(b)))
