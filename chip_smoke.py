@@ -6,8 +6,8 @@
 Phases, each printing one JSON line (and failing the run on any error):
 
 1. device    -- the card's name and power limit, as ``nvidia-smi`` prints them;
-2. build     -- the five CUDA kernels compiled from ``src/repro_torch/csrc``,
-                all ``nvcc`` processes at once;
+2. build     -- the six CUDA kernel libraries compiled from
+                ``src/repro_torch/csrc``, all ``nvcc`` processes at once;
 3. kernels   -- each kernel against its plain PyTorch version on the card, at
                 the main paths' shapes (bf16) and at a small size (f32); the
                 decode splice bitwise equal to a scatter, and the decode
@@ -47,7 +47,15 @@ Phases, each printing one JSON line (and failing the run on any error):
                 flash kernel's wgmma variant; its tokens against the chunked
                 run's, or the first difference with its logit gap; flash's
                 share of the first step's device time;
-8. prefix    -- the full-width qwen3-8b serving one multi-agent workflow
+7b. dense_kv -- the same model and requests through the Engine's dense KV
+                backend (``kv_backend="dense"``: a dense [8, 2048, 8, 128]
+                cache per attention layer, no arena plane, monolithic
+                prefill, one token per decode step read by the paged
+                kernel over the cache viewed as pages): tokens equal to
+                dense_monolithic's, decode tokens/s, TTFT, the cache's
+                bytes, launches, no plain call;
+8. prefix    -- qwen3-8b at its widths and 12 of its 36 layers (the main
+                path's weights, shared) serving one multi-agent workflow
                 (a 1024-token shared context; stage 0 with 211 own tokens,
                 served alone first; stages 1-7 with own suffixes of 64-500
                 tokens, one sharing stage 0's first 8 own tokens, one all
@@ -84,9 +92,11 @@ Phases, each printing one JSON line (and failing the run on any error):
                 submit and finish times, and the same metrics but the TTFT
                 percentiles;
 12. gateway  -- two ``NodeRuntime``s on the card (clusters 0 and 1), each
-                with full-width qwen3-8b and mamba2-2.7b under a 24 GB budget
-                (GPU tier: either model, not both) over one pinned host copy
-                per model, serving a generated trace of 16 multi-agent jobs
+                with qwen3-8b and mamba2-2.7b at their widths and 12 of 36 /
+                32 of 64 layers under a 10.6 GB budget (GPU tier: either
+                model, not both) over one pinned host copy per model (the
+                node phase's, cut), serving a generated trace of 16
+                multi-agent jobs
                 (76 stages; the length predictor trained as
                 ``examples/serve_multi_agent.py`` trains it) under the wall
                 clock, by fcfs and then maestro on fresh nodes: every job
@@ -118,7 +128,8 @@ Phases, each printing one JSON line (and failing the run on any error):
                 one death, every job finished, the evacuated stages on node
                 0, ``close_fleet`` safe, and the card's free memory back
                 within 1 GB of its value before the boot;
-16. gateway_process -- phase 12's full-width fleet with each node a
+16. gateway_process -- phase 12's fleet with the whole models under
+                the 24 GB budget, each node a
                 freshly booted worker process (``reduced=False``: each child
                 draws both models on the card and keeps its own pinned host
                 copies), the same 16 jobs under maestro and the wall clock,
@@ -150,8 +161,9 @@ Phases, each printing one JSON line (and failing the run on any error):
                 non-zero q/k/v biases) and jamba-v0.1-52b (knobs degrade)
                 served on the card and the CPU from the same weights:
                 identical greedy tokens;
-19. moe_main -- full-width moonshot-v1-16b-a3b (48 layers, 64 experts top
-                6, bf16) serving the main path's 8 requests chunked (256)
+19. moe_main -- moonshot-v1-16b-a3b at its widths and 24 of its 48
+                layers (64 experts top 6, bf16) serving the main path's 8
+                requests chunked (256)
                 at horizon 8, then at horizon 1 (identical tokens), then
                 monolithic (flash; its tokens against the chunked run's or
                 the first difference); a profile of the first chunk step
@@ -191,7 +203,13 @@ Phases, each printing one JSON line (and failing the run on any error):
 25. vlm_main -- the same for full-width llama-3.2-vision-11b (40 layers, 8
                 cross, 1,601 x 4,096 stub patch embeddings, 20.2 GB).
 
-26. kernels_train -- flash's training forward (which also writes each
+26. kernels_train -- the SSD scan's backward (``csrc/ssd_chunk_bwd.cu``)
+                against its plain version (``ref.ssd_chunk_bwd``) at
+                mamba2-2.7b's and jamba's training microbatch (2 x 4,096,
+                bf16), a prime length with and without the final state's
+                gradient and an f32 case: each gradient's error, two runs
+                bitwise equal, the time beside the bound and the plain
+                version; and flash's training forward (which also writes each
                 row's log-sum-exp) and the flash backward
                 (``csrc/flash_attention_bwd.cu``) against their plain
                 versions at the training paths' shapes: qwen3-8b causal
@@ -205,12 +223,13 @@ Phases, each printing one JSON line (and failing the run on any error):
                 beside its bound and SDPA's, with the share of the bound
                 reached (``bound_share``) and the time over SDPA's
                 backward (``library_ratio``);
-27. train_reference -- reduced qwen3-8b, moonshot-v1-16b-a3b and
-                whisper-medium in f32: the loss and every gradient leaf on
-                the card (the kernels) against the CPU (plain versions);
+27. train_reference -- reduced qwen3-8b, moonshot-v1-16b-a3b,
+                whisper-medium, mamba2-2.7b and jamba-v0.1-52b in f32: the
+                loss and every gradient leaf on the card (the kernels)
+                against the CPU (plain versions);
 28. train_main -- full-width qwen3-8b in bf16: at 2 layers and 4,096
                 tokens the loss and every gradient leaf with the kernels
-                against the plain attention on the card; then at 12 of its
+                against the plain attention on the card; then at 6 of its
                 36 layers 12 AdamW steps on one batch of 4 x 4,096 tokens
                 (2 microbatches) under deterministic algorithms: the loss
                 below half its first value; an asynchronous checkpoint
@@ -221,12 +240,20 @@ Phases, each printing one JSON line (and failing the run on any error):
                 flash backward's share and its time by device kernel;
 29. train_whisper -- whisper-medium whole (24 + 24 layers, bf16) a few
                 steps on stub frames and 448-token decoder sequences: the
-                loss falls.
+                loss falls;
+30. train_mamba2 -- mamba2-2.7b whole (64 layers, bf16): at 2 layers the
+                loss and every gradient leaf with the SSD kernels against
+                the plain scan on the card; then train_main's batch (4 x
+                4,096 tokens in 2 microbatches, AdamW, the cyclic batch, 12
+                steps) under deterministic algorithms, the loss below half
+                its first value; step time, tokens/s, MFU, peak memory, the
+                SSD backward's and forward's shares of a profiled step.
 
 The models of phases 19-25 are drawn on the card one at a time, each
 freed before the next; so are the training phases' models. Every
-training path launches flash's training forward and its backward only:
-no serving forward, no plain version.
+training path launches flash's training forward and its backward for
+attention, the SSD scan and its backward for SSM layers: no serving
+attention, no plain version.
 
 Each serving path zeroes the launch counts just before it runs and reads
 them just after: every kernel of that path must have launched and no plain
@@ -425,6 +452,23 @@ def ssd_cost(S, H, P, N, Q, esize):
         n = min(Q, S - c0)
         flops += H * (n * (n + 1) * (N + P) + 4 * n * N * P)
     return n_bytes, flops
+
+
+def ssd_bwd_cost(B, S, H, P, N, Q, esize, with_state):
+    """Bytes (x, B, C, dy and dx, dB, dC in the I/O dtype; dt, ddt, A, dA
+    and the final state's gradient in f32) and flops of the SSD scan's
+    backward over B sequences with chunks of Q: per chunk of n tokens and
+    head, G = C B^T, dM = dy xdt^T, M^T dy, dG B and dG^T C over the
+    n(n+1)/2 visible pairs, and five [n] x [N, P] products (the chunk's
+    state and its gradient, their terms in dC, dx and dB), 2 flops per
+    multiply-add."""
+    n_bytes = (B * S * H * (3 * P + 4 * N) * esize + 2 * B * S * H * 4
+               + 2 * H * 4 + (B * H * N * P * 4 if with_state else 0))
+    macs = 0
+    for c0 in range(0, S, Q):
+        n = min(Q, S - c0)
+        macs += n * (n + 1) // 2 * (3 * N + 2 * P) + 5 * n * N * P
+    return n_bytes, 2 * B * H * macs
 
 
 def next_prime(n: int) -> int:
@@ -889,6 +933,7 @@ KERNEL_NAMES = {
     "chunk_prefill_attention": ("chunk_prefill_kernel", "PagedKV"),
     "flash_attention": ("flash_attention_kernel", "DenseKV"),
     "ssd_chunk": ("ssd_chunk",),
+    "ssd_chunk_bwd": ("repro_ssd_bwd::",),
 }
 
 
@@ -1189,7 +1234,66 @@ def phase_dense_monolithic(torch, model, prompts, tokens_chunked):
          flash_share_of_first_step=prof["first_step"]["device_share"][
              "flash_attention"],
          profile_first_step=prof)
-    return launches, by_variant
+    return launches, by_variant, tokens
+
+
+def phase_dense_kv(torch, model, prompts, tokens_mono):
+    """The main path's model and requests through the Engine's dense KV
+    backend (``kv_backend="dense"``: each attention layer's K/V in a dense
+    [max_slots, s_max, Hkv, hd] cache, no arena plane, monolithic prefill,
+    one token per decode step). The decode reads the dense cache through
+    the paged kernel, the cache viewed as pages; the greedy tokens must
+    equal the monolithic paged path's. Returns the launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    cfg = model.cfg
+    kw = {k: MAIN[k] for k in ("max_slots", "s_max", "page_tokens")}
+    reset_peak(torch)
+    ops.reset_counts()
+    eng, done, steps = serve(torch, model, prompts, device="cuda",
+                             kv_backend="dense", **kw)
+    launches = {k: n for k, n in launch_counts().items() if n}
+    by_variant = dict(fa.launches_by_variant)
+    plain = dict(ops.plain_calls)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(eng.kv_backend == "dense" and not eng.paged
+            and eng.binding.plane is None and eng.chunk_tokens == 0
+            and eng.horizon == 1, "the dense engine did not degrade")
+    expected = cfg.n_layers * len(prompts)
+    require(set(launches) == {"flash_attention", "paged_attention"}
+            and launches["flash_attention"] == expected
+            and by_variant["wgmma"] == expected,
+            f"dense KV path launches {launches}, flash by variant "
+            f"{by_variant}: not flash (wgmma) per prompt and layer and the "
+            f"paged decode")
+    require(launches["paged_attention"]
+            == cfg.n_layers * eng.stat_decode_syncs,
+            f"paged_attention launched {launches['paged_attention']} times "
+            f"over {eng.stat_decode_syncs} decode steps")
+    require(not any(plain.values()),
+            f"a plain version ran on the dense KV path: {plain}")
+    for i, r in done.items():
+        require(len(r.out) == MAIN["max_new"] and not r.truncated,
+                f"request {i} emitted {len(r.out)} tokens")
+    tokens = {i: r.out for i, r in done.items()}
+    diff = first_difference(torch, model, prompts, tokens_mono, tokens)
+    require(diff is None, f"dense KV tokens differ from the monolithic "
+            f"paged path's: {diff}")
+    S = eng.cache["k"].shape[2]
+    kv_bytes = 2 * (cfg.n_layers * kw["max_slots"] * S * cfg.n_kv_heads
+                    * cfg.head_dim_ * 2)
+    require(eng._state_bytes == kv_bytes,
+            f"dense cache of {eng._state_bytes} bytes, not {kv_bytes}")
+    emit("dense_kv", model=cfg.name, config={**kw, "kv_backend": "dense"},
+         launches=launches, flash_launches_by_variant=by_variant,
+         plain_calls=plain, **serving_rates(done, steps),
+         stat_decode_syncs=eng.stat_decode_syncs,
+         dense_cache_gb=kv_bytes / 1e9, peak_mem_gb=peak_gb,
+         identical_to_monolithic=True)
+    del eng
+    torch.cuda.empty_cache()
+    return launches
 
 
 def profile_first_step(torch, model, prompts, rows=None, **kw):
@@ -1517,15 +1621,31 @@ def stale_page(flow):
     return fault
 
 
+PREFIX_LAYERS = 12    # of qwen3-8b's 36: the phase's depth, cut for time
+
+
+def shallow(model, n_layers: int):
+    """A model over the first ``n_layers`` layers of ``model`` (its
+    embedding, final norm and head too), sharing its weights: no copy."""
+    from repro_torch.models import build_model
+    tree = model.param_tree()
+    tree["layers"] = tree["layers"][:n_layers]
+    return build_model(dataclasses.replace(model.cfg, n_layers=n_layers),
+                       tree, device="cuda")
+
+
 def phase_prefix(torch, model, flow, matched):
-    """Full-width qwen3-8b serving the workflow, chunked (256) and
-    monolithic, with the prefix cache off and on. The hit stages' suffixes
-    run the chunk kernel (monolithic: one call per layer and stage, all
-    wgmma), their decode the paged kernel over aliased rows. Each hit
-    stage's first-token logits and cached prefix pages must agree with the
-    cache-off run's; a planted stale page must be caught."""
+    """qwen3-8b at its widths and ``PREFIX_LAYERS`` layers (a cut of the
+    main path's model, sharing its weights) serving the workflow, chunked
+    (256) and monolithic, with the prefix cache off and on. The hit
+    stages' suffixes run the chunk kernel (monolithic: one call per layer
+    and stage, all wgmma), their decode the paged kernel over aliased
+    rows. Each hit stage's first-token logits and cached prefix pages
+    must agree with the cache-off run's; a planted stale page must be
+    caught."""
     from repro_torch.kernels import ops
 
+    model = shallow(model, PREFIX_LAYERS)
     rows = 2 * (MAIN["max_slots"] * -(-MAIN["s_max"] // MAIN["page_tokens"])
                 + 1)                              # live rows + the pins
     hit = list(range(1, len(flow)))
@@ -1641,7 +1761,8 @@ def phase_prefix(torch, model, flow, matched):
                     f"{lo['flash_attention']}, not {L} (stage 0 only)")
         result[mode] = entry
         launches_on[mode] = lo
-        emit("prefix", model=model.cfg.name, mode=mode,
+        emit("prefix", model=model.cfg.name, n_layers=model.cfg.n_layers,
+             mode=mode,
              config=dict(max_slots=MAIN["max_slots"], s_max=MAIN["s_max"],
                          page_tokens=MAIN["page_tokens"],
                          prefill_chunk_tokens=chunk,
@@ -2097,13 +2218,21 @@ def reference_jobs(trace, seed: int):
 GATEWAY = dict(jobs=16, rate=1.5, hbm_budget=24e9, max_slots=8, s_max=2048,
                prefill_chunk_tokens=256, decode_horizon=8, prompt_cap=512,
                gen_cap=64, max_run_s=240.0, reject_limit=1_000_000)
+# the in-process gateway's models at their published widths, cut in depth
+# for time, under a budget cut with them: its GPU tier (0.8 of it, 8.5 GB)
+# holds qwen3-8b's 12 layers (7.1 GB) or mamba2-2.7b's 32 (2.8 GB), not
+# both, as the full budget does the whole models
+GATEWAY_LAYERS = {MAIN["model"]: 12, SSM_MODEL: 32}
+GATEWAY_CUT_BUDGET = 10.6e9
 
 
 def phase_gateway(torch, args, host, pred):
-    """Full-width qwen3-8b and mamba2-2.7b on two ``NodeRuntime``s that
-    share the card, in clusters 0 and 1 (RTT ``DEFAULT_RTT[:2, :2]``),
-    each under a 24 GB budget whose GPU tier holds either model's weights
-    but not both, with one pinned host copy per model for the whole fleet.
+    """qwen3-8b and mamba2-2.7b at their published widths and
+    ``GATEWAY_LAYERS`` layers on two ``NodeRuntime``s that share the card,
+    in clusters 0 and 1 (RTT ``DEFAULT_RTT[:2, :2]``), each under a
+    budget (``GATEWAY_CUT_BUDGET``) whose GPU tier holds either model's
+    weights but not both, with one pinned host copy per model for the
+    whole fleet (the node phase's, cut).
     A generated multi-agent trace (16 jobs) served under the wall clock by
     fcfs, then by maestro, each on fresh nodes: every job must finish
     inside ``max_run_s``, no plain version may run, the paged, chunk
@@ -2120,9 +2249,13 @@ def phase_gateway(torch, args, host, pred):
     from repro_torch.serving import cluster
     from repro_torch.serving.gateway import GatewayConfig
 
-    spec = gateway_spec()
+    spec = gateway_spec(GATEWAY_CUT_BUDGET)
     names = spec.model_names
-    zoo = {n: types.SimpleNamespace(cfg=get_config(n)) for n in names}
+    zoo = {n: types.SimpleNamespace(cfg=dataclasses.replace(
+        get_config(n), n_layers=GATEWAY_LAYERS[n])) for n in names}
+    # the whole models' pinned host trees, cut: the same tensors
+    host = {n: {**host[n], "layers": host[n]["layers"][:GATEWAY_LAYERS[n]]}
+            for n in names}
     pinned_ptrs = {n: {t.data_ptr() for t in tree_tensors(host[n])}
                    for n in names}
     pinned_bytes = sum(t.nbytes for n in names
@@ -2216,8 +2349,9 @@ def phase_gateway(torch, args, host, pred):
             engine_horizon_steps=m.engine_horizon_steps,
             host_syncs_per_token=m.host_syncs_per_token)
         emit("gateway", run=run, policy=policy, reject_limit=limit,
-             models=list(names),
-             config=dict(GATEWAY, vocab=vocab), clock=m.clock,
+             models=list(names), n_layers=GATEWAY_LAYERS,
+             config=dict(GATEWAY, hbm_budget=GATEWAY_CUT_BUDGET,
+                         vocab=vocab), clock=m.clock,
              pinned_host_bytes=pinned_bytes, host_shared=shared,
              **results[run])
         del gw, fleet
@@ -2239,18 +2373,19 @@ def phase_gateway(torch, args, host, pred):
                  "admission_rejections"],
              fcfs_admission_rejections=results["fcfs"][
                  "admission_rejections"]))
-    return launches, results
+    return launches
 
 
-def gateway_spec():
-    """Phase gateway's fleet: two nodes in clusters 0 and 1, each with
-    full-width qwen3-8b and mamba2-2.7b under a 24 GB budget, chunk 256,
-    horizon 8."""
+def gateway_spec(hbm_budget: float = GATEWAY["hbm_budget"]):
+    """The gateway phases' fleet: two nodes in clusters 0 and 1, each with
+    qwen3-8b and mamba2-2.7b under ``hbm_budget`` (24 GB for the whole
+    models), chunk 256, horizon 8."""
     from repro_torch.serving import cluster
 
-    node_kw = {k: GATEWAY[k] for k in ("hbm_budget", "max_slots", "s_max",
+    node_kw = {k: GATEWAY[k] for k in ("max_slots", "s_max",
                                        "prefill_chunk_tokens",
                                        "decode_horizon")}
+    node_kw["hbm_budget"] = hbm_budget
     return cluster.ClusterSpec(
         nodes=(cluster.NodeSpec(0, **node_kw), cluster.NodeSpec(1, **node_kw)),
         model_names=(MAIN["model"], SSM_MODEL))
@@ -2536,9 +2671,12 @@ def mem_available_gb() -> float:
     raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
-def phase_gateway_process(torch, args, pred, inproc):
-    """Phase gateway's full-width fleet with each node a worker process of
-    its own on the card (``reduced=False``: each child draws qwen3-8b and
+def phase_gateway_process(torch, args, pred):
+    """Phase gateway's two nodes and 16 jobs, but with the whole models
+    under the 24 GB budget (phase gateway cuts both in depth and budget,
+    so the two runs are different fleets and are not compared), each node
+    a worker process of its own on the card (``reduced=False``:
+    each child draws qwen3-8b and
     mamba2-2.7b on the card and keeps one pinned host copy of each), freshly
     booted, serving the same 16 jobs under maestro and the wall clock with
     the raised ``reject_limit``; the workers free-run. Every job finished,
@@ -2546,8 +2684,7 @@ def phase_gateway_process(torch, args, pred, inproc):
     launched, every chunk and SSD launch took ``wgmma``, no plain version
     ran, no JAX module loaded, every offload freed at least 95% of its
     weight bytes and the peak allocated memory stayed within 1.1 times the
-    node's budget. Printed beside ``inproc``, the in-process maestro run of
-    phase gateway. Returns the launches, summed and per child."""
+    node's budget. Returns the launches, summed and per child."""
     from repro_torch.serving import cluster
     from repro_torch.serving.gateway import GatewayConfig
     from repro_torch.serving.worker import NodeHandle, close_fleet, spawn_fleet
@@ -2654,12 +2791,6 @@ def phase_gateway_process(torch, args, pred, inproc):
                      for nid, r in records.items()},
         launches=total, launches_by_child=per_child,
         launches_by_variant=by_variant)
-    keys = ("finished_jobs", "slo_attainment", "interactive_queue_delay_s",
-            "batch_queue_delay_s", "mean_latency_s", "p95_latency_s",
-            "makespan_s", "ttft_p50_s", "ttft_p95_s", "cold_starts",
-            "preemptions", "node_busy_frac", "overlap_factor",
-            "deferred_activations", "t_act_waited_by_submit_s",
-            "activation_measured_by_submit_s", "peak_mem_gb")
     emit("gateway_process", policy="maestro", backend="process",
          clock=m.clock, models=list(spec.model_names),
          config=dict(GATEWAY, vocab=vocab), boot_s=boot_s,
@@ -2667,8 +2798,7 @@ def phase_gateway_process(torch, args, pred, inproc):
          host_cache_emptied_by=getattr(host_empty, "__name__", None),
          host_mem_available_gb_before=host_before,
          host_mem_available_gb_after=host_after,
-         host_mem_available_gb_after_close=host_closed, **process,
-         inproc_maestro={k: inproc.get(k) for k in keys})
+         host_mem_available_gb_after_close=host_closed, **process)
     reset_peak(torch)
     return {"gateway_process": total,
             **{f"gateway_process_node{nid}": n
@@ -2679,9 +2809,12 @@ def phase_gateway_process(torch, args, pred, inproc):
 ZOO = dict(moe="moonshot-v1-16b-a3b", llama4="llama4-scout-17b-a16e",
            qwen32="qwen3-32b", qwen110="qwen1.5-110b",
            hybrid="jamba-v0.1-52b")
-# layers run on the card at the published widths where all of them would
-# not fit one card's 80 GB (moonshot and qwen3-32b run whole)
-ZOO_LAYERS = {ZOO["llama4"]: 8, ZOO["qwen110"]: 8, ZOO["hybrid"]: 16}
+# layers run on the card at the published widths: llama4-scout,
+# qwen1.5-110b and jamba where all of them would not fit one card's 80 GB,
+# moonshot (which would) cut to 24 of 48 for the smoke's clock; qwen3-32b
+# runs whole
+ZOO_LAYERS = {ZOO["llama4"]: 8, ZOO["qwen110"]: 8, ZOO["hybrid"]: 16,
+              ZOO["moe"]: 24}
 # (H, Hkv) of moonshot (g = 1), llama4-scout (g = 5), qwen3-32b and
 # qwen1.5-110b (g = 8); hd 128 in all
 ZOO_HEADS = ((16, 16), (40, 8), (64, 8))
@@ -3029,7 +3162,8 @@ def serve_path(torch, where, model, prompts, *, chunk, horizon,
 
 
 def phase_moe_main(torch, args, prompts):
-    """Full-width moonshot-v1-16b-a3b (48 layers, bf16): the main path's 8
+    """moonshot-v1-16b-a3b at its widths and ``ZOO_LAYERS`` (24 of its 48)
+    layers, bf16: the main path's 8
     requests chunked (256) at horizon 8, then at horizon 1 (identical
     tokens), then monolithic (flash); a profile of the first chunk step
     and one horizon launch with each kernel's and the MoE's share; the
@@ -3074,7 +3208,7 @@ def phase_moe_main(torch, args, prompts):
                                "prefill_chunk_tokens")}
     with moe_ranges(torch):
         prof, use = profile_moe(torch, model, prompts, rows, kw)
-    emit("moe_main", model=cfg.name, params=n_params,
+    emit("moe_main", model=cfg.name, n_layers=cfg.n_layers, params=n_params,
          weights_gb=n_params * 2 / 1e9, model_build_s=build_s,
          prompt_lens=[len(p) for p in prompts], arena_rows=rows,
          arena_gb=arena_gb, **chunked,
@@ -3552,7 +3686,7 @@ def zoo_phases(torch, args, prompt_lens, prompts, mark):
 
 
 # ------------------------------------------------- training and checkpoints
-TRAIN = dict(model="qwen3-8b", layers=12, batch=4, n_micro=2, seq=4096,
+TRAIN = dict(model="qwen3-8b", layers=6, batch=4, n_micro=2, seq=4096,
              period=256, steps=12, ckpt_at=6, lr=5e-4, warmup=2,
              grad_layers=2, grad_batch=2)
 WHISPER_TRAIN = dict(batch=4, seq=448, steps=6, lr=1e-3, warmup=2)
@@ -3560,6 +3694,16 @@ WHISPER_TRAIN = dict(batch=4, seq=448, steps=6, lr=1e-3, warmup=2)
 # variant
 BWD_NAMES = ("delta_kernel", "dkdv_wgmma", "dq_wgmma", "dkdv_simt",
              "dq_simt")
+# the SSD backward's device kernels, in launch order
+SSD_BWD_NAMES = ("increments_kernel", "scan_kernel", "chunk_kernel",
+                 "dA_kernel")
+# mamba2-2.7b whole in training: train_main's batch shape, cyclic batch
+# and steps, at 16 times its lr (at 5e-4 the loss of a freshly drawn
+# mamba2-2.7b barely moves in 12 steps, with the plain scan as with the
+# kernels: ``python3 chip_smoke.py --lr-witness-layers 64``)
+MAMBA_TRAIN = dict(model=SSM_MODEL, batch=4, n_micro=2, seq=4096,
+                   period=256, steps=12, lr=8e-3, warmup=2, grad_layers=2,
+                   grad_batch=2)
 
 
 def bwd_cost(B, Sq, Sk, H, Hkv, hd, causal, esize):
@@ -3750,6 +3894,104 @@ def phase_kernels_train(torch, gen) -> dict:
     return out
 
 
+def ssd_bwd_shapes() -> dict:
+    """The SSD backward's shapes, by label: (B, S, H, P, N, dtype, with a
+    final-state gradient). mamba2-2.7b's and jamba's training microbatch
+    (2 x 4,096 tokens, bf16), a prime length (a ragged last chunk) at
+    mamba2's heads with and without the final state's gradient, and an
+    f32 case."""
+    import torch
+    from repro_torch.configs import get_config
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S = MAMBA_TRAIN["batch"] // MAMBA_TRAIN["n_micro"], MAMBA_TRAIN["seq"]
+    out = {}
+    for name in (SSM_MODEL, ZOO["hybrid"]):
+        cfg = get_config(name)
+        s = cfg.ssm
+        out[f"{name} {B}x{S}"] = (B, S, s.n_heads(cfg.d_model), s.head_dim,
+                                  s.d_state, bf16, False)
+    cfg = get_config(SSM_MODEL)
+    s = cfg.ssm
+    wide = (s.n_heads(cfg.d_model), s.head_dim, s.d_state)
+    p = next_prime(1000)
+    out[f"{SSM_MODEL} heads 1x{p}"] = (1, p, *wide, bf16, False)
+    out[f"{SSM_MODEL} heads 1x{p}, dstate"] = (1, p, *wide, bf16, True)
+    out["f32 2x263, dstate"] = (2, 263, 8, 64, 128, f32, True)
+    return out
+
+
+def check_ssd_bwd(torch, gen) -> dict:
+    """The SSD backward kernel (``csrc/ssd_chunk_bwd.cu``) against its
+    plain version (``ref.ssd_chunk_bwd``, f32 on the same inputs) at each
+    shape of :func:`ssd_bwd_shapes`, with the configs' chunk: each
+    gradient's largest error and row-scaled error, two runs bitwise
+    equal. bf16: dx, dB and dC rounded once to bf16 (2^-9 of an element),
+    within 1e-2 of the tensor's largest magnitude and 3e-2 of a row's; the
+    f32 outputs (every output of the f32 case, ddt and dA always) within
+    1e-4 and 1e-3 (sums in another order). Each shape timed beside its
+    bound and the plain version; no single PyTorch call computes the
+    scan's gradient (``library_ms`` None). Returns the numbers by label."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk as ssd
+
+    chunk = get_config(SSM_MODEL).ssm.chunk
+    out = {}
+    for label, (B, S, H, P, N, dt_, with_state) in ssd_bwd_shapes().items():
+        x, dy = (torch.randn((B, S, H, P), generator=gen,
+                             device="cuda").to(dt_) for _ in range(2))
+        Bm, Cm = (torch.randn((B, S, H, N), generator=gen,
+                              device="cuda").to(dt_) for _ in range(2))
+        dt = torch.nn.functional.softplus(
+            torch.randn((B, S, H), generator=gen, device="cuda"))
+        A = -torch.exp(0.3 * torch.randn((H,), generator=gen, device="cuda"))
+        ds = (torch.randn((B, H, N, P), generator=gen, device="cuda")
+              if with_state else None)
+        args = (x, dt, A, Bm, Cm, dy, ds, chunk)
+        got = ssd.ssd_chunk_bwd(*args)
+        again = ssd.ssd_chunk_bwd(*args)
+        deterministic = all(bool(torch.equal(a, b))
+                            for a, b in zip(got, again))
+        want = ref.ssd_chunk_bwd(x.float(), dt, A, Bm.float(), Cm.float(),
+                                 dy.float(), ds, chunk)
+        errs = {}
+        for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+            e_abs, e_row = grad_errors(g, w)
+            scaled = e_abs / max(float(w.abs().max()), 1e-30)
+            errs[name] = dict(max_abs=e_abs, scaled=scaled, row_scaled=e_row)
+            lim = (1e-2, 3e-2) if g.dtype == torch.bfloat16 else (1e-4, 1e-3)
+            require(scaled <= lim[0] and e_row <= lim[1],
+                    f"ssd_chunk_bwd at {label}: {name} error {e_abs} "
+                    f"({scaled} of its magnitude, {e_row} of a row's)")
+        require(deterministic, f"ssd_chunk_bwd at {label}: two runs differ")
+        del again, want
+        n_bytes, n_flops = ssd_bwd_cost(B, S, H, P, N, min(chunk, 64),
+                                        x.element_size(), with_state)
+        b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+        row = dict(shape=dict(B=B, S=S, H=H, P=P, N=N, dtype=str(dt_),
+                              final_state_grad=with_state, chunk=chunk),
+                   variant="simt", deterministic=deterministic,
+                   max_abs_err=max(e["max_abs"] for e in errs.values()),
+                   row_scaled_err=max(e["row_scaled"]
+                                      for e in errs.values()),
+                   errors=errs,
+                   **kernel_times(lambda: ssd.ssd_chunk_bwd(*args)),
+                   plain_ms=time_ms(lambda: ref.ssd_chunk_bwd(
+                       x, dt, A, Bm, Cm, dy, ds, chunk), reps=3, warmup=1),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   bytes=n_bytes, flops=n_flops,
+                   # the f32 chunk states and their gradients through
+                   # device memory: written once, read twice each
+                   state_bytes=3 * 2 * B * -(-S // min(chunk, 64)) * H * N
+                   * P * 4)
+        row["bound_share"] = b_ms / row["ms"]
+        out[label] = row
+        emit("kernel_check_train", name="ssd_chunk_bwd", heads=label, **row)
+        del x, dy, Bm, Cm, dt, A, ds, got, args
+    reset_peak(torch)
+    return out
+
+
 @contextlib.contextmanager
 def plain_attention():
     """Every attention of the models in the plain version on the card
@@ -3762,6 +4004,31 @@ def plain_attention():
         yield
     finally:
         ops.flash_attention = kernel
+
+
+@contextlib.contextmanager
+def plain_scan():
+    """Every SSD scan of the models in the plain version on the card
+    (``ref.ssd_chunk_scan``, differentiated by autograd): what a training
+    path with the SSD kernels is held against."""
+    from repro_torch.kernels import ops, ref
+    kernel = ops.ssd_chunk
+    ops.ssd_chunk = ref.ssd_chunk_scan
+    try:
+        yield
+    finally:
+        ops.ssd_chunk = kernel
+
+
+def train_kernels(cfg) -> set:
+    """The kernels a training step of ``cfg`` launches: flash's training
+    forward and backward for attention, the SSD scan and its backward for
+    SSM layers."""
+    attn = any(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    ssm = not all(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    return ((({"flash_attention_lse", "flash_attention_bwd"} if attn
+              else set())
+             | ({"ssd_chunk", "ssd_chunk_bwd"} if ssm else set())))
 
 
 def loss_and_grads(torch, model, batch):
@@ -3783,20 +4050,35 @@ def compare_grads(torch, got: dict, want: dict) -> dict:
     first."""
     errs = {}
     for path, w in want.items():
-        g = got[path].to(w.device).float()
-        w = w.float()
+        g = got[path].to(w.device).double()
+        w = w.double()
         errs[path] = float((g - w).norm() / w.norm().clamp_min(1e-30))
     return dict(sorted(errs.items(), key=lambda kv: -kv[1]))
 
 
-def train_launches(where: str) -> dict:
-    """After a training path on the card: flash's training forward and its
-    backward launched, the serving forward and no plain version did not.
-    Returns the launches by kernel and by variant."""
+@contextlib.contextmanager
+def widened(torch):
+    """Every float32 cast point of the port widened to float64 (as the
+    CPU parity tests widen it): a model built in float64 inside computes
+    in float64 throughout. For CPU runs only."""
+    cast, f32 = torch.Tensor.float, torch.float32
+    torch.Tensor.float, torch.float32 = torch.Tensor.double, torch.float64
+    try:
+        yield
+    finally:
+        torch.Tensor.float, torch.float32 = cast, f32
+
+
+def train_launches(where: str, cfg) -> dict:
+    """After a training path on the card: the kernels of
+    :func:`train_kernels` launched (flash's training forward and its
+    backward, the SSD scan and its backward), the serving attention and
+    no plain version did not. Returns the launches by kernel and by
+    variant."""
     from repro_torch.kernels import ops
     c = ops.counts()
     launches = {k: n for k, n in c["launches"].items() if n}
-    require(set(launches) == {"flash_attention_lse", "flash_attention_bwd"},
+    require(set(launches) == train_kernels(cfg),
             f"{where}: kernels launched {launches}")
     require(not any(ops.plain_calls.values()),
             f"{where}: a plain version ran on the card: {ops.plain_calls}")
@@ -3805,17 +4087,28 @@ def train_launches(where: str) -> dict:
 
 
 def phase_train_reference(torch, args) -> dict:
-    """Reduced qwen3-8b, moonshot-v1-16b-a3b and whisper-medium in f32:
-    the loss and every gradient leaf on the card (the flash kernels, simt)
-    against the CPU (the plain versions), from the same weights and batch.
-    Returns the card runs' launches, summed."""
+    """Reduced qwen3-8b, moonshot-v1-16b-a3b, whisper-medium, mamba2-2.7b
+    and jamba-v0.1-52b in f32: the loss and every gradient leaf on the card
+    (the flash and SSD kernels and their backwards, simt) against the CPU
+    (the plain versions), from the same weights and batch, each leaf
+    within 1e-4 of its norm. jamba's float32 gradients are ill-conditioned
+    (its MoE gates and the gated norm after each scan amplify rounding:
+    on the CPU alone some leaves sit 3-5e-4 from the float64 gradient,
+    and the card's cuBLAS products put its leaves as far from the CPU's
+    with the plain versions as with the kernels), so jamba's card run is
+    held instead against a witness, the same model on the card with the
+    plain versions in place of the kernels: each leaf within 1e-4, and
+    no farther from a float64 copy on the CPU than the witness by more
+    than 1e-4. Returns the card runs' launches, summed."""
     import dataclasses as dc
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import build_model, init_params
+    from repro_torch.tree import tree_map
 
     total = {}
-    for name in (TRAIN["model"], ZOO["moe"], CROSS["encdec"]):
+    for name in (TRAIN["model"], ZOO["moe"], CROSS["encdec"], SSM_MODEL,
+                 ZOO["hybrid"]):
         cfg = dc.replace(get_config(name).reduced(), dtype=torch.float32)
         params = init_params(cfg, torch.Generator().manual_seed(args.seed),
                              "cpu")
@@ -3831,22 +4124,70 @@ def phase_train_reference(torch, args) -> dict:
             ops.reset_counts()
             runs[dev] = loss_and_grads(torch, model, b)
             if dev == "cuda":
-                num = train_launches(f"train_reference {name}")
+                num = train_launches(f"train_reference {name}", cfg)
             del model
         errs = compare_grads(torch, runs["cuda"][1], runs["cpu"][1])
         worst = next(iter(errs.items()))
         loss_err = abs(runs["cuda"][0] - runs["cpu"][0])
-        # f32 on both: sums in other orders, about 1e-6 of a leaf's norm;
-        # a wrong kernel gradient gives its layers' leaves order one
-        require(loss_err <= 1e-4 and worst[1] <= 1e-4,
-                f"train_reference {name}: loss {runs['cuda'][0]} against "
-                f"{runs['cpu'][0]}, worst leaf {worst}")
+        anchored = {}
+        if name == ZOO["hybrid"]:
+            with widened(torch):
+                model = build_model(
+                    dc.replace(cfg, dtype=torch.float64),
+                    tree_map(lambda t: t.double(), params), device="cpu",
+                    trainable=True)
+                exact = loss_and_grads(torch, model, {
+                    k: torch.as_tensor(v) for k, v in batch.items()})
+                del model
+            # the witness: the same f32 model on the card with the plain
+            # versions in place of the kernels
+            model = build_model(cfg, params, device="cuda", trainable=True)
+            b = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in batch.items()}
+            with plain_attention(), plain_scan():
+                plain = loss_and_grads(torch, model, b)
+            del model
+            card = compare_grads(torch, runs["cuda"][1], exact[1])
+            cpu = compare_grads(torch, runs["cpu"][1], exact[1])
+            witness = compare_grads(torch, plain[1], exact[1])
+            kernels = compare_grads(torch, runs["cuda"][1], plain[1])
+            worst_kernels = next(iter(kernels.items()))
+            over = {p: (e, witness[p]) for p, e in card.items()
+                    if e > 1e-4 + witness[p]}
+            # the kernels against the plain versions on the same card and
+            # the same f32 ops around them: sums in other orders, about
+            # 2e-5 of a leaf's norm measured; and no leaf farther from
+            # float64 than the witness's by 1e-4. A wrong kernel gradient
+            # gives its layers' leaves order one
+            require(not over and worst_kernels[1] <= 1e-4
+                    and loss_err <= 1e-4
+                    and abs(runs["cuda"][0] - plain[0]) <= 1e-4,
+                    f"train_reference {name}: loss {runs['cuda'][0]} "
+                    f"against {runs['cpu'][0]} (cpu) and {plain[0]} "
+                    f"(plain on the card); worst leaf against the plain "
+                    f"versions on the card {worst_kernels}; leaves off the "
+                    f"float64 gradient (card, witness): {over}")
+            anchored = dict(
+                float64_loss=exact[0], plain_card_loss=plain[0],
+                card_vs_plain_card=dict(list(kernels.items())[:4]),
+                card_vs_float64=dict(list(card.items())[:4]),
+                plain_card_vs_float64=dict(list(witness.items())[:4]),
+                cpu_vs_float64=dict(list(cpu.items())[:4]),
+                plain_card_vs_cpu=dict(list(compare_grads(
+                    torch, plain[1], runs["cpu"][1]).items())[:4]))
+        else:
+            # f32 on both: sums in other orders, about 1e-6 of a leaf's
+            # norm; a wrong kernel gradient gives its layers' leaves order
+            # one
+            require(loss_err <= 1e-4 and worst[1] <= 1e-4,
+                    f"train_reference {name}: loss {runs['cuda'][0]} "
+                    f"against {runs['cpu'][0]}, worst leaf {worst}")
         for k, n in num["launches"].items():
             total[k] = total.get(k, 0) + n
         emit("train_reference", model=cfg.name, loss_card=runs["cuda"][0],
              loss_cpu=runs["cpu"][0], loss_abs_err=loss_err,
              leaves=len(errs), worst_leaf=worst[0],
-             worst_leaf_rel_err=worst[1], **num)
+             worst_leaf_rel_err=worst[1], **anchored, **num)
     return total
 
 
@@ -3911,7 +4252,8 @@ def run_steps(torch, step_fn, params, opt, batch, steps, losses, times):
 def profile_train_step(torch, step_fn, params, opt, batch) -> dict:
     """Device time of one train step by kernel (torch.profiler): the flash
     backward's share and its milliseconds by device kernel, the training
-    forward's share, and the idle share."""
+    forward's share, the SSD scan's forward and backward shares and the
+    backward's milliseconds by device kernel, and the idle share."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3933,9 +4275,17 @@ def profile_train_step(torch, step_fn, params, opt, batch) -> dict:
     bwd = sum(bwd_by.values())
     fwd = sum(ms for ms, name, _ in kernels if "DenseKV" in name
               or "flash_attention_kernel" in name)
+    ssd_bwd_by = {p: sum(ms for ms, name, _ in kernels
+                         if f"repro_ssd_bwd::{p}" in name)
+                  for p in SSD_BWD_NAMES}
+    ssd_fwd = sum(ms for ms, name, _ in kernels if "repro_ssd::" in name)
     return dict(wall_ms=wall_ms, device_busy_ms=busy,
                 idle_share=1 - busy / wall_ms,
                 flash_bwd_share=bwd / busy, flash_fwd_share=fwd / busy,
+                ssd_bwd_share=sum(ssd_bwd_by.values()) / busy,
+                ssd_fwd_share=ssd_fwd / busy,
+                ssd_bwd_ms_by_kernel={p: ms for p, ms in ssd_bwd_by.items()
+                                      if ms},
                 flash_bwd_ms_by_kernel={p: ms for p, ms in bwd_by.items()
                                         if ms},
                 top=[dict(kernel=name[:90], ms=ms, calls=n)
@@ -3946,8 +4296,8 @@ def phase_train_main(torch, args) -> dict:
     """Full-width qwen3-8b in bf16. First the gradient check: at 2 layers,
     S = 4,096, the loss and every gradient leaf with the kernels against
     the same model with the plain attention on the card. Then the training
-    run at 12 of its 36 layers: 4 sequences of 4,096 tokens in 2
-    microbatches, AdamW, on one fixed synthetic batch for
+    run at ``TRAIN["layers"]`` of its 36 layers: 4 sequences of 4,096
+    tokens in 2 microbatches, AdamW, on one fixed synthetic batch for
     ``TRAIN["steps"]`` steps under deterministic algorithms, a checkpoint
     after step ``TRAIN["ckpt_at"]``; the loss must fall below half its
     first value. Then the checkpoint restored into a fresh model and
@@ -3972,7 +4322,7 @@ def phase_train_main(torch, args) -> dict:
                             args.seed)
     ops.reset_counts()
     loss_k, grads_k = loss_and_grads(torch, model, batch)
-    grad_num = train_launches("train_main gradient check")
+    grad_num = train_launches("train_main gradient check", cfg)
     with plain_attention():
         loss_p, grads_p = loss_and_grads(torch, model, batch)
     errs = compare_grads(torch, grads_k, grads_p)
@@ -4028,7 +4378,7 @@ def phase_train_main(torch, args) -> dict:
         params, opt = run_steps(torch, step_fn, params, opt, batch,
                                 steps - at, losses, times)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        num = train_launches("train_main")
+        num = train_launches("train_main", cfg)
         per_step = TRAIN["n_micro"] * cfg.n_layers
         require(num["launches"] == {"flash_attention_lse": 2 * steps
                                     * per_step,
@@ -4101,6 +4451,168 @@ def phase_train_main(torch, args) -> dict:
                 main_variants=num["launches_by_variant"])
 
 
+def lr_witness(torch, args, cfg) -> dict:
+    """``cfg`` (mamba2-2.7b at its published widths, at the gradient
+    check's depth in the smoke or at ``--lr-witness-layers``) trained at
+    train_main's lr and schedule on the cyclic batch,
+    from the same weights, once with the SSD kernels and once with the
+    plain scan on the card: each step's loss must agree within 5e-2 (the
+    gradient check's bf16 rounding, carried through the steps). How far
+    the loss falls at that lr is then the model's and the schedule's, not
+    the kernels'. Returns both loss curves."""
+    from repro_torch.models import build_model
+    from repro_torch.training import OptConfig, adamw_init, make_train_step
+
+    m = MAMBA_TRAIN
+    batch = cyclic_batch(torch, cfg, m["batch"], m["seq"], m["period"],
+                         args.seed)
+    curves = {}
+    for run in ("kernels", "plain"):
+        model = build_model(cfg, device="cuda", seed=args.seed,
+                            trainable=True)
+        params = model.param_tree()
+        opt = adamw_init(params)
+        step_fn = make_train_step(
+            model, OptConfig(lr=TRAIN["lr"], warmup_steps=m["warmup"]),
+            n_micro=m["n_micro"])
+        losses, times = [], []
+        with contextlib.ExitStack() as stack:
+            if run == "plain":
+                stack.enter_context(plain_scan())
+            run_steps(torch, step_fn, params, opt, batch, m["steps"],
+                      losses, times)
+        curves[run] = dict(losses=losses, step_s=statistics.median(times))
+        del model, params, opt, step_fn
+        reset_peak(torch)
+    gap = max(abs(a - b) for a, b in zip(curves["kernels"]["losses"],
+                                         curves["plain"]["losses"]))
+    emit("train_mamba2_lr_witness", model=cfg.name, n_layers=cfg.n_layers,
+         lr=TRAIN["lr"], steps=m["steps"], max_loss_gap=gap,
+         **{f"{run}_{k}": v for run, c in curves.items()
+            for k, v in c.items()},
+         **{f"{run}_fall": 1 - c["losses"][-1] / c["losses"][0]
+            for run, c in curves.items()})
+    require(all(math.isfinite(x) for c in curves.values()
+                for x in c["losses"]) and gap <= 5e-2,
+            f"train_mamba2 lr witness: the kernels' losses "
+            f"{curves['kernels']['losses']} against the plain scan's "
+            f"{curves['plain']['losses']}")
+    return curves
+
+
+def phase_train_mamba2(torch, args) -> dict:
+    """mamba2-2.7b whole (64 layers, bf16, tied embeddings) in training.
+    First the gradient check: at 2 layers and 4,096 tokens, the loss and
+    every gradient leaf with the SSD kernels against the same model with
+    the plain scan on the card. Then train_main's batch shape and
+    schedule (4 sequences of 4,096 tokens in 2 microbatches, AdamW, the
+    cyclic batch) under deterministic algorithms: the loss must fall below
+    half its first value. Step time, tokens/s, MFU (6 x parameters x
+    tokens plus 3 x the scans' forward flops), peak memory, a profiled
+    step with the SSD backward's and forward's shares, launches by variant
+    and the plain calls. Returns the launches of both runs."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.training import OptConfig, adamw_init, make_train_step
+
+    m = MAMBA_TRAIN
+    base = get_config(m["model"])
+    # ---- gradient check: kernels against the plain scan
+    cfg = dc.replace(base, n_layers=m["grad_layers"])
+    model = build_model(cfg, device="cuda", seed=args.seed, trainable=True)
+    batch = synthetic_batch(torch, cfg, m["grad_batch"], m["seq"], args.seed)
+    ops.reset_counts()
+    loss_k, grads_k = loss_and_grads(torch, model, batch)
+    grad_num = train_launches("train_mamba2 gradient check", cfg)
+    with plain_scan():
+        loss_p, grads_p = loss_and_grads(torch, model, batch)
+    errs = compare_grads(torch, grads_k, grads_p)
+    worst = next(iter(errs.items()))
+    # bf16: the forward kernel's operands rounded to bf16 for its tensor
+    # core products (y within 1e-2 of its magnitude), the plain scan all
+    # f32; about 1e-2 of a leaf's norm. A wrong scan gradient gives order
+    # one in the SSM leaves
+    require(abs(loss_k - loss_p) <= 1e-2 and worst[1] <= 5e-2,
+            f"train_mamba2 gradient check: loss {loss_k} against {loss_p}, "
+            f"worst leaf {worst}")
+    emit("train_mamba2_gradient_check", model=cfg.name,
+         n_layers=cfg.n_layers, batch=m["grad_batch"], seq=m["seq"],
+         loss_kernels=loss_k, loss_plain=loss_p, leaves=len(errs),
+         worst_leaf=worst[0], worst_leaf_rel_err=worst[1],
+         rel_err_by_leaf=dict(list(errs.items())[:8]), **grad_num)
+    del model, grads_k, grads_p, batch
+    reset_peak(torch)
+    lr_witness(torch, args, cfg)
+
+    # ---- the training run
+    cfg = base
+    batch = cyclic_batch(torch, cfg, m["batch"], m["seq"], m["period"],
+                         args.seed)
+    torch.use_deterministic_algorithms(True)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        t0 = time.perf_counter()
+        model = build_model(cfg, device="cuda", seed=args.seed,
+                            trainable=True)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        params = model.param_tree()
+        opt = adamw_init(params)
+        step_fn = make_train_step(
+            model, OptConfig(lr=m["lr"], warmup_steps=m["warmup"]),
+            n_micro=m["n_micro"])
+        losses, times = [], []
+        ops.reset_counts()
+        reset_peak(torch)
+        params, opt = run_steps(torch, step_fn, params, opt, batch,
+                                m["steps"], losses, times)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        num = train_launches("train_mamba2", cfg)
+        per_step = m["n_micro"] * cfg.n_layers
+        # the scan forward twice per layer and microbatch (the step's
+        # forward and the per-layer recomputation), the backward once
+        require(num["launches"] == {"ssd_chunk": 2 * m["steps"] * per_step,
+                                    "ssd_chunk_bwd": m["steps"] * per_step},
+                f"train_mamba2: launches {num['launches']}")
+        require(num["launches_by_variant"]["ssd_chunk"]["wgmma"]
+                == 2 * m["steps"] * per_step,
+                f"train_mamba2: {num['launches_by_variant']}")
+        plain = dict(ops.plain_calls)
+        prof = profile_train_step(torch, step_fn, params, opt, batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    del model, params, opt, step_fn, batch
+    reset_peak(torch)
+    tokens = m["batch"] * m["seq"]
+    step_s = statistics.median(times[1:])
+    s = cfg.ssm
+    _, scan_flops = ssd_cost(m["seq"], s.n_heads(cfg.d_model), s.head_dim,
+                             s.d_state, min(s.chunk, 64), 2)
+    flops = (6 * n_params * tokens
+             + 3 * scan_flops * m["batch"] * cfg.n_layers)
+    emit("train_mamba2", model=cfg.name, n_layers=cfg.n_layers,
+         params=n_params, batch=m["batch"], n_micro=m["n_micro"],
+         seq=m["seq"], steps=m["steps"], lr=m["lr"],
+         warmup_steps=m["warmup"], losses=losses, loss_first=losses[0],
+         loss_last=losses[-1], model_build_s=build_s, first_step_s=times[0],
+         step_s=step_s, step_s_all=times, tokens_per_s=tokens / step_s,
+         model_tflops_per_step=flops / 1e12,
+         mfu=flops / step_s / BF16_FLOPS, peak_gb=peak_gb,
+         deterministic_algorithms=True, plain_calls=plain,
+         profile_step=prof, **num)
+    require(all(math.isfinite(x) for x in losses)
+            and losses[-1] < 0.5 * losses[0],
+            f"train_mamba2: losses {losses}: the last not below half the "
+            f"first")
+    return dict(grad_check=grad_num["launches"], main=num["launches"],
+                main_variants=num["launches_by_variant"])
+
+
 def phase_train_whisper(torch, args) -> dict:
     """whisper-medium whole (24 + 24 layers, bf16, 0.91 B parameters) on
     stub frames (1,500 x 1,024, drawn on the card) and 448-token decoder
@@ -4136,7 +4648,7 @@ def phase_train_whisper(torch, args) -> dict:
     params, opt = run_steps(torch, step_fn, params, opt, batch, w["steps"],
                             losses, times)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    num = train_launches("train_whisper")
+    num = train_launches("train_whisper", cfg)
     n_attn = cfg.n_layers * 2 + cfg.encoder.n_layers   # self, cross, encoder
     require(num["launches"] == {"flash_attention_lse": 2 * w["steps"]
                                 * n_attn,
@@ -4164,11 +4676,13 @@ def phase_train_whisper(torch, args) -> dict:
 
 
 def train_phases(torch, args, mark):
-    """The training phases. Returns the backward's checks by label, the
-    training paths' launches, and train_main's launches by variant."""
+    """The training phases. Returns the flash and SSD backwards' checks by
+    label, the training paths' launches, and train_main's and
+    train_mamba2's launches by variant."""
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 7)
     with torch.enable_grad():
         checks = phase_kernels_train(torch, gen)
+        ssd_checks = check_ssd_bwd(torch, gen)
         mark("kernels_train")
         paths = {"train_reference": phase_train_reference(torch, args)}
         mark("train_reference")
@@ -4178,13 +4692,22 @@ def train_phases(torch, args, mark):
         mark("train_main")
         paths["train_whisper"] = phase_train_whisper(torch, args)
         mark("train_whisper")
-    return checks, paths, main["main_variants"]
+        mamba = phase_train_mamba2(torch, args)
+        paths["train_mamba2_gradient_check"] = mamba["grad_check"]
+        paths["train_mamba2"] = mamba["main"]
+        mark("train_mamba2")
+    return (checks, ssd_checks, paths,
+            {**main["main_variants"], **mamba["main_variants"]})
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights, prompts and kernel inputs")
+    ap.add_argument("--lr-witness-layers", type=int, default=None,
+                    help="build the kernels, run only train_mamba2's lr "
+                    "witness with mamba2-2.7b at this many layers, and "
+                    "exit (the smoke itself runs it at 2)")
     args = ap.parse_args(argv)
     # cuBLAS is deterministic only with a fixed workspace, set before torch
     # loads it; train_main's resume check runs under deterministic
@@ -4220,6 +4743,12 @@ def main(argv=None) -> int:
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[str(_build._target(n).relative_to(ROOT))
                     for n in _build.SOURCES])
+    if args.lr_witness_layers:
+        from repro_torch.configs import get_config
+        with torch.enable_grad():
+            lr_witness(torch, args, dataclasses.replace(
+                get_config(SSM_MODEL), n_layers=args.lr_witness_layers))
+        return 0
 
     rng = np.random.default_rng(args.seed)
     vocab = 151936
@@ -4252,10 +4781,12 @@ def main(argv=None) -> int:
     mark("main")
     # the paged kernels' launches are the chunked main path's; flash's the
     # monolithic path's
-    mono, variants["flash_attention"] = phase_dense_monolithic(
+    mono, variants["flash_attention"], tokens_mono = phase_dense_monolithic(
         torch, model, prompts, tokens_chunked)
     launches["flash_attention"] = mono["flash_attention"]
     mark("dense_monolithic")
+    dense_kv = phase_dense_kv(torch, model, prompts, tokens_mono)
+    mark("dense_kv")
     prefix = phase_prefix(torch, model, flow, matched)
     mark("prefix")
     ssm, variants["ssd_chunk"], mamba = phase_ssm_main(torch, args,
@@ -4268,7 +4799,7 @@ def main(argv=None) -> int:
     pred = train_predictor()
     card = phase_gateway_reference(torch, args, pred)
     mark("gateway_reference")
-    gateway, gateway_runs = phase_gateway(torch, args, host, pred)
+    gateway = phase_gateway(torch, args, host, pred)
     del host                  # two workers' pinned copies need the room
     mark("gateway")
     phase_sim(args, pred)
@@ -4277,16 +4808,15 @@ def main(argv=None) -> int:
     mark("worker_reference")
     phase_worker_fault(torch, args, pred)
     mark("worker_fault")
-    workers.update(phase_gateway_process(torch, args, pred,
-                                         gateway_runs["maestro"]))
+    workers.update(phase_gateway_process(torch, args, pred))
     mark("gateway_process")
     zoo_checks, zoo_paths, moe_variants = zoo_phases(
         torch, args, prompt_lens, prompts, mark)
-    train_checks, train_paths, train_variants = train_phases(torch, args,
-                                                             mark)
+    train_checks, ssd_checks, train_paths, train_variants = train_phases(
+        torch, args, mark)
     emit("timing", seconds_by_phase=seconds,
          total_s=time.perf_counter() - t0)
-    by_path = {"prefix_chunked": prefix["chunked"],
+    by_path = {"dense_kv": dense_kv, "prefix_chunked": prefix["chunked"],
                "prefix_monolithic": prefix["monolithic"], "node": node,
                **{f"gateway_{run}": n for run, n in gateway.items()},
                **workers, **zoo_paths, **train_paths}
@@ -4365,6 +4895,30 @@ def main(argv=None) -> int:
             "bound_by", "bound_share", "library_ms", "library_ratio",
             "fwd_bwd_ms", "fwd_bwd_bound_ms", "library_fwd_bwd_ms")}
             for label, c in train_checks.items()}))
+    mamba = next(iter(ssd_checks.values()))   # train_mamba2's microbatch
+    kernels.append(dict(
+        name="ssd_chunk_bwd", route="cuda",
+        source="src/repro_torch/csrc/ssd_chunk_bwd.cu",
+        replaces=None,
+        replaces_reason=("no Pallas kernel: the reference differentiates "
+                         "its jnp chunked scan "
+                         "(src/repro/models/mamba2.py:59) with JAX "
+                         "autodiff"),
+        launches=train_paths["train_mamba2"]["ssd_chunk_bwd"],
+        max_abs_err=max(c["max_abs_err"] for c in ssd_checks.values()),
+        ms=mamba["ms"], plain_ms=mamba["plain_ms"],
+        bound_ms=mamba["bound_ms"], bound_by=mamba["bound_by"],
+        # no single PyTorch call computes the scan's gradient
+        library_ms=None,
+        variants=train_variants["ssd_chunk_bwd"],
+        launches_by_path={p: n.get("ssd_chunk_bwd", 0)
+                          for p, n in by_path.items()
+                          if n.get("ssd_chunk_bwd")},
+        train_shapes={label: {k: c.get(k) for k in (
+            "max_abs_err", "row_scaled_err", "variant", "ms", "ms_no_spin",
+            "host_ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
+            "library_ms", "state_bytes")}
+            for label, c in ssd_checks.items()}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

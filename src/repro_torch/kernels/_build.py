@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("paged_attention", "chunk_prefill", "flash_attention",
-           "flash_attention_bwd", "ssd_chunk")
+           "flash_attention_bwd", "ssd_chunk", "ssd_chunk_bwd")
 
 # dtype codes of the C interface, and the widest head the kernels stage
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

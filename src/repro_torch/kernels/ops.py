@@ -9,10 +9,12 @@ passes ``k_new``/``v_new`` through.
 
 Training: on CUDA tensors with grad enabled and an input that requires it,
 :func:`flash_attention` runs :class:`FlashAttentionFn`, the forward that
-also writes the row log-sum-exp and the hand-written backward; without grad
-it is the serving forward unchanged. On CPU tensors autograd differentiates
-the plain version. The SSD scan has no backward kernel yet, so
-:func:`ssd_chunk` raises on CUDA tensors that require grad.
+also writes the row log-sum-exp and the hand-written backward, and
+:func:`ssd_chunk` runs :class:`SSDChunkFn`, the serving forward and the
+hand-written SSD backward; without grad each is the serving forward
+unchanged. On CPU tensors autograd differentiates the plain versions,
+counted under ``flash_attention_bwd`` and ``ssd_chunk_bwd`` when the
+backward runs, once per backward pass through the call.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from repro_torch.kernels import ssd_chunk as _ssd
 # reads these to show its main path never did)
 plain_calls = {"paged_attention": 0, "chunk_prefill_attention": 0,
                "flash_attention": 0, "flash_attention_bwd": 0,
-               "ssd_chunk": 0}
+               "ssd_chunk": 0, "ssd_chunk_bwd": 0}
 
 
 def _on_cpu(t: torch.Tensor, name: str) -> bool:
@@ -59,6 +61,22 @@ def _needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
+class _CountPlainBackward(torch.autograd.Function):
+    """The identity on a plain version's outputs whose backward counts one
+    plain backward under ``name`` and passes the gradients through."""
+
+    @staticmethod
+    def forward(ctx, name: str, *outs):
+        ctx.name = name
+        ctx.set_materialize_grads(False)
+        return outs[0] if len(outs) == 1 else outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plain_calls[ctx.name] += 1
+        return (None, *grads)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention with its hand-written backward: the forward kernel
     writes the row log-sum-exp beside the output, and the backward kernel
@@ -82,12 +100,38 @@ class FlashAttentionFn(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal: bool = True):
     if _on_cpu(q, "flash_attention"):
-        if _needs_grad(q, k, v):
-            plain_calls["flash_attention_bwd"] += 1
-        return _ref.blockwise_attention(q, k, v, causal)
+        out = _ref.blockwise_attention(q, k, v, causal)
+        if out.requires_grad:
+            out = _CountPlainBackward.apply("flash_attention_bwd", out)
+        return out
     if _needs_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, causal)
     return _fa.flash_attention(q, k, v, causal)
+
+
+class SSDChunkFn(torch.autograd.Function):
+    """The SSD scan with its hand-written backward: the serving forward
+    kernel, and the backward kernel, which recomputes the chunk states
+    from the saved inputs (nothing else is saved). A final state whose
+    gradient is None counts as a zero one."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk: int):
+        _ssd.check_bwd(Bm.shape[-1], x.shape[-1], chunk)
+        ctx.set_materialize_grads(False)
+        y, state = _ssd.ssd_chunk(x, dt, A, Bm, Cm, chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, Bm, Cm = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dstate is not None:
+            dstate = dstate.contiguous()
+        return (*_ssd.ssd_chunk_bwd(x, dt, A, Bm, Cm, dy, dstate,
+                                    ctx.chunk), None)
 
 
 def ssd_chunk(x, dt, A, Bm, Cm, chunk: int):
@@ -96,11 +140,12 @@ def ssd_chunk(x, dt, A, Bm, Cm, chunk: int):
     takes fixed chunks of at most 64 with a ragged last one, the same
     function up to rounding."""
     if _on_cpu(x, "ssd_chunk"):
-        return _ref.ssd_chunk_scan(x, dt, A, Bm, Cm, chunk)
+        y, state = _ref.ssd_chunk_scan(x, dt, A, Bm, Cm, chunk)
+        if y.requires_grad:
+            y, state = _CountPlainBackward.apply("ssd_chunk_bwd", y, state)
+        return y, state
     if _needs_grad(x, dt, A, Bm, Cm):
-        raise NotImplementedError(
-            "ssd_chunk: the SSD scan's backward kernel is not ported yet "
-            "(ROADMAP), so a Mamba2 layer does not train on the card")
+        return SSDChunkFn.apply(x, dt, A, Bm, Cm, chunk)
     return _ssd.ssd_chunk(x, dt, A, Bm, Cm, chunk)
 
 
@@ -112,24 +157,27 @@ def counts() -> dict:
                          "flash_attention": _fa.launches,
                          "flash_attention_lse": _fa.lse_launches,
                          "flash_attention_bwd": _fa.bwd_launches,
-                         "ssd_chunk": _ssd.launches},
+                         "ssd_chunk": _ssd.launches,
+                         "ssd_chunk_bwd": _ssd.bwd_launches},
             "launches_by_variant": {
                 "chunk_prefill_attention": dict(_cp.launches_by_variant),
                 "flash_attention": dict(_fa.launches_by_variant),
                 "flash_attention_lse": dict(_fa.lse_launches_by_variant),
                 "flash_attention_bwd": dict(_fa.bwd_launches_by_variant),
-                "ssd_chunk": dict(_ssd.launches_by_variant)},
+                "ssd_chunk": dict(_ssd.launches_by_variant),
+                "ssd_chunk_bwd": dict(_ssd.bwd_launches_by_variant)},
             "plain_calls": dict(plain_calls)}
 
 
 def reset_counts() -> None:
     """Zero every launch and plain-call count."""
     _pa.launches = _fa.lse_launches = _fa.bwd_launches = 0
+    _ssd.bwd_launches = 0
     for mod in (_cp, _fa, _ssd):
         mod.launches = 0
     for by in (_cp.launches_by_variant, _fa.launches_by_variant,
                _fa.lse_launches_by_variant, _fa.bwd_launches_by_variant,
-               _ssd.launches_by_variant):
+               _ssd.launches_by_variant, _ssd.bwd_launches_by_variant):
         for v in by:
             by[v] = 0
     for k in plain_calls:

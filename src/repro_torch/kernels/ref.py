@@ -245,6 +245,7 @@ def ssd_chunk_scan(x, dt, A, Bm, Cm, chunk: int):
     dt32 = dt.float()
     iq = torch.arange(Q, device=x.device)
     causal = (iq[:, None] >= iq[None, :])[None, :, :, None]
+    neg_inf = torch.tensor(float("-inf"), device=x.device)
     state = torch.zeros((B, H, N, P_), dtype=torch.float32, device=x.device)
     ys = []
     for c0 in range(0, S, Q):
@@ -255,8 +256,11 @@ def ssd_chunk_scan(x, dt, A, Bm, Cm, chunk: int):
         dA_cs = torch.cumsum(dc * A, dim=1)         # inclusive
         xdt = xc * dc[..., None]
         scores = torch.einsum("bqhn,bkhn->bqkh", cc, bc)
-        L = torch.exp(dA_cs[:, :, None, :] - dA_cs[:, None, :, :])
-        L = torch.where(causal, L, torch.zeros((), device=x.device))
+        # masked before exp: above the diagonal the exponent is positive
+        # and, over a long chunk, overflows (the reference takes exp first
+        # and its gradient is then NaN; ROADMAP, "Fixed or repaired")
+        L = torch.exp(torch.where(
+            causal, dA_cs[:, :, None, :] - dA_cs[:, None, :, :], neg_inf))
         y = torch.einsum("bqkh,bkhp->bqhp", scores * L, xdt)
         y = y + torch.einsum("bqhn,bhnp->bqhp",
                              cc * torch.exp(dA_cs)[..., None], state)
@@ -268,3 +272,90 @@ def ssd_chunk_scan(x, dt, A, Bm, Cm, chunk: int):
     y = (torch.cat(ys, dim=1) if ys
          else torch.zeros_like(x, dtype=torch.float32))
     return y.to(x.dtype), state
+
+
+def ssd_chunk_bwd(x, dt, A, Bm, Cm, dy, dstate=None, chunk: int = 64):
+    """The SSD kernel's backward written out (the plain version of
+    ``csrc/ssd_chunk_bwd.cu``, with its chunking: chunks of
+    ``min(chunk, 64)`` and a ragged last one): the gradients of
+    (y, final state) = the scan of (x, dt, A, Bm, Cm) given dy
+    [B,S,H,P] and dstate [B,H,N,P] (None: zero). Per chunk, with cs the
+    inclusive cumsum of dt A, xdt = dt x, L[q,k] = exp(cs_q - cs_k) for
+    k <= q, M = (C B^T) o L, s_in / ds_out the state at the chunk's start
+    and the gradient reaching its end:
+
+        ds_in = exp(cs_end) ds_out + sum_q exp(cs_q) C_q (x) dy_q
+        dxdt_k = sum_q M[q,k] dy_q + exp(cs_end - cs_k) ds_out^T B_k
+        dM = dy xdt^T (k <= q), dG = dM o L
+        dC_q = sum_k dG[q,k] B_k + exp(cs_q) s_in dy_q
+        dB_k = sum_q dG[q,k] C_q + exp(cs_end - cs_k) ds_out xdt_k
+        dcs = rowsum(dM o M) - colsum(dM o M) + exp(cs_q) C_q . s_in dy_q
+              - w_k, + sum_k w_k + exp(cs_end) <s_in, ds_out> at the last
+              row, w_k = exp(cs_end - cs_k) <B_k (x) xdt_k, ds_out>
+        da = reverse cumsum of dcs; ddt = da A + dxdt . x; dx = dt dxdt;
+        dA = sum of da dt.
+
+    Computes in f32 (float64 inputs in float64). -> (dx, ddt, dA, dB, dC):
+    dx, dB, dC in x's dtype, ddt and dA in dt's and A's."""
+    B, S, H, P_ = x.shape
+    N = Bm.shape[-1]
+    wd = torch.promote_types(x.dtype, torch.float32)
+    xf, dtf, Af = x.to(wd), dt.to(wd), A.to(wd)
+    bf, cf, dyf = Bm.to(wd), Cm.to(wd), dy.to(wd)
+    Q = max(min(chunk, 64), 1)        # the kernel's chunks, last ragged
+    chunks = [(c0, min(Q, S - c0)) for c0 in range(0, S, Q)]
+    # the state at each chunk's start
+    state = torch.zeros((B, H, N, P_), dtype=wd, device=x.device)
+    s_in = []
+    for c0, n in chunks:
+        s_in.append(state)
+        dc = dtf[:, c0:c0 + n]
+        cs = torch.cumsum(dc * Af, dim=1)
+        w = dc * torch.exp(cs[:, -1:] - cs)                  # [B,n,H]
+        state = (state * torch.exp(cs[:, -1])[..., None, None]
+                 + torch.einsum("bkhn,bkhp->bhnp", bf[:, c0:c0 + n]
+                                * w[..., None], xf[:, c0:c0 + n]))
+    ds = (torch.zeros_like(state) if dstate is None
+          else dstate.to(wd).clone())
+    dx = torch.empty_like(xf)
+    ddt = torch.empty_like(dtf)
+    dB = torch.empty_like(bf)
+    dC = torch.empty_like(cf)
+    dA = torch.zeros_like(Af)
+    for (c0, n), s0 in reversed(list(zip(chunks, s_in))):
+        sl = slice(c0, c0 + n)
+        xc, dc, bc, cc, gy = xf[:, sl], dtf[:, sl], bf[:, sl], cf[:, sl], \
+            dyf[:, sl]
+        cs = torch.cumsum(dc * Af, dim=1)                    # [B,n,H]
+        iq = torch.arange(n, device=x.device)
+        causal = (iq[:, None] >= iq[None, :])[None, :, :, None]
+        L = torch.exp(torch.where(causal, cs[:, :, None] - cs[:, None],
+                                  torch.tensor(float("-inf"), dtype=wd,
+                                               device=x.device)))
+        xdt = xc * dc[..., None]
+        M = torch.einsum("bqhn,bkhn->bqkh", cc, bc) * L
+        dM = torch.einsum("bqhp,bkhp->bqkh", gy, xdt) * causal
+        dG = dM * L
+        eq = torch.exp(cs)                                   # [B,n,H]
+        de = torch.exp(cs[:, -1:] - cs)
+        u = torch.einsum("bhnp,bqhp->bqhn", s0, gy)          # s_in dy_q
+        z = de[..., None] * torch.einsum("bkhn,bhnp->bkhp", bc, ds)
+        dxdt = torch.einsum("bqkh,bqhp->bkhp", M, gy) + z
+        dC[:, sl] = (torch.einsum("bqkh,bkhn->bqhn", dG, bc)
+                     + eq[..., None] * u)
+        dB[:, sl] = (torch.einsum("bqkh,bqhn->bkhn", dG, cc)
+                     + de[..., None] * torch.einsum("bhnp,bkhp->bkhn", ds,
+                                                    xdt))
+        dMM = dM * M
+        w = (z * xdt).sum(-1)                                # [B,n,H]
+        dcs = (dMM.sum(2) - dMM.sum(1) + eq * (cc * u).sum(-1) - w)
+        dcs[:, -1] += w.sum(1) + torch.exp(cs[:, -1]) * (s0 * ds).sum((-2,
+                                                                       -1))
+        da = torch.flip(torch.cumsum(torch.flip(dcs, [1]), 1), [1])
+        ddt[:, sl] = da * Af + (dxdt * xc).sum(-1)
+        dx[:, sl] = dxdt * dc[..., None]
+        dA += (da * dc).sum((0, 1))
+        ds = (torch.exp(cs[:, -1])[..., None, None] * ds
+              + torch.einsum("bqhn,bqhp->bhnp", cc * eq[..., None], gy))
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
+            dB.to(Bm.dtype), dC.to(Cm.dtype))

@@ -1,8 +1,12 @@
-"""Mamba2 SSD chunked scan on the H100: the wrapper of ``csrc/ssd_chunk.cu``.
+"""Mamba2 SSD chunked scan on the H100: the wrappers of ``csrc/ssd_chunk.cu``
+and of its backward, ``csrc/ssd_chunk_bwd.cu``.
 
 Replaces the Pallas kernel ``repro/kernels/ssd_chunk.py``. The plain PyTorch
 version is :func:`repro_torch.kernels.ref.ssd_chunk_scan`; the dispatch
-between the two by device is :mod:`repro_torch.kernels.ops`.
+between the two by device is :mod:`repro_torch.kernels.ops`. The backward
+(:func:`ssd_chunk_bwd`, whose plain version is
+:func:`repro_torch.kernels.ref.ssd_chunk_bwd`) replaces no Pallas kernel:
+the reference differentiates its jnp scan with JAX autodiff.
 
 The C launcher picks one of two variants from (dtype, N, P, chunk) alone:
 ``wgmma`` (bf16, N and P of 64 or 128, chunks of 64: tensor cores, TMA) or
@@ -14,7 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,6 +30,10 @@ MAX_STATE_DIM = 128  # N and P: the state and a chunk's tiles in shared memory
 VARIANTS = ("simt", "wgmma")   # indexed by repro_ssd_chunk_variant
 launches = 0   # kernel launches since the caller last reset it
 launches_by_variant = {v: 0 for v in VARIANTS}
+BWD_VARIANTS = ("simt",)       # the backward's CUDA-core passes
+bwd_launches = 0
+bwd_launches_by_variant = {v: 0 for v in BWD_VARIANTS}
+MAX_SMEM = 232448              # a block's shared memory on the H100
 
 
 @functools.cache
@@ -97,3 +105,98 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     launches += 1
     launches_by_variant[which] += 1
     return y, state
+
+
+@functools.cache
+def _bwd_fn():
+    P, I = ctypes.c_void_p, ctypes.c_int
+    f = _build.library("ssd_chunk_bwd").repro_ssd_chunk_bwd
+    f.argtypes = [I] + [P] * 16 + [I] * 6 + [P]
+    f.restype = I
+    return f
+
+
+@functools.cache
+def bwd_smem(N: int, P: int, chunk: int) -> int:
+    """Shared memory (bytes) of the backward's largest block at (N, P,
+    chunk), as the C library computes it."""
+    f = _build.library("ssd_chunk_bwd").repro_ssd_chunk_bwd_smem
+    f.argtypes = [ctypes.c_int] * 3
+    f.restype = ctypes.c_longlong
+    return int(f(N, P, min(chunk, MAX_CHUNK)))
+
+
+def check_bwd(N: int, P: int, chunk: int) -> None:
+    """Raise unless the backward takes (N, P, chunk): its chunk kernel holds
+    a chunk's tiles and one state [N, P] in one block's shared memory."""
+    smem = bwd_smem(N, P, chunk)
+    _build.require(smem <= MAX_SMEM, "ssd_chunk_bwd",
+                   f"N {N}, P {P} and chunk {min(chunk, MAX_CHUNK)} need "
+                   f"{smem} bytes of shared memory, more than a block's "
+                   f"{MAX_SMEM}")
+
+
+def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor,
+                  dstate: Optional[torch.Tensor] = None,
+                  chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, ...]:
+    """The gradients of :func:`ssd_chunk`'s (y, final state) given dy
+    [B, S, H, P] (x's dtype) and dstate [B, H, N, P] f32 (None: zero), for
+    the same inputs and ``chunk``. -> (dx, ddt, dA, dB, dC): dx, dB, dC in
+    x's dtype, ddt [B, S, H] and dA [H] f32.
+
+    Four kernels (each chunk's increments of the state and of its
+    gradient, their scan over the chunks, each chunk's gradients, a
+    fixed-order sum of dA), in f32 on CUDA cores, with no atomics: two runs
+    give the same bits. Launches on the current stream;
+    raises on any input it does not take and on a failed launch."""
+    global bwd_launches
+    name = "ssd_chunk_bwd"
+    _build.require(x.dim() == 4, name,
+                   f"x must be [B, S, H, P], got {tuple(x.shape)}")
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    _build.require(dt.shape == (B, S, H) and A.shape == (H,)
+                   and Bm.shape == (B, S, H, N) and Cm.shape == Bm.shape
+                   and dy.shape == x.shape, name,
+                   f"dt must be [B, S, H], A [H], B/C [B, S, H, N] and dy "
+                   f"like x {tuple(x.shape)}, got {tuple(dt.shape)} / "
+                   f"{tuple(A.shape)} / {tuple(Bm.shape)} / "
+                   f"{tuple(Cm.shape)} / {tuple(dy.shape)}")
+    _build.require(0 < N <= MAX_STATE_DIM and 0 < P <= MAX_STATE_DIM, name,
+                   f"N and P must be in 1..{MAX_STATE_DIM}, got {N}, {P}")
+    _build.require(chunk >= 1, name, f"chunk must be >= 1, got {chunk}")
+    _build.check_tensors(name, [x, Bm, Cm, dy], [])
+    fp32 = [dt, A] + ([dstate] if dstate is not None else [])
+    _build.check_tensors(name, fp32, [])
+    _build.require(dt.dtype == torch.float32 and dt.device == x.device,
+                   name, "dt, A and dstate must be float32 on x's device")
+    _build.require(dstate is None or dstate.shape == (B, H, N, P), name,
+                   f"dstate must be [B, H, N, P], got "
+                   f"{None if dstate is None else tuple(dstate.shape)}")
+    Q = min(chunk, MAX_CHUNK)
+    check_bwd(N, P, Q)
+    dx, dB, dC = (torch.empty_like(t) for t in (x, Bm, Cm))
+    ddt = torch.empty_like(dt)
+    dA = torch.zeros_like(A)
+    if B == 0 or S == 0 or H == 0:
+        return dx, ddt, dA, dB, dC
+    nc = -(-S // Q)
+    # f32 scratch: each chunk's state and its gradient; each chunk's decay
+    # and share of dA
+    states = torch.empty((2, B, nc, H, N, P), dtype=torch.float32,
+                         device=x.device)
+    per_chunk = torch.empty((2, B, nc, H), dtype=torch.float32,
+                            device=x.device)
+    err = _bwd_fn()(
+        _build.DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(),
+        A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
+        dstate.data_ptr() if dstate is not None else None, dx.data_ptr(),
+        ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        states[0].data_ptr(), states[1].data_ptr(), per_chunk[0].data_ptr(),
+        per_chunk[1].data_ptr(), B, S, H, P, N, Q,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, name)
+    bwd_launches += 1
+    bwd_launches_by_variant["simt"] += 1
+    return dx, ddt, dA, dB, dC

@@ -1,6 +1,7 @@
 """Transformer building blocks: GQA attention (full self- or
-cross-attention, paged decode, paged chunk, cross decode) and the dense
-SwiGLU / GELU FFNs. (The Mamba2 block is ``models/mamba2.py``.)
+cross-attention, paged decode, paged chunk, dense-cache decode, cross
+decode) and the dense SwiGLU / GELU FFNs. (The Mamba2 block is
+``models/mamba2.py``.)
 
 Plain functions on tensors, one per reference function in
 ``repro/models/layers.py``, with the same arguments minus the sharding
@@ -119,6 +120,45 @@ def attn_decode_paged(p, x: torch.Tensor, cfg: ArchConfig,
                    block_table, seq_lens)                     # [B, H, hd]
     o = o.reshape(B, 1, H * hd).to(x.dtype)
     return o @ p["wo"]
+
+
+def dense_table(B: int, S: int, page: int, positions: torch.Tensor):
+    """The paged view of a dense per-lane cache [B, S, ...] (S a multiple
+    of ``page``): lane b's block table ``b * (S / page) + arange(S / page)``
+    [B, S / page] int32 into the cache viewed as ``[B * S / page, page,
+    ...]``, and its sequence lengths ``positions + 1`` int32."""
+    W = S // page
+    dev = positions.device
+    bt = (torch.arange(B, device=dev)[:, None] * W
+          + torch.arange(W, device=dev)[None]).int()
+    return bt, (positions + 1).int()
+
+
+def attn_decode(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+                k_cache: torch.Tensor, v_cache: torch.Tensor,
+                block_table: torch.Tensor, seq_lens: torch.Tensor,
+                page: int, attend) -> torch.Tensor:
+    """Single-token decode attention against a dense per-lane KV cache (the
+    reference's ``attn_decode`` with ``update_kv_cache``): x [B,1,D];
+    k/v_cache [B, S, Hkv, hd], written in place at ``positions`` [B] (the
+    new token's index) before the read. The read is ``attend`` (the paged
+    attention, ``kernels.ops.paged_attention``) over the cache viewed as
+    pages of ``page`` rows through :func:`dense_table`'s block table and
+    sequence lengths, which cover positions ``0..positions[b]`` of lane b.
+    Returns the output [B,1,D]."""
+    B, S, Hkv, hd = k_cache.shape
+    H = cfg.n_heads
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q, k_new, v_new = _project_qkv(p, h, h, cfg)
+    q = apply_rope(q, positions[:, None], cfg.rope_theta)
+    k_new = apply_rope(k_new, positions[:, None], cfg.rope_theta)
+    lanes = torch.arange(B, device=x.device)
+    k_cache[lanes, positions.long()] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[lanes, positions.long()] = v_new[:, 0].to(v_cache.dtype)
+    shape = (B * S // page, page, Hkv, hd)
+    o = attend(q[:, 0].contiguous(), k_cache.view(shape),
+               v_cache.view(shape), block_table, seq_lens)     # [B, H, hd]
+    return o.reshape(B, 1, H * hd).to(x.dtype) @ p["wo"]
 
 
 def attn_chunk_paged(p, x: torch.Tensor, cfg: ArchConfig,

@@ -5,7 +5,10 @@ Plain functions on tensors, one per reference function in
 ``repro/models/mamba2.py``, with the same arguments minus the sharding
 context and the same cast points. The full-sequence scan is
 :func:`repro_torch.kernels.ops.ssd_chunk`: the CUDA kernel for tensors on
-the card, the plain chunked scan for tensors on the CPU.
+the card, the plain chunked scan for tensors on the CPU. Under grad on the
+card it is :class:`~repro_torch.kernels.ops.SSDChunkFn` (the forward kernel
+and the hand-written backward, ``csrc/ssd_chunk_bwd.cu``); on the CPU
+autograd differentiates the plain scan.
 """
 from __future__ import annotations
 

@@ -35,6 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
@@ -549,22 +550,58 @@ class Model(nn.Module):
             out["cross_v"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
         return out
 
-    def decode_step(self, state_cache: Dict[str, torch.Tensor],
-                    tokens: torch.Tensor, positions: torch.Tensor
-                    ) -> torch.Tensor:
-        """One token for every lane of a model whose layers all decode from
-        the dense state cache (:meth:`state_cache`, updated in place).
-        tokens [B,1]; positions [B] (unused by SSM layers, kept for the
-        reference's signature). Returns logits [B,Vp] f32."""
-        if self.n_ssm_layers != len(self.layers):
-            raise NotImplementedError(
-                f"{self.cfg.name}: attention layers decode through the "
-                f"paged arena (decode_step_paged)")
+    def cache(self, batch: int, s_max: int,
+              page_tokens: int = 16) -> Dict[str, torch.Tensor]:
+        """The whole dense decode cache of ``batch`` lanes (the reference's
+        ``cache_specs``, unstacked): :meth:`state_cache` plus, for a model
+        with attention layers, ``{"k", "v": [n_attn_layers, batch, S, Hkv,
+        hd]}`` in the model dtype, S = ``s_max`` rounded up to a multiple of
+        ``page_tokens`` so that :meth:`decode_step` can read a lane's cache
+        as whole pages. Layer ``i`` uses entry ``kv_layer[i]``."""
+        out = self.state_cache(batch)
+        if self.kv_layer:
+            cfg = self.cfg
+            S = -(-s_max // page_tokens) * page_tokens
+            shape = (len(self.kv_layer), batch, S, cfg.n_kv_heads,
+                     cfg.head_dim_)
+            out["k"] = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+            out["v"] = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+        return out
+
+    def decode_step(self, cache: Dict[str, torch.Tensor],
+                    tokens: torch.Tensor, positions: torch.Tensor,
+                    page_tokens: int = 16) -> torch.Tensor:
+        """One token for every lane from the dense decode cache
+        (:meth:`cache`, updated in place; :meth:`state_cache` alone for a
+        pure-SSM model): the reference's ``decode_step``. tokens [B,1];
+        positions [B] the new token's index. An attention layer writes the
+        token's K/V into its lane's dense cache and reads it back as pages
+        of ``page_tokens`` through ``kernels.ops.paged_attention``; SSM
+        layers step their state, cross layers read their static K/V, every
+        lane, idle ones too, as the reference's do. Returns logits [B,Vp]
+        f32."""
         cfg = self.cfg
         x = self.embed(tokens)
-        for j, blk in enumerate(self.layers):
-            x = x + M2.ssm_decode(blk.ssm, x, state_cache["state"][j],
-                                  state_cache["conv"][j], cfg)
+        if self.kv_layer:
+            bt, seq_lens = L.dense_table(tokens.shape[0], cache["k"].shape[2],
+                                         page_tokens, positions)
+        j = 0
+        for i, blk in enumerate(self.layers):
+            if blk.mixer == "attn":
+                a = self.kv_layer[i]
+                x = x + L.attn_decode(blk.attn, x, cfg, positions,
+                                      cache["k"][a], cache["v"][a], bt,
+                                      seq_lens, page_tokens,
+                                      ops.paged_attention)
+            else:
+                x = x + M2.ssm_decode(blk.ssm, x, cache["state"][j],
+                                      cache["conv"][j], cfg)
+                j += 1
+            if blk.cross is not None:
+                c = self.cross_layer[i]
+                x = x + L.attn_decode_cross(blk.cross, x, cfg,
+                                            cache["cross_k"][c],
+                                            cache["cross_v"][c])
             x = blk.ffn_apply(x, cfg)
         x = rms_norm(x, self.final_ln, cfg.norm_eps)
         return self._logits(x[:, 0])

@@ -20,7 +20,10 @@ decode and chunk attention read it through per-sequence block tables via
 on the card and runs their plain versions for tensors on the CPU. A model
 with SSM layers keeps their recurrent state in a dense per-slot cache,
 registered with the accountant: a pure-SSM model (``paged_kv_layout()`` of
-0 layers) holds nothing else and decodes from it alone; a hybrid is paged
+0 layers) holds nothing else and decodes from it alone; so does any model
+under ``kv_backend="dense"``, whose self-attention K/V then sits in that
+cache too (``Model.cache``) and is read through the paged decode kernel
+over the cache viewed as pages (``Model.decode_step``); a hybrid is paged
 and holds both, its monolithic prefill writing the prompt's K/V and the
 state, its paged decode stepping the state of every lane. Either decodes
 all ``max_slots`` lanes one token at a time: the chunk and horizon knobs
@@ -124,7 +127,8 @@ class Engine:
                  prefix_cache=None, prefix_ns: Optional[str] = None,
                  max_batch_tokens: Optional[int] = None,
                  prefill_chunk_tokens: int = 0,
-                 decode_horizon: int = 1, device=None):
+                 decode_horizon: int = 1, device=None,
+                 kv_backend: Optional[str] = None):
         """``model`` holds its weights (the reference passes ``params``
         beside it). ``arena``: the physical page store (a private one on
         ``device`` is created by default; pass one with ``init_rows`` sized
@@ -141,7 +145,14 @@ class Engine:
         prefill+decode iterations fall back to one-token decode. Both knobs
         need every layer's context in paged KV; for a model without it they
         degrade to 0 and 1. ``device``: ``cuda`` unless the caller names
-        another; it must be the model's device."""
+        another; it must be the model's device. ``kv_backend``: None or
+        "paged" (the default; the reference's "pallas" and "ref" mean the
+        same here, since the dispatch picks the kernel or its plain version
+        by device) keeps self-attention K/V in the arena's pages; "dense"
+        keeps it in a dense ``[max_slots, s_max, Hkv, hd]`` cache per
+        attention layer, as the reference's dense backend does, with its
+        degradations: no arena plane, no prefix cache, no chunked prefill,
+        no horizon. A model without attention layers is always "dense"."""
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model is on {model.device}, engine on "
@@ -162,9 +173,18 @@ class Engine:
         self.pool.set_virtual_budget(model.cfg.name,
                                      alpha * s_max * max_slots * 4)
         n_layers, Hkv, hd, kv_dtype = model.paged_kv_layout()
-        self.paged = n_layers > 0       # else a state-only model
+        if kv_backend is None or kv_backend in ("pallas", "ref"):
+            kv_backend = "paged"
+        if kv_backend not in ("paged", "dense"):
+            raise ValueError(f"kv_backend must be None, 'paged', 'pallas', "
+                             f"'ref' or 'dense', not {kv_backend!r}")
+        if n_layers == 0:
+            kv_backend = "dense"         # nothing to page: state-only model
+        self.kv_backend = kv_backend
+        self.paged = kv_backend == "paged"
         self.binding = self.arena.register(
-            model.cfg.name, self.pool, s_max=s_max, n_layers=n_layers,
+            model.cfg.name, self.pool, s_max=s_max,
+            n_layers=n_layers if self.paged else 0,
             n_kv_heads=Hkv, head_dim=hd, dtype=kv_dtype)
         self._pc = None
         self._pc_ns = prefix_ns or model.cfg.name
@@ -219,13 +239,16 @@ class Engine:
 
     # -------------------------------------------------------------- state
     def _ensure_cache(self) -> None:
-        """(Re)allocate the dense per-slot state cache (SSM state / conv,
-        static cross K/V; empty for a pure self-attention model) and
+        """(Re)allocate the dense per-slot cache (SSM state / conv, static
+        cross K/V; empty for a pure self-attention model on the paged
+        path; plus every attention layer's K/V on the dense one) and
         register its bytes with the accountant, so engine state is never
         silently device-resident."""
         if self.cache is not None:
             return
-        self.cache = self.model.state_cache(self.max_slots)
+        self.cache = (self.model.state_cache(self.max_slots) if self.paged
+                      else self.model.cache(self.max_slots, self.s_max,
+                                            self.page_tokens))
         nbytes = sum(t.numel() * t.element_size()
                      for t in self.cache.values())
         self._state_bytes = nbytes
@@ -376,6 +399,9 @@ class Engine:
         self.stat_prefill_tokens += P
         if self.paged:
             self.binding.write_prompt(req.req_id, k_all[:, 0], v_all[:, 0])
+        elif k_all is not None:          # the dense K/V cache
+            self.cache["k"][:, slot, :P] = k_all[:, 0]
+            self.cache["v"][:, slot, :P] = v_all[:, 0]
         if state is not None:            # ssm state / conv, cross K/V
             for name, t in state.items():
                 self.cache[name][:, slot] = t[:, 0]
@@ -528,10 +554,11 @@ class Engine:
                 toks[self.slot_of[rid], 0] = self.active[rid].out[-1]
             if self.paged:
                 logits = self._decode_paged(toks, decode_rids)
-            else:                 # every lane steps its dense state
+            else:                 # every lane steps its dense cache
                 logits = self.model.decode_step(
                     self.cache, self._dev(toks),
-                    self._dev(self.positions.copy()))
+                    self._dev(self.positions.copy()),
+                    page_tokens=self.page_tokens)
             nxt = logits.argmax(dim=-1).cpu().numpy()
             self.stat_decode_syncs += 1
             self.stat_decode_tokens += len(decode_rids)

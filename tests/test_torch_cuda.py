@@ -947,19 +947,97 @@ def test_flash_attention_fn_equals_autograd_of_the_plain_version(dev):
     assert ops.counts()["launches"]["flash_attention"] == 1
 
 
-def test_ssd_chunk_raises_under_grad_on_the_card(dev):
-    """No SSD backward kernel yet: a Mamba2 layer does not train on the
-    card, and the scan does not fall back to the plain version."""
+def test_ssd_chunk_under_grad_runs_the_kernels_or_raises(dev):
+    """Under grad the scan runs its forward kernel and, on backward, the
+    hand-written backward, never the plain version; it raises, before any
+    launch, at widths the backward does not take (N = P = 128 needs more
+    shared memory than a block has) rather than falling back."""
     from repro_torch.kernels import ops
     x, dt, A, Bm, Cm = _ssd_inputs(np.random.default_rng(13), 1, 16, 2, 16,
                                    8, torch.float32, dev)
     x.requires_grad_()
     ops.reset_counts()
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.ssd_chunk(x, dt, A, Bm, Cm, 8)
-    assert not any(ops.plain_calls.values())
+    y, _ = ops.ssd_chunk(x, dt, A, Bm, Cm, 8)
+    y.sum().backward()
+    c = ops.counts()
+    assert c["launches"]["ssd_chunk"] == 1
+    assert c["launches"]["ssd_chunk_bwd"] == 1
+    assert x.grad is not None and not any(ops.plain_calls.values())
+    wide = [t.requires_grad_() if t.is_floating_point() else t
+            for t in _ssd_inputs(np.random.default_rng(13), 1, 16, 2, 128,
+                                 128, torch.bfloat16, dev)]
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.ssd_chunk(*wide, 64)
+    assert ops.counts()["launches"]["ssd_chunk"] == 1
     with torch.no_grad():
-        ops.ssd_chunk(x, dt, A, Bm, Cm, 8)
+        ops.ssd_chunk(*wide, 64)
+
+
+SSD_BWD_SHAPES = [
+    (1, 131, 80, 64, 128, 256, True),    # mamba2-2.7b's heads, ragged
+    (2, 256, 8, 64, 128, 256, False),
+    (1, 200, 16, 64, 16, 256, True),     # jamba's widths
+    (2, 67, 4, 16, 16, 32, True),        # the reduced configs' chunk
+    (1, 5, 2, 8, 4, 64, False),          # one short chunk
+]
+
+
+def _ssd_bwd_case(rng, B, S, H, P, N, dtype, dev, with_state):
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, B, S, H, P, N, dtype, dev)
+    dy = _t(rng.standard_normal((B, S, H, P), np.float32), dev, dtype)
+    ds = (_t(rng.standard_normal((B, H, N, P), np.float32), dev)
+          if with_state else None)
+    return x, dt, A, Bm, Cm, dy, ds
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,with_state", SSD_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_kernel(dev, B, S, H, P, N, chunk, with_state, dtype):
+    """The backward kernel against its plain version (ref.ssd_chunk_bwd, in
+    f32 on the same inputs): each gradient's largest error over its largest
+    magnitude below 1e-4 in f32 (sums in another order) and 1e-2 for the
+    bf16 dx, dB, dC (one rounding of the output)."""
+    x, dt, A, Bm, Cm, dy, ds = _ssd_bwd_case(np.random.default_rng(17), B,
+                                             S, H, P, N, dtype, dev,
+                                             with_state)
+    got = ssd.ssd_chunk_bwd(x, dt, A, Bm, Cm, dy, ds, chunk)
+    want = ref.ssd_chunk_bwd(x.float(), dt, A, Bm.float(), Cm.float(),
+                             dy.float(), ds, chunk)
+    torch.cuda.synchronize()
+    for name, g, w, t in zip(("dx", "ddt", "dA", "dB", "dC"), got, want,
+                             (x, dt, A, Bm, Cm)):
+        assert g.dtype == t.dtype and g.shape == t.shape, name
+        lim = 1e-2 if g.dtype == torch.bfloat16 else 1e-4
+        assert _scaled_err(g, w) < lim, (name, _scaled_err(g, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_ssd_backward_runs_are_bitwise_equal(dev, dtype):
+    args = _ssd_bwd_case(np.random.default_rng(18), 2, 300, 8, 64, 128,
+                         dtype, dev, True)
+    a = ssd.ssd_chunk_bwd(*args, 256)
+    b = ssd.ssd_chunk_bwd(*args, 256)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_ssd_chunk_fn_equals_autograd_of_the_plain_version(dev):
+    """f32: ops.ssd_chunk under grad on the card (the forward and backward
+    kernels) against autograd of the plain scan on the card, with and
+    without a gradient on the final state."""
+    from repro_torch.kernels import ops
+    ins = _ssd_inputs(np.random.default_rng(19), 2, 97, 4, 32, 16,
+                      torch.float32, dev)
+    dy = torch.randn((2, 97, 4, 32), device=dev)
+    ds = torch.randn((2, 4, 16, 32), device=dev)
+    for with_state in (False, True):
+        grads = []
+        for fn in (ops.ssd_chunk, ref.ssd_chunk_scan):
+            ts = [t.clone().requires_grad_() for t in ins]
+            y, st = fn(*ts, 32)
+            loss = (y * dy).sum() + ((st * ds).sum() if with_state else 0)
+            grads.append(torch.autograd.grad(loss, ts))
+        for g, w in zip(*grads):
+            assert _scaled_err(g, w) < 1e-4
 
 
 def test_a_train_step_on_the_card_equals_the_cpu(dev):
