@@ -208,8 +208,11 @@ Phases, each printing one JSON line (and failing the run on any error):
                 mamba2-2.7b's and jamba's training microbatch (2 x 4,096,
                 bf16), a prime length with and without the final state's
                 gradient and an f32 case: each gradient's error, two runs
-                bitwise equal, the time beside the bound and the plain
-                version; and flash's training forward (which also writes each
+                bitwise equal, the variant that ran (bf16 at mamba2's N
+                128 the wgmma variant, jamba's N 16 and f32 simt), the
+                time beside the bound and the plain version, and ptxas's
+                registers and spills of the backward's kernels; and flash's
+                training forward (which also writes each
                 row's log-sum-exp) and the flash backward
                 (``csrc/flash_attention_bwd.cu``) against their plain
                 versions at the training paths' shapes: qwen3-8b causal
@@ -3694,15 +3697,20 @@ WHISPER_TRAIN = dict(batch=4, seq=448, steps=6, lr=1e-3, warmup=2)
 # variant
 BWD_NAMES = ("delta_kernel", "dkdv_wgmma", "dq_wgmma", "dkdv_simt",
              "dq_simt")
-# the SSD backward's device kernels, in launch order
-SSD_BWD_NAMES = ("increments_kernel", "scan_kernel", "chunk_kernel",
-                 "dA_kernel")
+# the SSD backward's device kernels, in launch order: the wgmma variant's
+# two chains, the simt variant's four passes (dA_kernel ends both)
+SSD_BWD_NAMES = ("states_wgmma", "chunk_wgmma", "increments_kernel",
+                 "scan_kernel", "chunk_kernel", "dA_kernel")
 # mamba2-2.7b whole in training: train_main's batch shape, cyclic batch
-# and steps, at 16 times its lr (at 5e-4 the loss of a freshly drawn
+# and steps, at 8 times its lr (at 5e-4 the loss of a freshly drawn
 # mamba2-2.7b barely moves in 12 steps, with the plain scan as with the
-# kernels: ``python3 chip_smoke.py --lr-witness-layers 64``)
+# kernels: ``python3 chip_smoke.py --lr-witness-layers 64``; at 8e-3 the
+# curve stops falling monotonically, and whether it halves by step 12
+# turns on the last bits of the gradients, the plain scan's own run too;
+# at 4e-3 both fall monotonically from step 5 on and halve it:
+# ``--lr-witness-layers 64 --lr-witness-lr 8e-3`` or ``4e-3``)
 MAMBA_TRAIN = dict(model=SSM_MODEL, batch=4, n_micro=2, seq=4096,
-                   period=256, steps=12, lr=8e-3, warmup=2, grad_layers=2,
+                   period=256, steps=12, lr=4e-3, warmup=2, grad_layers=2,
                    grad_batch=2)
 
 
@@ -3716,19 +3724,27 @@ def bwd_cost(B, Sq, Sk, H, Hkv, hd, causal, esize):
     return n_bytes, B * fwd_flops * 10 // 4
 
 
-def bwd_ptxas() -> dict:
+def bwd_ptxas(lib: str = "flash_attention_bwd") -> dict:
     """ptxas's report (registers, spills, stack, wgmma serialized) of each
-    device kernel of the flash backward as this run built it, by a short
-    name (``dkdv_wgmma<128>``)."""
+    device kernel of a backward's library as this run built it, by a short
+    name (``dkdv_wgmma<128>``, ``chunk_wgmma<128,64>``)."""
     import re
     from repro_torch.kernels import _build
-    args = {"Li64E": "64", "Li128E": "128", "fE": "float",
-            "13__nv_bfloat16E": "bf16"}
+    args = {"fE": "float", "13__nv_bfloat16E": "bf16"}
     out = {}
-    for mangled, r in _build.ptxas_report("flash_attention_bwd").items():
-        m = re.search(r"repro_flash_bwd\d+(\w+?)I(Li\d+E|fE|13__nv_bfloat16E)",
-                      mangled)
-        out[f"{m.group(1)}<{args[m.group(2)]}>" if m else mangled] = r
+    for mangled, r in _build.ptxas_report(lib).items():
+        m = re.match(r"_ZN\d+\w+?_bwd(\d+)", mangled)
+        if not m:
+            out[mangled] = r
+            continue
+        n = int(m.group(1))
+        rest = mangled[m.end():]
+        name, rest = rest[:n], rest[n:]
+        if rest.startswith("I"):
+            targs = re.findall(r"Li(\d+)E|(fE|13__nv_bfloat16E)",
+                               rest[1:rest.index("EE") + 1])
+            name += "<" + ",".join(a or args[b] for a, b in targs) + ">"
+        out[name] = r
     return out
 
 
@@ -3928,9 +3944,12 @@ def check_ssd_bwd(torch, gen) -> dict:
     equal. bf16: dx, dB and dC rounded once to bf16 (2^-9 of an element),
     within 1e-2 of the tensor's largest magnitude and 3e-2 of a row's; the
     f32 outputs (every output of the f32 case, ddt and dA always) within
-    1e-4 and 1e-3 (sums in another order). Each shape timed beside its
-    bound and the plain version; no single PyTorch call computes the
-    scan's gradient (``library_ms`` None). Returns the numbers by label."""
+    1e-4 and 1e-3 (sums in another order). bf16 at N and P of 64 or 128
+    takes the wgmma variant (f32 operands split into bf16 hi + lo, so the
+    same limits hold), jamba's N 16 and f32 the simt one. Each shape timed
+    beside its bound and the plain version; no single PyTorch call
+    computes the scan's gradient (``library_ms`` None). Returns the
+    numbers by label."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_chunk as ssd
@@ -3964,13 +3983,19 @@ def check_ssd_bwd(torch, gen) -> dict:
                     f"ssd_chunk_bwd at {label}: {name} error {e_abs} "
                     f"({scaled} of its magnitude, {e_row} of a row's)")
         require(deterministic, f"ssd_chunk_bwd at {label}: two runs differ")
+        variant = ssd.bwd_variant(dt_, N, P, chunk)
+        want_variant = ("wgmma" if dt_ == torch.bfloat16 and N >= 64
+                        else "simt")
+        require(variant == want_variant,
+                f"ssd_chunk_bwd at {label}: the {variant} variant")
         del again, want
         n_bytes, n_flops = ssd_bwd_cost(B, S, H, P, N, min(chunk, 64),
                                         x.element_size(), with_state)
         b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+        n_state = B * -(-S // min(chunk, 64)) * H * N * P * 4
         row = dict(shape=dict(B=B, S=S, H=H, P=P, N=N, dtype=str(dt_),
                               final_state_grad=with_state, chunk=chunk),
-                   variant="simt", deterministic=deterministic,
+                   variant=variant, deterministic=deterministic,
                    max_abs_err=max(e["max_abs"] for e in errs.values()),
                    row_scaled_err=max(e["row_scaled"]
                                       for e in errs.values()),
@@ -3981,13 +4006,16 @@ def check_ssd_bwd(torch, gen) -> dict:
                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
                    bytes=n_bytes, flops=n_flops,
                    # the f32 chunk states and their gradients through
-                   # device memory: written once, read twice each
-                   state_bytes=3 * 2 * B * -(-S // min(chunk, 64)) * H * N
-                   * P * 4)
+                   # device memory, by the design: wgmma writes s_in once
+                   # and reads it twice, ds_out once and once; simt writes
+                   # each direction's increments, scans them in place and
+                   # reads them again
+                   state_bytes=(5 if variant == "wgmma" else 8) * n_state)
         row["bound_share"] = b_ms / row["ms"]
         out[label] = row
         emit("kernel_check_train", name="ssd_chunk_bwd", heads=label, **row)
         del x, dy, Bm, Cm, dt, A, ds, got, args
+    emit("ptxas", name="ssd_chunk_bwd", kernels=bwd_ptxas("ssd_chunk_bwd"))
     reset_peak(torch)
     return out
 
@@ -4451,7 +4479,7 @@ def phase_train_main(torch, args) -> dict:
                 main_variants=num["launches_by_variant"])
 
 
-def lr_witness(torch, args, cfg) -> dict:
+def lr_witness(torch, args, cfg, lr=None) -> dict:
     """``cfg`` (mamba2-2.7b at its published widths, at the gradient
     check's depth in the smoke or at ``--lr-witness-layers``) trained at
     train_main's lr and schedule on the cyclic batch,
@@ -4459,7 +4487,9 @@ def lr_witness(torch, args, cfg) -> dict:
     plain scan on the card: each step's loss must agree within 5e-2 (the
     gradient check's bf16 rounding, carried through the steps). How far
     the loss falls at that lr is then the model's and the schedule's, not
-    the kernels'. Returns both loss curves."""
+    the kernels'. With ``lr`` (``--lr-witness-lr``) both train at that lr
+    instead and are only printed: at a large lr the curves part once they
+    stop falling monotonically. Returns both loss curves."""
     from repro_torch.models import build_model
     from repro_torch.training import OptConfig, adamw_init, make_train_step
 
@@ -4473,7 +4503,7 @@ def lr_witness(torch, args, cfg) -> dict:
         params = model.param_tree()
         opt = adamw_init(params)
         step_fn = make_train_step(
-            model, OptConfig(lr=TRAIN["lr"], warmup_steps=m["warmup"]),
+            model, OptConfig(lr=lr or TRAIN["lr"], warmup_steps=m["warmup"]),
             n_micro=m["n_micro"])
         losses, times = [], []
         with contextlib.ExitStack() as stack:
@@ -4487,13 +4517,13 @@ def lr_witness(torch, args, cfg) -> dict:
     gap = max(abs(a - b) for a, b in zip(curves["kernels"]["losses"],
                                          curves["plain"]["losses"]))
     emit("train_mamba2_lr_witness", model=cfg.name, n_layers=cfg.n_layers,
-         lr=TRAIN["lr"], steps=m["steps"], max_loss_gap=gap,
+         lr=lr or TRAIN["lr"], steps=m["steps"], max_loss_gap=gap,
          **{f"{run}_{k}": v for run, c in curves.items()
             for k, v in c.items()},
          **{f"{run}_fall": 1 - c["losses"][-1] / c["losses"][0]
             for run, c in curves.items()})
     require(all(math.isfinite(x) for c in curves.values()
-                for x in c["losses"]) and gap <= 5e-2,
+                for x in c["losses"]) and (lr is not None or gap <= 5e-2),
             f"train_mamba2 lr witness: the kernels' losses "
             f"{curves['kernels']['losses']} against the plain scan's "
             f"{curves['plain']['losses']}")
@@ -4579,7 +4609,9 @@ def phase_train_mamba2(torch, args) -> dict:
                                     "ssd_chunk_bwd": m["steps"] * per_step},
                 f"train_mamba2: launches {num['launches']}")
         require(num["launches_by_variant"]["ssd_chunk"]["wgmma"]
-                == 2 * m["steps"] * per_step,
+                == 2 * m["steps"] * per_step
+                and num["launches_by_variant"]["ssd_chunk_bwd"]["wgmma"]
+                == m["steps"] * per_step,
                 f"train_mamba2: {num['launches_by_variant']}")
         plain = dict(ops.plain_calls)
         prof = profile_train_step(torch, step_fn, params, opt, batch)
@@ -4708,6 +4740,11 @@ def main(argv=None) -> int:
                     help="build the kernels, run only train_mamba2's lr "
                     "witness with mamba2-2.7b at this many layers, and "
                     "exit (the smoke itself runs it at 2)")
+    ap.add_argument("--lr-witness-lr", type=float, default=None,
+                    help="with --lr-witness-layers: train both runs at "
+                    "this lr instead of train_main's, and print both "
+                    "curves without holding them to each other (how each "
+                    "falls at that lr)")
     args = ap.parse_args(argv)
     # cuBLAS is deterministic only with a fixed workspace, set before torch
     # loads it; train_main's resume check runs under deterministic
@@ -4747,7 +4784,8 @@ def main(argv=None) -> int:
         from repro_torch.configs import get_config
         with torch.enable_grad():
             lr_witness(torch, args, dataclasses.replace(
-                get_config(SSM_MODEL), n_layers=args.lr_witness_layers))
+                get_config(SSM_MODEL), n_layers=args.lr_witness_layers),
+                lr=args.lr_witness_lr)
         return 0
 
     rng = np.random.default_rng(args.seed)
@@ -4914,6 +4952,8 @@ def main(argv=None) -> int:
         launches_by_path={p: n.get("ssd_chunk_bwd", 0)
                           for p, n in by_path.items()
                           if n.get("ssd_chunk_bwd")},
+        # ptxas's registers and spills of the backward's device kernels
+        ptxas=bwd_ptxas("ssd_chunk_bwd"),
         train_shapes={label: {k: c.get(k) for k in (
             "max_abs_err", "row_scaled_err", "variant", "ms", "ms_no_spin",
             "host_ms", "plain_ms", "bound_ms", "bound_by", "bound_share",

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) primitives shared by the wgmma kernels (flash_attention.cu
-// and chunk_prefill.cu through attend_wgmma.cuh, and ssd_chunk.cu): shared
+// and chunk_prefill.cu through attend_wgmma.cuh, flash_attention_bwd.cu,
+// ssd_chunk.cu and ssd_chunk_bwd.cu): shared
 // memory addresses, mbarriers, TMA loads and their tensor maps, and the
 // warpgroup matrix multiply (wgmma) on bf16 operands with f32 accumulators.
 // All inline PTX; the tensor-map encoder comes from the runtime's driver
@@ -19,7 +20,8 @@
 // 16 (t / 32) + (t % 32) / 4 + 8 i, column 8 nb + 2 (t % 4) + j. Packed
 // as bf16 pairs (4 nb + 2 i + j -> 2 nb + i), the registers for columns
 // 16 k .. 16 k + 15 are, in order, the register A fragment of k-step k of a
-// wgmma_rs: attention's P, and the SSD kernel's G o L o dt and (x o w)^T.
+// wgmma_rs: attention's P, and the SSD kernels' G o L o dt, (x o w)^T and
+// their backward's squares.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums
@@ -144,7 +146,7 @@ __device__ __forceinline__ void pin(float (&r)[N]) {
 }
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64]; A and B K-major in shared memory.
-// Every product of the three kernels is a stack of these m64n64k16 steps
+// Every product of the wgmma kernels is a stack of these m64n64k16 steps
 // and of wgmma_rs's: wider operands are split into 64-column boxes, each
 // with its own accumulator.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
@@ -155,6 +157,26 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
       "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// wgmma_ss with B MN-major: a box read down its columns (the SSD
+// backward's state tiles, stored [P][N], as the B of a product over P).
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),

@@ -117,7 +117,7 @@ class SSDChunkFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, chunk: int):
-        _ssd.check_bwd(Bm.shape[-1], x.shape[-1], chunk)
+        _ssd.check_bwd(x.dtype, Bm.shape[-1], x.shape[-1], chunk)
         ctx.set_materialize_grads(False)
         y, state = _ssd.ssd_chunk(x, dt, A, Bm, Cm, chunk)
         ctx.save_for_backward(x, dt, A, Bm, Cm)

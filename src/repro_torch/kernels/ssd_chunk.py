@@ -8,11 +8,12 @@ between the two by device is :mod:`repro_torch.kernels.ops`. The backward
 :func:`repro_torch.kernels.ref.ssd_chunk_bwd`) replaces no Pallas kernel:
 the reference differentiates its jnp scan with JAX autodiff.
 
-The C launcher picks one of two variants from (dtype, N, P, chunk) alone:
-``wgmma`` (bf16, N and P of 64 or 128, chunks of 64: tensor cores, TMA) or
-``simt`` (f32, other widths and shorter chunks: the CUDA-core loop).
-:data:`launches_by_variant` counts each; :func:`takes_wgmma` is the rule
-written out in Python.
+The C launchers pick one of two variants from (dtype, N, P, chunk) alone,
+the backward by the forward's rule: ``wgmma`` (bf16, N and P of 64 or 128,
+chunks of 64: tensor cores, TMA) or ``simt`` (f32, other widths and shorter
+chunks: CUDA-core loops). :data:`launches_by_variant` and
+:data:`bwd_launches_by_variant` count each; :func:`takes_wgmma` and
+:func:`takes_wgmma_bwd` are the rules written out in Python.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ MAX_STATE_DIM = 128  # N and P: the state and a chunk's tiles in shared memory
 VARIANTS = ("simt", "wgmma")   # indexed by repro_ssd_chunk_variant
 launches = 0   # kernel launches since the caller last reset it
 launches_by_variant = {v: 0 for v in VARIANTS}
-BWD_VARIANTS = ("simt",)       # the backward's CUDA-core passes
+BWD_VARIANTS = ("simt", "wgmma")   # indexed by repro_ssd_chunk_bwd_variant
 bwd_launches = 0
 bwd_launches_by_variant = {v: 0 for v in BWD_VARIANTS}
 MAX_SMEM = 232448              # a block's shared memory on the H100
@@ -111,25 +112,47 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def _bwd_fn():
     P, I = ctypes.c_void_p, ctypes.c_int
     f = _build.library("ssd_chunk_bwd").repro_ssd_chunk_bwd
-    f.argtypes = [I] + [P] * 16 + [I] * 6 + [P]
+    f.argtypes = [I] + [P] * 17 + [I] * 6 + [P]
     f.restype = I
     return f
 
 
+def takes_wgmma_bwd(dtype: torch.dtype, N: int, P: int, chunk: int) -> bool:
+    """The backward launcher's rule (``repro_ssd_chunk_bwd_variant``) in
+    Python: the forward's, so a scan and its gradient take one variant."""
+    return (dtype == torch.bfloat16 and N in (64, 128) and P in (64, 128)
+            and min(chunk, MAX_CHUNK) == MAX_CHUNK)
+
+
 @functools.cache
-def bwd_smem(N: int, P: int, chunk: int) -> int:
-    """Shared memory (bytes) of the backward's largest block at (N, P,
-    chunk), as the C library computes it."""
+def bwd_variant(dtype: torch.dtype, N: int, P: int, chunk: int) -> str:
+    """The variant the backward's launcher takes for (dtype, N, P, chunk),
+    as the C library decides it."""
+    f = _build.library("ssd_chunk_bwd").repro_ssd_chunk_bwd_variant
+    f.argtypes = [ctypes.c_int] * 4
+    f.restype = ctypes.c_int
+    return BWD_VARIANTS[f(_build.DTYPE_CODES[dtype], N, P,
+                          min(chunk, MAX_CHUNK))]
+
+
+@functools.cache
+def bwd_smem(dtype: torch.dtype, N: int, P: int, chunk: int) -> int:
+    """Shared memory (bytes) of the backward's largest block at (dtype, N,
+    P, chunk), for the variant it takes, as the C library computes it."""
     f = _build.library("ssd_chunk_bwd").repro_ssd_chunk_bwd_smem
-    f.argtypes = [ctypes.c_int] * 3
+    f.argtypes = [ctypes.c_int] * 4
     f.restype = ctypes.c_longlong
-    return int(f(N, P, min(chunk, MAX_CHUNK)))
+    return int(f(_build.DTYPE_CODES[dtype], N, P, min(chunk, MAX_CHUNK)))
 
 
-def check_bwd(N: int, P: int, chunk: int) -> None:
-    """Raise unless the backward takes (N, P, chunk): its chunk kernel holds
-    a chunk's tiles and one state [N, P] in one block's shared memory."""
-    smem = bwd_smem(N, P, chunk)
+def check_bwd(dtype: torch.dtype, N: int, P: int, chunk: int) -> None:
+    """Raise unless the backward takes (dtype, N, P, chunk): the simt
+    variant's chunk kernel holds a chunk's tiles and one state [N, P] in one
+    block's shared memory."""
+    _build.require(dtype in _build.DTYPE_CODES, "ssd_chunk_bwd",
+                   f"dtype must be one of {list(_build.DTYPE_CODES)}, got "
+                   f"{dtype}")
+    smem = bwd_smem(dtype, N, P, chunk)
     _build.require(smem <= MAX_SMEM, "ssd_chunk_bwd",
                    f"N {N}, P {P} and chunk {min(chunk, MAX_CHUNK)} need "
                    f"{smem} bytes of shared memory, more than a block's "
@@ -145,11 +168,16 @@ def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     the same inputs and ``chunk``. -> (dx, ddt, dA, dB, dC): dx, dB, dC in
     x's dtype, ddt [B, S, H] and dA [H] f32.
 
-    Four kernels (each chunk's increments of the state and of its
-    gradient, their scan over the chunks, each chunk's gradients, a
-    fixed-order sum of dA), in f32 on CUDA cores, with no atomics: two runs
-    give the same bits. Launches on the current stream;
-    raises on any input it does not take and on a failed launch."""
+    Two variants, each deterministic (two runs give the same bits). wgmma:
+    a forward chain of the chunk states and a reverse chain of their
+    gradients, each block taking its chunk from an ordered ticket and
+    passing its state on through device memory under a flag, with every
+    product on the tensor cores (f32 operands split into two bf16 ones);
+    the latency of each chunk block's steps bounds it. simt: four CUDA-core
+    kernels (each chunk's increments of the state and of its gradient,
+    their scan, each chunk's gradients, a fixed-order sum of dA), bound by
+    f32 arithmetic. Launches on the current stream; raises on any input it
+    does not take and on a failed launch."""
     global bwd_launches
     name = "ssd_chunk_bwd"
     _build.require(x.dim() == 4, name,
@@ -175,7 +203,10 @@ def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    f"dstate must be [B, H, N, P], got "
                    f"{None if dstate is None else tuple(dstate.shape)}")
     Q = min(chunk, MAX_CHUNK)
-    check_bwd(N, P, Q)
+    check_bwd(x.dtype, N, P, Q)
+    which = bwd_variant(x.dtype, N, P, Q)
+    if which == "wgmma":
+        _build.check_aligned(name, [x, Bm, Cm, dy])
     dx, dB, dC = (torch.empty_like(t) for t in (x, Bm, Cm))
     ddt = torch.empty_like(dt)
     dA = torch.zeros_like(A)
@@ -183,20 +214,23 @@ def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return dx, ddt, dA, dB, dC
     nc = -(-S // Q)
     # f32 scratch: each chunk's state and its gradient; each chunk's decay
-    # and share of dA
+    # and share of dA; the wgmma variant's tickets and chain flags
     states = torch.empty((2, B, nc, H, N, P), dtype=torch.float32,
                          device=x.device)
     per_chunk = torch.empty((2, B, nc, H), dtype=torch.float32,
                             device=x.device)
+    flags = (torch.zeros(2 + 2 * B * H * nc, dtype=torch.int32,
+                         device=x.device) if which == "wgmma" else None)
     err = _bwd_fn()(
         _build.DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(),
         A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
         dstate.data_ptr() if dstate is not None else None, dx.data_ptr(),
         ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
         states[0].data_ptr(), states[1].data_ptr(), per_chunk[0].data_ptr(),
-        per_chunk[1].data_ptr(), B, S, H, P, N, Q,
+        per_chunk[1].data_ptr(),
+        flags.data_ptr() if flags is not None else None, B, S, H, P, N, Q,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, name)
     bwd_launches += 1
-    bwd_launches_by_variant["simt"] += 1
+    bwd_launches_by_variant[which] += 1
     return dx, ddt, dA, dB, dC

@@ -11,8 +11,11 @@ plain version's one-shot softmax, both in f32); bfloat16 to 2e-2, as in
 by its largest error over the largest magnitude: 1e-4 at f32 (fixed chunks
 of at most 64 against the plain version's largest-divisor chunks, sums in
 another order), 1e-2 for a bf16 ``y`` (one rounding of the output), also
-per head, and 1e-4 for the f32 state in either dtype. Cases of the chunk,
-flash and SSD kernels assert the variant (``wgmma`` or ``simt``) they took,
+per head, and 1e-4 for the f32 state in either dtype; its backward against
+the plain version in float64, also by each row's error (bf16 3e-2, f32
+1e-3), and bitwise over two runs. Cases of
+the chunk, flash and SSD kernels (and the SSD backward) assert the variant
+(``wgmma`` or ``simt``) they took,
 and the bf16 ones of the wgmma attention loop also each row's error over
 its magnitude (2e-2). TF32 stays off.
 """
@@ -950,8 +953,10 @@ def test_flash_attention_fn_equals_autograd_of_the_plain_version(dev):
 def test_ssd_chunk_under_grad_runs_the_kernels_or_raises(dev):
     """Under grad the scan runs its forward kernel and, on backward, the
     hand-written backward, never the plain version; it raises, before any
-    launch, at widths the backward does not take (N = P = 128 needs more
-    shared memory than a block has) rather than falling back."""
+    launch, at widths the backward does not take (the simt variant at
+    N = P = 128 needs more shared memory than a block has) rather than
+    falling back. In bf16 at chunks of 64 those widths take the wgmma
+    variant, which does."""
     from repro_torch.kernels import ops
     x, dt, A, Bm, Cm = _ssd_inputs(np.random.default_rng(13), 1, 16, 2, 16,
                                    8, torch.float32, dev)
@@ -965,12 +970,20 @@ def test_ssd_chunk_under_grad_runs_the_kernels_or_raises(dev):
     assert x.grad is not None and not any(ops.plain_calls.values())
     wide = [t.requires_grad_() if t.is_floating_point() else t
             for t in _ssd_inputs(np.random.default_rng(13), 1, 16, 2, 128,
-                                 128, torch.bfloat16, dev)]
+                                 128, torch.float32, dev)]
     with pytest.raises(ValueError, match="shared memory"):
         ops.ssd_chunk(*wide, 64)
     assert ops.counts()["launches"]["ssd_chunk"] == 1
     with torch.no_grad():
         ops.ssd_chunk(*wide, 64)
+    wide = [t.detach().to(torch.bfloat16).requires_grad_()
+            if t.dtype == torch.float32 and t.dim() == 4 else t.detach()
+            for t in wide]
+    y, _ = ops.ssd_chunk(*wide, 64)
+    y.float().sum().backward()
+    c = ops.counts()
+    assert c["launches_by_variant"]["ssd_chunk_bwd"]["wgmma"] == 1
+    assert wide[0].grad is not None and not any(ops.plain_calls.values())
 
 
 SSD_BWD_SHAPES = [
@@ -979,6 +992,14 @@ SSD_BWD_SHAPES = [
     (1, 200, 16, 64, 16, 256, True),     # jamba's widths
     (2, 67, 4, 16, 16, 32, True),        # the reduced configs' chunk
     (1, 5, 2, 8, 4, 64, False),          # one short chunk
+    # the wgmma variant's edges in bf16: one token, a chunk less and more
+    # than one, prime lengths; N and P 64 and 128; B 2
+    (2, 1, 3, 64, 64, 256, True),
+    (2, 63, 2, 64, 128, 256, False),
+    (2, 65, 2, 128, 64, 256, True),
+    (2, 131, 2, 128, 128, 64, False),
+    (2, 257, 3, 64, 128, 256, True),
+    (2, 257, 2, 128, 128, 256, True),
 ]
 
 
@@ -990,25 +1011,70 @@ def _ssd_bwd_case(rng, B, S, H, P, N, dtype, dev, with_state):
     return x, dt, A, Bm, Cm, dy, ds
 
 
+def _row_err(got, exp) -> float:
+    """The largest row error over the larger of the row's magnitude and 1%
+    of the tensor's."""
+    g, e = got.float(), exp.float()
+    floor = max(1e-2 * float(e.abs().max()), 1e-30)
+    return float(((g - e).abs().amax(-1)
+                  / e.abs().amax(-1).clamp_min(floor)).max())
+
+
 @pytest.mark.parametrize("B,S,H,P,N,chunk,with_state", SSD_BWD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_backward_kernel(dev, B, S, H, P, N, chunk, with_state, dtype):
     """The backward kernel against its plain version (ref.ssd_chunk_bwd, in
-    f32 on the same inputs): each gradient's largest error over its largest
-    magnitude below 1e-4 in f32 (sums in another order) and 1e-2 for the
-    bf16 dx, dB, dC (one rounding of the output)."""
+    float64 on the same inputs: at B 2, S 257, N = P = 128 dA is the sum of
+    terms far larger than itself, and the plain version in f32 is about as
+    far from the float64 result as the kernel is, on the other side):
+    each gradient's largest error over its largest magnitude below 1e-4 in
+    f32 (sums in another order) and 1e-2 for the bf16 dx, dB, dC (one
+    rounding of the output), and each row's below 1e-3 and 3e-2; the
+    variant the rule names, two runs bitwise equal.
+    Where the simt variant's block would need more shared memory than the
+    card has (f32 at N = P = 128), it raises before any launch."""
     x, dt, A, Bm, Cm, dy, ds = _ssd_bwd_case(np.random.default_rng(17), B,
                                              S, H, P, N, dtype, dev,
                                              with_state)
+    want_variant = ("wgmma" if ssd.takes_wgmma_bwd(dtype, N, P, chunk)
+                    else "simt")
+    assert ssd.bwd_variant(dtype, N, P, chunk) == want_variant
+    if ssd.bwd_smem(dtype, N, P, chunk) > ssd.MAX_SMEM:
+        with pytest.raises(ValueError, match="shared memory"):
+            ssd.ssd_chunk_bwd(x, dt, A, Bm, Cm, dy, ds, chunk)
+        assert want_variant == "simt"
+        return
+    before = dict(ssd.bwd_launches_by_variant)
     got = ssd.ssd_chunk_bwd(x, dt, A, Bm, Cm, dy, ds, chunk)
-    want = ref.ssd_chunk_bwd(x.float(), dt, A, Bm.float(), Cm.float(),
-                             dy.float(), ds, chunk)
+    again = ssd.ssd_chunk_bwd(x, dt, A, Bm, Cm, dy, ds, chunk)
+    assert ssd.bwd_launches_by_variant[want_variant] == \
+        before[want_variant] + 2
+    want = ref.ssd_chunk_bwd(x.double(), dt.double(), A.double(),
+                             Bm.double(), Cm.double(), dy.double(),
+                             ds.double() if ds is not None else None, chunk)
     torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     for name, g, w, t in zip(("dx", "ddt", "dA", "dB", "dC"), got, want,
                              (x, dt, A, Bm, Cm)):
         assert g.dtype == t.dtype and g.shape == t.shape, name
-        lim = 1e-2 if g.dtype == torch.bfloat16 else 1e-4
+        lim, lim_row = ((1e-2, 3e-2) if g.dtype == torch.bfloat16
+                        else (1e-4, 1e-3))
         assert _scaled_err(g, w) < lim, (name, _scaled_err(g, w))
+        assert _row_err(g, w) < lim_row, (name, _row_err(g, w))
+
+
+@pytest.mark.parametrize("dtype,N,P,chunk", [
+    (torch.bfloat16, 128, 64, 256), (torch.bfloat16, 64, 128, 64),
+    (torch.bfloat16, 128, 128, 64), (torch.bfloat16, 64, 64, 256),
+    (torch.float32, 128, 64, 256), (torch.bfloat16, 16, 64, 256),
+    (torch.bfloat16, 128, 32, 256), (torch.bfloat16, 128, 64, 32),
+    (torch.bfloat16, 96, 64, 64)])
+def test_ssd_bwd_variant_rule_matches_its_mirror(dev, dtype, N, P, chunk):
+    """The backward launcher's rule (C) equals takes_wgmma_bwd (Python),
+    and takes the variant the forward takes."""
+    want = "wgmma" if ssd.takes_wgmma_bwd(dtype, N, P, chunk) else "simt"
+    assert ssd.bwd_variant(dtype, N, P, chunk) == want
+    assert want == ssd.variant(dtype, N, P, chunk)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

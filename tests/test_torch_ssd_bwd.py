@@ -16,7 +16,16 @@ packages widened, as ``tests/test_torch_train.py`` does).
 The reference takes exp over the whole chunk before masking it, so at the
 configs' own chunk of 256 its gradient overflows to NaN; the port's plain
 scan masks the exponent first. A pin below shows both.
+
+The kernel's ``wgmma`` variant (bf16, chunks of 64) is emulated here in
+plain torch: every product in f32 with one operand exact in bf16 and the
+other, when f32, split into bf16 hi + lo (``_wgmma_emulation``), its two
+chains of chunk states run by blocks that take ordered tickets and wait on
+flags (``_run_blocks``). The emulation is held to ``ref.ssd_chunk_bwd`` at
+the card's limits, and any admissible order of the blocks gives its bits.
 """
+import random
+import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +34,7 @@ import torch
 
 from repro.models.mamba2 import _ssd_chunk_scan
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_chunk as ssd
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -226,3 +236,263 @@ def test_ops_counts_the_plain_backward_on_the_cpu():
     assert ops.counts()["launches"]["ssd_chunk_bwd"] == 0
     ops.reset_counts()
     assert not any(ops.plain_calls.values())
+
+
+# ------------------------------------------------ the wgmma variant, emulated
+Q64 = 64
+LOG2E = 1.4426950408889634
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _split(t):
+    """An f32 operand as the kernel feeds it to the tensor cores: bf16 hi
+    and lo, hi + lo = t to about 2^-17."""
+    hi = _bf16(t)
+    return hi, _bf16(t - hi)
+
+
+def _split_mm(a, b, t_a=False):
+    """a @ b (a.T @ b with ``t_a``) with a split: two products of bf16
+    operands summed in f32."""
+    hi, lo = _split(a)
+    if t_a:
+        hi, lo = hi.T, lo.T
+    return hi @ b + lo @ b
+
+
+def _mm_split(a, b_t):
+    """a @ b_t.T with b_t split."""
+    hi, lo = _split(b_t)
+    return a @ hi.T + a @ lo.T
+
+
+class _Chunk:
+    """One block's inputs: chunk c of (b, h), padded to 64 rows (zeros, dt
+    0: weight 0, decay 1), and its scalars, cs in log2 units as the kernel
+    keeps it."""
+
+    def __init__(self, t, b, h, c):
+        S = t["x"].shape[1]
+        c0 = c * Q64
+        self.n = min(Q64, S - c0)
+        sl = slice(c0, c0 + self.n)
+
+        def pad(v):
+            out = torch.zeros((Q64,) + tuple(v.shape[1:]),
+                              dtype=torch.float32)
+            out[:self.n] = v
+            return out
+        self.x, self.dy = pad(t["x"][b, sl, h]), pad(t["dy"][b, sl, h])
+        self.B, self.C = pad(t["Bm"][b, sl, h]), pad(t["Cm"][b, sl, h])
+        self.dt = pad(t["dt"][b, sl, h])
+        self.a = t["A"][h]
+        cs = torch.cumsum(self.dt * (self.a * LOG2E), 0)
+        self.cs, cend = cs, cs[-1]
+        self.eq, self.de = torch.exp2(cs), torch.exp2(cend - cs)
+        self.w, self.e_end = self.dt * self.de, torch.exp2(cend)
+
+    def inc(self):
+        """The state's increment, [P][N]: (x o w)^T B, x o w split."""
+        return _split_mm(self.x * self.w[:, None], self.B, t_a=True)
+
+    def dinc(self):
+        """The state gradient's increment, [P][N]: (dy o e)^T C."""
+        return _split_mm(self.dy * self.eq[:, None], self.C, t_a=True)
+
+    def grads(self, s_in, ds_out):
+        """dx, ddt, dB, dC of the chunk's n rows and its share of dA, from
+        s_in and ds_out ([P][N] f32), as chunk_wgmma computes them."""
+        q = torch.arange(Q64)
+        vis = q[:, None] >= q[None, :]
+        L = torch.where(vis, torch.exp2(torch.where(
+            vis, self.cs[:, None] - self.cs[None, :], torch.zeros(()))),
+            torch.zeros(()))
+        M = (self.C @ self.B.T) * L
+        dM = (self.dy @ self.x.T) * self.dt[None, :] * vis
+        dG = dM * L
+        rsum, csum = (dM * M).sum(1), (dM * M).sum(0)
+        W = _mm_split(self.dy, s_in.T)                     # dy s_in^T
+        inter = self.eq * (self.C * W).sum(1)
+        dC = self.eq[:, None] * W + _split_mm(dG, self.B)
+        Z = self.de[:, None] * _mm_split(self.B, ds_out)  # B ds_out
+        r2 = (Z * self.x).sum(1)
+        dxdt = Z + _split_mm(M, self.dy, t_a=True)
+        r12 = (dxdt * self.x).sum(1)
+        dB = (self.w[:, None] * _mm_split(self.x, ds_out.T)
+              + _split_mm(dG, self.C, t_a=True))
+        hi, lo = _split(ds_out)
+        dot = (s_in * (hi + lo)).sum()
+        wv = self.dt * r2
+        dcs = rsum - csum + inter - wv
+        dcs[self.n - 1] += wv.sum() + self.e_end * dot
+        da = torch.flip(torch.cumsum(torch.flip(dcs, [0]), 0), [0])
+        n = self.n
+        return (_bf16(self.dt[:, None] * dxdt)[:n],
+                (da * self.a + r12)[:n], _bf16(dB)[:n], _bf16(dC)[:n],
+                (da * self.dt).sum())
+
+
+def _run_blocks(t, order_seed=None, resident=4):
+    """The two chain launches as blocks that take ordered tickets (chunk
+    order, then reverse chunk order) and wait on their predecessor's flag.
+    With ``order_seed`` None the blocks run one after another in ticket
+    order; otherwise at most ``resident`` blocks are in flight, and at each
+    step a random one of them moves on if it is not waiting. Every block
+    computes its increment before it waits, as the kernel does. Returns
+    (dx, ddt, dA, dB, dC) and the largest number of blocks that waited at
+    once."""
+    B, S, H, P = t["x"].shape
+    N = t["Bm"].shape[-1]
+    nc, nbh = -(-S // Q64), B * H
+    s_in = {(bh, 0): torch.zeros((P, N)) for bh in range(nbh)}
+    ds = {}
+    out = {"dx": torch.zeros((B, S, H, P)), "ddt": torch.zeros((B, S, H)),
+           "dB": torch.zeros((B, S, H, N)), "dC": torch.zeros((B, S, H, N))}
+    shares = torch.zeros((B, nc, H))
+
+    def states_block(ticket):
+        c, bh = divmod(ticket, nbh)
+        ch = _Chunk(t, bh // H, bh % H, c)
+        inc = ch.inc()
+        while (bh, c) not in s_in:
+            yield
+        s_in[(bh, c + 1)] = ch.e_end * s_in[(bh, c)] + inc
+
+    def chunk_block(ticket):
+        level, bh = divmod(ticket, nbh)
+        c, b, h = nc - 1 - level, bh // H, bh % H
+        ch = _Chunk(t, b, h, c)
+        dinc = ch.dinc()
+        if c == nc - 1:
+            ds[(bh, c)] = (t["dstate"][b, h].T.clone()
+                           if t["dstate"] is not None else torch.zeros(P, N))
+        while (bh, c) not in ds:
+            yield
+        ds[(bh, c - 1)] = ch.e_end * ds[(bh, c)] + dinc
+        g = ch.grads(s_in[(bh, c)], ds[(bh, c)])
+        sl = slice(c * Q64, c * Q64 + ch.n)
+        for k, v in zip(("dx", "ddt", "dB", "dC"), g):
+            out[k][b, sl, h] = v
+        shares[b, c, h] = g[4]
+
+    rng = random.Random(order_seed)
+    most_waiting = 0
+    for make, n_blocks in ((states_block, (nc - 1) * nbh),
+                           (chunk_block, nc * nbh)):
+        if order_seed is None:
+            for ticket in range(n_blocks):
+                for _ in make(ticket):
+                    raise AssertionError("a block waited in ticket order")
+            continue
+        running, next_ticket = [], 0
+        while running or next_ticket < n_blocks:
+            if next_ticket < n_blocks and (len(running) < resident
+                                           and rng.random() < 0.5
+                                           or not running):
+                running.append(make(next_ticket))
+                next_ticket += 1
+                continue
+            blk = rng.choice(running)
+            try:
+                next(blk)
+            except StopIteration:
+                running.remove(blk)
+            most_waiting = max(most_waiting, len(running))
+    dA = torch.zeros(H)
+    for i in range(B * nc):       # dA_kernel's order
+        dA += shares.reshape(B * nc, H)[i]
+    return (out["dx"], out["ddt"], dA, out["dB"], out["dC"]), most_waiting
+
+
+def _bf16_case(case):
+    """A case's inputs with x, B, C and dy rounded to bf16 (exact bf16
+    values in f32, as the kernel reads them), torch f32."""
+    B, S, H, P, N, chunk, with_state = case
+    c = _case(S, B, S, H, P, N)
+    t = {k: torch.from_numpy(v) for k, v in c.items()}
+    for k in ("x", "Bm", "Cm", "dy"):
+        t[k] = _bf16(t[k])
+    if not with_state:
+        t["dstate"] = None
+    return t
+
+
+def _card_errors(got, want):
+    """Each gradient's largest error over the tensor's magnitude, and its
+    largest row error over the larger of the row's magnitude and 1% of the
+    tensor's (the card's checks, ``chip_smoke.grad_errors``)."""
+    out = {}
+    for name, g, w in zip(GRADS, got, want):
+        diff = (g - w).abs()
+        top = float(w.abs().max())
+        row = diff.amax(-1) / w.abs().amax(-1).clamp_min(max(1e-2 * top,
+                                                             1e-30))
+        out[name] = (float(diff.max()) / max(top, 1e-30), float(row.max()))
+    return out
+
+
+# bf16 outputs within 1e-2 of the tensor's magnitude and 3e-2 of a row's;
+# the f32 ddt and dA within 1e-4 and 1e-3: the card's limits
+CARD_LIMITS = {"dx": (1e-2, 3e-2), "dB": (1e-2, 3e-2), "dC": (1e-2, 3e-2),
+               "ddt": (1e-4, 1e-3), "dA": (1e-4, 1e-3)}
+
+
+@pytest.mark.parametrize("case", CASES[:3] + [(2, 130, 2, 8, 16, 64, True)],
+                         ids=str)
+def test_wgmma_emulation_is_within_the_card_limits(case):
+    """The wgmma variant's products and chains, emulated with split-bf16
+    operands and f32 sums, against the plain backward in f32 on the same
+    bf16-exact inputs at the kernel's chunks of 64. (The emulation's own
+    widths are the case's: its arithmetic does not depend on them.)"""
+    t = _bf16_case(case)
+    got, _ = _run_blocks(t)
+    want = ref.ssd_chunk_bwd(t["x"], t["dt"], t["A"], t["Bm"], t["Cm"],
+                             t["dy"], t["dstate"], 64)
+    errs = _card_errors(got, want)
+    for name, (e_abs, e_row) in errs.items():
+        lim_abs, lim_row = CARD_LIMITS[name]
+        assert e_abs <= lim_abs and e_row <= lim_row, errs
+
+
+def test_wgmma_emulation_splits_its_f32_operands(monkeypatch):
+    """A witness that the split matters: the same emulation with every f32
+    operand rounded once to bf16 (no lo part) misses ddt's limit, which the
+    split keeps (the test above)."""
+    t = _bf16_case((2, 130, 2, 8, 16, 64, True))
+    want = ref.ssd_chunk_bwd(t["x"], t["dt"], t["A"], t["Bm"], t["Cm"],
+                             t["dy"], t["dstate"], 64)
+    monkeypatch.setattr(sys.modules[__name__], "_split",
+                        lambda v: (_bf16(v), torch.zeros_like(v)))
+    rounded, _ = _run_blocks(t)
+    errs = _card_errors(rounded, want)
+    assert errs["ddt"][0] > CARD_LIMITS["ddt"][0], errs
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_chains_in_a_shuffled_ticket_order_give_the_ordered_bits(seed):
+    """Blocks admitted in ticket order but run in a random interleaving,
+    at most three in flight (fewer than the two sequences' heads): no
+    block waits on one that has not started, so every run ends, and each
+    gives bitwise what the blocks give one after another."""
+    t = _bf16_case((2, 200, 2, 8, 16, 64, True))
+    ordered, _ = _run_blocks(t)
+    shuffled, most = _run_blocks(t, order_seed=seed, resident=3)
+    assert most >= 2
+    assert all(torch.equal(a, b) for a, b in zip(ordered, shuffled))
+
+
+def test_the_backward_variant_rule_is_the_forwards():
+    """``takes_wgmma_bwd`` (the backward launcher's rule written out) is
+    the forward's ``takes_wgmma`` at every dtype, width and chunk."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for N in (8, 16, 32, 64, 96, 128):
+            for P in (16, 32, 64, 128):
+                for chunk in (1, 32, 63, 64, 65, 256):
+                    assert (ssd.takes_wgmma_bwd(dtype, N, P, chunk)
+                            == ssd.takes_wgmma(dtype, N, P, chunk)), \
+                        (dtype, N, P, chunk)
+    assert ssd.takes_wgmma_bwd(torch.bfloat16, 128, 64, 256)   # mamba2
+    assert not ssd.takes_wgmma_bwd(torch.bfloat16, 16, 64, 256)  # jamba
