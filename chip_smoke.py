@@ -54,7 +54,7 @@ Phases, each printing one JSON line (and failing the run on any error):
                 kernel over the cache viewed as pages): tokens equal to
                 dense_monolithic's, decode tokens/s, TTFT, the cache's
                 bytes, launches, no plain call;
-8. prefix    -- qwen3-8b at its widths and 12 of its 36 layers (the main
+8. prefix    -- qwen3-8b at its widths and 6 of its 36 layers (the main
                 path's weights, shared) serving one multi-agent workflow
                 (a 1024-token shared context; stage 0 with 211 own tokens,
                 served alone first; stages 1-7 with own suffixes of 64-500
@@ -72,6 +72,19 @@ Phases, each printing one JSON line (and failing the run on any error):
                 and horizon knobs (256, 8) must degrade to 0 and 1; then a
                 profile of its first step (the prefills), with the SSD
                 kernel's share, and of one decode step;
+9b. launch   -- the dry run (``repro_torch.launch``) held to the card: at
+                qwen3-8b whole decoding 8 x 4,096 (the dense cache read
+                by the paged kernel), prefilling 1 x 4,096 (flash) and
+                mamba2-2.7b whole prefilling 1 x 4,096 (the SSD scan),
+                each cell counted on ``meta`` (``--mesh local``) and then
+                run through ``build_cell``'s step on the models already
+                built: argument bytes equal to the byte, the predicted
+                peak within 0.75-1.25 of the step's (the arguments plus
+                what the step allocated above what was resident), the
+                lower bound at most 1.05 of the median CUDA-event step
+                time (``bound_share``), ``mfu``, the kernels launched, no
+                plain call, one step's idle share under the profiler;
+                ``train_main`` prints the same line for its own step;
 10. node     -- a ``NodeRuntime`` on the card holding both full-width models
                 under a 24 GB budget (its GPU tier holds either model's
                 weights, not both), prefix cache on, chunk 256, horizon 8:
@@ -92,8 +105,8 @@ Phases, each printing one JSON line (and failing the run on any error):
                 submit and finish times, and the same metrics but the TTFT
                 percentiles;
 12. gateway  -- two ``NodeRuntime``s on the card (clusters 0 and 1), each
-                with qwen3-8b and mamba2-2.7b at their widths and 12 of 36 /
-                32 of 64 layers under a 10.6 GB budget (GPU tier: either
+                with qwen3-8b and mamba2-2.7b at their widths and 6 of 36 /
+                16 of 64 layers under a 7.0 GB budget (GPU tier: either
                 model, not both) over one pinned host copy per model (the
                 node phase's, cut), serving a generated trace of 16
                 multi-agent jobs
@@ -115,6 +128,12 @@ Phases, each printing one JSON line (and failing the run on any error):
                 under fcfs, edf and maestro (the predictor of phase 12):
                 one ``SimResult`` row per policy, every job finished, and
                 maestro - edf;
+13b. examples -- ``repro_torch.examples`` on the card: quickstart
+                (reduced, 5 train steps, 4 requests through ``Engine``)
+                for qwen3-8b, mamba2-2.7b, moonshot-v1-16b-a3b and
+                whisper-medium (losses finite, their kernels launched, no
+                plain call), then serve_multi_agent (2 jobs in process,
+                every job finished);
 14. worker_reference -- phase 11's fleet with each node a worker process
                 on the card (``WorkerSpec.device="cuda"``): maestro and fcfs
                 on the process backend, maestro on the socket backend, each
@@ -128,15 +147,17 @@ Phases, each printing one JSON line (and failing the run on any error):
                 one death, every job finished, the evacuated stages on node
                 0, ``close_fleet`` safe, and the card's free memory back
                 within 1 GB of its value before the boot;
-16. gateway_process -- phase 12's fleet with the whole models under
-                the 24 GB budget, each node a
+16. gateway_process -- phase 12's fleet (6 / 16 layers under 7.0 GB),
+                each node a
                 freshly booted worker process (``reduced=False``: each child
-                draws both models on the card and keeps its own pinned host
+                draws both models on the card, cut to those depths, and
+                keeps its own pinned host
                 copies), the same 16 jobs under maestro and the wall clock,
                 the workers free-running: every job finished, tokens inside
-                the vocabulary, and in each child paged launches, chunk and
-                SSD all ``wgmma``, no plain call, offloads freeing >= 95%,
-                peak allocated within 1.1 x the 24 GB budget; printed beside
+                the vocabulary, paged launches in the fleet and kernels in
+                each child, chunk and SSD all ``wgmma``, no plain call,
+                offloads freeing >= 95%,
+                peak allocated within 1.1 x the budget; printed beside
                 phase 12's maestro run with boot seconds, host
                 ``MemAvailable`` around the boot, busy fractions, the
                 overlap factor and the IPC counters;
@@ -289,8 +310,6 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA data sheet
-BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 
 MAIN = dict(model="qwen3-8b", max_slots=8, s_max=2048, page_tokens=16,
             prefill_chunk_tokens=256, decode_horizon=8, n_requests=8,
@@ -378,12 +397,6 @@ def kernel_times(fn) -> dict:
                 host_ms=host_ms(fn))
 
 
-def bound(n_bytes: float, n_flops: float, peak_flops: float):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / peak_flops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 # ---------------------------------------------------------------- inputs
 def paged_inputs(torch, gen, seq_lens, H, Hkv, hd, page, W, n_rows, dtype):
     """Decode-kernel inputs: each sequence's pages are distinct random rows
@@ -413,67 +426,6 @@ def chunk_positions(torch, prompt_lens, C):
     return pos.cuda()
 
 
-def paged_cost(seq_lens, H, Hkv, hd, W, esize):
-    tokens = sum(max(s, 1) for s in seq_lens)
-    B = len(seq_lens)
-    n_bytes = (2 * tokens * Hkv * hd * esize        # K and V, read once
-               + 2 * B * H * hd * esize             # q in, out
-               + B * W * 4 + B * 4)                 # block table, seq_lens
-    return n_bytes, 4 * tokens * H * hd             # QK^T and PV products
-
-
-def chunk_cost(pos, H, Hkv, hd, W, esize):
-    B, C = pos.shape
-    k_lens = (pos.amax(dim=1) + 1).tolist()
-    visible = int((pos.long() + 1).sum())           # causal keys per row
-    n_bytes = (2 * sum(k_lens) * Hkv * hd * esize
-               + 2 * B * C * H * hd * esize + B * C * 4 + B * W * 4)
-    return n_bytes, 4 * visible * H * hd
-
-
-def flash_cost(Sq, Sk, H, Hkv, hd, causal, esize):
-    """Bytes (q, k, v in, out written) and flops of one sequence's dense
-    attention: 4 * hd per visible (query, key) pair and head."""
-    if causal:
-        visible = sum(min(i + 1, Sk) for i in range(Sq))
-    else:
-        visible = Sq * Sk
-    n_bytes = (2 * Sq * H * hd + 2 * Sk * Hkv * hd) * esize
-    return n_bytes, 4 * visible * H * hd
-
-
-def ssd_cost(S, H, P, N, Q, esize):
-    """Bytes (x, B, C, y in the I/O dtype; dt, A and the final state in
-    f32) and flops of one sequence's chunked SSD scan with chunks of Q: per
-    chunk of n tokens and head, the masked C B^T and its product with x dt
-    over the n(n+1)/2 visible pairs, the carried state's term and the state
-    update (2 * N * P each per token)."""
-    n_bytes = (2 * S * H * P * esize + 2 * S * H * N * esize
-               + S * H * 4 + H * 4 + H * N * P * 4)
-    flops = 0
-    for c0 in range(0, S, Q):
-        n = min(Q, S - c0)
-        flops += H * (n * (n + 1) * (N + P) + 4 * n * N * P)
-    return n_bytes, flops
-
-
-def ssd_bwd_cost(B, S, H, P, N, Q, esize, with_state):
-    """Bytes (x, B, C, dy and dx, dB, dC in the I/O dtype; dt, ddt, A, dA
-    and the final state's gradient in f32) and flops of the SSD scan's
-    backward over B sequences with chunks of Q: per chunk of n tokens and
-    head, G = C B^T, dM = dy xdt^T, M^T dy, dG B and dG^T C over the
-    n(n+1)/2 visible pairs, and five [n] x [N, P] products (the chunk's
-    state and its gradient, their terms in dC, dx and dB), 2 flops per
-    multiply-add."""
-    n_bytes = (B * S * H * (3 * P + 4 * N) * esize + 2 * B * S * H * 4
-               + 2 * H * 4 + (B * H * N * P * 4 if with_state else 0))
-    macs = 0
-    for c0 in range(0, S, Q):
-        n = min(Q, S - c0)
-        macs += n * (n + 1) // 2 * (3 * N + 2 * P) + 5 * n * N * P
-    return n_bytes, 2 * B * H * macs
-
-
 def next_prime(n: int) -> int:
     while n < 2 or any(n % d == 0 for d in range(2, int(n ** 0.5) + 1)):
         n += 1
@@ -487,6 +439,7 @@ def check_flash(torch, gen, prompt_lens):
     the plain version takes its score dot in the I/O dtype), one non-causal
     cross-length case, and an f32 case at a small size; then timed at the
     longest prompt beside SDPA."""
+    from repro_torch.launch import roofline as rl
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
@@ -538,8 +491,8 @@ def check_flash(torch, gen, prompt_lens):
     S = max(prompt_lens)
     q, k, v = inputs(S, S, H, Hkv, hd, bf16)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    n_bytes, n_flops = flash_cost(S, S, H, Hkv, hd, True, 2)
-    b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+    n_bytes, n_flops = rl.flash_cost(S, S, H, Hkv, hd, True, 2)
+    b_ms, b_by = rl.bound(n_bytes, n_flops, rl.H100.peak_flops)
 
     def sdpa():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
@@ -637,6 +590,7 @@ def check_ssd(torch, gen, prompt_lens):
     call per prompt length as each prefill makes it, through its wgmma
     variant (:func:`ssd_errors`); an f32 case at a small, prime length
     through the simt variant; then timed at the longest prompt."""
+    from repro_torch.launch import roofline as rl
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd_chunk as ssd
@@ -657,8 +611,9 @@ def check_ssd(torch, gen, prompt_lens):
             f"ssd_chunk variants of the checks: {checked}")
     S = max(prompt_lens)
     args = ssd_inputs(torch, gen, S, H, P, N, torch.bfloat16)
-    n_bytes, n_flops = ssd_cost(S, H, P, N, min(s.chunk, ssd.MAX_CHUNK), 2)
-    b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+    n_bytes, n_flops = rl.ssd_cost(S, H, P, N, min(s.chunk, ssd.MAX_CHUNK),
+                                   2)
+    b_ms, b_by = rl.bound(n_bytes, n_flops, rl.H100.peak_flops)
     return dict(
         variant=ssd.variant(torch.bfloat16, N, P, s.chunk),
         check_launches_by_variant=checked, **errs, scaled_err_f32=err32,
@@ -750,6 +705,7 @@ def phase_kernels(torch, args, prompt_lens, suffix_shape, gw_shapes):
     kernel also at ``suffix_shape`` = (M, C), a prefix-cache hit's suffix
     of C tokens after M cached ones (B = 1); the paged, chunk and SSD
     kernels also at the gateway's shapes (:func:`check_gateway_shapes`)."""
+    from repro_torch.launch import roofline as rl
     from repro_torch.configs import get_config
     from repro_torch.kernels import chunk_prefill as cp
     from repro_torch.kernels import ops, ref
@@ -794,8 +750,8 @@ def phase_kernels(torch, args, prompt_lens, suffix_shape, gw_shapes):
                    - ref.paged_attention_ref(qs, kps, vps, bts, sls))
                   .abs().max())
     require(err32 <= 1e-5, f"paged_attention f32 max_abs_err {err32}")
-    n_bytes, n_flops = paged_cost(seq_lens, H, Hkv, hd, W, 2)
-    b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+    n_bytes, n_flops = rl.paged_cost(seq_lens, H, Hkv, hd, W, 2)
+    b_ms, b_by = rl.bound(n_bytes, n_flops, rl.H100.peak_flops)
     results["paged_attention"] = dict(
         max_abs_err=err, row_scaled_err=row_err, max_abs_err_f32=err32,
         splice_bitwise=True,
@@ -853,8 +809,8 @@ def phase_kernels(torch, args, prompt_lens, suffix_shape, gw_shapes):
     err1, row1 = chunk_errors(got1, want1)
     require(err1 <= 2e-2 and row1 <= 2e-2,
             f"chunk_prefill at the suffix shape: err {err1}, row {row1}")
-    n_bytes, n_flops = chunk_cost(pos1, H, Hkv, hd, W, 2)
-    b1_ms, b1_by = bound(n_bytes, n_flops, BF16_FLOPS)
+    n_bytes, n_flops = rl.chunk_cost(pos1, H, Hkv, hd, W, 2)
+    b1_ms, b1_by = rl.bound(n_bytes, n_flops, rl.H100.peak_flops)
     suffix = dict(
         M=M, C=Cs, variant=cp.variant(bf16, hd, page), max_abs_err=err1,
         row_scaled_err=row1,
@@ -864,8 +820,8 @@ def phase_kernels(torch, args, prompt_lens, suffix_shape, gw_shapes):
             q1, kp1, vp1, bt1, pos1), reps=5),
         bound_ms=b1_ms, bound_by=b1_by)
     del q1, kp1, vp1
-    n_bytes, n_flops = chunk_cost(pos, H, Hkv, hd, W, 2)
-    b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+    n_bytes, n_flops = rl.chunk_cost(pos, H, Hkv, hd, W, 2)
+    b_ms, b_by = rl.bound(n_bytes, n_flops, rl.H100.peak_flops)
     results["chunk_prefill_attention"] = dict(suffix_shape=suffix,
         variant=cp.variant(bf16, hd, page), check_launches_by_variant=checked,
         max_abs_err=err, row_scaled_err=row_err, max_abs_err_f32=err32,
@@ -1395,6 +1351,242 @@ def phase_ssm_main(torch, args, prompt_lens):
     return launches, by_variant, model
 
 
+# ------------------------------------------------- launch: the dry run
+# the card shapes the dry run (repro_torch.launch) is held to: the model,
+# the cell, the kernels its step must launch
+LAUNCH_SHAPES = {
+    "decode": (MAIN["model"], dict(kind="decode", global_batch=8,
+                                   seq_len=4096), ("paged_attention",)),
+    "prefill": (MAIN["model"], dict(kind="prefill", global_batch=1,
+                                    seq_len=4096), ("flash_attention",)),
+    "ssm_prefill": (SSM_MODEL, dict(kind="prefill", global_batch=1,
+                                    seq_len=4096), ("ssd_chunk",)),
+}
+# timed steps after warm-up; the predicted peak's window around the
+# measured one; the largest share of the measured time the lower bound may
+# take (above it the count is wrong)
+LAUNCH = dict(warmup=2, reps=5, peak_window=(0.75, 1.25), max_share=1.05)
+
+
+def dry_run(cfg, shape, **kw) -> dict:
+    """The dry run's record of one cell on one card (``--mesh local``)."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell(cfg.name, shape, "local", cfg=cfg, **kw)
+    require(rec["status"] == "ok", f"dry run of {cfg.name} {shape}: {rec}")
+    return rec
+
+
+def hold_launch(label: str, cfg, shape: dict, rec: dict, meas: dict,
+                kernels) -> dict:
+    """Emit the ``launch`` line of a card shape: the dry run's argument
+    bytes, peak and step lower bound against the card's (``meas``:
+    ``argument_bytes``, ``peak_bytes``, ``max_memory_allocated``,
+    ``step_s``, ``step_s_all``, ``launches``, ``plain_calls``), and fail on
+    any argument byte of difference, a peak outside ``LAUNCH``'s window, a
+    bound over ``max_share`` of the step, a plain call, or a kernel of the
+    shape that did not launch."""
+    from repro_torch.launch import roofline as rl
+    mem, rf = rec["memory"], rec["roofline"]
+    bound_s = rf["step_s_lower_bound"]
+    peak_ratio = mem["peak_bytes_per_device"] / meas["peak_bytes"]
+    line = dict(
+        card_shape=label, model=cfg.name, n_layers=cfg.n_layers, **shape,
+        predicted_argument_bytes=mem["argument_bytes"],
+        measured_argument_bytes=meas["argument_bytes"],
+        predicted_peak_bytes=mem["peak_bytes_per_device"],
+        measured_peak_bytes=meas["peak_bytes"],
+        max_memory_allocated=meas["max_memory_allocated"],
+        predicted_over_measured_peak=peak_ratio,
+        predicted_temp_bytes=mem["temp_bytes"],
+        step_s_lower_bound=bound_s, bottleneck=rf["bottleneck"],
+        compute_s=rf["compute_s"], memory_s=rf["memory_s"],
+        counted_flops=rec["cost"]["flops"],
+        counted_ideal_bytes=rec["cost"]["ideal_bytes"],
+        measured_step_s=meas["step_s"], step_s_all=meas["step_s_all"],
+        bound_share=bound_s / meas["step_s"],
+        model_flops=rl.model_flops(cfg, shape),
+        mfu=rl.model_flops(cfg, shape) / (rl.H100.peak_flops
+                                          * meas["step_s"]),
+        predicted_kernel_calls={k: v["calls"]
+                                for k, v in rec["kernels"].items()},
+        launches=meas["launches"], plain_calls=meas["plain_calls"],
+        count_s=rec["count_s"], profile_step=meas.get("profile_step"))
+    emit("launch", **line)
+    lo, hi = LAUNCH["peak_window"]
+    require(mem["argument_bytes"] == meas["argument_bytes"],
+            f"launch {label}: predicted argument bytes "
+            f"{mem['argument_bytes']}, the card's {meas['argument_bytes']}")
+    require(lo <= peak_ratio <= hi,
+            f"launch {label}: predicted peak {mem['peak_bytes_per_device']}"
+            f" is {peak_ratio:.3f} x the measured {meas['peak_bytes']}")
+    require(line["bound_share"] <= LAUNCH["max_share"],
+            f"launch {label}: the lower bound {bound_s} s is "
+            f"{line['bound_share']:.3f} of the measured {meas['step_s']} s")
+    require(not any(meas["plain_calls"].values()),
+            f"launch {label}: a plain version ran: {meas['plain_calls']}")
+    for k in kernels:
+        require(meas["launches"].get(k, 0) > 0,
+                f"launch {label}: {k} did not launch: {meas['launches']}")
+    return line
+
+
+def device_busy(torch, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall time, the
+    device's busy time (kernels' self device time), the idle share and the
+    four costliest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for ev in prof.key_averages():
+        if str(ev.device_type).endswith("CUDA"):
+            us = getattr(ev, "self_device_time_total", None)
+            kernels.append(((ev.self_cuda_time_total if us is None else us)
+                            / 1e3, ev.key, ev.count))
+    kernels.sort(reverse=True)
+    busy = sum(k[0] for k in kernels)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                idle_share=1 - busy / wall_ms,
+                top=[dict(kernel=name[:80], ms=ms, calls=n)
+                     for ms, name, n in kernels[:4]])
+
+
+def card_step(torch, model, shape: dict, seed: int) -> dict:
+    """One card shape through ``build_cell``'s step on ``model`` (on the
+    card): its arguments' bytes; the peak of one step, as the arguments
+    plus the most the step allocated above what was resident before it
+    (what else lives on the card is not the step's); the launches and
+    plain calls of that step; then the median of CUDA-event intervals over
+    ``LAUNCH["reps"]`` steps after ``LAUNCH["warmup"]``, and one step
+    under the profiler (:func:`device_busy`)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.counter import tensor_bytes
+    from repro_torch.training.train_step import build_cell
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    step, args = build_cell(model, shape, generator=gen)
+    arg_bytes = tensor_bytes(args)
+    for _ in range(LAUNCH["warmup"]):
+        step(*args)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    out = step(*args)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in launch_counts().items() if n}
+    plain = dict(ops.plain_calls)
+    max_alloc = torch.cuda.max_memory_allocated()
+    del out
+    times = []
+    for _ in range(LAUNCH["reps"]):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        step(*args)
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1) / 1e3)
+    prof = device_busy(torch, lambda: step(*args))
+    del args
+    return dict(profile_step=prof, argument_bytes=arg_bytes,
+                peak_bytes=arg_bytes + max_alloc - base,
+                max_memory_allocated=max_alloc, step_s=statistics.median(
+                    times), step_s_all=times, launches=launches,
+                plain_calls=plain)
+
+
+def phase_launch(torch, args, models: dict) -> dict:
+    """The dry run held to the card at ``LAUNCH_SHAPES``: each shape's
+    config counted on ``meta`` (``--mesh local``), then its step run on the
+    card in bf16 at full width on the model already built (``models`` by
+    name). Returns each shape's kernel launches."""
+    out = {}
+    for label, (name, shape, kernels) in LAUNCH_SHAPES.items():
+        model = models[name]
+        rec = dry_run(model.cfg, shape)
+        meas = card_step(torch, model, shape, args.seed)
+        hold_launch(label, model.cfg, shape, rec, meas, kernels)
+        out[f"launch_{label}"] = meas["launches"]
+        reset_peak(torch)
+    return out
+
+
+# ----------------------------------------------- the examples' entry points
+EXAMPLE_ARCHS = (MAIN["model"], SSM_MODEL, "moonshot-v1-16b-a3b",
+                 "whisper-medium")
+
+
+def phase_examples(torch) -> dict:
+    """``repro_torch.examples`` on the card: quickstart (reduced, 5 train
+    steps, 4 requests through ``Engine``) for qwen3-8b, mamba2-2.7b,
+    moonshot-v1-16b-a3b and whisper-medium, each with finite losses, its
+    attention (flash forward with lse, backward, serving forward, paged
+    decode) or scan (forward, backward) launched and no plain version; then
+    serve_multi_agent (2 jobs, its predictor trained on 40) in process on
+    the card, every job finished. Returns the launches of each run."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.examples import quickstart, serve_multi_agent
+    from repro_torch.kernels import ops
+    out = {}
+    for arch in EXAMPLE_ARCHS:
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            r = quickstart.main(["--arch", arch])
+        wall = time.perf_counter() - t0
+        launches = {k: n for k, n in launch_counts().items() if n}
+        plain = dict(ops.plain_calls)
+        want = (("ssd_chunk", "ssd_chunk_bwd")
+                if get_config(arch).family == "ssm" else
+                ("flash_attention_lse", "flash_attention_bwd",
+                 "flash_attention", "paged_attention"))
+        require(all(math.isfinite(x) for x in r["losses"] + r["grad_norms"])
+                and len(r["losses"]) == 5,
+                f"examples quickstart {arch}: losses {r['losses']}")
+        require(not any(plain.values()),
+                f"examples quickstart {arch}: a plain version ran: {plain}")
+        require(all(launches.get(k, 0) > 0 for k in want),
+                f"examples quickstart {arch}: launches {launches}, not all "
+                f"of {want}")
+        require(r["invariant"] and len(r["tokens"]) == 4,
+                f"examples quickstart {arch}: {r}")
+        emit("examples", example="quickstart", arch=arch, wall_s=wall,
+             losses=r["losses"], grad_norms=r["grad_norms"],
+             tokens=r["tokens"], headroom=r["headroom"],
+             invariant=r["invariant"], launches=launches, plain_calls=plain)
+        out[f"examples_quickstart_{arch}"] = launches
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        m = serve_multi_agent.main(n_jobs=2, train_jobs=40)
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in launch_counts().items() if n}
+    plain = dict(ops.plain_calls)
+    require(m.finished_jobs == 2 and m.dropped_jobs == 0
+            and m.run_outcome == "completed",
+            f"examples serve_multi_agent: {m.finished_jobs} of 2 jobs "
+            f"({m.run_outcome})")
+    require(not any(plain.values()) and launches,
+            f"examples serve_multi_agent: plain calls {plain}, launches "
+            f"{launches}")
+    emit("examples", example="serve_multi_agent", n_jobs=2, train_jobs=40,
+         wall_s=wall, finished_jobs=m.finished_jobs,
+         slo_attainment=m.slo_attainment, makespan_s=m.makespan_s,
+         generated_tokens=m.generated_tokens, launches=launches,
+         plain_calls=plain)
+    out["examples_serve_multi_agent"] = launches
+    reset_peak(torch)
+    return out
+
+
 # ------------------------------------------------------------ prefix cache
 # one multi-agent workflow: a shared context (the team's system prompt and
 # the upstream turns), stage 0 with its own 211 tokens, then 7 stages with
@@ -1624,7 +1816,7 @@ def stale_page(flow):
     return fault
 
 
-PREFIX_LAYERS = 12    # of qwen3-8b's 36: the phase's depth, cut for time
+PREFIX_LAYERS = 6     # of qwen3-8b's 36: the phase's depth, cut for time
 
 
 def shallow(model, n_layers: int):
@@ -2222,11 +2414,11 @@ GATEWAY = dict(jobs=16, rate=1.5, hbm_budget=24e9, max_slots=8, s_max=2048,
                prefill_chunk_tokens=256, decode_horizon=8, prompt_cap=512,
                gen_cap=64, max_run_s=240.0, reject_limit=1_000_000)
 # the in-process gateway's models at their published widths, cut in depth
-# for time, under a budget cut with them: its GPU tier (0.8 of it, 8.5 GB)
-# holds qwen3-8b's 12 layers (7.1 GB) or mamba2-2.7b's 32 (2.8 GB), not
+# for time, under a budget cut with them: its GPU tier (0.8 of it, 5.6 GB)
+# holds qwen3-8b's 6 layers (4.8 GB) or mamba2-2.7b's 16 (1.5 GB), not
 # both, as the full budget does the whole models
-GATEWAY_LAYERS = {MAIN["model"]: 12, SSM_MODEL: 32}
-GATEWAY_CUT_BUDGET = 10.6e9
+GATEWAY_LAYERS = {MAIN["model"]: 6, SSM_MODEL: 16}
+GATEWAY_CUT_BUDGET = 7.0e9
 
 
 def phase_gateway(torch, args, host, pred):
@@ -2244,7 +2436,7 @@ def phase_gateway(torch, args, host, pred):
     gateway's ``reject_limit`` so that no job is dropped; a third run, fcfs
     at the default limit, may drop jobs (a node refuses admissions while it
     drains for a deferred activation) and reports how many. Returns each
-    run's launches."""
+    run's launches and the maestro run's numbers."""
     import types
 
     from repro_torch.configs import get_config
@@ -2376,7 +2568,7 @@ def phase_gateway(torch, args, host, pred):
                  "admission_rejections"],
              fcfs_admission_rejections=results["fcfs"][
                  "admission_rejections"]))
-    return launches
+    return launches, results["maestro"]
 
 
 def gateway_spec(hbm_budget: float = GATEWAY["hbm_budget"]):
@@ -2674,27 +2866,29 @@ def mem_available_gb() -> float:
     raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
-def phase_gateway_process(torch, args, pred):
-    """Phase gateway's two nodes and 16 jobs, but with the whole models
-    under the 24 GB budget (phase gateway cuts both in depth and budget,
-    so the two runs are different fleets and are not compared), each node
-    a worker process of its own on the card (``reduced=False``:
-    each child draws qwen3-8b and
-    mamba2-2.7b on the card and keeps one pinned host copy of each), freshly
+def phase_gateway_process(torch, args, pred, inproc: dict):
+    """Phase gateway's fleet -- two nodes, qwen3-8b and mamba2-2.7b at
+    their widths and ``GATEWAY_LAYERS`` layers under
+    ``GATEWAY_CUT_BUDGET`` -- with each node a worker process of its own on
+    the card (``reduced=False``: each child draws both models on the card,
+    cut to those depths, and keeps one pinned host copy of each), freshly
     booted, serving the same 16 jobs under maestro and the wall clock with
     the raised ``reject_limit``; the workers free-run. Every job finished,
-    every token inside its vocabulary; in each child the paged kernel
-    launched, every chunk and SSD launch took ``wgmma``, no plain version
+    every token inside its vocabulary; the paged kernel launched, each
+    child launched kernels, every chunk and SSD launch took ``wgmma``, no
+    plain version
     ran, no JAX module loaded, every offload freed at least 95% of its
     weight bytes and the peak allocated memory stayed within 1.1 times the
-    node's budget. Returns the launches, summed and per child."""
+    node's budget. Printed beside phase gateway's maestro run (``inproc``):
+    the same fleet in one process. Returns the launches, summed and per
+    child."""
     from repro_torch.serving import cluster
     from repro_torch.serving.gateway import GatewayConfig
     from repro_torch.serving.worker import NodeHandle, close_fleet, spawn_fleet
 
-    spec = gateway_spec()
+    spec = gateway_spec(GATEWAY_CUT_BUDGET)
     specs = cluster.worker_specs(spec, seed=args.seed, device="cuda",
-                                 reduced=False)
+                                 reduced=False, n_layers=GATEWAY_LAYERS)
     host_empty = (getattr(torch.accelerator, "empty_host_cache", None)
                   or getattr(torch._C, "_host_emptyCache", None))
     if host_empty is not None:
@@ -2741,12 +2935,16 @@ def phase_gateway_process(torch, args, pred):
     require_tokens_in_vocab("gateway_process", tokens)
     require_clean_children("gateway_process", records)
     per_child, total, by_variant = child_launches(records)
-    budget = GATEWAY["hbm_budget"]
+    budget = GATEWAY_CUT_BUDGET
+    # each child serves what the router sends it: under the cut budget a
+    # node's tier holds one model, so a child may serve only mamba2's
+    # stages (no paged launch); the fleet serves both
+    require(total.get("paged_attention", 0) > 0,
+            f"gateway_process: paged_attention never launched: {per_child}")
     for nid, r in records.items():
         v = r["launches_by_variant"]
-        require(per_child[nid].get("paged_attention", 0) > 0,
-                f"gateway_process: paged_attention never launched in node "
-                f"{nid}'s worker")
+        require(sum(per_child[nid].values()) > 0,
+                f"gateway_process: node {nid}'s worker launched nothing")
         require(v["chunk_prefill_attention"]["simt"] == 0
                 and v["ssd_chunk"]["simt"] == 0,
                 f"gateway_process: node {nid}'s worker took simt: {v}")
@@ -2796,12 +2994,22 @@ def phase_gateway_process(torch, args, pred):
         launches_by_variant=by_variant)
     emit("gateway_process", policy="maestro", backend="process",
          clock=m.clock, models=list(spec.model_names),
-         config=dict(GATEWAY, vocab=vocab), boot_s=boot_s,
+         n_layers=GATEWAY_LAYERS,
+         config=dict(GATEWAY, hbm_budget=GATEWAY_CUT_BUDGET, vocab=vocab),
+         boot_s=boot_s,
          ready_s_by_child=ready_s,
          host_cache_emptied_by=getattr(host_empty, "__name__", None),
          host_mem_available_gb_before=host_before,
          host_mem_available_gb_after=host_after,
          host_mem_available_gb_after_close=host_closed, **process)
+    emit("gateway_process_comparison", policy="maestro",
+         **{f"{k}_{side}": run[k] for side, run in (("inproc", inproc),
+                                                     ("process", process))
+            for k in ("makespan_s", "interactive_queue_delay_s",
+                      "mean_latency_s", "slo_attainment", "cold_starts",
+                      "node_busy_frac", "overlap_factor")},
+         process_over_inproc_makespan=process["makespan_s"]
+         / inproc["makespan_s"])
     reset_peak(torch)
     return {"gateway_process": total,
             **{f"gateway_process_node{nid}": n
@@ -2945,6 +3153,7 @@ def check_zoo_kernels(torch, gen, prompt_lens) -> dict:
     each timed at its widest shape beside its bound; then the SSD scan at
     jamba's widths (N 16, P 64, H 128, bf16: the simt variant) at the 8
     prompt lengths with its final state."""
+    from repro_torch.launch import roofline as rl
     import torch.nn.functional as F
     from repro_torch.kernels import chunk_prefill as cp
     from repro_torch.kernels import flash_attention as fa
@@ -2974,8 +3183,8 @@ def check_zoo_kernels(torch, gen, prompt_lens) -> dict:
         require(err <= 2e-2 and row_err <= 2e-2,
                 f"paged_attention at heads {key}: max_abs_err {err}, "
                 f"row-scaled {row_err}")
-        b_ms, b_by = bound(*paged_cost(seq_lens, H, Hkv, hd, W, 2),
-                           BF16_FLOPS)
+        b_ms, b_by = rl.bound(*rl.paged_cost(seq_lens, H, Hkv, hd, W, 2),
+                              rl.H100.peak_flops)
         out["paged_attention"][key] = dict(
             max_abs_err=err, row_scaled_err=row_err,
             split=pa.split_plan(len(seq_lens), Hkv, W, page),
@@ -2992,7 +3201,8 @@ def check_zoo_kernels(torch, gen, prompt_lens) -> dict:
         require(err <= 2e-2 and row_err <= 2e-2
                 and bool(torch.isfinite(got).all()),
                 f"chunk_prefill at heads {key}: err {err}, row {row_err}")
-        b_ms, b_by = bound(*chunk_cost(pos, H, Hkv, hd, W, 2), BF16_FLOPS)
+        b_ms, b_by = rl.bound(*rl.chunk_cost(pos, H, Hkv, hd, W, 2),
+                              rl.H100.peak_flops)
         out["chunk_prefill_attention"][key] = dict(
             max_abs_err=err, row_scaled_err=row_err,
             variant=cp.variant(bf16, hd, page),
@@ -3020,8 +3230,8 @@ def check_zoo_kernels(torch, gen, prompt_lens) -> dict:
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                   enable_gqa=True)
 
-        b_ms, b_by = bound(*flash_cost(S, S, H, Hkv, hd, True, 2),
-                           BF16_FLOPS)
+        b_ms, b_by = rl.bound(*rl.flash_cost(S, S, H, Hkv, hd, True, 2),
+                              rl.H100.peak_flops)
         out["flash_attention"][key] = dict(
             max_abs_err=err, row_scaled_err=row_err, lens=flash_lens,
             variant=fa.variant(bf16, hd),
@@ -3049,8 +3259,9 @@ def check_zoo_kernels(torch, gen, prompt_lens) -> dict:
             f"ssd_chunk at jamba's widths by variant: {checked}")
     S = max(prompt_lens)
     args = ssd_inputs(torch, gen, S, Hs, P, N, bf16)
-    b_ms, b_by = bound(*ssd_cost(S, Hs, P, N, min(s.chunk, ssd.MAX_CHUNK),
-                                 2), BF16_FLOPS)
+    b_ms, b_by = rl.bound(*rl.ssd_cost(S, Hs, P, N,
+                                       min(s.chunk, ssd.MAX_CHUNK), 2),
+                          rl.H100.peak_flops)
     out["ssd_chunk"] = {f"N{N}/P{P}/H{Hs}": dict(
         variant=ssd.variant(bf16, N, P, s.chunk), lens=list(prompt_lens),
         **errs, **kernel_times(lambda: ssd.ssd_chunk(*args, s.chunk)),
@@ -3427,6 +3638,7 @@ def check_cross_kernels(torch, gen, prompt_lens) -> dict:
     of its main path mid-decode, each against its plain version, timed
     beside its bound (flash beside SDPA). Returns both kernels' numbers by
     label."""
+    from repro_torch.launch import roofline as rl
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
@@ -3456,8 +3668,8 @@ def check_cross_kernels(torch, gen, prompt_lens) -> dict:
                                                   is_causal=causal,
                                                   enable_gqa=True)
 
-        n_bytes, n_flops = flash_cost(Sq, Sk, H, Hkv, hd, causal, 2)
-        b_ms, b_by = bound(B * n_bytes, B * n_flops, BF16_FLOPS)
+        n_bytes, n_flops = rl.flash_cost(Sq, Sk, H, Hkv, hd, causal, 2)
+        b_ms, b_by = rl.bound(B * n_bytes, B * n_flops, rl.H100.peak_flops)
         out["flash_attention"][label] = dict(
             max_abs_err=err, row_scaled_err=row_err,
             shape=dict(B=B, Sq=Sq, Sk=Sk, H=H, Hkv=Hkv, hd=hd,
@@ -3490,7 +3702,8 @@ def check_cross_kernels(torch, gen, prompt_lens) -> dict:
     require(err <= 2e-2 and row_err <= 2e-2,
             f"paged_attention at {label}: max_abs_err {err}, row-scaled "
             f"{row_err}")
-    b_ms, b_by = bound(*paged_cost(seq_lens, H, Hkv, hd, W, 2), BF16_FLOPS)
+    b_ms, b_by = rl.bound(*rl.paged_cost(seq_lens, H, Hkv, hd, W, 2),
+                          rl.H100.peak_flops)
     out["paged_attention"][label] = dict(
         max_abs_err=err, row_scaled_err=row_err, seq_lens=seq_lens,
         split=pa.split_plan(len(seq_lens), Hkv, W, page),
@@ -3714,16 +3927,6 @@ MAMBA_TRAIN = dict(model=SSM_MODEL, batch=4, n_micro=2, seq=4096,
                    grad_batch=2)
 
 
-def bwd_cost(B, Sq, Sk, H, Hkv, hd, causal, esize):
-    """Bytes (q, o, dout, dq and k, v, dk, dv in the I/O dtype; lse f32)
-    and flops (the five products, 10 * hd per visible pair and head) of
-    the flash backward."""
-    _, fwd_flops = flash_cost(Sq, Sk, H, Hkv, hd, causal, esize)
-    n_bytes = B * (4 * Sq * H * hd + 4 * Sk * Hkv * hd) * esize \
-        + B * H * Sq * 4
-    return n_bytes, B * fwd_flops * 10 // 4
-
-
 def bwd_ptxas(lib: str = "flash_attention_bwd") -> dict:
     """ptxas's report (registers, spills, stack, wgmma serialized) of each
     device kernel of a backward's library as this run built it, by a short
@@ -3803,6 +4006,7 @@ def phase_kernels_train(torch, gen) -> dict:
     SDPA's forward + backward and backward alone, with the bound's share
     of the backward's time and the backward's time over SDPA's. Returns
     the numbers by label."""
+    from repro_torch.launch import roofline as rl
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -3861,11 +4065,12 @@ def phase_kernels_train(torch, gen) -> dict:
                    errors={n: dict(max_abs=e[0], row_scaled=e[1])
                            for n, e in errs.items()})
         if bf16:
-            n_bytes, n_flops = bwd_cost(B, Sq, Sk, H, Hkv, hd, causal, 2)
-            b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
-            fb_bytes, fb_flops = flash_cost(Sq, Sk, H, Hkv, hd, causal, 2)
-            fb_ms, fb_by = bound(n_bytes + B * fb_bytes,
-                                 n_flops + B * fb_flops, BF16_FLOPS)
+            n_bytes, n_flops = rl.bwd_cost(B, Sq, Sk, H, Hkv, hd, causal, 2)
+            b_ms, b_by = rl.bound(n_bytes, n_flops, rl.H100.peak_flops)
+            fb_bytes, fb_flops = rl.flash_cost(Sq, Sk, H, Hkv, hd, causal, 2)
+            fb_ms, fb_by = rl.bound(n_bytes + B * fb_bytes,
+                                    n_flops + B * fb_flops,
+                                    rl.H100.peak_flops)
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                           for t in (q, k, v))
             dt_ = dout.transpose(1, 2)
@@ -3950,6 +4155,7 @@ def check_ssd_bwd(torch, gen) -> dict:
     beside its bound and the plain version; no single PyTorch call
     computes the scan's gradient (``library_ms`` None). Returns the
     numbers by label."""
+    from repro_torch.launch import roofline as rl
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_chunk as ssd
@@ -3989,9 +4195,9 @@ def check_ssd_bwd(torch, gen) -> dict:
         require(variant == want_variant,
                 f"ssd_chunk_bwd at {label}: the {variant} variant")
         del again, want
-        n_bytes, n_flops = ssd_bwd_cost(B, S, H, P, N, min(chunk, 64),
-                                        x.element_size(), with_state)
-        b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+        n_bytes, n_flops = rl.ssd_bwd_cost(B, S, H, P, N, min(chunk, 64),
+                                           x.element_size(), with_state)
+        b_ms, b_by = rl.bound(n_bytes, n_flops, rl.H100.peak_flops)
         n_state = B * -(-S // min(chunk, 64)) * H * N * P * 4
         row = dict(shape=dict(B=B, S=S, H=H, P=P, N=N, dtype=str(dt_),
                               final_state_grad=with_state, chunk=chunk),
@@ -4244,9 +4450,10 @@ def train_flops(cfg, n_params: int, tokens: int, batch: int,
     """Model flops of one training step: 6 x params x tokens, plus the
     attention's 3 x its forward (4 * hd per visible pair and head) in every
     attention layer."""
+    from repro_torch.launch import roofline as rl
     n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
-    _, fwd = flash_cost(seq, seq, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
-                        True, 2)
+    _, fwd = rl.flash_cost(seq, seq, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.head_dim_, True, 2)
     return 6 * n_params * tokens + 3 * fwd * batch * n_attn
 
 
@@ -4257,10 +4464,11 @@ def encdec_train_flops(cfg, enc_params: int, dec_params: int, batch: int,
     decoder over ``seq`` tokens), plus 3 x the attention's forward in every
     encoder layer (frames x frames), decoder layer (causal) and cross layer
     (tokens x frames)."""
+    from repro_torch.launch import roofline as rl
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    _, enc = flash_cost(cfg.n_ctx, cfg.n_ctx, H, Hkv, hd, False, 2)
-    _, self_ = flash_cost(seq, seq, H, Hkv, hd, True, 2)
-    _, cross = flash_cost(seq, cfg.n_ctx, H, Hkv, hd, False, 2)
+    _, enc = rl.flash_cost(cfg.n_ctx, cfg.n_ctx, H, Hkv, hd, False, 2)
+    _, self_ = rl.flash_cost(seq, seq, H, Hkv, hd, True, 2)
+    _, cross = rl.flash_cost(seq, cfg.n_ctx, H, Hkv, hd, False, 2)
     attn = cfg.encoder.n_layers * enc + cfg.n_layers * (self_ + cross)
     return (6 * (enc_params * cfg.n_ctx + dec_params * seq) * batch
             + 3 * attn * batch)
@@ -4333,18 +4541,20 @@ def phase_train_main(torch, args) -> dict:
     equal to the uninterrupted run's. Step time, tokens/s, MFU, peak
     memory, the checkpoint's bytes and seconds, and a profiled step.
     Returns the launches of the gradient check and of the training run."""
+    from repro_torch.launch import roofline as rl
     import dataclasses as dc
     import shutil
     from repro_torch.checkpoint import restore, save
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.launch.counter import tensor_bytes
     from repro_torch.models import build_model
     from repro_torch.training import OptConfig, adamw_init, make_train_step
     from repro_torch.tree import leaves, tree_map
 
-    base = get_config(TRAIN["model"])
+    base_cfg = get_config(TRAIN["model"])
     # ---- gradient check: kernels against the plain attention
-    cfg = dc.replace(base, n_layers=TRAIN["grad_layers"])
+    cfg = dc.replace(base_cfg, n_layers=TRAIN["grad_layers"])
     model = build_model(cfg, device="cuda", seed=args.seed, trainable=True)
     batch = synthetic_batch(torch, cfg, TRAIN["grad_batch"], TRAIN["seq"],
                             args.seed)
@@ -4370,7 +4580,7 @@ def phase_train_main(torch, args) -> dict:
     reset_peak(torch)
 
     # ---- the training run, then the resume from its checkpoint
-    cfg = dc.replace(base, n_layers=TRAIN["layers"])
+    cfg = dc.replace(base_cfg, n_layers=TRAIN["layers"])
     opt_cfg = OptConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"])
     batch = cyclic_batch(torch, cfg, TRAIN["batch"], TRAIN["seq"],
                          TRAIN["period"], args.seed)
@@ -4404,8 +4614,18 @@ def phase_train_main(torch, args) -> dict:
                       async_=True)
         snapshot_s = time.perf_counter() - t0
         params, opt = run_steps(torch, step_fn, params, opt, batch,
-                                steps - at, losses, times)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                                steps - at - 1, losses, times)
+        # the last step alone, for the launch phase: its arguments and its
+        # peak, with no checkpoint copy inside the window
+        run_peak = torch.cuda.max_memory_allocated()
+        arg_bytes = tensor_bytes((params, opt, batch))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt = run_steps(torch, step_fn, params, opt, batch, 1,
+                                losses, times)
+        step_max = torch.cuda.max_memory_allocated()
+        peak_gb = max(run_peak, step_max) / 1e9
         num = train_launches("train_main", cfg)
         per_step = TRAIN["n_micro"] * cfg.n_layers
         require(num["launches"] == {"flash_attention_lse": 2 * steps
@@ -4459,6 +4679,21 @@ def phase_train_main(torch, args) -> dict:
     tokens = TRAIN["batch"] * TRAIN["seq"]
     step_s = statistics.median(times[1:])
     flops = train_flops(cfg, n_params, tokens, TRAIN["batch"], TRAIN["seq"])
+    # the launch phase's train shape: this step against the dry run's count
+    # of it (the same n_micro, compression, dtypes and f32 sums)
+    shape = dict(kind="train", global_batch=TRAIN["batch"],
+                 seq_len=TRAIN["seq"])
+    hold_launch("train", cfg, shape,
+                dry_run(cfg, shape, opt_cfg=opt_cfg,
+                        n_micro=TRAIN["n_micro"]),
+                dict(argument_bytes=arg_bytes,
+                     peak_bytes=arg_bytes + step_max - base,
+                     max_memory_allocated=step_max, step_s=step_s,
+                     step_s_all=times, profile_step=prof,
+                     launches=num["launches"],
+                     plain_calls={k: n for k, n in
+                                  ops.counts()["plain_calls"].items()}),
+                ("flash_attention_lse", "flash_attention_bwd"))
     emit("train_main", model=cfg.name, n_layers=cfg.n_layers,
          params=n_params, batch=TRAIN["batch"], n_micro=TRAIN["n_micro"],
          seq=TRAIN["seq"], steps=steps, lr=TRAIN["lr"],
@@ -4467,7 +4702,7 @@ def phase_train_main(torch, args) -> dict:
          model_build_s=build_s, first_step_s=times[0], step_s=step_s,
          step_s_all=times, tokens_per_s=tokens / step_s,
          model_tflops_per_step=flops / 1e12,
-         mfu=flops / step_s / BF16_FLOPS, peak_gb=peak_gb,
+         mfu=flops / step_s / rl.H100.peak_flops, peak_gb=peak_gb,
          checkpoint_step=at, checkpoint_bytes=ckpt_bytes,
          checkpoint_snapshot_s=snapshot_s,
          checkpoint_published_after_s=save_s,
@@ -4541,6 +4776,7 @@ def phase_train_mamba2(torch, args) -> dict:
     tokens plus 3 x the scans' forward flops), peak memory, a profiled
     step with the SSD backward's and forward's shares, launches by variant
     and the plain calls. Returns the launches of both runs."""
+    from repro_torch.launch import roofline as rl
     import dataclasses as dc
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -4623,8 +4859,8 @@ def phase_train_mamba2(torch, args) -> dict:
     tokens = m["batch"] * m["seq"]
     step_s = statistics.median(times[1:])
     s = cfg.ssm
-    _, scan_flops = ssd_cost(m["seq"], s.n_heads(cfg.d_model), s.head_dim,
-                             s.d_state, min(s.chunk, 64), 2)
+    _, scan_flops = rl.ssd_cost(m["seq"], s.n_heads(cfg.d_model),
+                                s.head_dim, s.d_state, min(s.chunk, 64), 2)
     flops = (6 * n_params * tokens
              + 3 * scan_flops * m["batch"] * cfg.n_layers)
     emit("train_mamba2", model=cfg.name, n_layers=cfg.n_layers,
@@ -4634,7 +4870,7 @@ def phase_train_mamba2(torch, args) -> dict:
          loss_last=losses[-1], model_build_s=build_s, first_step_s=times[0],
          step_s=step_s, step_s_all=times, tokens_per_s=tokens / step_s,
          model_tflops_per_step=flops / 1e12,
-         mfu=flops / step_s / BF16_FLOPS, peak_gb=peak_gb,
+         mfu=flops / step_s / rl.H100.peak_flops, peak_gb=peak_gb,
          deterministic_algorithms=True, plain_calls=plain,
          profile_step=prof, **num)
     require(all(math.isfinite(x) for x in losses)
@@ -4652,6 +4888,7 @@ def phase_train_whisper(torch, args) -> dict:
     attention (encoder, decoder, cross) trains through the flash kernels.
     Step time, tokens/s, MFU, peak memory and a profiled step (the flash
     backward's share). Returns the launches."""
+    from repro_torch.launch import roofline as rl
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
@@ -4702,7 +4939,7 @@ def phase_train_whisper(torch, args) -> dict:
          losses=losses, model_build_s=build_s, step_s=step_s,
          step_s_all=times, tokens_per_s=w["batch"] * w["seq"] / step_s,
          model_tflops_per_step=flops / 1e12,
-         mfu=flops / step_s / BF16_FLOPS, peak_gb=peak_gb,
+         mfu=flops / step_s / rl.H100.peak_flops, peak_gb=peak_gb,
          profile_step=prof, **num)
     return num["launches"]
 
@@ -4831,22 +5068,27 @@ def main(argv=None) -> int:
                                                        prompt_lens)
     launches.update(ssm)
     mark("ssm_main")
+    launch = phase_launch(torch, args, {model.cfg.name: model,
+                                        mamba.cfg.name: mamba})
+    mark("launch")
     node, host = phase_node(torch, model, mamba, flow)
     del model, mamba
     mark("node")
     pred = train_predictor()
     card = phase_gateway_reference(torch, args, pred)
     mark("gateway_reference")
-    gateway = phase_gateway(torch, args, host, pred)
+    gateway, inproc_maestro = phase_gateway(torch, args, host, pred)
     del host                  # two workers' pinned copies need the room
     mark("gateway")
     phase_sim(args, pred)
     mark("sim")
+    examples = phase_examples(torch)
+    mark("examples")
     workers = phase_worker_reference(torch, args, pred, card)
     mark("worker_reference")
     phase_worker_fault(torch, args, pred)
     mark("worker_fault")
-    workers.update(phase_gateway_process(torch, args, pred))
+    workers.update(phase_gateway_process(torch, args, pred, inproc_maestro))
     mark("gateway_process")
     zoo_checks, zoo_paths, moe_variants = zoo_phases(
         torch, args, prompt_lens, prompts, mark)
@@ -4857,7 +5099,7 @@ def main(argv=None) -> int:
     by_path = {"dense_kv": dense_kv, "prefix_chunked": prefix["chunked"],
                "prefix_monolithic": prefix["monolithic"], "node": node,
                **{f"gateway_{run}": n for run, n in gateway.items()},
-               **workers, **zoo_paths, **train_paths}
+               **workers, **zoo_paths, **train_paths, **launch, **examples}
 
     sources = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",

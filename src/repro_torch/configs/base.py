@@ -15,15 +15,29 @@ families of the reference:
              precomputed patch embeddings (the vision tower is a stub)
 
 Every field keeps its meaning and default, and ``dtype`` is a
-``torch.dtype``.
+``torch.dtype``. The shape suite (``SHAPES``, ``input_specs``,
+``all_cells``) is the reference's; ``input_specs`` gives
+:class:`TensorSpec` records (shape, ``torch.dtype``), never tensors.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+
+# ---------------------------------------------------------------------------
+# Shape suite: every LM arch is paired with these four shapes (the
+# reference's, unchanged).
+# ---------------------------------------------------------------------------
+
+SHAPES: Dict[str, Dict[str, Any]] = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,6 +199,27 @@ class ArchConfig:
     def weight_bytes(self, dtype_bytes: int = 2) -> int:
         return self.param_count() * dtype_bytes
 
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic sequence handling => long_500k applicable."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def has_decoder(self) -> bool:
+        return True  # all assigned archs are decoders or enc-dec
+
+    def applicable_shapes(self) -> List[str]:
+        names = ["train_4k", "prefill_32k", "decode_32k"]
+        if self.supports_long_context:
+            names.append("long_500k")
+        return names
+
+    def skipped_shapes(self) -> Dict[str, str]:
+        if self.supports_long_context:
+            return {}
+        return {"long_500k": "pure full-attention arch: O(L^2)/dense-KV at "
+                             "512k is out of contract (see DESIGN.md §4)"}
+
     def kv_bytes_per_token(self, dtype_bytes: int = 2) -> int:
         """alpha(M) of Eq. 3 — per-token KV footprint (hybrid: attention
         layers only; ssm: 0, its state is O(1))."""
@@ -310,6 +345,68 @@ def get_config(name: str) -> ArchConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def list_configs() -> List[str]:
+    _load_all()
+    return sorted(_REGISTRY)
+
+
+def all_cells() -> List[Tuple[str, str]]:
+    """Every (arch, shape) cell of the suite, the skip-annotated ones
+    included."""
+    return [(name, shape) for name in list_configs() for shape in SHAPES]
+
+
+# ---------------------------------------------------------------------------
+# input_specs: shape and dtype records of a cell's batch (nothing allocated)
+# ---------------------------------------------------------------------------
+
+class TensorSpec(NamedTuple):
+    """A tensor's shape and dtype, the port's ``jax.ShapeDtypeStruct``."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+    @property
+    def nbytes(self) -> int:
+        return math.prod(self.shape) * dtype_bytes(self.dtype)
+
+
+def shape_of(shape) -> Dict[str, Any]:
+    """A shape of the suite by name, or a shape dict with the same three
+    keys (``kind``, ``seq_len``, ``global_batch``) as it is."""
+    if isinstance(shape, str):
+        return SHAPES[shape]
+    return {k: shape[k] for k in ("kind", "seq_len", "global_batch")}
+
+
+def input_specs(cfg: ArchConfig, shape) -> Dict[str, TensorSpec]:
+    """The batch of an (arch, shape) cell, as the reference's
+    ``input_specs``: train -> tokens/labels [B, S]; prefill -> tokens
+    [B, S]; decode -> tokens [B, 1] and positions [B] (the cache is a
+    separate argument, ``Model.cache_specs``). The modality inputs are the
+    stubs' embeddings: ``ctx_embeds`` [B, n_ctx, ctx_dim] for a vlm,
+    ``frames`` [B, n_frames, D] for an encdec model. ``shape`` is a name
+    of :data:`SHAPES` or a dict with its keys."""
+    sh = shape_of(shape)
+    b, s = sh["global_batch"], sh["seq_len"]
+    i32 = torch.int32
+    if sh["kind"] == "train":
+        out = {"tokens": TensorSpec((b, s), i32),
+               "labels": TensorSpec((b, s), i32)}
+    elif sh["kind"] == "prefill":
+        out = {"tokens": TensorSpec((b, s), i32)}
+    else:  # decode: one new token against a cache of length s
+        out = {"tokens": TensorSpec((b, 1), i32),
+               "positions": TensorSpec((b,), i32)}
+    if cfg.cross_attn is not None and cfg.family == "vlm":
+        cd = cfg.cross_attn.ctx_dim or cfg.d_model
+        out["ctx_embeds"] = TensorSpec((b, cfg.cross_attn.n_ctx_tokens, cd),
+                                       cfg.dtype)
+    if cfg.encoder is not None:
+        out["frames"] = TensorSpec((b, cfg.encoder.n_frames, cfg.d_model),
+                                   cfg.dtype)
+    return out
 
 
 def dtype_bytes(dtype: Any) -> int:

@@ -37,6 +37,11 @@ def _fn():
     return f
 
 
+def allocate(q: torch.Tensor) -> torch.Tensor:
+    """The kernel's output on q's device (it takes no scratch)."""
+    return torch.empty_like(q)
+
+
 def takes_wgmma(dtype: torch.dtype, hd: int, page: int) -> bool:
     """The launcher's rule (``repro_chunk_prefill_variant``) in Python."""
     return dtype == torch.bfloat16 and hd in (64, 128) and page in WGMMA_PAGES
@@ -78,7 +83,7 @@ def chunk_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
                    "block_table must be [B, W] and positions [B, C]")
     _build.check_tensors(_NAME, [q, k_pages, v_pages],
                          [block_table, positions])
-    out = torch.empty_like(q)
+    out = allocate(q)
     which = variant(q.dtype, hd, page)
     if which == "wgmma":
         _build.check_aligned(_NAME, [q, k_pages, v_pages, out])

@@ -102,9 +102,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return B, Sq, Sk, H, Hkv, hd
 
 
-def _forward(q, k, v, causal: bool, lse, dims) -> torch.Tensor:
+def allocate(q: torch.Tensor, with_lse: bool):
+    """The forward's outputs on q's device: -> (out like q, the row
+    log-sum-exp [B, H, Sq] f32 when ``with_lse``, else None)."""
+    B, Sq, H, _ = q.shape
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    return torch.empty_like(q), lse
+
+
+def allocate_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lse: torch.Tensor):
+    """The backward's outputs and scratch on q's device: -> (dq, dk, dv
+    like q, k, v; delta like lse, each row's dout . o in f32)."""
+    return (*(torch.empty_like(t) for t in (q, k, v)),
+            torch.empty_like(lse))
+
+
+def _forward(q, k, v, causal: bool, out, lse, dims) -> torch.Tensor:
     B, Sq, Sk, H, Hkv, hd = dims
-    out = torch.empty_like(q)
     _build.check_aligned(_NAME, [q, k, v, out])
     if B == 0 or Sq == 0:
         return out
@@ -126,7 +142,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Launches the CUDA kernel on the current stream; raises on any input it
     does not take and on a failed launch."""
     global launches
-    out = _forward(q, k, v, causal, None, _check(q, k, v))
+    dims = _check(q, k, v)
+    out = _forward(q, k, v, causal, allocate(q, False)[0], None, dims)
     launches += 1
     launches_by_variant[variant(q.dtype, q.shape[3])] += 1
     return out
@@ -140,12 +157,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel and variant as the serving forward; ``out`` has the same bits."""
     global lse_launches
     dims = _check(q, k, v, _build.MAX_BWD_HEAD_DIM)
-    B, Sq, _, H, _, hd = dims
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    out, lse = allocate(q, True)
     _build.check_aligned(_NAME, [lse])
-    out = _forward(q, k, v, causal, lse, dims)
+    out = _forward(q, k, v, causal, out, lse, dims)
     lse_launches += 1
-    lse_launches_by_variant[variant(q.dtype, hd)] += 1
+    lse_launches_by_variant[variant(q.dtype, q.shape[3])] += 1
     return out, lse
 
 
@@ -168,8 +184,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    f"[{B}, {H}, {Sq}] float32")
     _build.check_tensors(_NAME, [q, k, v, o, dout], [])
     _build.check_tensors(_NAME, [lse], [])
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty_like(lse)
+    dq, dk, dv, delta = allocate_bwd(q, k, v, lse)
     _build.check_aligned(_NAME, [q, k, v, o, dout, lse, delta, dq, dk, dv])
     if B == 0 or Sq == 0:
         return dq, dk.zero_(), dv.zero_()

@@ -15,12 +15,21 @@ hand-written SSD backward; without grad each is the serving forward
 unchanged. On CPU tensors autograd differentiates the plain versions,
 counted under ``flash_attention_bwd`` and ``ssd_chunk_bwd`` when the
 backward runs, once per backward pass through the call.
+
+On ``meta`` tensors (the dry run, :mod:`repro_torch.launch.counter`) each
+kernel allocates what its CUDA wrapper allocates (outputs and scratch,
+from the wrapper's ``allocate``) on ``meta`` and passes its cost function
+(:mod:`repro_torch.kernels.cost`) to :data:`charge`, the hook the active
+counter installs: no kernel launches, no plain version runs and nothing
+is counted in ``plain_calls``. On ``cpu`` and ``cuda``
+dispatch is as above.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import chunk_prefill as _cp
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
@@ -40,8 +49,96 @@ def _on_cpu(t: torch.Tensor, name: str) -> bool:
     return False
 
 
+def _on_meta(t: torch.Tensor) -> bool:
+    return t.device.type == "meta"
+
+
+# ------------------------------------------------------------------ meta
+# The dry run's counter (repro_torch.launch.counter) installs its
+# charge(name, n_bytes, n_flops) here while it is active.
+charge = None
+
+
+def _charge(name: str, cost) -> None:
+    if charge is not None:
+        charge(name, *cost)
+
+
+# Each meta branch allocates, on meta, what its CUDA wrapper allocates
+# (the wrapper's ``allocate``: outputs and scratch), and charges the
+# kernel's cost function. A paged kernel's cost depends on the sequence
+# lengths, which meta tensors do not hold: it is charged every lane at the
+# table's whole length (W * page rows), as a decode cell's positions
+# (seq_len - 1) make it.
+
+def _paged_meta(q, k_pages, block_table):
+    B, H, hd = q.shape
+    _, page, Hkv, _ = k_pages.shape
+    W = block_table.shape[1]
+    out, _ = _pa.allocate(q, Hkv, W, page)
+    _charge("paged_attention", _cost.paged_cost(
+        [W * page] * B, H, Hkv, hd, W, q.element_size()))
+    return out
+
+
+def _chunk_meta(q, k_pages, block_table):
+    B, C, H, hd = q.shape
+    _, page, Hkv, _ = k_pages.shape
+    W = block_table.shape[1]
+    top = W * page
+    pos = torch.arange(top - C, top, dtype=torch.int32).expand(B, C)
+    _charge("chunk_prefill_attention",
+            _cost.chunk_cost(pos, H, Hkv, hd, W, q.element_size()))
+    return _cp.allocate(q)
+
+
+def _flash_meta(q, k, causal: bool, lse: bool):
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    n_bytes, n_flops = _cost.flash_cost(Sq, Sk, H, Hkv, hd, causal,
+                                        q.element_size())
+    out, row_lse = _fa.allocate(q, lse)
+    if not lse:
+        _charge("flash_attention", (B * n_bytes, B * n_flops))
+        return out
+    _charge("flash_attention_lse", (B * n_bytes + B * H * Sq * 4,
+                                    B * n_flops))
+    return out, row_lse
+
+
+def _flash_bwd_meta(q, k, v, lse, causal: bool):
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    dq, dk, dv, _ = _fa.allocate_bwd(q, k, v, lse)
+    _charge("flash_attention_bwd", _cost.bwd_cost(
+        B, Sq, Sk, H, Hkv, hd, causal, q.element_size()))
+    return dq, dk, dv
+
+
+def _ssd_meta(x, Bm, chunk: int):
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    _charge("ssd_chunk", [B * n for n in _cost.ssd_cost(
+        S, H, P, N, min(chunk, _ssd.MAX_CHUNK), x.element_size())])
+    return _ssd.allocate(x, N)
+
+
+def _ssd_bwd_meta(x, dt, A, Bm, Cm, dstate, chunk: int):
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, _ssd.MAX_CHUNK)
+    grads, _ = _ssd.allocate_bwd(x, dt, A, Bm, Cm, Q,
+                                 _ssd.takes_wgmma_bwd(x.dtype, N, P, Q))
+    _charge("ssd_chunk_bwd", _cost.ssd_bwd_cost(
+        B, S, H, P, N, Q, x.element_size(), dstate is not None))
+    return grads
+
+
+# ------------------------------------------------------------- dispatch
 def paged_attention(q, k_pages, v_pages, block_table, seq_lens,
                     k_new=None, v_new=None):
+    if _on_meta(q):
+        return _paged_meta(q, k_pages, block_table)
     if _on_cpu(q, "paged_attention"):
         return _ref.paged_attention_ref(q, k_pages, v_pages, block_table,
                                         seq_lens, k_new=k_new, v_new=v_new)
@@ -50,6 +147,8 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens,
 
 
 def chunk_prefill_attention(q, k_pages, v_pages, block_table, positions):
+    if _on_meta(q):
+        return _chunk_meta(q, k_pages, block_table)
     if _on_cpu(q, "chunk_prefill_attention"):
         return _ref.chunk_prefill_attention_ref(q, k_pages, v_pages,
                                                 block_table, positions)
@@ -85,7 +184,10 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
-        o, lse = _fa.flash_attention_fwd(q, k, v, causal)
+        if _on_meta(q):
+            o, lse = _flash_meta(q, k, causal, lse=True)
+        else:
+            o, lse = _fa.flash_attention_fwd(q, k, v, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         return o
@@ -93,12 +195,16 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, o, lse = ctx.saved_tensors
+        if _on_meta(q):
+            return (*_flash_bwd_meta(q, k, v, lse, ctx.causal), None)
         dq, dk, dv = _fa.flash_attention_bwd(q, k, v, o, lse,
                                              dout.contiguous(), ctx.causal)
         return dq, dk, dv, None
 
 
 def flash_attention(q, k, v, causal: bool = True):
+    if _on_meta(q) and not _needs_grad(q, k, v):
+        return _flash_meta(q, k, causal, lse=False)
     if _on_cpu(q, "flash_attention"):
         out = _ref.blockwise_attention(q, k, v, causal)
         if out.requires_grad:
@@ -117,9 +223,12 @@ class SSDChunkFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, chunk: int):
-        _ssd.check_bwd(x.dtype, Bm.shape[-1], x.shape[-1], chunk)
         ctx.set_materialize_grads(False)
-        y, state = _ssd.ssd_chunk(x, dt, A, Bm, Cm, chunk)
+        if _on_meta(x):
+            y, state = _ssd_meta(x, Bm, chunk)
+        else:
+            _ssd.check_bwd(x.dtype, Bm.shape[-1], x.shape[-1], chunk)
+            y, state = _ssd.ssd_chunk(x, dt, A, Bm, Cm, chunk)
         ctx.save_for_backward(x, dt, A, Bm, Cm)
         ctx.chunk = chunk
         return y, state
@@ -130,6 +239,9 @@ class SSDChunkFn(torch.autograd.Function):
         dy = torch.zeros_like(x) if dy is None else dy.contiguous()
         if dstate is not None:
             dstate = dstate.contiguous()
+        if _on_meta(x):
+            return (*_ssd_bwd_meta(x, dt, A, Bm, Cm, dstate, ctx.chunk),
+                    None)
         return (*_ssd.ssd_chunk_bwd(x, dt, A, Bm, Cm, dy, dstate,
                                     ctx.chunk), None)
 
@@ -139,6 +251,8 @@ def ssd_chunk(x, dt, A, Bm, Cm, chunk: int):
     reference's chunk rule (largest divisor of S <= ``chunk``); the kernel
     takes fixed chunks of at most 64 with a ragged last one, the same
     function up to rounding."""
+    if _on_meta(x) and not _needs_grad(x, dt, A, Bm, Cm):
+        return _ssd_meta(x, Bm, chunk)
     if _on_cpu(x, "ssd_chunk"):
         y, state = _ref.ssd_chunk_scan(x, dt, A, Bm, Cm, chunk)
         if y.requires_grad:

@@ -36,6 +36,17 @@ def split_plan(B: int, Hkv: int, W: int, page: int) -> Tuple[int, int]:
     return -(-n_tiles // per), per * SPLIT_TILE
 
 
+def allocate(q: torch.Tensor, Hkv: int, W: int, page: int):
+    """The kernel's output and scratch on q's device: -> (out like q, the
+    splits' f32 partials in one buffer: acc [B, Hkv, n_split, g, hd], then
+    ml [B, Hkv, n_split, g, 2], 16-byte aligned as hd % 4 == 0)."""
+    B, H, hd = q.shape
+    n_split, _ = split_plan(B, Hkv, W, page)
+    scratch = torch.empty(B * Hkv * n_split * (H // Hkv) * (hd + 2),
+                          dtype=torch.float32, device=q.device)
+    return torch.empty_like(q), scratch
+
+
 @functools.cache
 def _fn():
     P, I = ctypes.c_void_p, ctypes.c_int
@@ -83,16 +94,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _build.check_tensors(_NAME, floats, [block_table, seq_lens])
     _build.require(hd * q.element_size() % 16 == 0, _NAME,
                    "a head's row must be a multiple of 16 bytes")
-    out = torch.empty_like(q)
+    out, scratch = allocate(q, Hkv, W, page)
     _build.check_aligned(_NAME, floats + [out])
     if B == 0:
         return out
     n_split, span = split_plan(B, Hkv, W, page)
-    # the splits' f32 partials in one buffer: acc [B, Hkv, n_split, g, hd],
-    # then ml [B, Hkv, n_split, g, 2] (16-byte aligned: hd % 4 == 0)
     n_rows = B * Hkv * n_split * (H // Hkv)
-    scratch = torch.empty(n_rows * (hd + 2), dtype=torch.float32,
-                          device=q.device)
     acc = scratch.data_ptr()
     err = _fn()(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
                 v_pages.data_ptr(), block_table.data_ptr(),

@@ -63,6 +63,15 @@ def variant(dtype: torch.dtype, N: int, P: int, chunk: int) -> str:
                       min(chunk, MAX_CHUNK))]
 
 
+def allocate(x: torch.Tensor, N: int):
+    """The scan's outputs on x's device: -> (y like x, the final state
+    [B, H, N, P] f32, zeroed)."""
+    B, _, H, P = x.shape
+    return torch.empty_like(x), torch.zeros((B, H, N, P),
+                                            dtype=torch.float32,
+                                            device=x.device)
+
+
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
               Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = MAX_CHUNK
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -91,8 +100,7 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _build.check_tensors(_NAME, [dt, A], [])
     _build.require(dt.dtype == torch.float32 and dt.device == x.device,
                    _NAME, "dt and A must be float32 on x's device")
-    y = torch.empty_like(x)
-    state = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    y, state = allocate(x, N)
     which = variant(x.dtype, N, P, chunk)
     if which == "wgmma":
         _build.check_aligned(_NAME, [x, Bm, Cm, y])
@@ -143,6 +151,28 @@ def bwd_smem(dtype: torch.dtype, N: int, P: int, chunk: int) -> int:
     f.argtypes = [ctypes.c_int] * 4
     f.restype = ctypes.c_longlong
     return int(f(_build.DTYPE_CODES[dtype], N, P, min(chunk, MAX_CHUNK)))
+
+
+def allocate_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, Q: int, wgmma: bool):
+    """The backward's outputs and scratch on x's device for chunks of
+    ``Q``: -> ((dx, ddt, dA, dB, dC), (states, per_chunk, flags)). dA is
+    zeroed. The f32 scratch: each chunk's state and its gradient, [2, B,
+    n_chunks, H, N, P]; each chunk's decay and share of dA, [2, B,
+    n_chunks, H]; the ``wgmma`` variant's tickets and chain flags, int32,
+    zeroed (None for ``simt``)."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = -(-S // Q)
+    grads = (torch.empty_like(x), torch.empty_like(dt), torch.zeros_like(A),
+             torch.empty_like(Bm), torch.empty_like(Cm))
+    states = torch.empty((2, B, nc, H, N, P), dtype=torch.float32,
+                         device=x.device)
+    per_chunk = torch.empty((2, B, nc, H), dtype=torch.float32,
+                            device=x.device)
+    flags = (torch.zeros(2 + 2 * B * H * nc, dtype=torch.int32,
+                         device=x.device) if wgmma else None)
+    return grads, (states, per_chunk, flags)
 
 
 def check_bwd(dtype: torch.dtype, N: int, P: int, chunk: int) -> None:
@@ -207,20 +237,11 @@ def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     which = bwd_variant(x.dtype, N, P, Q)
     if which == "wgmma":
         _build.check_aligned(name, [x, Bm, Cm, dy])
-    dx, dB, dC = (torch.empty_like(t) for t in (x, Bm, Cm))
-    ddt = torch.empty_like(dt)
-    dA = torch.zeros_like(A)
+    grads, (states, per_chunk, flags) = allocate_bwd(x, dt, A, Bm, Cm, Q,
+                                                     which == "wgmma")
+    dx, ddt, dA, dB, dC = grads
     if B == 0 or S == 0 or H == 0:
-        return dx, ddt, dA, dB, dC
-    nc = -(-S // Q)
-    # f32 scratch: each chunk's state and its gradient; each chunk's decay
-    # and share of dA; the wgmma variant's tickets and chain flags
-    states = torch.empty((2, B, nc, H, N, P), dtype=torch.float32,
-                         device=x.device)
-    per_chunk = torch.empty((2, B, nc, H), dtype=torch.float32,
-                            device=x.device)
-    flags = (torch.zeros(2 + 2 * B * H * nc, dtype=torch.int32,
-                         device=x.device) if which == "wgmma" else None)
+        return grads
     err = _bwd_fn()(
         _build.DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(),
         A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dy.data_ptr(),

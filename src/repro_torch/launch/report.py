@@ -1,0 +1,65 @@
+"""Render the roofline tables from results/dryrun_torch/*.json: the port of
+``repro/launch/report.py``, with the H100's capacity in the fits column.
+
+  PYTHONPATH=src python -m repro_torch.launch.report [--mesh single|multi|local]
+
+A term the port has no source for (the collective term and the peak on
+the multi-device meshes) prints as "n/a".
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+from repro_torch.launch import dryrun
+
+
+def _ms(s) -> str:
+    return "n/a" if s is None else f"{s * 1e3:.1f}"
+
+
+def _fits(mem) -> str:
+    fits = mem.get("fits_h100_80g")
+    return "n/a" if fits is None else ("yes" if fits else "NO")
+
+
+def table(mesh: str = "single") -> str:
+    d = dryrun.RESULTS / mesh
+    lines = [
+        "| arch | shape | bound | compute (ms) | memory (ms) | collective "
+        "(ms) | peak GB/chip | fits H100 80 GB | useful-FLOP ratio | "
+        "roofline frac |",
+        "|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    for f in sorted(d.glob("*.json")):
+        r = json.loads(f.read_text())
+        if r["status"] == "skipped":
+            lines.append(f"| {r['arch']} | {r['shape']} | — | — | — | — | — "
+                         f"| — | — | skipped (sub-quadratic contract) |")
+            continue
+        if r["status"] != "ok":
+            lines.append(f"| {r['arch']} | {r['shape']} | ERROR | | | | | | | |")
+            continue
+        rf = r["roofline"]
+        mem = r.get("memory", {})
+        peak = mem.get("peak_bytes_per_device")
+        lines.append(
+            f"| {r['arch']} | {r['shape']} | {rf['bottleneck']} "
+            f"| {_ms(rf['compute_s'])} | {_ms(rf['memory_s'])} "
+            f"| {_ms(rf['collective_s'])} "
+            f"| {'n/a' if peak is None else f'{peak / 1e9:.2f}'} "
+            f"| {_fits(mem)} "
+            f"| {rf.get('useful_flop_ratio', 0):.2f} "
+            f"| {rf.get('roofline_fraction', 0):.3f} |")
+    return "\n".join(lines)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mesh", default="single")
+    args = ap.parse_args(argv)
+    print(table(args.mesh))
+
+
+if __name__ == "__main__":
+    main()

@@ -20,6 +20,13 @@ stack has no FFN part at all (:func:`layer_specs`). A cross-attention layer
 also holds ``{"cross": {"ln", "wq", "wk", "wv", "wo"}}``, its ``wk``/``wv``
 of ``ctx_dim`` rows where the config sets one. An encdec model has
 ``{"encoder": {"layers": [{"attn", "ffn" (GELU)}, ...], "ln": [D]}}``.
+
+:func:`param_specs` gives the same tree as :class:`Spec` leaves (shape,
+init, dtype, logical sharding axes), which three walkers read, as the
+reference's ``Leaf`` trees are read: :func:`init_params` (real tensors),
+:func:`abstract_tree` (``meta`` tensors: the dry run) and
+:func:`pspec_tree` (partition specs); :func:`tree_bytes` and
+:func:`tree_params` count it.
 """
 from __future__ import annotations
 
@@ -33,16 +40,24 @@ from repro_torch.configs.base import ArchConfig
 
 class Spec(NamedTuple):
     """One parameter leaf: its shape, its init ("normal" | "zeros" |
-    "ones"), the multiplier of the normal std, and its dtype (None: the
-    config's)."""
+    "ones"), the multiplier of the normal std, its dtype (None: the
+    config's) and its logical sharding axes, one per dim (``"fsdp"``,
+    ``"tp"``, ``"exp"`` or None: see
+    :mod:`repro_torch.distributed.sharding`). A leaf's axes are the
+    reference's stacked leaf's without its leading ``"stack"``."""
     shape: Tuple[int, ...]
     init: str = "normal"
     scale: float = 1.0
     dtype: Optional[torch.dtype] = None
+    axes: Tuple[Optional[str], ...] = ()
 
 
 def pad_vocab(vocab: int, multiple: int = 512) -> int:
     return ((vocab + multiple - 1) // multiple) * multiple
+
+
+def _norm(n: int, axes=(None,)) -> Spec:
+    return Spec((n,), "ones", axes=axes)
 
 
 def attn_specs(cfg: ArchConfig, cross: bool = False) -> Dict[str, Spec]:
@@ -52,20 +67,21 @@ def attn_specs(cfg: ArchConfig, cross: bool = False) -> Dict[str, Spec]:
     d_ctx = D
     if cross and cfg.cross_attn is not None and cfg.cross_attn.ctx_dim:
         d_ctx = cfg.cross_attn.ctx_dim
+    col, row = ("fsdp", "tp"), ("tp", "fsdp")
     specs: Dict[str, Spec] = {
-        "ln": Spec((D,), "ones"),
-        "wq": Spec((D, H * hd), "normal"),
-        "wk": Spec((d_ctx, Hkv * hd), "normal"),
-        "wv": Spec((d_ctx, Hkv * hd), "normal"),
-        "wo": Spec((H * hd, D), "normal"),
+        "ln": _norm(D),
+        "wq": Spec((D, H * hd), axes=col),
+        "wk": Spec((d_ctx, Hkv * hd), axes=col),
+        "wv": Spec((d_ctx, Hkv * hd), axes=col),
+        "wo": Spec((H * hd, D), axes=row),
     }
     if cfg.qkv_bias and not cross:
-        specs["bq"] = Spec((H * hd,), "zeros")
-        specs["bk"] = Spec((Hkv * hd,), "zeros")
-        specs["bv"] = Spec((Hkv * hd,), "zeros")
+        specs["bq"] = Spec((H * hd,), "zeros", axes=("tp",))
+        specs["bk"] = Spec((Hkv * hd,), "zeros", axes=("tp",))
+        specs["bv"] = Spec((Hkv * hd,), "zeros", axes=("tp",))
     if cfg.qk_norm and not cross:
-        specs["qn"] = Spec((hd,), "ones")
-        specs["kn"] = Spec((hd,), "ones")
+        specs["qn"] = _norm(hd)
+        specs["kn"] = _norm(hd)
     return specs
 
 
@@ -75,12 +91,12 @@ def ffn_specs(cfg: ArchConfig, gelu: Optional[bool] = None
     the encoder's is always GELU)."""
     D, F = cfg.d_model, cfg.d_ff
     specs: Dict[str, Spec] = {
-        "ln": Spec((D,), "ones"),
-        "w_up": Spec((D, F), "normal"),
-        "w_down": Spec((F, D), "normal"),
+        "ln": _norm(D),
+        "w_up": Spec((D, F), axes=("fsdp", "tp")),
+        "w_down": Spec((F, D), axes=("tp", "fsdp")),
     }
     if not (cfg.ffn_gelu if gelu is None else gelu):  # SwiGLU
-        specs["w_gate"] = Spec((D, F), "normal")
+        specs["w_gate"] = Spec((D, F), axes=("fsdp", "tp"))
     return specs
 
 
@@ -91,18 +107,18 @@ def ssm_specs(cfg: ArchConfig) -> Dict[str, Spec]:
     GN = s.n_groups * s.d_state
     f32 = torch.float32
     return {
-        "ln": Spec((D,), "ones"),
-        "wx": Spec((D, di)),
-        "wz": Spec((D, di)),
-        "wB": Spec((D, GN)),
-        "wC": Spec((D, GN)),
-        "wdt": Spec((D, H)),
-        "conv": Spec((s.conv_dim, di), scale=0.5),
-        "A_log": Spec((H,), "zeros", dtype=f32),
-        "dt_bias": Spec((H,), "zeros", dtype=f32),
-        "D_skip": Spec((H,), "ones", dtype=f32),
-        "gn": Spec((di,), "ones"),
-        "wout": Spec((di, D)),
+        "ln": _norm(D),
+        "wx": Spec((D, di), axes=("fsdp", "tp")),
+        "wz": Spec((D, di), axes=("fsdp", "tp")),
+        "wB": Spec((D, GN), axes=("fsdp", None)),
+        "wC": Spec((D, GN), axes=("fsdp", None)),
+        "wdt": Spec((D, H), axes=("fsdp", "tp")),
+        "conv": Spec((s.conv_dim, di), scale=0.5, axes=(None, "tp")),
+        "A_log": Spec((H,), "zeros", dtype=f32, axes=("tp",)),
+        "dt_bias": Spec((H,), "zeros", dtype=f32, axes=("tp",)),
+        "D_skip": Spec((H,), "ones", dtype=f32, axes=("tp",)),
+        "gn": _norm(di, ("tp",)),
+        "wout": Spec((di, D), axes=("tp", "fsdp")),
     }
 
 
@@ -110,11 +126,11 @@ def moe_specs(cfg: ArchConfig) -> Dict[str, Spec]:
     m = cfg.moe
     D, E, F = cfg.d_model, m.n_experts, m.d_ff_expert
     return {
-        "ln": Spec((D,), "ones"),
-        "router": Spec((D, E)),
-        "w_gate": Spec((E, D, F)),
-        "w_up": Spec((E, D, F)),
-        "w_down": Spec((E, F, D)),
+        "ln": _norm(D),
+        "router": Spec((D, E), axes=("fsdp", None)),
+        "w_gate": Spec((E, D, F), axes=("exp", "fsdp", None)),
+        "w_up": Spec((E, D, F), axes=("exp", "fsdp", None)),
+        "w_down": Spec((E, F, D), axes=("exp", None, "fsdp")),
     }
 
 
@@ -140,9 +156,51 @@ def encoder_layer_specs(cfg: ArchConfig) -> Dict[str, Dict[str, Spec]]:
     return {"attn": attn_specs(cfg), "ffn": ffn_specs(cfg, gelu=True)}
 
 
+def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    """The :class:`Spec` of every parameter, in :func:`init_params`' layout
+    and in the order it draws them (a dict's insertion order), each with
+    its dtype resolved (the config's where the leaf names none): the
+    reference's ``Model.param_defs`` tree, per layer."""
+    return _map_specs(lambda s: s._replace(dtype=s.dtype or cfg.dtype),
+                      _raw_specs(cfg))
+
+
+def _raw_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    Vp, D = pad_vocab(cfg.vocab, 256), cfg.d_model
+    specs: Dict[str, Any] = {
+        "embed": Spec((Vp, D), axes=("tp", "fsdp")),
+        "final_ln": _norm(D),
+        "layers": [layer_specs(cfg, i) for i in range(cfg.n_layers)],
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = Spec((D, Vp), axes=("fsdp", "tp"))
+    if cfg.encoder is not None:
+        specs["encoder"] = {
+            "layers": [encoder_layer_specs(cfg)
+                       for _ in range(cfg.encoder.n_layers)],
+            "ln": _norm(D)}
+    return specs
+
+
+def _map_specs(fn, tree):
+    """``fn`` over the Specs of a :func:`param_specs` tree, visited in
+    insertion order."""
+    if isinstance(tree, Spec):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v) for k, v in tree.items()}
+    return [_map_specs(fn, v) for v in tree]
+
+
+def _spec_leaves(tree) -> List[Spec]:
+    out: List[Spec] = []
+    _map_specs(out.append, tree)
+    return out
+
+
 def _init_leaf(spec: Spec, dtype: torch.dtype, generator: torch.Generator,
                device: torch.device) -> torch.Tensor:
-    shape, init, scale, own_dtype = spec
+    shape, init, scale, own_dtype, _ = spec
     dtype = own_dtype or dtype
     if init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -164,31 +222,34 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     ``device``."""
     from repro_torch import resolve_device
     device = resolve_device(device)
-    dt = cfg.dtype
-    Vp = pad_vocab(cfg.vocab, 256)
-    D = cfg.d_model
-    params: Dict[str, Any] = {
-        "embed": _init_leaf(Spec((Vp, D)), dt, generator, device),
-        "final_ln": _init_leaf(Spec((D,), "ones"), dt, generator, device),
-    }
-    layers: List[Dict[str, Dict[str, torch.Tensor]]] = []
-    for i in range(cfg.n_layers):
-        layers.append({
-            part: {k: _init_leaf(s, dt, generator, device)
-                   for k, s in specs.items()}
-            for part, specs in layer_specs(cfg, i).items()})
-    params["layers"] = layers
-    if not cfg.tie_embeddings:
-        params["lm_head"] = _init_leaf(Spec((D, Vp)), dt,
-                                       generator, device)
-    if cfg.encoder is not None:
-        params["encoder"] = {
-            "layers": [{part: {k: _init_leaf(s, dt, generator, device)
-                               for k, s in specs.items()}
-                        for part, specs in encoder_layer_specs(cfg).items()}
-                       for _ in range(cfg.encoder.n_layers)],
-            "ln": _init_leaf(Spec((D,), "ones"), dt, generator, device)}
-    return params
+    return _map_specs(lambda s: _init_leaf(s, cfg.dtype, generator, device),
+                      param_specs(cfg))
+
+
+def abstract_tree(specs, dtype_override=None) -> Dict[str, Any]:
+    """A :func:`param_specs` tree as ``meta`` tensors of the leaves' shapes
+    and dtypes: nothing is allocated (the reference's ``abstract_tree``)."""
+    return _map_specs(lambda s: torch.empty(
+        s.shape, dtype=dtype_override or s.dtype, device="meta"), specs)
+
+
+def pspec_tree(specs, rules: Dict[Optional[str], Any]):
+    """The partition spec of every leaf of a :func:`param_specs` tree: a
+    tuple holding, per dim, the mesh axes its logical axis maps to under
+    ``rules`` (:func:`repro_torch.distributed.sharding.mesh_rules`)."""
+    return _map_specs(lambda s: tuple(rules.get(a) for a in s.axes), specs)
+
+
+def tree_bytes(specs) -> int:
+    """Bytes of every leaf of a :func:`param_specs` tree in its dtype."""
+    from repro_torch.configs.base import dtype_bytes
+    return sum(math.prod(s.shape) * dtype_bytes(s.dtype)
+               for s in _spec_leaves(specs))
+
+
+def tree_params(specs) -> int:
+    """Elements of every leaf of a :func:`param_specs` tree."""
+    return sum(math.prod(s.shape) for s in _spec_leaves(specs))
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,15 @@ def _capacity(n_tokens: int, n_experts: int, top_k: int, cf: float,
     return max(1, math.ceil(n_tokens * top_k * cf / n_experts))
 
 
+def _bincount(eflat: torch.Tensor, E: int) -> torch.Tensor:
+    """Pairs per expert. On ``meta`` (the dry run) the counts have no
+    values, and ``torch.bincount`` has no meta kernel (its length depends
+    on the values): an empty [E] of its dtype stands in."""
+    if eflat.device.type == "meta":
+        return torch.empty(E, dtype=torch.int64, device="meta")
+    return torch.bincount(eflat, minlength=E)
+
+
 def _route_and_bucket(xt: torch.Tensor, router: torch.Tensor, E: int,
                       K: int, C: int) -> Tuple[torch.Tensor, Info]:
     """xt [T, D] -> (buf [E, C, D], combine info). The router product runs
@@ -50,7 +59,7 @@ def _route_and_bucket(xt: torch.Tensor, router: torch.Tensor, E: int,
     eflat = gidx.reshape(-1)                              # [T*K]
     order = torch.argsort(eflat, stable=True)
     se = eflat[order]
-    counts = torch.bincount(eflat, minlength=E)           # [E]
+    counts = _bincount(eflat, E)                          # [E]
     start = torch.cumsum(counts, 0) - counts              # exclusive prefix
     rank_sorted = torch.arange(T * K, device=dev) - start[se]
     rank = torch.empty_like(rank_sorted)

@@ -34,13 +34,15 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, TensorSpec
+from repro_torch.distributed.sharding import ShardingCtx, param_shardings
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
-from repro_torch.models.common import (encoder_layer_specs, layer_specs,
-                                       pad_vocab, rms_norm)
+from repro_torch.models.common import (abstract_tree, encoder_layer_specs,
+                                       layer_specs, pad_vocab, param_specs,
+                                       rms_norm)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
@@ -152,6 +154,9 @@ class Model(nn.Module):
         # layer index -> entry of the state cache's cross K/V
         cross = [i for i, b in enumerate(self.layers) if b.cross is not None]
         self.cross_layer = {i: j for j, i in enumerate(cross)}
+        # the sharding context the launch tooling reads (build_model's
+        # ``mesh``); nothing the model runs consults it
+        self.ctx = ShardingCtx(None)
 
     def _kv_layout(self) -> Dict[int, int]:
         """Layer index -> arena layer of each attention layer, in the
@@ -192,6 +197,22 @@ class Model(nn.Module):
         """The weights in the layout the constructor takes (``init_params``'
         tree), as the parameters' own tensors: no copy."""
         return self._tree(lambda p: p.data)
+
+    # ------------------------------------------------ parameter definitions
+    def param_defs(self) -> Dict[str, Any]:
+        """The :class:`~repro_torch.models.common.Spec` of every parameter
+        in :meth:`param_tree`'s layout (shape, init, dtype, logical
+        axes)."""
+        return param_specs(self.cfg)
+
+    def abstract_params(self, dtype_override=None) -> Dict[str, Any]:
+        """:meth:`param_defs` as ``meta`` tensors: nothing allocated."""
+        return abstract_tree(self.param_defs(), dtype_override)
+
+    def param_pspecs(self) -> Dict[str, Any]:
+        """Each parameter's partition spec under the model's mesh (all
+        None without one)."""
+        return param_shardings(self.ctx.mesh, self.param_defs())
 
     def grad_tree(self) -> Dict[str, Any]:
         """Each parameter's gradient in :meth:`param_tree`'s layout (zeros,
@@ -567,6 +588,39 @@ class Model(nn.Module):
             out["k"] = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
             out["v"] = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
         return out
+
+    def cache_specs(self, batch: int, seq: int, page_tokens: int = 16):
+        """(shape/dtype tree, partition-spec tree) of :meth:`cache`'s
+        entries for ``batch`` lanes of ``seq`` tokens: nothing allocated.
+        Each entry stacks its layers on a leading dim that no mesh axis
+        splits; the rest is split as the reference's ``cache_specs``
+        splits a slot's cache (lanes over the batch axes, K/V rows over
+        ``kv_sp``, SSM heads and conv channels over ``tp``)."""
+        cfg, ctx = self.cfg, self.ctx
+        raw = {}
+        n_kv, n_ssm, n_cross = (len(self.kv_layer), self.n_ssm_layers,
+                                len(self.cross_layer))
+        if n_ssm:
+            s, D = cfg.ssm, cfg.d_model
+            raw["state"] = ((n_ssm, batch, s.n_heads(D), s.d_state,
+                             s.head_dim), torch.float32,
+                            ("batch", "tp", None, None))
+            raw["conv"] = ((n_ssm, batch, s.conv_dim - 1, s.d_inner(D)),
+                           cfg.dtype, ("batch", None, "tp"))
+        if n_cross:
+            for name in ("cross_k", "cross_v"):
+                raw[name] = ((n_cross, batch, cfg.n_ctx, cfg.n_kv_heads,
+                              cfg.head_dim_), cfg.dtype,
+                             ("batch", "kv_sp", None, None))
+        if n_kv:
+            S = -(-seq // page_tokens) * page_tokens
+            for name in ("k", "v"):
+                raw[name] = ((n_kv, batch, S, cfg.n_kv_heads, cfg.head_dim_),
+                             cfg.dtype, ("batch", "kv_sp", None, None))
+        structs = {k: TensorSpec(shp, dt) for k, (shp, dt, _) in raw.items()}
+        specs = {k: (None,) + ctx.spec(*axes, dims=shp[1:])
+                 for k, (shp, _, axes) in raw.items()}
+        return structs, specs
 
     def decode_step(self, cache: Dict[str, torch.Tensor],
                     tokens: torch.Tensor, positions: torch.Tensor,

@@ -69,7 +69,8 @@ class ClusterSpec:
 
 
 def build_zoo(model_names: Sequence[str] = DEFAULT_ZOO, seed: int = 1,
-              reduced: bool = True, device=None
+              reduced: bool = True, device=None,
+              n_layers: Optional[Dict[str, int]] = None
               ) -> Tuple[Dict[str, Model], Dict[str, Any]]:
     """Tiny real models (reduced configs) + their host-memory parameter
     trees, drawn by :func:`init_params` from ``seed + i`` for the i-th
@@ -79,8 +80,9 @@ def build_zoo(model_names: Sequence[str] = DEFAULT_ZOO, seed: int = 1,
     ``reduced=False`` builds the full-width configs instead: each model's
     weights are drawn on ``device`` (``cuda`` unless the caller names
     another), as the full-width serving runs draw them, and copied into one
-    host tree, pinned when drawn on CUDA. A full-width worker builds its
-    zoo so; ``device`` is ignored for the reduced configs."""
+    host tree, pinned when drawn on CUDA; ``n_layers`` (model name ->
+    layers) cuts them in depth. A full-width worker builds its zoo so;
+    ``device`` and ``n_layers`` are ignored for the reduced configs."""
     zoo, host = {}, {}
     for i, name in enumerate(model_names):
         cfg = get_config(name)
@@ -89,6 +91,8 @@ def build_zoo(model_names: Sequence[str] = DEFAULT_ZOO, seed: int = 1,
             gen = torch.Generator().manual_seed(seed + i)
             host[name] = init_params(cfg, gen, "cpu")
         else:
+            if n_layers and name in n_layers:
+                cfg = dataclasses.replace(cfg, n_layers=n_layers[name])
             dev = resolve_device(device)
             drawn = build_model(cfg, device=dev, seed=seed + i)
             host[name] = _host_copy(drawn.param_tree())
@@ -113,12 +117,14 @@ def _host_copy(tree):
 
 
 def worker_specs(spec: ClusterSpec, seed: int = 1, device=None,
-                 reduced: bool = True) -> List[Any]:
+                 reduced: bool = True,
+                 n_layers: Optional[Dict[str, int]] = None) -> List[Any]:
     """The picklable per-node ``WorkerSpec`` list for a cluster spec —
     what both worker backends ship to their children, and what
     ``connect_fleet`` sends to standalone remote workers. ``device``: each
     node's device (``cuda`` when None); ``reduced=False``: full-width
-    models (see :func:`build_zoo`)."""
+    models, cut to ``n_layers`` (model name -> layers) where it names them
+    (see :func:`build_zoo`)."""
     from repro_torch.serving.worker import WorkerSpec
     return [WorkerSpec(node_id=nid, cluster_id=ns.cluster_id,
                        model_names=tuple(spec.model_names),
@@ -133,7 +139,9 @@ def worker_specs(spec: ClusterSpec, seed: int = 1, device=None,
                        decode_horizon=(ns.decode_horizon
                                        if ns.decode_horizon > 1 else None),
                        device=None if device is None else str(device),
-                       reduced=reduced)
+                       reduced=reduced,
+                       n_layers=(tuple(sorted(n_layers.items()))
+                                 if n_layers else None))
             for nid, ns in enumerate(spec.nodes)]
 
 

@@ -99,7 +99,8 @@ class WorkerSpec:
     spec would build. ``device``: the node's device, ``cuda`` when None.
     ``reduced=False`` builds the full-width configs, their weights drawn
     on the device and kept in one pinned host copy per model, which the
-    node takes as its host tier."""
+    node takes as its host tier; ``n_layers`` (model name, layers) pairs
+    cut those configs in depth."""
     node_id: int
     cluster_id: int
     model_names: Tuple[str, ...]
@@ -122,6 +123,7 @@ class WorkerSpec:
     seed: int = 1
     device: Optional[str] = None
     reduced: bool = True
+    n_layers: Optional[Tuple[Tuple[str, int], ...]] = None
 
 
 def _worker_main(conn, spec: WorkerSpec) -> None:
@@ -138,7 +140,8 @@ def _worker_main(conn, spec: WorkerSpec) -> None:
         from repro_torch.serving.cluster import build_zoo
         from repro_torch.serving.node_runtime import NodeRuntime
         zoo, host = build_zoo(spec.model_names, seed=spec.seed,
-                              reduced=spec.reduced, device=spec.device)
+                              reduced=spec.reduced, device=spec.device,
+                              n_layers=dict(spec.n_layers or ()))
         kw = {k: v for k, v in (("hbm_budget", spec.hbm_budget),
                                 ("max_slots", spec.max_slots),
                                 ("s_max", spec.s_max),

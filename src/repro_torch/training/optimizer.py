@@ -9,8 +9,9 @@ parameter's dtype. The trees are the port's (``Model.param_tree()``'s
 layout, walked by :mod:`repro_torch.tree`). Where the reference returns
 new trees, the port updates the parameters and the state in place, under
 ``torch.no_grad()``, one leaf at a time, so the f32 temporaries stay one
-leaf's size. The sharding and AOT helpers (``abstract_opt_state``,
-``opt_pspecs``) belong to the launch tooling, not ported yet.
+leaf's size. :func:`abstract_opt_state` and :func:`opt_pspecs` serve the
+dry run (:mod:`repro_torch.launch.dryrun`): the state on ``meta`` and its
+partition specs, the parameters' own.
 """
 from __future__ import annotations
 
@@ -49,6 +50,28 @@ def adamw_init(params, compression: str = "none") -> Dict[str, Any]:
              "step": torch.zeros((), dtype=torch.int32, device=dev)}
     if compression != "none":
         state["ef"] = tree_map(_zeros32, params)
+    return state
+
+
+def abstract_opt_state(abstract_params, compression: str = "none"
+                       ) -> Dict[str, Any]:
+    """:func:`adamw_init`'s state for parameters of these shapes, as
+    ``meta`` tensors: nothing allocated."""
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")
+    state = {"m": tree_map(f32, abstract_params),
+             "v": tree_map(f32, abstract_params),
+             "step": torch.empty((), dtype=torch.int32, device="meta")}
+    if compression != "none":
+        state["ef"] = tree_map(f32, abstract_params)
+    return state
+
+
+def opt_pspecs(param_pspecs, compression: str = "none") -> Dict[str, Any]:
+    """The state's partition specs: the moments (and the residual) split
+    as their parameters, the step replicated."""
+    state = {"m": param_pspecs, "v": param_pspecs, "step": ()}
+    if compression != "none":
+        state["ef"] = param_pspecs
     return state
 
 

@@ -5,18 +5,25 @@ The port of ``repro/training/train_step.py``. Where the reference returns
 pure functions for ``jax.jit``, these run eagerly on the model's own
 parameters: ``params`` is ``model.param_tree()``, whose tensors the update
 changes in place, and each step is ``loss.backward()`` then
-:func:`~repro_torch.training.optimizer.adamw_update`. The AOT lowering
-(``lower_cell``, ``batch_pspecs``) and the dense KV-cache decode step
-(``make_decode_step``) belong to the launch tooling, not ported yet.
+:func:`~repro_torch.training.optimizer.adamw_update`.
+
+:func:`build_cell` is the counterpart of the reference's ``lower_cell``:
+it returns a cell's step with its arguments, which for a model on ``meta``
+(``build_model(cfg, device="meta")``) are abstract. Nothing is lowered or
+compiled: the dry run (:mod:`repro_torch.launch.dryrun`) runs the step on
+``meta`` under its counter, and the same call on a model on the card gives
+the step the counter predicts.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.configs.base import input_specs, shape_of
 from repro_torch.models.transformer import Model
-from repro_torch.training.optimizer import OptConfig, adamw_update
+from repro_torch.training.optimizer import (OptConfig, abstract_opt_state,
+                                            adamw_init, adamw_update)
 from repro_torch.tree import leaves, tree_map
 
 
@@ -97,3 +104,96 @@ def make_prefill_step(model: Model):
         toks, _, extras = _split_batch(batch)
         return model.prefill(toks, extras)
     return prefill_step
+
+
+def make_decode_step(model: Model):
+    """decode_step(params, cache, tokens, positions) -> logits [B, Vp]
+    f32: one token per lane from the dense decode cache (``Model.cache``),
+    updated in place."""
+    def decode_step(params, cache, tokens, positions):
+        return model.decode_step(cache, tokens, positions)
+    return decode_step
+
+
+# ---------------------------------------------------------------------------
+# A cell's step and its arguments (the dry run's; the reference's AOT in/out)
+# ---------------------------------------------------------------------------
+
+def batch_pspecs(model: Model, shape) -> Dict[str, Tuple]:
+    """Partition spec per batch input: the batch dim over the data axes
+    where they divide it, the rest replicated."""
+    ctx = model.ctx
+    specs = {}
+    for k, s in input_specs(model.cfg, shape).items():
+        axes = ("batch",) + (None,) * (len(s.shape) - 1)
+        specs[k] = ctx.spec(*axes, dims=s.shape)
+    return specs
+
+
+def cell_batch(model: Model, shape,
+               generator: Optional[torch.Generator] = None
+               ) -> Dict[str, torch.Tensor]:
+    """A cell's batch on the model's device: ``meta`` tensors for a model
+    on ``meta``; else token ids drawn from ``generator`` below the
+    vocabulary, labels the tokens shifted by one, standard-normal modality
+    embeddings and, for a decode cell, positions ``seq_len - 1`` (the new
+    token reads the whole cache)."""
+    dev = model.device
+    specs = input_specs(model.cfg, shape)
+    if dev.type == "meta":
+        return {k: torch.empty(s.shape, dtype=s.dtype, device=dev)
+                for k, s in specs.items()}
+    out = {}
+    for k, s in specs.items():
+        if k in ("tokens", "labels"):
+            out[k] = torch.randint(0, model.cfg.vocab, s.shape,
+                                   generator=generator, dtype=s.dtype,
+                                   device=dev)
+        elif k == "positions":
+            out[k] = torch.full(s.shape, shape_of(shape)["seq_len"] - 1,
+                                dtype=s.dtype, device=dev)
+        else:
+            out[k] = torch.randn(s.shape, generator=generator,
+                                 dtype=torch.float32, device=dev).to(s.dtype)
+    if "labels" in out:
+        out["labels"] = torch.roll(out["tokens"], -1, 1)
+    return out
+
+
+def build_cell(model: Model, shape, opt_cfg: Optional[OptConfig] = None,
+               n_micro: int = 1,
+               generator: Optional[torch.Generator] = None
+               ) -> Tuple[Any, Tuple[Any, ...]]:
+    """The step of one (arch, shape) cell and its arguments: ``(step,
+    args)``, ``step(*args)`` one step. The counterpart of the reference's
+    ``lower_cell``, which lowers the step for XLA; nothing is lowered here.
+
+    ``shape`` is a name of ``SHAPES`` or a dict with its keys. train:
+    ``make_train_step(model, opt_cfg, n_micro)`` over (the model's
+    parameters, AdamW state, batch); prefill: ``make_prefill_step`` over
+    (parameters, batch); decode: ``make_decode_step`` over (parameters,
+    ``Model.cache`` of ``global_batch`` lanes of ``seq_len`` tokens, tokens
+    [B, 1], positions [B]). The arguments live on the model's device: on
+    ``meta`` (``build_model(cfg, device="meta")``) they are abstract and
+    nothing is allocated; elsewhere the state and cache are zeros and the
+    batch is :func:`cell_batch`'s."""
+    sh = shape_of(shape)
+    params = model.param_tree()
+    meta = model.device.type == "meta"
+    batch = cell_batch(model, sh, generator)
+    if sh["kind"] == "train":
+        opt_cfg = opt_cfg or OptConfig()
+        opt = (abstract_opt_state(params, opt_cfg.compression) if meta
+               else adamw_init(params, opt_cfg.compression))
+        return make_train_step(model, opt_cfg, n_micro), (params, opt, batch)
+    if sh["kind"] == "prefill":
+        return make_prefill_step(model), (params, batch)
+    B, S = sh["global_batch"], sh["seq_len"]
+    if meta:
+        structs, _ = model.cache_specs(B, S)
+        cache = {k: torch.empty(s.shape, dtype=s.dtype, device="meta")
+                 for k, s in structs.items()}
+    else:
+        cache = model.cache(B, S)
+    return make_decode_step(model), (params, cache, batch["tokens"],
+                                     batch["positions"])

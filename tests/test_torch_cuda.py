@@ -1200,3 +1200,50 @@ def test_train_lm_killed_and_resumed_on_the_card_equals_an_uninterrupted_run(
     b = restore(str(tmp_path / "b"), like)[0]
     assert all(x.dtype == y.dtype and torch.equal(x, y)
                for x, y in zip(leaves(a), leaves(b)))
+
+
+# ------------------------------------------------------- the launch tooling
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_dry_run_argument_bytes_equal_the_cards_tensors(dev, kind):
+    """A reduced cell counted on meta: its argument bytes are the bytes of
+    the same step's arguments made on the card; the step on meta launched
+    no kernel and ran no plain version, and the card's step launched the
+    kernels the count charged."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import counter, dryrun
+    from repro_torch.models import build_model
+    from repro_torch.training import build_cell
+    cfg = get_config("qwen3-8b").reduced()
+    shape = dict(kind=kind, seq_len=64, global_batch=2)
+    ops.reset_counts()
+    rec = dryrun.count_cell(cfg, shape, n_micro=2 if kind == "train" else 1)
+    c = ops.counts()
+    assert not any(c["launches"].values()) and not any(
+        c["plain_calls"].values())
+    model = build_model(cfg, device=dev, trainable=kind == "train")
+    step, args = build_cell(model, shape,
+                            n_micro=2 if kind == "train" else 1)
+    assert rec["memory"]["argument_bytes"] == counter.tensor_bytes(args)
+    with torch.set_grad_enabled(kind == "train"):
+        step(*args)
+    torch.cuda.synchronize()
+    c = ops.counts()
+    assert not any(c["plain_calls"].values())
+    for name, k in rec["kernels"].items():
+        assert c["launches"][name] == k["calls"], name
+
+
+def test_moved_cost_functions_give_the_smokes_bounds(dev):
+    """The bounds chip_smoke.py printed before the cost functions moved to
+    repro_torch.kernels.cost (re-exported by repro_torch.launch.roofline):
+    the SSD backward at mamba2-2.7b's 2 x 4,096 (0.277 ms, bytes) and the
+    flash backward at qwen3-8b's causal 2 x 4,096 (0.695 ms,
+    operations)."""
+    from repro_torch.launch import roofline as rl
+    ms, by = rl.bound(*rl.ssd_bwd_cost(2, 4096, 80, 64, 128, 64, 2, False),
+                      rl.H100.peak_flops)
+    assert by == "bytes" and round(ms, 3) == 0.277
+    ms, by = rl.bound(*rl.bwd_cost(2, 4096, 4096, 32, 8, 128, True, 2),
+                      rl.H100.peak_flops)
+    assert by == "operations" and round(ms, 3) == 0.695
