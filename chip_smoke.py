@@ -85,9 +85,10 @@ Phases, each printing one JSON line (and failing the run on any error):
                 time (``bound_share``), ``mfu``, the kernels launched, no
                 plain call, one step's idle share under the profiler;
                 ``train_main`` prints the same line for its own step;
-10. node     -- a ``NodeRuntime`` on the card holding both full-width models
-                under a 24 GB budget (its GPU tier holds either model's
-                weights, not both), prefix cache on, chunk 256, horizon 8:
+10. node     -- a ``NodeRuntime`` on the card holding both models at their
+                widths, cut to 18 of qwen3-8b's 36 and 32 of mamba2's 64
+                layers (the main paths' weights), under a 14 GB budget
+                (its GPU tier holds either model's weights, not both), prefix cache on, chunk 256, horizon 8:
                 a qwen3-8b batch, a ``make_room`` that must trim prefix pins
                 and sleep nobody, a mamba2 batch (qwen3 offloaded), qwen3
                 again (mamba2 offloaded, qwen3 back from pinned host memory,
@@ -182,7 +183,7 @@ Phases, each printing one JSON line (and failing the run on any error):
                 non-zero q/k/v biases) and jamba-v0.1-52b (knobs degrade)
                 served on the card and the CPU from the same weights:
                 identical greedy tokens;
-19. moe_main -- moonshot-v1-16b-a3b at its widths and 24 of its 48
+19. moe_main -- moonshot-v1-16b-a3b at its widths and 12 of its 48
                 layers (64 experts top 6, bf16) serving the main path's 8
                 requests chunked (256)
                 at horizon 8, then at horizon 1 (identical tokens), then
@@ -271,7 +272,30 @@ Phases, each printing one JSON line (and failing the run on any error):
                 4,096 tokens in 2 microbatches, AdamW, the cyclic batch, 12
                 steps) under deterministic algorithms, the loss below half
                 its first value; step time, tokens/s, MFU, peak memory, the
-                SSD backward's and forward's shares of a profiled step.
+                SSD backward's and forward's shares of a profiled step;
+31. mesh     -- the model across a (data, model) mesh of two ranks sharing
+                the card over gloo (``repro_torch.launch.spmd``, one spawn
+                per mesh, a file store): qwen3-8b at its widths and 4
+                layers (bf16) on 1 x 2 (tensor parallel: heads, d_ff and
+                the vocabulary split) and 2 x 1 (ZeRO-3: every leaf's D
+                gathered before use), a prefill of 2 x 1,024 through flash
+                then decode steps through paged attention over the dense
+                cache split by KV heads (8 on 1 x 2; 3 on 2 x 1, where
+                every step all-gathers the whole weights through the
+                host); moonshot at its widths and 4 layers in f32 (routing
+                must not flip on bf16 reduction order) with the capacity
+                factor E / K (dropless) on 1 x 2 (expert parallel: two
+                all-to-alls), a prefill of 2 x 512 then 8 steps; each held
+                against the same model in this process fed the ranks'
+                tokens: logits within 2e-2 of each row's magnitude, the
+                greedy tokens equal but where the one-process top-2 gap is
+                under that, the ranks of a data index bitwise equal, flash
+                and paged launched on every rank through the one-card
+                path's variants, no plain call, no pair dropped on either
+                side, no ``jax`` or ``repro`` module in a rank; per rank
+                its launches by variant and ``collectives.stats()``. Its
+                seconds are a gloo run's, which stages every collective
+                through the host: they show no collective speed.
 
 The models of phases 19-25 are drawn on the card one at a time, each
 freed before the next; so are the training phases' models. Every
@@ -1970,7 +1994,12 @@ def phase_prefix(torch, model, flow, matched):
 
 
 # -------------------------------------------------------------------- node
-NODE = dict(hbm_budget=24e9, max_slots=8, s_max=2048, page_tokens=16,
+# the node's models at their widths, cut in depth for the smoke's clock
+# (whole until the mesh phase came), under a budget cut with them: its GPU
+# tier (0.8 of it, 11.2 GB) holds qwen3-8b's 18 layers (9.4 GB) or
+# mamba2-2.7b's 32 (2.8 GB), not both, as 24 GB does the whole models
+NODE_LAYERS = {MAIN["model"]: 18, SSM_MODEL: 32}
+NODE = dict(hbm_budget=14e9, max_slots=8, s_max=2048, page_tokens=16,
             prefill_chunk_tokens=256, decode_horizon=8, requests=4)
 
 
@@ -1993,9 +2022,10 @@ def h2d_rate(torch, n_bytes: int = 1 << 30, reps: int = 5) -> float:
 
 
 def phase_node(torch, qwen, mamba, flow):
-    """A NodeRuntime on the card co-locating the full-width qwen3-8b and
-    mamba2-2.7b under a 24 GB budget, whose GPU tier (0.8 of it) holds
-    either model's weights but not both: a qwen3 batch, a mamba2 batch
+    """A NodeRuntime on the card co-locating qwen3-8b and mamba2-2.7b at
+    their widths and ``NODE_LAYERS`` layers (the models given) under a
+    14 GB budget, whose GPU tier (0.8 of it) holds either model's weights
+    but not both: a qwen3 batch, a mamba2 batch
     (which puts qwen3 to sleep), then qwen3 again (which puts mamba2 to
     sleep and brings qwen3 back from pinned host memory). Each activation's
     measured seconds stand beside the residency model's prediction, each
@@ -2123,6 +2153,7 @@ def phase_node(torch, qwen, mamba, flow):
     cold, warm = activations[0]["measured_s"], activations[2]["measured_s"]
     sig = node.signal()
     emit("node", models=list(models), config=NODE,
+         n_layers={n: mdl.cfg.n_layers for n, mdl in models.items()},
          hw=dataclasses.asdict(node.profiles[q].hw),
          build=build, activations=activations, offloads=offloads,
          h2d_pinned_gb_per_s=h2d_rate(torch),
@@ -3022,10 +3053,10 @@ ZOO = dict(moe="moonshot-v1-16b-a3b", llama4="llama4-scout-17b-a16e",
            hybrid="jamba-v0.1-52b")
 # layers run on the card at the published widths: llama4-scout,
 # qwen1.5-110b and jamba where all of them would not fit one card's 80 GB,
-# moonshot (which would) cut to 24 of 48 for the smoke's clock; qwen3-32b
-# runs whole
+# moonshot (which would) cut to 12 of 48 for the smoke's clock (24 until
+# the mesh phase came); qwen3-32b runs whole
 ZOO_LAYERS = {ZOO["llama4"]: 8, ZOO["qwen110"]: 8, ZOO["hybrid"]: 16,
-              ZOO["moe"]: 24}
+              ZOO["moe"]: 12}
 # (H, Hkv) of moonshot (g = 1), llama4-scout (g = 5), qwen3-32b and
 # qwen1.5-110b (g = 8); hd 128 in all
 ZOO_HEADS = ((16, 16), (40, 8), (64, 8))
@@ -3376,7 +3407,7 @@ def serve_path(torch, where, model, prompts, *, chunk, horizon,
 
 
 def phase_moe_main(torch, args, prompts):
-    """moonshot-v1-16b-a3b at its widths and ``ZOO_LAYERS`` (24 of its 48)
+    """moonshot-v1-16b-a3b at its widths and ``ZOO_LAYERS`` (12 of its 48)
     layers, bf16: the main path's 8
     requests chunked (256) at horizon 8, then at horizon 1 (identical
     tokens), then monolithic (flash); a profile of the first chunk step
@@ -4969,6 +5000,99 @@ def train_phases(torch, args, mark):
             {**main["main_variants"], **mamba["main_variants"]})
 
 
+# the mesh phase: two ranks on the one card over gloo, one spawn per mesh;
+# full widths, cut in depth; qwen3-8b's prefill of 2 x 1,024 then decode
+# steps (8 under tensor parallelism; 3 under ZeRO-3, whose every step
+# all-gathers the whole 4 GB of weights through the host), moonshot's (f32,
+# capacity factor E / K: dropless) of 2 x 512 then 8
+MESH = dict(layers=4, batch=2, meshes={
+    (1, 2): (("qwen_1x2", MAIN["model"], 1024, 8),
+             ("moe_1x2", "moonshot-v1-16b-a3b", 512, 8)),
+    (2, 1): (("qwen_2x1", MAIN["model"], 1024, 3),)})
+
+
+def mesh_config(torch, name: str):
+    """``name`` at its widths and ``MESH["layers"]`` layers; a MoE in f32
+    (routing must not flip on bf16 reduction order) and dropless
+    (``spmd.dropless``: capacity factor E / K)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import spmd
+    cfg = dataclasses.replace(get_config(name), n_layers=MESH["layers"])
+    if cfg.moe is None:
+        return cfg
+    return spmd.dropless(dataclasses.replace(cfg, dtype=torch.float32))
+
+
+def phase_mesh(torch, args) -> dict:
+    """The model across a (data, model) mesh of two ranks sharing the card
+    over gloo (``repro_torch.launch.spmd``): qwen3-8b with tensor
+    parallelism (1 x 2) and with ZeRO-3 (2 x 1), moonshot with expert
+    parallelism (1 x 2); each held against the same model in this process
+    fed the ranks' tokens: logits within the row-scaled 2e-2, greedy tokens
+    equal but near ties, the ranks of a data index equal, flash and paged
+    launched on every rank through the one-card path's variants, no plain
+    call, no pair dropped by the MoE on either side, no ``jax`` or
+    ``repro`` module in any rank. The times are of a gloo run, which
+    stages every collective through the host: they show no collective
+    speed. Returns each rank's launches by path."""
+    from repro_torch.launch import spmd
+
+    reset_peak(torch)
+    smi = nvidia_smi()
+    gen = torch.Generator().manual_seed(args.seed + 25)
+    paths = {}
+    for shape, cases in MESH["meshes"].items():
+        jobs = []
+        for _, name, S, steps in cases:
+            cfg = mesh_config(torch, name)
+            jobs.append(spmd.Job(cfg, torch.randint(
+                0, cfg.vocab, (MESH["batch"], S), generator=gen,
+                dtype=torch.int32), steps, seed=args.seed))
+        t0 = time.perf_counter()
+        backend, results = spmd.run(jobs, shape, device="cuda")
+        seconds = time.perf_counter() - t0
+        require(backend == "gloo", f"mesh {shape}: backend {backend} for "
+                f"two ranks on one card")
+        for (label, _, S, steps), job, res in zip(cases, jobs, results):
+            cfg, chk, single = job.cfg, res["check"], res["single"]
+            one = single["counts"]
+            for r in res["records"]:
+                c, rank = r["counts"], r["rank"]
+                for k in ("flash_attention", "paged_attention"):
+                    require(c["launches"][k] > 0,
+                            f"mesh {label}: rank {rank} never launched {k}")
+                require(c["launches_by_variant"]["flash_attention"]
+                        == one["launches_by_variant"]["flash_attention"],
+                        f"mesh {label}: rank {rank}'s flash variants "
+                        f"{c['launches_by_variant']['flash_attention']} are "
+                        f"not the one-card path's")
+                require(not any(c["plain_calls"].values()),
+                        f"mesh {label}: a plain version ran on rank {rank}")
+                paths[f"mesh_{label}_rank{rank}"] = {
+                    k: n for k, n in c["launches"].items() if n}
+            require(chk["ok"], f"mesh {label}: {chk}")
+            if cfg.moe is not None:
+                require(chk["dropped"] == {"mesh": 0, "one_process": 0},
+                        f"mesh {label}: pairs dropped {chk['dropped']}")
+            emit("mesh", case=label, model=cfg.name, layers=cfg.n_layers,
+                 dtype=str(cfg.dtype), mesh=list(shape), backend=backend,
+                 prompts=[MESH["batch"], S], decode_steps=steps,
+                 capacity_factor=(cfg.moe.capacity_factor if cfg.moe
+                                  else None),
+                 mesh_and_checks_s=seconds, mesh_s=res["mesh_seconds"],
+                 check=chk, ranks=res["ranks"],
+                 one_process=dict(launches={k: n for k, n in
+                                            one["launches"].items() if n},
+                                  plain_calls=one["plain_calls"],
+                                  moe_pairs=single["moe_pairs"],
+                                  moe_dropped=single["moe_dropped"],
+                                  seconds=single["seconds"]),
+                 nvidia_smi=smi)
+        del results
+        reset_peak(torch)
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -5071,8 +5195,13 @@ def main(argv=None) -> int:
     launch = phase_launch(torch, args, {model.cfg.name: model,
                                         mamba.cfg.name: mamba})
     mark("launch")
-    node, host = phase_node(torch, model, mamba, flow)
+    # the node's models: the first layers of the main paths' (their
+    # weights, not copies); the rest go, so that an offload frees memory
+    qwen_cut = shallow(model, NODE_LAYERS[MAIN["model"]])
+    mamba_cut = shallow(mamba, NODE_LAYERS[SSM_MODEL])
     del model, mamba
+    node, host = phase_node(torch, qwen_cut, mamba_cut, flow)
+    del qwen_cut, mamba_cut
     mark("node")
     pred = train_predictor()
     card = phase_gateway_reference(torch, args, pred)
@@ -5094,12 +5223,15 @@ def main(argv=None) -> int:
         torch, args, prompt_lens, prompts, mark)
     train_checks, ssd_checks, train_paths, train_variants = train_phases(
         torch, args, mark)
+    mesh_paths = phase_mesh(torch, args)
+    mark("mesh")
     emit("timing", seconds_by_phase=seconds,
          total_s=time.perf_counter() - t0)
     by_path = {"dense_kv": dense_kv, "prefix_chunked": prefix["chunked"],
                "prefix_monolithic": prefix["monolithic"], "node": node,
                **{f"gateway_{run}": n for run, n in gateway.items()},
-               **workers, **zoo_paths, **train_paths, **launch, **examples}
+               **workers, **zoo_paths, **train_paths, **launch, **examples,
+               **mesh_paths}
 
     sources = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",

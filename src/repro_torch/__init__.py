@@ -7,7 +7,16 @@ chunked-prefill and flash attention, the Mamba2 SSD scan) are the
 hand-written Hopper kernels under ``csrc/``, on CPU tensors their plain
 PyTorch versions in ``kernels/ref.py``.
 """
+import sys
+
 import torch
+
+
+def foreign_modules():
+    """The loaded modules of JAX or of the JAX package ``repro`` (a
+    process of the port may load none)."""
+    return sorted(k for k in sys.modules
+                  if k.split(".")[0] in ("jax", "jaxlib", "repro"))
 
 
 def resolve_device(device=None) -> torch.device:

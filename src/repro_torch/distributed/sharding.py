@@ -14,12 +14,22 @@ Logical axes:
     "kv_sp" -- decode KV cache sequence over "model"
 
 A partition spec is a plain tuple with one entry per dim: the mesh axis (a
-name), the mesh axes (a tuple of names) or None. The port runs on one card,
-so nothing here places a tensor: the specs give the per-device shapes the
-dry run reports (:func:`shard_shape`). The reference's distribution modes
-(``tp_sp``, ``tp_sp_opt``, ``fsdp_cp``) and its activation constraints
-(``ShardingCtx.cs``) have no counterpart: the modes differ only in those
-constraints, which place activations on a mesh the port does not run on.
+name), the mesh axes (a tuple of names) or None. On the production meshes,
+which are data, the specs give the per-device shapes the dry run reports
+(:func:`shard_shape`). On a live mesh
+(:func:`~repro_torch.launch.mesh.make_local_mesh`) the context places
+tensors: :meth:`ShardingCtx.local_block` cuts this rank's block of a
+tensor, :meth:`ShardingCtx.shard_tree` a whole parameter tree, and
+:meth:`ShardingCtx.group` gives the process group the model's collectives
+(:mod:`repro_torch.distributed.collectives`) run on.
+Where a mesh axis does not divide the dim it splits, a live mesh raises
+``ValueError`` naming the leaf; the reference's partitioner pads instead.
+
+The reference's distribution modes (``tp_sp``, ``tp_sp_opt``, ``fsdp_cp``)
+and its activation constraints (``ShardingCtx.cs``) have no counterpart:
+the port runs one mode, Megatron tensor parallelism with ZeRO-3 weights,
+its activations replicated over ``model`` between the layers' collectives
+(:mod:`repro_torch.models.layers`, :mod:`repro_torch.models.moe`).
 """
 from __future__ import annotations
 
@@ -27,7 +37,9 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
-from repro_torch.launch.mesh import Mesh
+import torch
+
+from repro_torch.launch.mesh import LocalMesh, Mesh
 
 PSpec = Tuple[Any, ...]
 
@@ -65,9 +77,11 @@ def shard_shape(mesh: Optional[Mesh], shape: Sequence[int],
 
 @dataclasses.dataclass
 class ShardingCtx:
-    """The reference's sharding context, as data. ``spec(*axes, dims=)``
-    gives the partition spec of logical ``axes``, dropping an axis whose
-    mesh extent does not divide its dim (batch 1 long-context decode)."""
+    """The reference's sharding context. ``spec(*axes, dims=)`` gives the
+    partition spec of logical ``axes``, dropping an axis whose mesh extent
+    does not divide its dim (batch 1 long-context decode). On a
+    :class:`~repro_torch.launch.mesh.LocalMesh` of more than one rank it is
+    ``live``: it knows this rank's position and process groups."""
     mesh: Optional[Mesh] = None
 
     def __post_init__(self):
@@ -94,6 +108,75 @@ class ShardingCtx:
                     mesh_axes = None
             entries.append(mesh_axes)
         return tuple(entries)
+
+    # -- the live mesh ------------------------------------------------------
+    @property
+    def live(self) -> bool:
+        return self.enabled and isinstance(self.mesh, LocalMesh)
+
+    @property
+    def tp_axis(self) -> Optional[str]:
+        return ("model" if self.enabled and "model" in self.mesh.axis_names
+                else None)
+
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        if not self.enabled:
+            return ()
+        return ("pod", "data") if "pod" in self.mesh.axis_names else ("data",)
+
+    def _axis(self, logical: str) -> str:
+        axis = self.rules[logical]
+        if not isinstance(axis, str):
+            raise ValueError(f"logical axis {logical!r} spans mesh axes "
+                             f"{axis}; a live mesh has one per axis")
+        return axis
+
+    def group(self, logical: str):
+        """The process group of the line through this rank along
+        ``logical``'s mesh axis (None where that axis has one rank)."""
+        if not self.live:
+            return None
+        return self.mesh.groups.get(self._axis(logical))
+
+    def index(self, logical: Optional[str]) -> int:
+        """This rank's position along ``logical``'s mesh axis."""
+        if not self.live or logical is None or self.rules.get(logical) is None:
+            return 0
+        return self.mesh.index(self._axis(logical))
+
+    def local_block(self, t: torch.Tensor, spec: PSpec,
+                    name: str = "tensor") -> torch.Tensor:
+        """This rank's block of the whole tensor ``t`` under ``spec``: each
+        dim cut into equal blocks over its entry's mesh axis, a copy of its
+        own; ``t`` itself where no dim is cut. Raises ``ValueError`` naming
+        ``name`` where an axis does not divide its dim."""
+        if not self.live:
+            return t
+        out = t
+        for dim, entry in enumerate(tuple(spec)[:t.dim()]):
+            n = axes_size(self.mesh, entry)
+            if n == 1:
+                continue
+            if t.shape[dim] % n:
+                raise ValueError(
+                    f"{name}: dim {dim} of {tuple(t.shape)} does not split "
+                    f"over mesh axis {entry!r} of {n} ranks")
+            size = t.shape[dim] // n
+            out = out.narrow(dim, self.mesh.index(entry) * size, size)
+        return t if out is t else out.clone(
+            memory_format=torch.contiguous_format)
+
+    def shard_tree(self, tree, pspecs, name: str = ""):
+        """:meth:`local_block` of every tensor of a tree (dicts and lists)
+        under its partition-spec tree."""
+        if isinstance(tree, torch.Tensor):
+            return self.local_block(tree, pspecs, name or "tensor")
+        if isinstance(tree, dict):
+            return {k: self.shard_tree(v, pspecs[k], f"{name}/{k}")
+                    for k, v in tree.items()}
+        return [self.shard_tree(v, s, f"{name}/{i}")
+                for i, (v, s) in enumerate(zip(tree, pspecs))]
 
 
 def param_shardings(mesh: Optional[Mesh], defs):

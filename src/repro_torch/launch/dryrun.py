@@ -54,6 +54,9 @@ CONFIG = get_config
 
 def make_mesh(name: str) -> Mesh:
     if name == "local":
+        # the one card the roofline's H100 terms describe
+        if not torch.cuda.is_available():
+            raise ValueError("the local mesh is one card; none is present")
         return make_local_mesh(1, 1)
     return make_production_mesh(multi_pod=(name == "multi"))
 

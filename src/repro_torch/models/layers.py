@@ -4,10 +4,19 @@ decode) and the dense SwiGLU / GELU FFNs. (The Mamba2 block is
 ``models/mamba2.py``.)
 
 Plain functions on tensors, one per reference function in
-``repro/models/layers.py``, with the same arguments minus the sharding
-context (one GPU, nothing to constrain) and the same cast points. The paged
-functions update the arena plane in place, where the reference returns a
-new (donated) plane.
+``repro/models/layers.py``, with the same cast points. The paged functions
+update the arena plane in place, where the reference returns a new
+(donated) plane.
+
+Tensor parallelism (Megatron): the head counts are read off the weights,
+so a function given one rank's block of the heads (``wq``/``wk``/``wv``
+columns, ``wo`` rows: ``H/tp`` query and ``Hkv/tp`` KV heads) attends over
+those heads alone, and an FFN given its block of ``d_ff`` computes that
+block. Their output products (``wo``, ``w_down``) are then partial sums,
+which :func:`attn_full`, :func:`attn_decode` and :func:`ffn_apply` add up
+over ``model`` when given a live ``ctx``
+(:func:`repro_torch.distributed.collectives.all_reduce_sum`); without one
+they are the one-card functions.
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope, rms_norm
 
@@ -25,8 +35,9 @@ def _project_qkv(p: Mapping[str, torch.Tensor], h: torch.Tensor,
                  src: torch.Tensor, cfg: ArchConfig, cross: bool = False):
     """Project to q [B,S,H,hd] from ``h``, k/v [B,Sk,Hkv,hd] from ``src``
     (``h`` itself for self-attention); apply qk-norm + biases, which a
-    cross-attention has not."""
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    cross-attention has not. H and Hkv are the heads the weights hold."""
+    hd = cfg.head_dim_
+    H, Hkv = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
     q = h @ p["wq"]
     k = src @ p["wk"]
     v = src @ p["wv"]
@@ -44,7 +55,8 @@ def _project_qkv(p: Mapping[str, torch.Tensor], h: torch.Tensor,
 
 
 def attn_full(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
-              kv_src: Optional[torch.Tensor] = None, causal: bool = True):
+              kv_src: Optional[torch.Tensor] = None, causal: bool = True,
+              ctx=None):
     """Full-sequence self- or cross-attention through
     :func:`repro_torch.kernels.ops.flash_attention` on the un-repeated K/V.
 
@@ -52,7 +64,8 @@ def attn_full(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
     and ropes them at ``positions``: the decoder's prefill is causal, the
     encoder's not. Cross-attention projects k/v from the raw ``kv_src``
     [B,Sk,C] (the encoder's output or the patch embeddings) and never
-    ropes; its caller passes ``causal=False``.
+    ropes; its caller passes ``causal=False``. On a live ``ctx`` the
+    weights are this rank's heads and the output is summed over ``model``.
     Returns (output [B,S,D], k, v [B,Sk,Hkv,hd] for the cache)."""
     cross = kv_src is not None
     h = rms_norm(x, p["ln"], cfg.norm_eps)
@@ -62,8 +75,8 @@ def attn_full(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
         k = apply_rope(k, positions, cfg.rope_theta)
     o = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=causal)
-    o = o.reshape(*x.shape[:-1], cfg.n_heads * cfg.head_dim_)
-    return o @ p["wo"], k, v
+    o = o.reshape(*x.shape[:-1], q.shape[-2] * cfg.head_dim_)
+    return C.all_reduce_sum(o @ p["wo"], "tp", ctx), k, v
 
 
 def attn_decode_cross(p, x: torch.Tensor, cfg: ArchConfig,
@@ -137,7 +150,7 @@ def dense_table(B: int, S: int, page: int, positions: torch.Tensor):
 def attn_decode(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
                 k_cache: torch.Tensor, v_cache: torch.Tensor,
                 block_table: torch.Tensor, seq_lens: torch.Tensor,
-                page: int, attend) -> torch.Tensor:
+                page: int, attend, ctx=None) -> torch.Tensor:
     """Single-token decode attention against a dense per-lane KV cache (the
     reference's ``attn_decode`` with ``update_kv_cache``): x [B,1,D];
     k/v_cache [B, S, Hkv, hd], written in place at ``positions`` [B] (the
@@ -145,9 +158,9 @@ def attn_decode(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
     attention, ``kernels.ops.paged_attention``) over the cache viewed as
     pages of ``page`` rows through :func:`dense_table`'s block table and
     sequence lengths, which cover positions ``0..positions[b]`` of lane b.
-    Returns the output [B,1,D]."""
+    On a live ``ctx`` the weights and the cache hold this rank's heads and
+    the output is summed over ``model``. Returns the output [B,1,D]."""
     B, S, Hkv, hd = k_cache.shape
-    H = cfg.n_heads
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q, k_new, v_new = _project_qkv(p, h, h, cfg)
     q = apply_rope(q, positions[:, None], cfg.rope_theta)
@@ -158,7 +171,8 @@ def attn_decode(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
     shape = (B * S // page, page, Hkv, hd)
     o = attend(q[:, 0].contiguous(), k_cache.view(shape),
                v_cache.view(shape), block_table, seq_lens)     # [B, H, hd]
-    return o.reshape(B, 1, H * hd).to(x.dtype) @ p["wo"]
+    out = o.reshape(B, 1, q.shape[-2] * hd).to(x.dtype) @ p["wo"]
+    return C.all_reduce_sum(out, "tp", ctx)
 
 
 def attn_chunk_paged(p, x: torch.Tensor, cfg: ArchConfig,
@@ -191,14 +205,16 @@ def attn_chunk_paged(p, x: torch.Tensor, cfg: ArchConfig,
 
 
 def ffn_apply(p, x: torch.Tensor, cfg: ArchConfig,
-              gelu: Optional[bool] = None) -> torch.Tensor:
+              gelu: Optional[bool] = None, ctx=None) -> torch.Tensor:
     """SwiGLU, or the 2-matrix GELU MLP (``gelu``, by default
     ``cfg.ffn_gelu``; the encoder's is always GELU) with the tanh
-    approximation that ``jax.nn.gelu`` uses by default."""
+    approximation that ``jax.nn.gelu`` uses by default. On a live ``ctx``
+    the weights are this rank's block of ``d_ff`` and the output is summed
+    over ``model``."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     up = h @ p["w_up"]
     if cfg.ffn_gelu if gelu is None else gelu:
         act = F.gelu(up, approximate="tanh")
     else:
         act = F.silu(h @ p["w_gate"]) * up
-    return act @ p["w_down"]
+    return C.all_reduce_sum(act @ p["w_down"], "tp", ctx)

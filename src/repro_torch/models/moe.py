@@ -1,12 +1,19 @@
 """Mixture-of-Experts FFN with sort-based, capacity-bucketed token dispatch.
 
-The port of the local (no mesh) path of ``repro/models/moe.py``: routing
-picks each token's top-k experts, a double argsort gives each (token, k)
-pair its rank within its expert, and pairs past the expert's capacity are
-dropped; dispatch and combine are gathers. The expert products are one
-batched matrix product per weight over a dense ``[E, C, D]`` bucket. The
-reference's expert-parallel path (``_moe_sharded``, a ``shard_map`` over a
-device mesh) is not ported: one card has no mesh.
+The port of ``repro/models/moe.py``'s two paths. Routing picks each
+token's top-k experts, a double argsort gives each (token, k) pair its rank
+within its expert, and pairs past the expert's capacity are dropped;
+dispatch and combine are gathers. The expert products are one batched
+matrix product per weight over a dense ``[E, C, D]`` bucket.
+
+``_moe_local`` serves one card. ``_moe_sharded`` is the reference's
+expert-parallel ``shard_map`` run by the ranks of a live mesh: each rank
+routes its own tokens (its rows over ``data``, its block of the sequence
+over ``model`` where that divides it) and buckets them against a capacity
+of its own, ``C_loc`` from its ``T_loc`` tokens, so that pairs drop as
+they drop on the reference's shards, not as on one device. The experts are
+split over ``model`` and reached by two all-to-alls; the router and the
+expert weights are all-gathered over ``data`` (ZeRO-3).
 
 Ties keep the reference's order: ``lax.top_k`` prefers the lower expert
 index among equal probabilities and ``jnp.argsort`` is stable, so routing
@@ -16,15 +23,20 @@ argsort.
 from __future__ import annotations
 
 import math
-from typing import Mapping, Tuple
+from typing import List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
+from repro_torch.distributed import collectives as C
 from repro_torch.models.common import rms_norm
 
 Info = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+# while a list, each bucketing appends its count of dropped pairs (a 0-d
+# tensor on the tokens' device: no sync) and of pairs routed
+drop_log: Optional[List[Tuple[torch.Tensor, int]]] = None
 
 
 def _capacity(n_tokens: int, n_experts: int, top_k: int, cf: float,
@@ -65,6 +77,8 @@ def _route_and_bucket(xt: torch.Tensor, router: torch.Tensor, E: int,
     rank = torch.empty_like(rank_sorted)
     rank[order] = rank_sorted                             # rank within expert
     keep = rank < C
+    if drop_log is not None:
+        drop_log.append(((~keep).sum(), T * K))
     # dispatch (gather): buf[e, c] = token of the pair at sorted slot start[e]+c
     grid_c = torch.arange(C, device=dev)
     gslot = start[:, None] + grid_c[None, :]              # [E, C]
@@ -103,9 +117,43 @@ def _moe_local(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     return _combine(out_buf, info, T, K, C).reshape(B, S, D)
 
 
+def _moe_sharded(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                 moe: MoEConfig, ctx) -> torch.Tensor:
+    """The reference's ``_moe_sharded`` on one rank. x [b, S, D]: the
+    rank's rows over ``data`` (all B where dp does not divide it),
+    replicated over ``model``; p the rank's blocks: router [D/dp, E],
+    w_gate/w_up [E/tp, D/dp, F], w_down [E/tp, F, D/dp]."""
+    tp = ctx.axis_size("exp")
+    b, S, D = x.shape
+    E, K = moe.n_experts, moe.top_k
+    seq_shardable = S % tp == 0
+    s_loc = S // tp if seq_shardable else S
+    if seq_shardable:
+        x = x.narrow(1, ctx.index("exp") * s_loc, s_loc)
+    T_loc = b * s_loc
+    C_loc = _capacity(T_loc, E, K, moe.capacity_factor, dropless=(S == 1))
+    router = C.all_gather(p["router"], "fsdp", 0, ctx)
+    buf, info = _route_and_bucket(x.reshape(T_loc, D), router, E, K, C_loc)
+    # dispatch: [E, C_loc, D] -> this rank's experts [E/tp, tp * C_loc, D]
+    buf = C.all_to_all(buf, "exp", 0, 1, ctx)
+    wg = C.all_gather(p["w_gate"], "fsdp", 1, ctx)
+    wu = C.all_gather(p["w_up"], "fsdp", 1, ctx)
+    wd = C.all_gather(p["w_down"], "fsdp", 2, ctx)
+    out = _expert_ffn(buf, wg, wu, wd)
+    del buf, wg, wu, wd
+    out = C.all_to_all(out, "exp", 1, 0, ctx)                 # [E, C_loc, D]
+    y = _combine(out, info, T_loc, K, C_loc).reshape(b, s_loc, D)
+    # the sequence whole again on every model rank, for the next layer
+    return C.all_gather(y, "exp", 1, ctx) if seq_shardable else y
+
+
 def moe_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor,
-              cfg: ArchConfig) -> torch.Tensor:
+              cfg: ArchConfig, ctx=None) -> torch.Tensor:
     """The MoE FFN of one layer: the norm inside, the residual outside.
     x [B,S,D]; every one of the B*S rows is routed, pad rows too, and
-    takes capacity as the reference's do. Returns [B,S,D]."""
-    return _moe_local(p, rms_norm(x, p["ln"], cfg.norm_eps), cfg.moe)
+    takes capacity as the reference's do. On a live ``ctx``,
+    :func:`_moe_sharded` with this rank's blocks. Returns [B,S,D]."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    if ctx is not None and ctx.live:
+        return _moe_sharded(p, h, cfg.moe, ctx)
+    return _moe_local(p, h, cfg.moe)

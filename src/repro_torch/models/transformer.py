@@ -25,6 +25,18 @@ is the mean next-token cross-entropy with its logits chunked over the
 sequence and recomputed in the backward, so ``[B, S, Vp]`` logits never
 exist. Serving models are frozen: no parameter requires a gradient, so the
 serving methods never build a graph.
+
+Across a live mesh (``build_model(..., mesh=make_local_mesh(d, m))``, the
+dense and MoE families): each rank holds its block of every leaf
+(:meth:`ShardingCtx.shard_tree` under :meth:`Model.param_pspecs`).
+:meth:`Model.prefill`, :meth:`Model.prefill_with_state` and
+:meth:`Model.decode_step` then run Megatron tensor parallelism over
+``model`` (heads, ``d_ff`` and the vocabulary split; the ``wo`` and
+``w_down`` products all-reduced), ZeRO-3 over ``data`` (each leaf's
+``fsdp`` dim all-gathered before its layer uses it) and the reference's
+expert parallelism (:func:`repro_torch.models.moe._moe_sharded`), on the
+rank's rows of the batch; activations are whole over ``model`` between
+the layers. The other methods run on one card and raise on a live mesh.
 """
 from __future__ import annotations
 
@@ -35,6 +47,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, TensorSpec
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import ShardingCtx, param_shardings
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -45,6 +58,28 @@ from repro_torch.models.common import (abstract_tree, encoder_layer_specs,
                                        rms_norm)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+# the families that run across a live mesh
+MESH_FAMILIES = ("dense", "moe")
+
+
+def check_mesh(cfg: ArchConfig, ctx: ShardingCtx) -> None:
+    """Raise for a family that does not run across a live mesh yet, and
+    (``ValueError``) for head counts its ``model`` axis does not split:
+    a leaf's columns may divide where its heads do not."""
+    if not ctx.live:
+        return
+    if cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} across a mesh is the next "
+            f"mesh slice (mamba2, jamba and the encoder families); this one "
+            f"runs {MESH_FAMILIES}")
+    tp = ctx.axis_size("tp")
+    for leaf, what, n in (("wq", "heads", cfg.n_heads),
+                          ("wk", "KV heads", cfg.n_kv_heads)):
+        if n % tp:
+            raise ValueError(f"{cfg.name}: layers/*/attn/{leaf}: {n} {what} "
+                             f"do not split over mesh axis 'model' of {tp} "
+                             f"ranks")
 
 
 def _param(t: torch.Tensor, trainable: bool) -> nn.Parameter:
@@ -69,20 +104,38 @@ class Block(nn.Module):
     pure-SSM or hybrid stack); the parts a layer lacks are None."""
 
     def __init__(self, parts: Dict[str, Dict[str, torch.Tensor]],
-                 trainable: bool = False):
+                 trainable: bool = False, specs=None):
         super().__init__()
         self.mixer = "attn" if "attn" in parts else "ssm"
         for name in PARTS:
             leaves = parts.get(name)
             setattr(self, name, None if leaves is None else nn.ParameterDict(
                 {k: _param(v, trainable) for k, v in leaves.items()}))
+        # part -> leaf -> the dim its spec splits over "fsdp"
+        self.fsdp_dims = {part: {k: s.axes.index("fsdp")
+                                 for k, s in leaves.items()
+                                 if "fsdp" in s.axes}
+                          for part, leaves in (specs or {}).items()}
 
-    def ffn_apply(self, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-        """The residual stream after this layer's FFN, whatever its kind."""
+    def weights(self, part: str, ctx: Optional[ShardingCtx]):
+        """The leaves of ``part`` with each ``fsdp`` dim whole: all-gathered
+        over ``data`` on a live mesh (ZeRO-3), the parameters themselves
+        where that axis has one rank."""
+        leaves = getattr(self, part)
+        if ctx is None or not ctx.live or ctx.axis_size("fsdp") == 1:
+            return leaves
+        dims = self.fsdp_dims[part]
+        return {k: C.all_gather(v, "fsdp", dims[k], ctx) if k in dims else v
+                for k, v in leaves.items()}
+
+    def ffn_apply(self, x: torch.Tensor, cfg: ArchConfig,
+                  ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
+        """The residual stream after this layer's FFN, whatever its kind.
+        The MoE gathers its own weights (:func:`moe._moe_sharded`)."""
         if self.ffn is not None:
-            return x + L.ffn_apply(self.ffn, x, cfg)
+            return x + L.ffn_apply(self.weights("ffn", ctx), x, cfg, ctx=ctx)
         if self.moe is not None:
-            return x + MOE.moe_apply(self.moe, x, cfg)
+            return x + MOE.moe_apply(self.moe, x, cfg, ctx)
         return x
 
 
@@ -117,20 +170,25 @@ class Model(nn.Module):
     """
 
     def __init__(self, cfg: ArchConfig, params: Dict[str, Any],
-                 trainable: bool = False):
+                 trainable: bool = False, mesh=None):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"{cfg.name}: the port serves the {FAMILIES} families, not "
                 f"family {cfg.family!r}")
+        # the sharding context: the dry run's mesh as data, or the live
+        # mesh whose blocks ``params`` hold (build_model's ``mesh``)
+        self.ctx = ShardingCtx(mesh)
+        check_mesh(cfg, self.ctx)
         self.cfg = cfg
         self.vocab_padded = pad_vocab(cfg.vocab, 256)
         self.embedding = _param(params["embed"], trainable)
         self.final_ln = _param(params["final_ln"], trainable)
         self.lm_head = (None if cfg.tie_embeddings
                         else _param(params["lm_head"], trainable))
-        self.layers = nn.ModuleList(Block(lp, trainable)
-                                    for lp in params["layers"])
+        self.layers = nn.ModuleList(
+            Block(lp, trainable, layer_specs(cfg, i))
+            for i, lp in enumerate(params["layers"]))
         if len(self.layers) != cfg.n_layers:
             raise ValueError(f"{len(self.layers)} layers of parameters for "
                              f"a {cfg.n_layers}-layer config")
@@ -154,9 +212,8 @@ class Model(nn.Module):
         # layer index -> entry of the state cache's cross K/V
         cross = [i for i, b in enumerate(self.layers) if b.cross is not None]
         self.cross_layer = {i: j for j, i in enumerate(cross)}
-        # the sharding context the launch tooling reads (build_model's
-        # ``mesh``); nothing the model runs consults it
-        self.ctx = ShardingCtx(None)
+        # KV heads this rank holds
+        self.n_kv_local = cfg.n_kv_heads // self.ctx.axis_size("tp")
 
     def _kv_layout(self) -> Dict[int, int]:
         """Layer index -> arena layer of each attention layer, in the
@@ -220,9 +277,27 @@ class Model(nn.Module):
         return self._tree(lambda p: torch.zeros_like(p) if p.grad is None
                           else p.grad)
 
+    def _one_card(self, what: str) -> None:
+        if self.ctx.live:
+            raise NotImplementedError(
+                f"{self.cfg.name}: {what} runs on one card; across the mesh "
+                f"the port runs prefill and the dense-cache decode step "
+                f"(training across the mesh is the next slice)")
+
     # -------------------------------------------------------------- embedding
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embedding[tokens.long()]
+        """tokens [B,S] -> rows [B,S,D]. On a live mesh vocab-parallel: the
+        rank's rows of the table (D gathered over ``data``), a masked
+        lookup of the ids they hold, summed over ``model``."""
+        ctx = self.ctx
+        if not ctx.live:
+            return self.embedding[tokens.long()]
+        table = C.all_gather(self.embedding, "fsdp", 1, ctx)     # [Vp/tp, D]
+        n = table.shape[0]
+        ids = tokens.long() - ctx.index("tp") * n
+        inside = (ids >= 0) & (ids < n)
+        x = torch.where(inside[..., None], table[ids.clamp(0, n - 1)], 0)
+        return C.all_reduce_sum(x, "tp", ctx)
 
     def unembed_weight(self) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -231,8 +306,14 @@ class Model(nn.Module):
 
     def _logits(self, last: torch.Tensor) -> torch.Tensor:
         """[B, D] final-normed rows -> [B, Vp] f32 logits: the product in the
-        model dtype, then the upcast (the reference's cast point)."""
-        return (last @ self.unembed_weight()).float()
+        model dtype, then the upcast (the reference's cast point). On a
+        live mesh column-parallel: the rank's columns (D gathered over
+        ``data``), then all-gathered over ``model``."""
+        w = self.unembed_weight()
+        if not self.ctx.live:
+            return (last @ w).float()
+        w = C.all_gather(w, "fsdp", 0, self.ctx)                 # [D, Vp/tp]
+        return C.all_gather((last @ w).float(), "tp", -1, self.ctx)
 
     # ---------------------------------------------------------------- encoder
     def _encoder_layer(self, blk: Block, x: torch.Tensor,
@@ -295,6 +376,7 @@ class Model(nn.Module):
         is recomputed in the backward pass
         (``torch.utils.checkpoint``), so only each layer's input is
         kept."""
+        self._one_card("training")
         x = self.embed(tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         src = self._cross_src(extras, remat)
@@ -344,7 +426,7 @@ class Model(nn.Module):
         encoder runs over them), ``{"ctx_embeds": [B,N,C]}`` for a vlm;
         each cross layer attends to them after its mixer, before its
         FFN."""
-        cfg = self.cfg
+        cfg, ctx = self.cfg, self.ctx
         x = self.embed(tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         src = self._cross_src(extras)
@@ -353,7 +435,8 @@ class Model(nn.Module):
         parts = {"state": [], "conv": [], "cross_k": [], "cross_v": []}
         for i, blk in enumerate(self.layers):
             if blk.mixer == "attn":
-                o, k, v = L.attn_full(blk.attn, x, cfg, positions)
+                o, k, v = L.attn_full(blk.weights("attn", ctx), x, cfg,
+                                      positions, ctx=ctx)
                 ks[self.kv_layer[i]], vs[self.kv_layer[i]] = k, v
             else:
                 o, c = M2.ssm_full(blk.ssm, x, cfg)
@@ -366,7 +449,7 @@ class Model(nn.Module):
                 x = x + o
                 parts["cross_k"].append(ck)
                 parts["cross_v"].append(cv)
-            x = blk.ffn_apply(x, cfg)
+            x = blk.ffn_apply(x, cfg, ctx)
         x = rms_norm(x, self.final_ln, cfg.norm_eps)
         kv = (torch.stack(ks), torch.stack(vs)) if ks else (None, None)
         state = {name: torch.stack(ts) for name, ts in parts.items() if ts}
@@ -391,6 +474,7 @@ class Model(nn.Module):
         token. ``attend`` is the chunk attention
         (``kernels.ops.chunk_prefill_attention``).
         Returns the last-token logits [B,Vp] f32."""
+        self._one_card("chunked prefill")
         self._require_paged("chunked prefill")
         cfg = self.cfg
         x = self.embed(tokens)
@@ -470,6 +554,7 @@ class Model(nn.Module):
         ones too, as the reference's do; a cross layer reads its lane's
         static cross K/V there (:func:`layers.attn_decode_cross`).
         Returns logits [B,Vp] f32."""
+        self._one_card("paged decode")
         if not self.kv_layer:
             raise NotImplementedError(
                 f"{self.cfg.name}: no attention layer to page "
@@ -518,6 +603,7 @@ class Model(nn.Module):
         Returns (tokens [B, horizon] int32 with -1 in frozen lanes, the
         positions after the launch).
         """
+        self._one_card("the decode horizon")
         self._require_paged("the decode horizon")
         B = block_tables.shape[0]
         dev = block_tables.device
@@ -578,12 +664,15 @@ class Model(nn.Module):
         with attention layers, ``{"k", "v": [n_attn_layers, batch, S, Hkv,
         hd]}`` in the model dtype, S = ``s_max`` rounded up to a multiple of
         ``page_tokens`` so that :meth:`decode_step` can read a lane's cache
-        as whole pages. Layer ``i`` uses entry ``kv_layer[i]``."""
+        as whole pages. Layer ``i`` uses entry ``kv_layer[i]``. On a live
+        mesh ``batch`` is the rank's lanes and Hkv its ``Hkv / tp`` heads:
+        the cache is split by KV heads over ``model``, where the reference's
+        ``cache_specs`` split its sequence (``kv_sp``)."""
         out = self.state_cache(batch)
         if self.kv_layer:
             cfg = self.cfg
             S = -(-s_max // page_tokens) * page_tokens
-            shape = (len(self.kv_layer), batch, S, cfg.n_kv_heads,
+            shape = (len(self.kv_layer), batch, S, self.n_kv_local,
                      cfg.head_dim_)
             out["k"] = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
             out["v"] = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
@@ -633,8 +722,8 @@ class Model(nn.Module):
         of ``page_tokens`` through ``kernels.ops.paged_attention``; SSM
         layers step their state, cross layers read their static K/V, every
         lane, idle ones too, as the reference's do. Returns logits [B,Vp]
-        f32."""
-        cfg = self.cfg
+        f32. On a live mesh: the rank's lanes, and :meth:`cache`'s blocks."""
+        cfg, ctx = self.cfg, self.ctx
         x = self.embed(tokens)
         if self.kv_layer:
             bt, seq_lens = L.dense_table(tokens.shape[0], cache["k"].shape[2],
@@ -643,10 +732,10 @@ class Model(nn.Module):
         for i, blk in enumerate(self.layers):
             if blk.mixer == "attn":
                 a = self.kv_layer[i]
-                x = x + L.attn_decode(blk.attn, x, cfg, positions,
-                                      cache["k"][a], cache["v"][a], bt,
-                                      seq_lens, page_tokens,
-                                      ops.paged_attention)
+                x = x + L.attn_decode(blk.weights("attn", ctx), x, cfg,
+                                      positions, cache["k"][a], cache["v"][a],
+                                      bt, seq_lens, page_tokens,
+                                      ops.paged_attention, ctx=ctx)
             else:
                 x = x + M2.ssm_decode(blk.ssm, x, cache["state"][j],
                                       cache["conv"][j], cfg)
@@ -656,6 +745,6 @@ class Model(nn.Module):
                 x = x + L.attn_decode_cross(blk.cross, x, cfg,
                                             cache["cross_k"][c],
                                             cache["cross_v"][c])
-            x = blk.ffn_apply(x, cfg)
+            x = blk.ffn_apply(x, cfg, ctx)
         x = rms_norm(x, self.final_ln, cfg.norm_eps)
         return self._logits(x[:, 0])

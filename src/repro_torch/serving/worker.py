@@ -55,13 +55,13 @@ import argparse
 import collections
 import dataclasses
 import multiprocessing as mp
-import sys
 import time
 import traceback
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import foreign_modules
 from repro_torch.kernels import ops
 from repro_torch.serving import transport
 from repro_torch.serving.engine import PromptTooLongError, Request
@@ -268,9 +268,7 @@ def _records(node) -> Dict[str, Any]:
                 if on_card else None),
             "memory_reserved": (int(torch.cuda.memory_reserved(node.device))
                                 if on_card else None),
-            "foreign_modules": sorted(
-                k for k in sys.modules
-                if k.split(".")[0] in ("jax", "jaxlib", "repro"))}
+            "foreign_modules": foreign_modules()}
 
 
 def _reset_records(node) -> None:

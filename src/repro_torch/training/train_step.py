@@ -12,7 +12,9 @@ it returns a cell's step with its arguments, which for a model on ``meta``
 (``build_model(cfg, device="meta")``) are abstract. Nothing is lowered or
 compiled: the dry run (:mod:`repro_torch.launch.dryrun`) runs the step on
 ``meta`` under its counter, and the same call on a model on the card gives
-the step the counter predicts.
+the step the counter predicts. On a model across a live mesh the prefill
+and decode cells hold each rank's block of the batch and the cache, as the
+reference's ``in_shardings`` place them (the cache split by KV heads).
 """
 from __future__ import annotations
 
@@ -176,11 +178,21 @@ def build_cell(model: Model, shape, opt_cfg: Optional[OptConfig] = None,
     [B, 1], positions [B]). The arguments live on the model's device: on
     ``meta`` (``build_model(cfg, device="meta")``) they are abstract and
     nothing is allocated; elsewhere the state and cache are zeros and the
-    batch is :func:`cell_batch`'s."""
+    batch is :func:`cell_batch`'s. On a live mesh each rank holds its rows
+    of the batch (:func:`batch_pspecs`) and :meth:`Model.cache`'s block for
+    them; a train cell raises."""
     sh = shape_of(shape)
     params = model.param_tree()
     meta = model.device.type == "meta"
+    ctx = model.ctx
+    if ctx.live and sh["kind"] == "train":
+        raise NotImplementedError(
+            "training across the mesh is the next mesh slice (gradients "
+            "through the collectives); this one runs prefill and decode")
     batch = cell_batch(model, sh, generator)
+    if ctx.live:
+        specs = batch_pspecs(model, sh)
+        batch = {k: ctx.local_block(v, specs[k], k) for k, v in batch.items()}
     if sh["kind"] == "train":
         opt_cfg = opt_cfg or OptConfig()
         opt = (abstract_opt_state(params, opt_cfg.compression) if meta
@@ -188,7 +200,7 @@ def build_cell(model: Model, shape, opt_cfg: Optional[OptConfig] = None,
         return make_train_step(model, opt_cfg, n_micro), (params, opt, batch)
     if sh["kind"] == "prefill":
         return make_prefill_step(model), (params, batch)
-    B, S = sh["global_batch"], sh["seq_len"]
+    B, S = batch["tokens"].shape[0], sh["seq_len"]
     if meta:
         structs, _ = model.cache_specs(B, S)
         cache = {k: torch.empty(s.shape, dtype=s.dtype, device="meta")

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of ``repro_torch`` loads
-neither JAX nor any module of the JAX package ``repro``."""
+neither JAX nor any module of the JAX package ``repro``, and neither do
+its entry points nor the ranks ``repro_torch.launch.spmd`` spawns."""
 import json
 import os
 import pathlib
@@ -50,7 +51,9 @@ def test_no_module_of_the_port_imports_jax_or_repro():
                  "repro_torch.tree", "repro_torch.training.optimizer",
                  "repro_torch.training.train_step",
                  "repro_torch.training.train_lm",
-                 "repro_torch.checkpoint.checkpoint"):
+                 "repro_torch.checkpoint.checkpoint",
+                 "repro_torch.distributed.collectives",
+                 "repro_torch.launch.spmd"):
         assert name in got["modules"], name
 
 
@@ -82,3 +85,43 @@ def test_the_worker_entry_point_imports_neither_jax_nor_repro():
     assert got["code"] == 0
     assert "--listen" in got["help"] and "--once" in got["help"]
     assert got["bad"] == []
+
+
+# the mesh entry point as ``python -m`` runs it (two gloo ranks on the CPU),
+# then the modules loaded in this process; each rank prints its own
+SPMD_PROBE = """
+import contextlib, io, json, runpy, sys
+sys.argv = ["spmd", "--arch", "qwen3-8b", "--reduced", "--mesh", "1x2",
+            "--device", "cpu"]
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    try:
+        runpy.run_module("repro_torch.launch.spmd", run_name="__main__")
+    except SystemExit as e:
+        code = e.code
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"code": code, "out": out.getvalue(), "bad": bad}))
+"""
+
+
+def test_the_mesh_entry_point_and_its_ranks_import_neither_jax_nor_repro():
+    """``python -m repro_torch.launch.spmd ... --device cpu``: the entry
+    point, and each rank it spawns (which imports the collectives, the
+    live mesh and the sharded model), load only the port."""
+    src = pathlib.Path(__file__).resolve().parent.parent / "src"
+    env = dict(os.environ, PYTHONPATH=str(src), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", SPMD_PROBE], env=env,
+                         text=True, capture_output=True, timeout=300,
+                         check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["code"] == 0 and got["bad"] == []
+    lines = [json.loads(l) for l in got["out"].splitlines()]
+    assert lines[0] == {"spmd": "backend", "backend": "gloo",
+                        "mesh": [1, 2], "device": "cpu"}
+    ranks = [l for l in lines if l["spmd"] == "rank"]
+    assert [r["rank"] for r in ranks] == [0, 1]
+    for r in ranks:
+        assert r["foreign"] == []
+        assert r["collectives"]["all_reduce"]["model"]["calls"] > 0
+    assert lines[-1]["spmd"] == "check" and lines[-1]["ok"]
