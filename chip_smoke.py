@@ -275,25 +275,44 @@ Phases, each printing one JSON line (and failing the run on any error):
                 SSD backward's and forward's shares of a profiled step;
 31. mesh     -- the model across a (data, model) mesh of two ranks sharing
                 the card over gloo (``repro_torch.launch.spmd``, one spawn
-                per mesh, a file store): qwen3-8b at its widths and 4
-                layers (bf16) on 1 x 2 (tensor parallel: heads, d_ff and
-                the vocabulary split) and 2 x 1 (ZeRO-3: every leaf's D
+                per mesh, a file store, for the serving and the training
+                jobs): qwen3-8b at its widths and 2 layers (bf16) on
+                1 x 2 (tensor parallel: heads, d_ff and the
+                vocabulary split) and 2 x 1 (ZeRO-3: every leaf's D
                 gathered before use), a prefill of 2 x 1,024 through flash
                 then decode steps through paged attention over the dense
-                cache split by KV heads (8 on 1 x 2; 3 on 2 x 1, where
+                cache split by KV heads (4 on 1 x 2; 1 on 2 x 1, where
                 every step all-gathers the whole weights through the
-                host); moonshot at its widths and 4 layers in f32 (routing
-                must not flip on bf16 reduction order) with the capacity
-                factor E / K (dropless) on 1 x 2 (expert parallel: two
-                all-to-alls), a prefill of 2 x 512 then 8 steps; each held
-                against the same model in this process fed the ranks'
-                tokens: logits within 2e-2 of each row's magnitude, the
-                greedy tokens equal but where the one-process top-2 gap is
-                under that, the ranks of a data index bitwise equal, flash
-                and paged launched on every rank through the one-card
-                path's variants, no plain call, no pair dropped on either
-                side, no ``jax`` or ``repro`` module in a rank; per rank
-                its launches by variant and ``collectives.stats()``. Its
+                host); moonshot at its widths and 2
+                layers in f32 (routing must not flip on bf16 reduction
+                order) with the capacity factor E / K (dropless) on 1 x 2
+                (expert parallel: two all-to-alls), a prefill of 2 x 512
+                then 4 steps; each held against the same model in this
+                process fed the ranks' tokens: logits within 2e-2 of each
+                row's magnitude, the greedy tokens equal but where the
+                one-process top-2 gap is under that, the ranks of a data
+                index bitwise equal, flash and paged launched on every
+                rank through the one-card path's variants, no plain call,
+                no pair dropped on either side, no ``jax`` or ``repro``
+                module in a rank; per rank its launches by variant and
+                ``collectives.stats()``. Then, in the same spawns, the
+                ``mesh_train`` lines: qwen3-8b at its widths and 2 layers
+                (bf16) on 1 x 2 (tensor parallel, a vocab-parallel loss)
+                and 2 x 1 (ZeRO-3: each gather reduce-scatters its
+                weight's gradient; data parallel), moonshot at its widths
+                and 2 layers (f32, dropless) on 1 x 2 (expert parallel:
+                the all-to-alls reversed in the backward); the gradient
+                at the starting weights, then 2 AdamW steps each (lr
+                1e-4, no warmup) from an AdamW state 3 steps in
+                (``spmd.warm_state``), held against the same in this
+                process: each step's loss and grad norm, and the
+                gradients and parameters put back together from the
+                ranks' blocks, within ``spmd.TRAIN_LIMITS`` (PERF.md),
+                every rank's losses and leaf replicas equal,
+                flash's training forward and backward launched on every
+                rank with the one process's variants, no plain call, no
+                pair dropped; per rank its collectives by kind (backward
+                calls and the reduce-scatters' bytes among them). Its
                 seconds are a gloo run's, which stages every collective
                 through the host: they show no collective speed.
 
@@ -5000,15 +5019,16 @@ def train_phases(torch, args, mark):
             {**main["main_variants"], **mamba["main_variants"]})
 
 
-# the mesh phase: two ranks on the one card over gloo, one spawn per mesh;
-# full widths, cut in depth; qwen3-8b's prefill of 2 x 1,024 then decode
-# steps (8 under tensor parallelism; 3 under ZeRO-3, whose every step
-# all-gathers the whole 4 GB of weights through the host), moonshot's (f32,
-# capacity factor E / K: dropless) of 2 x 512 then 8
-MESH = dict(layers=4, batch=2, meshes={
-    (1, 2): (("qwen_1x2", MAIN["model"], 1024, 8),
-             ("moe_1x2", "moonshot-v1-16b-a3b", 512, 8)),
-    (2, 1): (("qwen_2x1", MAIN["model"], 1024, 3),)})
+# the mesh phase: two ranks on the one card over gloo, one spawn per mesh
+# (for the mesh_train jobs too); full widths, cut in depth to 2 layers;
+# qwen3-8b's prefill of 2 x 1,024 then decode steps (4 under tensor
+# parallelism; 1 under ZeRO-3, whose every step all-gathers every weight
+# through the host), moonshot's (f32, capacity factor E / K: dropless) of
+# 2 x 512 then 4
+MESH = dict(layers=2, batch=2, meshes={
+    (1, 2): (("qwen_1x2", MAIN["model"], 1024, 4),
+             ("moe_1x2", "moonshot-v1-16b-a3b", 512, 4)),
+    (2, 1): (("qwen_2x1", MAIN["model"], 1024, 1),)})
 
 
 def mesh_config(torch, name: str):
@@ -5025,21 +5045,24 @@ def mesh_config(torch, name: str):
 
 def phase_mesh(torch, args) -> dict:
     """The model across a (data, model) mesh of two ranks sharing the card
-    over gloo (``repro_torch.launch.spmd``): qwen3-8b with tensor
-    parallelism (1 x 2) and with ZeRO-3 (2 x 1), moonshot with expert
-    parallelism (1 x 2); each held against the same model in this process
-    fed the ranks' tokens: logits within the row-scaled 2e-2, greedy tokens
-    equal but near ties, the ranks of a data index equal, flash and paged
-    launched on every rank through the one-card path's variants, no plain
-    call, no pair dropped by the MoE on either side, no ``jax`` or
-    ``repro`` module in any rank. The times are of a gloo run, which
-    stages every collective through the host: they show no collective
-    speed. Returns each rank's launches by path."""
+    over gloo (``repro_torch.launch.spmd``), one spawn per mesh for the
+    serving jobs (``MESH``) and the training jobs (``MESH_TRAIN``) alike.
+    Serving: qwen3-8b with tensor parallelism (1 x 2) and with ZeRO-3 (2 x
+    1), moonshot with expert parallelism (1 x 2), each held against the
+    same model in this process fed the ranks' tokens (:func:`mesh_serving`).
+    Training, the ``mesh_train`` lines: the same meshes' AdamW steps held
+    against the same steps in this process (:func:`mesh_training`). No
+    ``jax`` or ``repro`` module may load in any rank. The times are of a
+    gloo run, which stages every collective through the host: they show no
+    collective speed. Returns each rank's launches by path."""
     from repro_torch.launch import spmd
+    from repro_torch.training.optimizer import OptConfig
 
     reset_peak(torch)
     smi = nvidia_smi()
     gen = torch.Generator().manual_seed(args.seed + 25)
+    gen_train = torch.Generator().manual_seed(args.seed + 26)
+    opt = OptConfig(lr=spmd.TRAIN_LR, warmup_steps=1)
     paths = {}
     for shape, cases in MESH["meshes"].items():
         jobs = []
@@ -5048,49 +5071,138 @@ def phase_mesh(torch, args) -> dict:
             jobs.append(spmd.Job(cfg, torch.randint(
                 0, cfg.vocab, (MESH["batch"], S), generator=gen,
                 dtype=torch.int32), steps, seed=args.seed))
+        train_cases = MESH_TRAIN["meshes"][shape]
+        for _, name, S in train_cases:
+            cfg = dataclasses.replace(mesh_config(torch, name),
+                                      n_layers=MESH_TRAIN["layers"])
+            jobs.append(spmd.TrainJob(cfg, torch.randint(
+                0, cfg.vocab, (MESH_TRAIN["batch"], S), generator=gen_train,
+                dtype=torch.int32), MESH_TRAIN["steps"], opt=opt,
+                seed=args.seed))
         t0 = time.perf_counter()
         backend, results = spmd.run(jobs, shape, device="cuda")
         seconds = time.perf_counter() - t0
         require(backend == "gloo", f"mesh {shape}: backend {backend} for "
                 f"two ranks on one card")
-        for (label, _, S, steps), job, res in zip(cases, jobs, results):
-            cfg, chk, single = job.cfg, res["check"], res["single"]
-            one = single["counts"]
-            for r in res["records"]:
-                c, rank = r["counts"], r["rank"]
-                for k in ("flash_attention", "paged_attention"):
-                    require(c["launches"][k] > 0,
-                            f"mesh {label}: rank {rank} never launched {k}")
-                require(c["launches_by_variant"]["flash_attention"]
-                        == one["launches_by_variant"]["flash_attention"],
-                        f"mesh {label}: rank {rank}'s flash variants "
-                        f"{c['launches_by_variant']['flash_attention']} are "
-                        f"not the one-card path's")
-                require(not any(c["plain_calls"].values()),
-                        f"mesh {label}: a plain version ran on rank {rank}")
-                paths[f"mesh_{label}_rank{rank}"] = {
-                    k: n for k, n in c["launches"].items() if n}
-            require(chk["ok"], f"mesh {label}: {chk}")
-            if cfg.moe is not None:
-                require(chk["dropped"] == {"mesh": 0, "one_process": 0},
-                        f"mesh {label}: pairs dropped {chk['dropped']}")
-            emit("mesh", case=label, model=cfg.name, layers=cfg.n_layers,
-                 dtype=str(cfg.dtype), mesh=list(shape), backend=backend,
-                 prompts=[MESH["batch"], S], decode_steps=steps,
-                 capacity_factor=(cfg.moe.capacity_factor if cfg.moe
-                                  else None),
-                 mesh_and_checks_s=seconds, mesh_s=res["mesh_seconds"],
-                 check=chk, ranks=res["ranks"],
-                 one_process=dict(launches={k: n for k, n in
-                                            one["launches"].items() if n},
-                                  plain_calls=one["plain_calls"],
-                                  moe_pairs=single["moe_pairs"],
-                                  moe_dropped=single["moe_dropped"],
-                                  seconds=single["seconds"]),
-                 nvidia_smi=smi)
+        n = len(cases)
+        for case, job, res in zip(cases, jobs[:n], results[:n]):
+            mesh_serving(case, job, res, shape, backend, seconds, smi, paths)
+        for case, job, res in zip(train_cases, jobs[n:], results[n:]):
+            mesh_training(case, job, res, shape, backend, seconds, smi,
+                          paths)
         del results
         reset_peak(torch)
     return paths
+
+
+def mesh_serving(case, job, res, shape, backend, seconds, smi, paths):
+    """One serving job of :func:`phase_mesh`: logits within the row-scaled
+    2e-2 of the one process's, greedy tokens equal but near ties, the
+    ranks of a data index equal, flash and paged launched on every rank
+    through the one-card path's variants, no plain call, no pair dropped
+    by the MoE on either side."""
+    label, _, S, steps = case
+    cfg, chk, single = job.cfg, res["check"], res["single"]
+    one = single["counts"]
+    for r in res["records"]:
+        c, rank = r["counts"], r["rank"]
+        for k in ("flash_attention", "paged_attention"):
+            require(c["launches"][k] > 0,
+                    f"mesh {label}: rank {rank} never launched {k}")
+        require(c["launches_by_variant"]["flash_attention"]
+                == one["launches_by_variant"]["flash_attention"],
+                f"mesh {label}: rank {rank}'s flash variants "
+                f"{c['launches_by_variant']['flash_attention']} are not the "
+                f"one-card path's")
+        require(not any(c["plain_calls"].values()),
+                f"mesh {label}: a plain version ran on rank {rank}")
+        paths[f"mesh_{label}_rank{rank}"] = {
+            k: n for k, n in c["launches"].items() if n}
+    require(chk["ok"], f"mesh {label}: {chk}")
+    if cfg.moe is not None:
+        require(chk["dropped"] == {"mesh": 0, "one_process": 0},
+                f"mesh {label}: pairs dropped {chk['dropped']}")
+    emit("mesh", case=label, model=cfg.name, layers=cfg.n_layers,
+         dtype=str(cfg.dtype), mesh=list(shape), backend=backend,
+         prompts=[MESH["batch"], S], decode_steps=steps,
+         capacity_factor=(cfg.moe.capacity_factor if cfg.moe else None),
+         mesh_and_checks_s=seconds, mesh_s=res["mesh_seconds"],
+         check=chk, ranks=res["ranks"],
+         one_process=dict(launches={k: n for k, n in
+                                    one["launches"].items() if n},
+                          plain_calls=one["plain_calls"],
+                          moe_pairs=single["moe_pairs"],
+                          moe_dropped=single["moe_dropped"],
+                          seconds=single["seconds"]),
+         nvidia_smi=smi)
+
+
+# the mesh_train lines: in the mesh phase's spawns, full widths, 2 layers;
+# the gradient at the starting weights, then 2 AdamW steps (lr 1e-4, no
+# warmup, from spmd.warm_state) of qwen3-8b (bf16) on 2 x 1,024 tokens with
+# tensor parallelism (1 x 2) and with ZeRO-3 and data parallelism (2 x 1),
+# of moonshot (f32, dropless) on 2 x 512 with expert parallelism (1 x 2);
+# each against the same in this process, within spmd.TRAIN_LIMITS
+# (PERF.md)
+MESH_TRAIN = dict(layers=2, batch=2, steps=2, meshes={
+    (1, 2): (("qwen_tp_1x2", MAIN["model"], 1024),
+             ("moe_ep_1x2", "moonshot-v1-16b-a3b", 512)),
+    (2, 1): (("qwen_zero3_2x1", MAIN["model"], 1024),)})
+
+
+def mesh_training(case, job, res, shape, backend, seconds, smi, paths):
+    """One training job of :func:`phase_mesh` (a ``mesh_train`` line).
+    Requires, on every rank: each step's loss and grad norm, and the
+    gradients at the starting weights and the parameters after the steps
+    put back together from the ranks' blocks, within
+    ``spmd.TRAIN_LIMITS`` of the one process's, every rank's losses and
+    norms and every leaf's replicas equal, the flash forward (with lse)
+    and backward launched with the one process's variants, no plain call
+    (in the one process neither), and for the MoE no pair dropped on
+    either side. Prints each rank's
+    collectives by kind, the reduce-scatters' bytes among them."""
+    label, _, S = case
+    cfg, chk, single = job.cfg, res["check"], res["single"]
+    one = single["counts"]
+    require(not any(one["plain_calls"].values()),
+            f"mesh_train {label}: a plain version ran in the one process: "
+            f"{one['plain_calls']}")
+    for r in res["records"]:
+        c, rank = r["counts"], r["rank"]
+        for k in ("flash_attention_lse", "flash_attention_bwd"):
+            require(c["launches"][k] > 0,
+                    f"mesh_train {label}: rank {rank} never launched {k}")
+            require(c["launches_by_variant"][k]
+                    == one["launches_by_variant"][k],
+                    f"mesh_train {label}: rank {rank}'s {k} variants "
+                    f"{c['launches_by_variant'][k]} are not the one "
+                    f"process's {one['launches_by_variant'][k]}")
+        require(not any(c["plain_calls"].values()),
+                f"mesh_train {label}: a plain version ran on rank {rank}: "
+                f"{c['plain_calls']}")
+        paths[f"mesh_train_{label}_rank{rank}"] = {
+            k: n for k, n in c["launches"].items() if n}
+    require(chk["ok"], f"mesh_train {label}: {chk}")
+    if cfg.moe is not None:
+        require(chk["dropped"] == {"mesh": 0, "one_process": 0},
+                f"mesh_train {label}: pairs dropped {chk['dropped']}")
+    emit("mesh_train", case=label, model=cfg.name, layers=cfg.n_layers,
+         dtype=str(cfg.dtype), mesh=list(shape), backend=backend,
+         batch=[MESH_TRAIN["batch"], S], steps=job.steps, lr=job.opt.lr,
+         capacity_factor=(cfg.moe.capacity_factor if cfg.moe else None),
+         mesh_and_checks_s=seconds, mesh_s=res["mesh_seconds"],
+         one_process_s=res["one_process_seconds"],
+         check_s=res["check_seconds"], check=chk, ranks=res["ranks"],
+         one_process=dict(
+             launches={k: n for k, n in one["launches"].items() if n},
+             launches_by_variant={
+                 k: one["launches_by_variant"][k] for k in
+                 ("flash_attention_lse", "flash_attention_bwd")},
+             plain_calls=one["plain_calls"],
+             moe_pairs=single["moe_pairs"],
+             moe_dropped=single["moe_dropped"],
+             seconds=single["seconds"]),
+         nvidia_smi=smi)
 
 
 def main(argv=None) -> int:

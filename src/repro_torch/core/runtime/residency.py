@@ -140,21 +140,31 @@ class HierarchicalResidency:
             if v == m:
                 break
             self._evict_cpu(v)
+        # its host copy is back: a disk copy left by _evict_cpu goes, so
+        # that no model is in both the host and the disk tier
+        self._remove("disk", m)
         self.lru["cpu"][m] = size
         self.state[m] = ModelState.SLEEPING
         self.events.append(ResidencyEvent(
             "evict_to_cpu", m, "cpu", size / self.hw.host_link_bw))
 
     def _evict_cpu(self, m: str) -> None:
+        """Drop m's host copy to disk (or remote). A model that is still in
+        the GPU tier keeps its state RUNNING: only its host copy went. (The
+        reference marks it DISK / REMOTE while it stays resident, and then
+        refuses to activate it once the card cannot hold it twice.)"""
         size = self.size(m)
         self._remove("cpu", m)
+        resident = m in self.lru["gpu"]
         if self.used("disk") + size <= self.cap["disk"]:
             self.lru["disk"][m] = size
-            self.state[m] = ModelState.DISK
+            if not resident:
+                self.state[m] = ModelState.DISK
             self.events.append(ResidencyEvent(
                 "evict_to_disk", m, "disk", size / self.hw.disk_bw))
         else:
-            self.state[m] = ModelState.REMOTE
+            if not resident:
+                self.state[m] = ModelState.REMOTE
             self.events.append(ResidencyEvent("drop", m, "remote", 0.0))
 
     # ----------------------------------------------------------- sleeping

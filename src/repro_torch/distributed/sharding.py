@@ -179,6 +179,45 @@ class ShardingCtx:
                 for i, (v, s) in enumerate(zip(tree, pspecs))]
 
 
+# the logical axis whose line runs along each mesh axis of a live mesh
+LINE = {"data": "batch", "model": "tp"}
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where one leaf lives on a live mesh: the mesh axes of more than one
+    rank that cut it (``split``) and those it is whole on (``replicated``),
+    each in the mesh's order."""
+    split: Tuple[str, ...] = ()
+    replicated: Tuple[str, ...] = ()
+
+
+def placements(pspecs, mesh: Optional[Mesh]):
+    """The :class:`Placement` of every leaf of a partition-spec tree (a
+    spec is a tuple of entries, a tree dicts and lists of specs) on
+    ``mesh``: a leaf is split over each mesh axis its spec names, and
+    replicated over the mesh's other axes of more than one rank. Without a
+    mesh every leaf is a Placement of no axis.
+
+    The optimizer counts a leaf's squares once across its replicas (the
+    global grad norm), sums the gradients of a leaf replicated over
+    ``data`` (each data rank saw its own rows), and takes a leaf's max
+    over the ranks that split it (the int8 compression's scale)."""
+    if isinstance(pspecs, tuple):
+        if mesh is None:
+            return Placement()
+        named = set()
+        for entry in pspecs:
+            if entry is not None:
+                named.update((entry,) if isinstance(entry, str) else entry)
+        big = [a for a, n in zip(mesh.axis_names, mesh.axis_sizes) if n > 1]
+        return Placement(tuple(a for a in big if a in named),
+                         tuple(a for a in big if a not in named))
+    if isinstance(pspecs, dict):
+        return {k: placements(v, mesh) for k, v in pspecs.items()}
+    return [placements(v, mesh) for v in pspecs]
+
+
 def param_shardings(mesh: Optional[Mesh], defs):
     """Partition-spec tree for a ``param_specs`` tree."""
     from repro_torch.models.common import pspec_tree

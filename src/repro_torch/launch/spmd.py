@@ -1,9 +1,9 @@
-"""The model's prefill and dense-cache decode steps across a ``(data,
-model)`` mesh of ``torch.distributed`` ranks, checked against the same
-model in one process.
+"""The model's prefill, dense-cache decode and training steps across a
+``(data, model)`` mesh of ``torch.distributed`` ranks, checked against the
+same model in one process.
 
     PYTHONPATH=src python -m repro_torch.launch.spmd --arch qwen3-8b \\
-        --mesh 1x2 --shape prefill|decode [--layers 4] [--reduced] \\
+        --mesh 1x2 --shape prefill|decode|train [--layers 4] [--reduced] \\
         [--device cpu]
 
 :func:`launch` spawns one process per rank (``torch.multiprocessing``,
@@ -27,9 +27,19 @@ MoE drops pairs differently on the mesh, where capacity is per rank, as
 the reference's does, so the entry point runs it :func:`dropless` on both
 sides.
 
+:func:`train` is one rank's training: the model built trainable from
+the whole weights, its blocks of the parameters and of an AdamW state a
+few steps in (:func:`warm_state`), the gradient at the starting weights,
+then 2 AdamW steps (lr :data:`TRAIN_LR`, no warmup) on its rows of the
+batch (the tokens, labels the tokens shifted by one). :func:`check_train`
+puts the ranks' blocks of the gradients and of the updated parameters
+back together (:func:`whole`) and holds them, and each step's loss and
+grad norm, against :func:`train` in this process, within
+:data:`TRAIN_LIMITS`.
+
 Each rank prints its kernel launches by variant, its plain-version calls,
-its collectives' calls and bytes, and any ``jax`` or ``repro`` module it
-loaded (none may be).
+its collectives' calls and bytes (backward calls among them), and any
+``jax`` or ``repro`` module it loaded (none may be).
 """
 from __future__ import annotations
 
@@ -52,6 +62,8 @@ from repro_torch.launch.mesh import make_local_mesh
 # the logits' error over each row's largest magnitude (the smoke's bf16
 # limit), and the top-2 gap under which a greedy token may differ
 ROW_LIMIT = 2e-2
+# the learning rate of the entry point's train steps (no warmup)
+TRAIN_LR = 1e-4
 
 
 def backend_for(world: int, device: str) -> str:
@@ -272,32 +284,315 @@ def rank_line(rec: Dict[str, Any]) -> Dict[str, Any]:
                 seconds=rec["seconds"], foreign=rec["foreign"])
 
 
-def serve_all(mesh, device: torch.device, jobs: Sequence[Job]
-              ) -> List[Dict[str, Any]]:
-    """:func:`serve` of each job in turn, on one spawn of the ranks."""
-    return [serve(mesh, device, job) for job in jobs]
+# ---------------------------------------------------------------------------
+# One rank's training steps
+# ---------------------------------------------------------------------------
+
+# within which a train run on the mesh is the one process's, by the
+# config's dtype: each step's loss and grad norm relative to the one
+# process's, and the largest error of any leaf of the gradients at the
+# starting weights and of the parameters after the steps over that leaf's
+# largest magnitude. bf16: the products' partial sums move with the
+# split. Each is 2-10 times the largest that sound runs on the H100
+# showed (PERF.md): qwen3-8b bf16 2.5e-5, 1.2e-4, 2.4e-2 and 4.0e-3,
+# moonshot f32 1.8e-7, 5.9e-7, 6.3e-6 and 9.7e-8. A gradient scaled by
+# the data or model axis (a wrong transpose) is off by half the leaf's
+# magnitude or more.
+TRAIN_LIMITS = {torch.bfloat16: dict(loss=1e-4, grad_norm=5e-4, grads=5e-2,
+                                     params=1e-2),
+                torch.float32: dict(loss=1e-6, grad_norm=2e-6, grads=5e-5,
+                                    params=1e-6)}
+# the AdamW state a train job without a state file starts from
+# (:func:`warm_state`): this many steps in, its moments drawn from the seed
+WARM_STEP = 3
 
 
-def run(jobs: Sequence[Job], shape: Sequence[int], *, device: str = "cuda",
+@dataclasses.dataclass
+class TrainJob:
+    """``steps`` AdamW steps (``opt``) on the batch ``tokens`` [B, S]
+    (int32, on the CPU; the labels are the tokens shifted by one), each
+    step's batch cut into ``n_micro`` microbatches of each rank's rows.
+    ``params`` / ``opt_state``: files holding the whole parameter tree and
+    AdamW state (``torch.save``), else the weights drawn from ``seed`` and
+    :func:`warm_state`."""
+    cfg: ArchConfig
+    tokens: torch.Tensor
+    steps: int = 2
+    n_micro: int = 1
+    opt: Any = None
+    params: Optional[str] = None
+    opt_state: Optional[str] = None
+    seed: int = 0
+
+
+def train_batch(ctx, tokens: torch.Tensor, device) -> Dict[str, Any]:
+    """This rank's rows (:func:`batch_rows`) of ``tokens`` [B, S] and of
+    their labels, the tokens shifted by one, on ``device``."""
+    lo, hi = batch_rows(ctx, tokens.shape[0])
+    labels = torch.roll(tokens, -1, 1)
+    return {"tokens": tokens[lo:hi].to(device),
+            "labels": labels[lo:hi].to(device)}
+
+
+def warm_state(model, opt_cfg, seed: int) -> Dict[str, Any]:
+    """An AdamW state :data:`WARM_STEP` steps in, this rank's blocks of
+    it: ``m`` ~ N(0, 1e-3) and ``v`` ~ U(1e-6, 1e-4) in f32 (and a zero
+    residual when compressing), each leaf drawn whole from ``seed`` on the
+    parameters' device, alike on every rank and in one process. From zero
+    moments the first step moves each element by about lr sign(g), which
+    flips where g is near 0, so two runs whose gradients differ in the
+    last bits move such elements 2 lr apart; from these the update is
+    smooth in the gradient."""
+    from repro_torch.tree import leaves, unflatten
+    pspecs = _spec_leaves(model.param_pspecs())
+    whole = leaves(model.abstract_params())
+    dev = leaves(model.param_tree())[0].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ctx = model.ctx
+
+    def draw(fill):
+        return [ctx.local_block(fill(torch.empty(w.shape, dtype=torch.float32,
+                                                 device=dev)), spec)
+                for w, spec in zip(whole, pspecs)]
+
+    tree = model.param_tree()
+    state = {"m": unflatten(tree, draw(
+                 lambda t: t.normal_(0.0, 1e-3, generator=gen))),
+             "v": unflatten(tree, draw(
+                 lambda t: t.uniform_(1e-6, 1e-4, generator=gen))),
+             "step": torch.tensor(WARM_STEP, dtype=torch.int32, device=dev)}
+    if opt_cfg.compression != "none":
+        state["ef"] = unflatten(tree, draw(torch.Tensor.zero_))
+    return state
+
+
+def train(mesh, device: torch.device, job: TrainJob) -> Dict[str, Any]:
+    """One rank's training (``mesh`` None: one process). Returns its
+    record: ``grads``, its blocks of the gradient at the starting weights
+    (taken before the steps; the counts and ``seconds`` cover the steps
+    alone), and
+    ``grad_loss``, that pass's loss; each step's ``losses`` and
+    ``grad_norms`` (the batch's, the same on every rank); its blocks of
+    the updated ``params`` (the model's own tensors; ``grads`` too are on
+    ``device``); its launches by variant, plain calls, collectives,
+    dropped MoE pairs, seconds and foreign modules; the other tensors on
+    the CPU."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, moe
+    from repro_torch.training.optimizer import OptConfig, opt_pspecs
+    from repro_torch.training.train_step import (loss_and_grads,
+                                                 make_train_step)
+    params = (None if job.params is None
+              else torch.load(job.params, map_location=device))
+    model = build_model(job.cfg, params, device=device, seed=job.seed,
+                        trainable=True, mesh=mesh)
+    del params
+    ctx = model.ctx
+    opt_cfg = job.opt or OptConfig()
+    if job.opt_state is None:
+        state = warm_state(model, opt_cfg, job.seed)
+    else:
+        state = ctx.shard_tree(
+            torch.load(job.opt_state, map_location=device),
+            opt_pspecs(model.param_pspecs(), opt_cfg.compression))
+    B = job.tokens.shape[0]
+    batch = train_batch(ctx, job.tokens, device)
+    with torch.enable_grad():
+        grad_loss, grads = loss_and_grads(model, batch, B)
+    grad_loss = C.all_reduce_sum(grad_loss, "batch", ctx).cpu()
+    model.zero_grad(set_to_none=True)
+    step = make_train_step(model, opt_cfg, job.n_micro, B)
+    ops.reset_counts()
+    C.reset_stats()
+    moe.drop_log = []
+    t0 = time.perf_counter()
+    try:
+        with torch.enable_grad():
+            losses, norms = [], []
+            for _ in range(job.steps):
+                _, state, metrics = step(model.param_tree(), state, batch)
+                losses.append(metrics["loss"])
+                norms.append(metrics["grad_norm"])
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+        drops = [(int(d), n) for d, n in moe.drop_log]
+    finally:
+        moe.drop_log = None
+    return dict(rank=getattr(mesh, "rank", 0),
+                coords=list(getattr(mesh, "coords", (0, 0))),
+                rows=batch_rows(ctx, B), grads=grads, grad_loss=grad_loss,
+                losses=torch.stack(losses).cpu(),
+                grad_norms=torch.stack(norms).cpu(),
+                params=model.param_tree(), counts=ops.counts(),
+                collectives=C.stats(), moe_pairs=sum(n for _, n in drops),
+                moe_dropped=sum(d for d, _ in drops), seconds=seconds,
+                foreign=foreign_modules())
+
+
+def whole(records: List[Dict[str, Any]], key: str, cfg: ArchConfig,
+          shape: Sequence[int], device=None):
+    """The whole tree of ``key`` (``"params"`` or ``"grads"``) put back
+    together on ``device`` (default: the blocks') from the ranks' blocks,
+    each placed by its leaf's partition spec on the ``shape`` mesh; and
+    whether every rank's block equals the whole's at its place (the
+    replicas of a leaf agree bitwise)."""
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.launch.mesh import LocalMesh
+    from repro_torch.models.common import param_specs
+    from repro_torch.tree import leaves, unflatten
+    sizes = dict(zip(("data", "model"), shape))
+    specs = _spec_leaves(param_shardings(
+        LocalMesh(("data", "model"), tuple(shape)), param_specs(cfg)))
+    blocks = [(dict(zip(("data", "model"), r["coords"])), leaves(r[key]))
+              for r in records]
+    parts, agree = [], True
+    for i, spec in enumerate(specs):
+        ref = blocks[0][1][i]
+        spec = tuple(spec)[:ref.dim()]
+        out = torch.empty([n * (sizes[e] if e else 1)
+                           for n, e in zip(ref.shape, spec)],
+                          dtype=ref.dtype, device=device or ref.device)
+        places = []
+        for at, bl in blocks:
+            idx = tuple(slice(at[e] * n, (at[e] + 1) * n) if e else slice(None)
+                        for n, e in zip(bl[i].shape, spec))
+            places.append((idx, bl[i].to(out.device)))
+            out[idx] = places[-1][1]
+        agree &= all(torch.equal(out[idx], b) for idx, b in places)
+        parts.append(out)
+    return unflatten(records[0][key], parts), agree
+
+
+def _spec_leaves(tree) -> List[tuple]:
+    """The partition specs of a spec tree in the order of
+    :func:`repro_torch.tree.leaves` (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in _spec_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [s for t in tree for s in _spec_leaves(t)]
+    return [tree]
+
+
+def leaf_scaled_err(got, want) -> Tuple[float, str]:
+    """The largest over the leaves of a tree of each leaf's largest error
+    over its largest magnitude, and that leaf's path."""
+    from repro_torch.tree import leaves_with_paths
+    return max((float((g.float() - w.float()).abs().max()
+                      / w.float().abs().max().clamp_min(1e-30)), path)
+               for (path, g), (_, w) in zip(leaves_with_paths(got),
+                                            leaves_with_paths(want)))
+
+
+def check_train(records: List[Dict[str, Any]], single: Dict[str, Any],
+                job: TrainJob, shape: Sequence[int]) -> Dict[str, Any]:
+    """The ranks' training against the same training in one process:
+    ``ok`` when each step's loss and grad norm, the gradients at the
+    starting weights and the parameters after the steps (both put back
+    together from the ranks' blocks, each leaf's error over its largest
+    magnitude) are within :data:`TRAIN_LIMITS` for the config's dtype of
+    the one process's, every rank reports the same losses and norms, the
+    replicas of each leaf of both agree bitwise, and no rank loaded a
+    foreign module."""
+    from repro_torch.tree import leaves
+    limits = TRAIN_LIMITS[job.cfg.dtype]
+    rel = lambda a, b: float(((a - b).abs() / b.abs().clamp_min(1e-30))
+                             .max())
+    dev = leaves(single["params"])[0].device
+    grads, grads_agree = whole(records, "grads", job.cfg, shape, dev)
+    grad_err, grad_leaf = leaf_scaled_err(grads, single["grads"])
+    del grads
+    params, agree = whole(records, "params", job.cfg, shape, dev)
+    param_err, param_leaf = leaf_scaled_err(params, single["params"])
+    del params
+    same = all(torch.equal(r["losses"], records[0]["losses"])
+               and torch.equal(r["grad_norms"], records[0]["grad_norms"])
+               for r in records)
+    res = dict(losses=records[0]["losses"].tolist(),
+               losses_one_process=single["losses"].tolist(),
+               grad_norms=records[0]["grad_norms"].tolist(),
+               grad_norms_one_process=single["grad_norms"].tolist(),
+               loss_rel_err=rel(records[0]["losses"], single["losses"]),
+               grad_norm_rel_err=rel(records[0]["grad_norms"],
+                                     single["grad_norms"]),
+               grads_leaf_scaled_err=grad_err, grads_worst_leaf=grad_leaf,
+               params_leaf_scaled_err=param_err,
+               params_worst_leaf=param_leaf, limits=limits,
+               ranks_agree=same, replicas_agree=agree and grads_agree,
+               foreign=sorted({m for r in records for m in r["foreign"]}),
+               dropped={"mesh": sum(r["moe_dropped"] for r in records),
+                        "one_process": single["moe_dropped"]})
+    res["ok"] = bool(res["loss_rel_err"] <= limits["loss"]
+                     and res["grad_norm_rel_err"] <= limits["grad_norm"]
+                     and grad_err <= limits["grads"]
+                     and param_err <= limits["params"]
+                     and same and res["replicas_agree"]
+                     and not res["foreign"])
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Jobs on the mesh, then in one process
+# ---------------------------------------------------------------------------
+
+def work_all(mesh, device: torch.device, jobs: Sequence[Any]
+             ) -> List[Dict[str, Any]]:
+    """Each job in turn on one spawn of the ranks: :func:`serve` of a
+    :class:`Job`, :func:`train` of a :class:`TrainJob` (its gradients and
+    parameters copied to the CPU)."""
+    from repro_torch.tree import tree_map
+    out = []
+    for job in jobs:
+        if isinstance(job, TrainJob):
+            rec = train(mesh, device, job)
+            for key in ("grads", "params"):
+                rec[key] = tree_map(lambda t: t.detach().cpu(), rec[key])
+        else:
+            rec = serve(mesh, device, job)
+        out.append(rec)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def run(jobs: Sequence[Any], shape: Sequence[int], *, device: str = "cuda",
         threads: Optional[int] = None) -> Tuple[str, List[Dict[str, Any]]]:
-    """The jobs on one spawn of a ``shape`` mesh, then each in this
-    process fed the tokens the mesh fed, and the checks. Returns (backend,
-    per job ``{"mesh_seconds", "ranks": [rank_line], "check", "records",
-    "single"}``); ``mesh_seconds`` is the spawn's, all jobs together."""
+    """The jobs (:class:`Job` and :class:`TrainJob`) on one spawn of a
+    ``shape`` mesh, then each in this process (a serving job fed the
+    tokens the mesh fed; a train job's gradients and parameters kept on
+    its device, where :func:`check_train` compares them), and the checks.
+    Returns (backend, per job ``{"mesh_seconds", "one_process_seconds",
+    "check_seconds", "ranks": [rank_line], "check", "records",
+    "single"}``); ``mesh_seconds`` is the spawn's, all jobs together, and
+    a train job's one-process ``grads`` and ``params`` are dropped once
+    checked."""
     from repro_torch.launch import spmd     # see launch
     t0 = time.perf_counter()
-    backend, per_rank = launch(spmd.serve_all, shape, (list(jobs),),
+    backend, per_rank = launch(spmd.work_all, shape, (list(jobs),),
                                device=device, threads=threads)
     mesh_s = time.perf_counter() - t0
+    dev = torch.device(device)
     out = []
     for i, job in enumerate(jobs):
         records = [r[i] for r in per_rank]
-        single = serve(None, torch.device(device), dataclasses.replace(
-            job, feed=gather_rows(records, "fed", dim=0)))
-        out.append(dict(mesh_seconds=mesh_s,
-                        ranks=[rank_line(r) for r in records],
-                        check=check(records, single), records=records,
-                        single=single))
+        t1 = time.perf_counter()
+        if isinstance(job, TrainJob):
+            single = train(None, dev, job)
+            t2 = time.perf_counter()
+            chk = check_train(records, single, job, shape)
+            single["grads"] = single["params"] = None
+        else:
+            single = serve(None, dev, dataclasses.replace(
+                job, feed=gather_rows(records, "fed", dim=0)))
+            t2 = time.perf_counter()
+            chk = check(records, single)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        out.append(dict(mesh_seconds=mesh_s, one_process_seconds=t2 - t1,
+                        check_seconds=time.perf_counter() - t2,
+                        ranks=[rank_line(r) for r in records], check=chk,
+                        records=records, single=single))
     return backend, out
 
 
@@ -306,7 +601,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--mesh", required=True, help="DxM: data x model ranks")
-    ap.add_argument("--shape", choices=["prefill", "decode"],
+    ap.add_argument("--shape", choices=["prefill", "decode", "train"],
                     default="decode")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the model to this many layers")
@@ -325,15 +620,20 @@ def main(argv=None) -> int:
     tokens = torch.randint(0, cfg.vocab, (batch, seq),
                            generator=torch.Generator().manual_seed(0),
                            dtype=torch.int32)
-    steps = 8 if args.shape == "decode" else 0
+    steps = {"decode": 8, "prefill": 0, "train": 2}[args.shape]
     backend = backend_for(data * model, args.device)
     print(json.dumps({"spmd": "backend", "backend": backend,
                       "mesh": [data, model], "device": args.device}),
           flush=True)
     # by the package's name: its classes pickle (see launch)
     from repro_torch.launch import spmd
-    _, (out,) = spmd.run([spmd.Job(cfg, tokens, steps)], (data, model),
-                         device=args.device)
+    if args.shape == "train":
+        from repro_torch.training.optimizer import OptConfig
+        job = spmd.TrainJob(cfg, tokens, steps,
+                            opt=OptConfig(lr=TRAIN_LR, warmup_steps=1))
+    else:
+        job = spmd.Job(cfg, tokens, steps)
+    _, (out,) = spmd.run([job], (data, model), device=args.device)
     for line in out["ranks"]:
         print(json.dumps({"spmd": "rank", **line}), flush=True)
     print(json.dumps({"spmd": "check", "arch": cfg.name,

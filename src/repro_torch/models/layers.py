@@ -16,7 +16,10 @@ block. Their output products (``wo``, ``w_down``) are then partial sums,
 which :func:`attn_full`, :func:`attn_decode` and :func:`ffn_apply` add up
 over ``model`` when given a live ``ctx``
 (:func:`repro_torch.distributed.collectives.all_reduce_sum`); without one
-they are the one-card functions.
+they are the one-card functions. Under autograd the normed rows (and the
+qk-norm scales) enter the rank's block through
+:func:`~repro_torch.distributed.collectives.enter`, so their gradients are
+summed over ``model``, and the all-reduce's backward is the identity.
 """
 from __future__ import annotations
 
@@ -32,10 +35,14 @@ from repro_torch.models.common import apply_rope, rms_norm
 
 
 def _project_qkv(p: Mapping[str, torch.Tensor], h: torch.Tensor,
-                 src: torch.Tensor, cfg: ArchConfig, cross: bool = False):
+                 src: torch.Tensor, cfg: ArchConfig, cross: bool = False,
+                 ctx=None):
     """Project to q [B,S,H,hd] from ``h``, k/v [B,Sk,Hkv,hd] from ``src``
     (``h`` itself for self-attention); apply qk-norm + biases, which a
-    cross-attention has not. H and Hkv are the heads the weights hold."""
+    cross-attention has not. H and Hkv are the heads the weights hold: on
+    a live ``ctx`` this rank's, so the qk-norm scales, whole on every
+    rank, enter the rank's heads (their gradient summed over
+    ``model``)."""
     hd = cfg.head_dim_
     H, Hkv = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
     q = h @ p["wq"]
@@ -49,8 +56,8 @@ def _project_qkv(p: Mapping[str, torch.Tensor], h: torch.Tensor,
     k = k.reshape(*src.shape[:-1], Hkv, hd)
     v = v.reshape(*src.shape[:-1], Hkv, hd)
     if cfg.qk_norm and not cross:
-        q = rms_norm(q, p["qn"], cfg.norm_eps)
-        k = rms_norm(k, p["kn"], cfg.norm_eps)
+        q = rms_norm(q, C.enter(p["qn"], "tp", ctx), cfg.norm_eps)
+        k = rms_norm(k, C.enter(p["kn"], "tp", ctx), cfg.norm_eps)
     return q, k, v
 
 
@@ -65,11 +72,13 @@ def attn_full(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
     encoder's not. Cross-attention projects k/v from the raw ``kv_src``
     [B,Sk,C] (the encoder's output or the patch embeddings) and never
     ropes; its caller passes ``causal=False``. On a live ``ctx`` the
-    weights are this rank's heads and the output is summed over ``model``.
-    Returns (output [B,S,D], k, v [B,Sk,Hkv,hd] for the cache)."""
+    weights are this rank's heads, the normed rows enter them (their
+    gradient summed over ``model``) and the output is summed over
+    ``model``. Returns (output [B,S,D], k, v [B,Sk,Hkv,hd] for the
+    cache)."""
     cross = kv_src is not None
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k, v = _project_qkv(p, h, kv_src if cross else h, cfg, cross)
+    h = C.enter(rms_norm(x, p["ln"], cfg.norm_eps), "tp", ctx)
+    q, k, v = _project_qkv(p, h, kv_src if cross else h, cfg, cross, ctx)
     if not cross:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -209,9 +218,10 @@ def ffn_apply(p, x: torch.Tensor, cfg: ArchConfig,
     """SwiGLU, or the 2-matrix GELU MLP (``gelu``, by default
     ``cfg.ffn_gelu``; the encoder's is always GELU) with the tanh
     approximation that ``jax.nn.gelu`` uses by default. On a live ``ctx``
-    the weights are this rank's block of ``d_ff`` and the output is summed
+    the weights are this rank's block of ``d_ff``, the normed rows enter
+    it (their gradient summed over ``model``) and the output is summed
     over ``model``."""
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    h = C.enter(rms_norm(x, p["ln"], cfg.norm_eps), "tp", ctx)
     up = h @ p["w_up"]
     if cfg.ffn_gelu if gelu is None else gelu:
         act = F.gelu(up, approximate="tanh")

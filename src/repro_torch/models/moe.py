@@ -122,17 +122,31 @@ def _moe_sharded(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     """The reference's ``_moe_sharded`` on one rank. x [b, S, D]: the
     rank's rows over ``data`` (all B where dp does not divide it),
     replicated over ``model``; p the rank's blocks: router [D/dp, E],
-    w_gate/w_up [E/tp, D/dp, F], w_down [E/tp, F, D/dp]."""
+    w_gate/w_up [E/tp, D/dp, F], w_down [E/tp, F, D/dp].
+
+    Under autograd the rows and the router enter this rank's block of the
+    sequence (their gradients summed over ``model``), the all-to-alls run
+    back reversed, the ZeRO-3 gathers reduce-scatter, and the output's
+    gather keeps this rank's block of its cotangent, which the replicated
+    layers after it hold whole. A sequence that ``model`` does not split
+    is routed whole on every model rank, each expert then seeing every
+    token once per model rank; that has no gradient here (``ValueError``
+    under autograd)."""
     tp = ctx.axis_size("exp")
     b, S, D = x.shape
     E, K = moe.n_experts, moe.top_k
     seq_shardable = S % tp == 0
+    if not seq_shardable and tp > 1 and torch.is_grad_enabled() and (
+            x.requires_grad or p["router"].requires_grad):
+        raise ValueError(f"a sequence of {S} does not split over mesh axis "
+                         f"'model' of {tp} ranks: the sharded MoE has no "
+                         f"gradient for it")
     s_loc = S // tp if seq_shardable else S
     if seq_shardable:
-        x = x.narrow(1, ctx.index("exp") * s_loc, s_loc)
+        x = C.enter(x, "exp", ctx).narrow(1, ctx.index("exp") * s_loc, s_loc)
     T_loc = b * s_loc
     C_loc = _capacity(T_loc, E, K, moe.capacity_factor, dropless=(S == 1))
-    router = C.all_gather(p["router"], "fsdp", 0, ctx)
+    router = C.enter(C.all_gather(p["router"], "fsdp", 0, ctx), "exp", ctx)
     buf, info = _route_and_bucket(x.reshape(T_loc, D), router, E, K, C_loc)
     # dispatch: [E, C_loc, D] -> this rank's experts [E/tp, tp * C_loc, D]
     buf = C.all_to_all(buf, "exp", 0, 1, ctx)
@@ -144,7 +158,8 @@ def _moe_sharded(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     out = C.all_to_all(out, "exp", 1, 0, ctx)                 # [E, C_loc, D]
     y = _combine(out, info, T_loc, K, C_loc).reshape(b, s_loc, D)
     # the sequence whole again on every model rank, for the next layer
-    return C.all_gather(y, "exp", 1, ctx) if seq_shardable else y
+    return (C.all_gather(y, "exp", 1, ctx, grad="block") if seq_shardable
+            else y)
 
 
 def moe_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor,

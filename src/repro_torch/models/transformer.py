@@ -36,7 +36,13 @@ dense and MoE families): each rank holds its block of every leaf
 ``fsdp`` dim all-gathered before its layer uses it) and the reference's
 expert parallelism (:func:`repro_torch.models.moe._moe_sharded`), on the
 rank's rows of the batch; activations are whole over ``model`` between
-the layers. The other methods run on one card and raise on a live mesh.
+the layers. :meth:`Model.backbone` and :meth:`Model.loss` train the same
+way: the collectives carry the gradients back
+(:mod:`repro_torch.distributed.collectives`; each ZeRO-3 gather is
+recomputed in the backward with its layer and reduce-scatters the
+weight's gradient to this rank's block), and the loss is vocab-parallel.
+The paged, chunked and horizon methods run on one card and raise on a
+live mesh.
 """
 from __future__ import annotations
 
@@ -48,7 +54,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, TensorSpec
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import ShardingCtx, param_shardings
+from repro_torch.distributed.sharding import (ShardingCtx, param_shardings,
+                                              placements)
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
@@ -56,6 +63,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models.common import (abstract_tree, encoder_layer_specs,
                                        layer_specs, pad_vocab, param_specs,
                                        rms_norm)
+from repro_torch.tree import leaves
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 # the families that run across a live mesh
@@ -154,6 +162,26 @@ def _nll_sum(h: torch.Tensor, labels: torch.Tensor,
     logits = (h @ w).float()
     picked = logits.gather(-1, labels.long()[..., None])[..., 0]
     return (torch.logsumexp(logits, dim=-1) - picked).sum()
+
+
+def _nll_sum_vocab_parallel(h: torch.Tensor, labels: torch.Tensor,
+                            w: torch.Tensor, ctx: ShardingCtx
+                            ) -> torch.Tensor:
+    """:func:`_nll_sum` with w [D, Vp/tp] this rank's columns of the head:
+    the local logits [B,cq,Vp/tp] in f32, the row max over ``model``
+    (detached), the sum of exponentials over ``model``, and the label's
+    logit from the rank that holds it, summed over ``model``. The
+    ``[B, cq, Vp]`` logits are never gathered."""
+    logits = (h @ w).float()
+    n = logits.shape[-1]
+    top = C.all_reduce_max(logits.amax(-1), "tp", ctx)
+    sumexp = C.all_reduce_sum(torch.exp(logits - top[..., None]).sum(-1),
+                              "tp", ctx)
+    ids = labels.long() - ctx.index("tp") * n
+    inside = (ids >= 0) & (ids < n)
+    picked = logits.gather(-1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    picked = C.all_reduce_sum(torch.where(inside, picked, 0.0), "tp", ctx)
+    return (top + torch.log(sumexp) - picked).sum()
 
 
 class Model(nn.Module):
@@ -273,16 +301,44 @@ class Model(nn.Module):
 
     def grad_tree(self) -> Dict[str, Any]:
         """Each parameter's gradient in :meth:`param_tree`'s layout (zeros,
-        in the parameter's dtype, where the last backward left none)."""
+        in the parameter's dtype, where the last backward left none): on a
+        live mesh this rank's blocks, once :meth:`sum_grads_over_data` has
+        run."""
         return self._tree(lambda p: torch.zeros_like(p) if p.grad is None
                           else p.grad)
+
+    def placements(self) -> Dict[str, Any]:
+        """Each parameter's :class:`~repro_torch.distributed.sharding.
+        Placement` on the model's mesh: the mesh axes that split it and
+        those it is replicated over."""
+        return placements(self.param_pspecs(), self.ctx.mesh)
+
+    def sum_grads_over_data(self) -> None:
+        """After a backward on a live mesh with a data axis: sum over
+        ``data`` the gradients of the leaves that no ``fsdp`` dim splits
+        (each data rank saw its own rows), in one all-reduce per dtype.
+        The ZeRO-3 leaves' gradients came back from their gathers
+        reduce-scattered and are left as they are."""
+        if not self.ctx.live or self.ctx.axis_size("batch") == 1:
+            return
+        params = [p for p, pl in zip(leaves(self._tree(lambda p: p)),
+                                     leaves(self.placements()))
+                  if "data" in pl.replicated]
+        for dt in dict.fromkeys(p.dtype for p in params):
+            group = [p for p in params if p.dtype == dt]
+            flat = torch.cat([torch.zeros(p.numel(), dtype=dt,
+                                          device=p.device) if p.grad is None
+                              else p.grad.reshape(-1) for p in group])
+            flat = C.all_reduce_sum(flat, "batch", self.ctx)
+            for p, g in zip(group, flat.split([p.numel() for p in group])):
+                p.grad = g.view_as(p)
 
     def _one_card(self, what: str) -> None:
         if self.ctx.live:
             raise NotImplementedError(
                 f"{self.cfg.name}: {what} runs on one card; across the mesh "
-                f"the port runs prefill and the dense-cache decode step "
-                f"(training across the mesh is the next slice)")
+                f"the port runs prefill, the dense-cache decode step and "
+                f"training")
 
     # -------------------------------------------------------------- embedding
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -313,7 +369,9 @@ class Model(nn.Module):
         if not self.ctx.live:
             return (last @ w).float()
         w = C.all_gather(w, "fsdp", 0, self.ctx)                 # [D, Vp/tp]
-        return C.all_gather((last @ w).float(), "tp", -1, self.ctx)
+        last = C.enter(last, "tp", self.ctx)
+        return C.all_gather((last @ w).float(), "tp", -1, self.ctx,
+                            grad="block")
 
     # ---------------------------------------------------------------- encoder
     def _encoder_layer(self, blk: Block, x: torch.Tensor,
@@ -356,10 +414,14 @@ class Model(nn.Module):
                src: Optional[torch.Tensor]) -> torch.Tensor:
         """One decoder layer over the whole sequence: the mixer (causal
         self-attention or the Mamba2 scan), the cross sub-layer of a cross
-        layer, the FFN."""
-        cfg = self.cfg
+        layer, the FFN. On a live mesh the attention's and the FFN's
+        weights are gathered over ``data`` here, inside the layer's
+        recomputation, so the backward gathers them again rather than
+        keeping them."""
+        cfg, ctx = self.cfg, self.ctx
         if blk.mixer == "attn":
-            o, _, _ = L.attn_full(blk.attn, x, cfg, positions)
+            o, _, _ = L.attn_full(blk.weights("attn", ctx), x, cfg,
+                                  positions, ctx=ctx)
         else:
             o, _ = M2.ssm_full(blk.ssm, x, cfg)
         x = x + o
@@ -367,16 +429,15 @@ class Model(nn.Module):
             o, _, _ = L.attn_full(blk.cross, x, cfg, positions, kv_src=src,
                                   causal=False)
             x = x + o
-        return blk.ffn_apply(x, cfg)
+        return blk.ffn_apply(x, cfg, ctx)
 
     def backbone(self, tokens: torch.Tensor, extras=None,
                  remat: bool = True) -> torch.Tensor:
-        """tokens [B,S] -> the final-normed hidden rows [B,S,D]. With
-        ``remat`` (and grad enabled) every layer, and every encoder layer,
-        is recomputed in the backward pass
-        (``torch.utils.checkpoint``), so only each layer's input is
-        kept."""
-        self._one_card("training")
+        """tokens [B,S] -> the final-normed hidden rows [B,S,D] (on a live
+        mesh: this rank's rows, whole over ``model``). With ``remat`` (and
+        grad enabled) every layer, and every encoder layer, is recomputed
+        in the backward pass (``torch.utils.checkpoint``), so only each
+        layer's input is kept."""
         x = self.embed(tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         src = self._cross_src(extras, remat)
@@ -385,24 +446,51 @@ class Model(nn.Module):
         return rms_norm(x, self.final_ln, self.cfg.norm_eps)
 
     def loss(self, tokens: torch.Tensor, labels: torch.Tensor,
-             extras=None) -> torch.Tensor:
+             extras=None, global_rows: Optional[int] = None
+             ) -> torch.Tensor:
         """Mean next-token cross-entropy (f32 scalar) of tokens [B,S]
         against labels [B,S], over the padded vocabulary as the reference's
         ``Model.loss``: the sequence in chunks of the largest divisor of S
         <= 512, each chunk's ``[B, cq, Vp]`` logits recomputed in the
-        backward pass, the chunks' sums added in order."""
+        backward pass, the chunks' sums added in order.
+
+        On a live mesh ``tokens`` are this rank's rows of a batch of
+        ``global_rows`` (default: B times the data axis, the rows split
+        over ``data``), the loss is vocab-parallel
+        (:func:`_nll_sum_vocab_parallel`; the head's columns gathered over
+        ``data`` once, the rows entering them once) and the result is this
+        rank's share of the batch's mean: the shares of the data ranks sum
+        to it. Where the data axis does not divide the batch, every data
+        rank holds all of it (``global_rows`` == B) and its share is the
+        mean over the data axis's size, so that neither the loss nor the
+        gradients summed over ``data`` count the batch more than once."""
         hidden = self.backbone(tokens, extras)
+        ctx = self.ctx
         w = self.unembed_weight()
         B, S, _ = hidden.shape
+        share = 1
+        if ctx.live:
+            dp = ctx.axis_size("batch")
+            rows = B * dp if global_rows is None else global_rows
+            if rows == B:
+                share = dp
+            elif rows != B * dp:
+                raise ValueError(f"{B} rows on a rank of a data axis of {dp} "
+                                 f"ranks: not a block of a batch of {rows}")
+            w = C.all_gather(w, "fsdp", 0, ctx)
+            hidden = C.enter(hidden, "tp", ctx)
+        else:
+            rows = B
+        nll = (_nll_sum if ctx.axis_size("tp") == 1 else
+               lambda h, lab, w: _nll_sum_vocab_parallel(h, lab, w, ctx))
         cq = min(512, S)
         while S % cq:
             cq -= 1
         total = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for c0 in range(0, S, cq):
-            total = total + _maybe_remat(True, _nll_sum,
-                                         hidden[:, c0:c0 + cq],
+            total = total + _maybe_remat(True, nll, hidden[:, c0:c0 + cq],
                                          labels[:, c0:c0 + cq], w)
-        return total / (B * S)
+        return total / (rows * S) / share
 
     # ---------------------------------------------------------------- prefill
     def prefill(self, tokens: torch.Tensor, extras=None) -> Tuple[

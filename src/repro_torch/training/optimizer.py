@@ -12,6 +12,13 @@ new trees, the port updates the parameters and the state in place, under
 leaf's size. :func:`abstract_opt_state` and :func:`opt_pspecs` serve the
 dry run (:mod:`repro_torch.launch.dryrun`): the state on ``meta`` and its
 partition specs, the parameters' own.
+
+Across a live mesh (``ctx`` and the leaves'
+:func:`~repro_torch.distributed.sharding.placements`) every rank updates
+its own blocks of the parameters and of the state, elementwise as on one
+card; the grad norm is global (each rank's squares, each leaf counted on
+one rank of its replicas, summed over the mesh) and the int8 scale is the
+max over the ranks that split the leaf.
 """
 from __future__ import annotations
 
@@ -20,6 +27,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import LINE
 from repro_torch.tree import leaves, tree_map
 
 
@@ -75,12 +84,16 @@ def opt_pspecs(param_pspecs, compression: str = "none") -> Dict[str, Any]:
     return state
 
 
-def _compress(g: torch.Tensor, ef: torch.Tensor, how: str) -> torch.Tensor:
+def _compress(g: torch.Tensor, ef: torch.Tensor, how: str, ctx=None,
+              place=None) -> torch.Tensor:
     g = g.float() + ef
     if how == "bf16":
         q = g.bfloat16().float()
     elif how == "int8":
-        scale = torch.clamp(g.abs().max(), min=1e-12) / 127.0
+        top = g.abs().max()
+        for axis in (place.split if place is not None else ()):
+            top = C.all_reduce_max(top, LINE[axis], ctx)
+        scale = torch.clamp(top, min=1e-12) / 127.0
         q = torch.round(g / scale).to(torch.int8).float() * scale
     else:
         raise ValueError(how)
@@ -88,35 +101,51 @@ def _compress(g: torch.Tensor, ef: torch.Tensor, how: str) -> torch.Tensor:
     return q
 
 
-def compress_grads(grads, state: Dict[str, Any], cfg: OptConfig):
+def compress_grads(grads, state: Dict[str, Any], cfg: OptConfig, ctx=None,
+                   places=None):
     """Lossy-compress the gradients with error feedback: returns the
     decompressed f32 gradients, and the state with its residual ``ef``
-    updated in place."""
+    updated in place. On a live mesh (``ctx``, ``places`` the leaves'
+    placements) the int8 scale is the max over the whole leaf."""
     if cfg.compression == "none":
         return grads, state
+    places = places or tree_map(lambda g: None, grads)
     with torch.no_grad():
-        return tree_map(lambda g, e: _compress(g, e, cfg.compression),
-                        grads, state["ef"]), state
+        return tree_map(lambda g, e, pl: _compress(g, e, cfg.compression,
+                                                   ctx, pl),
+                        grads, state["ef"], places), state
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, ctx=None, places=None) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's f32 sum of squares, added
-    in leaf order."""
+    in leaf order. On a live mesh (``ctx``, ``places`` the leaves'
+    placements) the leaves are this rank's blocks: a leaf counts on the
+    ranks at index 0 of each axis it is replicated over, and the sum runs
+    over ``data`` and ``model``."""
     ls = leaves(tree)
     sq = torch.zeros((), dtype=torch.float32, device=ls[0].device)
-    for x in ls:
-        sq = sq + x.float().square().sum()
+    for x, pl in zip(ls, leaves(places) if places else [None] * len(ls)):
+        if pl is None or all(ctx.index(LINE[a]) == 0 for a in pl.replicated):
+            sq = sq + x.float().square().sum()
+    for axis in LINE:
+        sq = C.all_reduce_sum(sq, LINE[axis], ctx)
     return sq.sqrt()
 
 
-def adamw_update(grads, state: Dict[str, Any], params, cfg: OptConfig
+def adamw_update(grads, state: Dict[str, Any], params, cfg: OptConfig,
+                 ctx=None, places=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step: ``params`` and ``state`` are updated in place and
     returned, with the metrics ``{"grad_norm", "lr"}`` (0-d f32 tensors on
-    the parameters' device: nothing here waits for the device)."""
+    the parameters' device: nothing here waits for the device). On a live
+    mesh ``ctx`` and ``places`` (the leaves'
+    :func:`~repro_torch.distributed.sharding.placements`) make the norm
+    and the int8 scale global; the update is each rank's blocks'."""
+    if ctx is None or not ctx.live:
+        ctx = places = None
     with torch.no_grad():
-        grads, state = compress_grads(grads, state, cfg)
-        gnorm = global_norm(grads)
+        grads, state = compress_grads(grads, state, cfg, ctx, places)
+        gnorm = global_norm(grads, ctx, places)
         clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-12), max=1.0)
         step = state["step"] + 1
         warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)

@@ -12,9 +12,12 @@ it returns a cell's step with its arguments, which for a model on ``meta``
 (``build_model(cfg, device="meta")``) are abstract. Nothing is lowered or
 compiled: the dry run (:mod:`repro_torch.launch.dryrun`) runs the step on
 ``meta`` under its counter, and the same call on a model on the card gives
-the step the counter predicts. On a model across a live mesh the prefill
-and decode cells hold each rank's block of the batch and the cache, as the
-reference's ``in_shardings`` place them (the cache split by KV heads).
+the step the counter predicts. On a model across a live mesh the cells
+hold each rank's block of the batch, of the cache (split by KV heads) and,
+training, of the parameters and the AdamW state, as the reference's
+``in_shardings`` place them; the train step sums each replicated leaf's
+gradient over ``data``, takes the global grad norm and reports the
+batch's loss, summed over ``data``.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import input_specs, shape_of
+from repro_torch.distributed import collectives as C
 from repro_torch.models.transformer import Model
 from repro_torch.training.optimizer import (OptConfig, abstract_opt_state,
                                             adamw_init, adamw_update)
@@ -36,17 +40,33 @@ def _split_batch(batch: Dict[str, torch.Tensor]):
     return toks, labels, extras
 
 
-def make_loss_fn(model: Model):
+def make_loss_fn(model: Model, global_rows: Optional[int] = None):
     """loss_fn(params, batch) -> the model's mean cross-entropy (the
     parameters are the model's own; ``params`` is taken for the
-    reference's signature)."""
+    reference's signature). On a live mesh ``batch`` is this rank's rows
+    of a batch of ``global_rows`` (:meth:`Model.loss`) and the loss this
+    rank's share."""
     def loss_fn(params, batch):
         toks, labels, extras = _split_batch(batch)
-        return model.loss(toks, labels, extras)
+        return model.loss(toks, labels, extras, global_rows=global_rows)
     return loss_fn
 
 
-def make_train_step(model: Model, opt_cfg: OptConfig, n_micro: int = 1):
+def loss_and_grads(model: Model, batch: Dict[str, torch.Tensor],
+                   global_rows: Optional[int] = None):
+    """The loss of ``batch`` and the gradients of the model's parameters
+    (:meth:`Model.grad_tree`, this rank's blocks on a live mesh, each
+    replicated leaf's summed over ``data``): ``(loss, grads)``, the loss
+    this rank's share (:meth:`Model.loss`), detached."""
+    model.zero_grad(set_to_none=True)
+    loss = make_loss_fn(model, global_rows)(None, batch)
+    loss.backward()
+    model.sum_grads_over_data()
+    return loss.detach(), model.grad_tree()
+
+
+def make_train_step(model: Model, opt_cfg: OptConfig, n_micro: int = 1,
+                    global_batch: Optional[int] = None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics): ``params`` (``model.param_tree()``) and ``opt_state`` updated
     in place; metrics ``{"loss", "grad_norm", "lr"}`` as 0-d f32 tensors.
@@ -55,14 +75,22 @@ def make_train_step(model: Model, opt_cfg: OptConfig, n_micro: int = 1):
     ``n_micro`` equal microbatches (microbatch i holds rows i * b ..
     (i + 1) * b - 1), their gradients are summed in f32 and divided by
     ``n_micro``, and the loss is their mean, as the reference's scan
-    does."""
-    loss_fn = make_loss_fn(model)
+    does.
+
+    On a live mesh ``batch`` is this rank's rows of a batch of
+    ``global_batch`` rows (default: its rows times the data axis), whose
+    own rows the microbatches split; ``params`` and ``opt_state`` are the
+    rank's blocks. The grad norm is global, and the loss reported is the
+    batch's, summed over ``data``."""
+    ctx = model.ctx
+    places = model.placements() if ctx.live else None
+    if global_batch is not None and global_batch % n_micro:
+        raise ValueError(f"a batch of {global_batch} does not split into "
+                         f"{n_micro} microbatches")
+    rows = None if global_batch is None else global_batch // n_micro
 
     def grads_of(params, batch):
-        model.zero_grad(set_to_none=True)
-        loss = loss_fn(params, batch)
-        loss.backward()
-        return loss.detach(), model.grad_tree()
+        return loss_and_grads(model, batch, rows)
 
     def train_step(params, opt_state, batch):
         if n_micro == 1:
@@ -91,9 +119,9 @@ def make_train_step(model: Model, opt_cfg: OptConfig, n_micro: int = 1):
                 for acc in leaves(grads):
                     acc.div_(n_micro)
         params, opt_state, metrics = adamw_update(grads, opt_state, params,
-                                                  opt_cfg)
+                                                  opt_cfg, ctx, places)
         model.zero_grad(set_to_none=True)
-        metrics["loss"] = loss
+        metrics["loss"] = C.all_reduce_sum(loss, "batch", ctx)
         return params, opt_state, metrics
 
     return train_step
@@ -179,16 +207,15 @@ def build_cell(model: Model, shape, opt_cfg: Optional[OptConfig] = None,
     ``meta`` (``build_model(cfg, device="meta")``) they are abstract and
     nothing is allocated; elsewhere the state and cache are zeros and the
     batch is :func:`cell_batch`'s. On a live mesh each rank holds its rows
-    of the batch (:func:`batch_pspecs`) and :meth:`Model.cache`'s block for
-    them; a train cell raises."""
+    of the batch (:func:`batch_pspecs`; all of it where the data axis does
+    not divide it), :meth:`Model.cache`'s block for them and, training,
+    the AdamW state of its blocks of the parameters
+    (:func:`~repro_torch.training.optimizer.opt_pspecs`); ``n_micro``
+    splits each rank's rows."""
     sh = shape_of(shape)
     params = model.param_tree()
     meta = model.device.type == "meta"
     ctx = model.ctx
-    if ctx.live and sh["kind"] == "train":
-        raise NotImplementedError(
-            "training across the mesh is the next mesh slice (gradients "
-            "through the collectives); this one runs prefill and decode")
     batch = cell_batch(model, sh, generator)
     if ctx.live:
         specs = batch_pspecs(model, sh)
@@ -197,7 +224,9 @@ def build_cell(model: Model, shape, opt_cfg: Optional[OptConfig] = None,
         opt_cfg = opt_cfg or OptConfig()
         opt = (abstract_opt_state(params, opt_cfg.compression) if meta
                else adamw_init(params, opt_cfg.compression))
-        return make_train_step(model, opt_cfg, n_micro), (params, opt, batch)
+        step = make_train_step(model, opt_cfg, n_micro,
+                               sh["global_batch"] if ctx.live else None)
+        return step, (params, opt, batch)
     if sh["kind"] == "prefill":
         return make_prefill_step(model), (params, batch)
     B, S = batch["tokens"].shape[0], sh["seq_len"]

@@ -91,8 +91,8 @@ def test_the_worker_entry_point_imports_neither_jax_nor_repro():
 # then the modules loaded in this process; each rank prints its own
 SPMD_PROBE = """
 import contextlib, io, json, runpy, sys
-sys.argv = ["spmd", "--arch", "qwen3-8b", "--reduced", "--mesh", "1x2",
-            "--device", "cpu"]
+sys.argv = ["spmd", "--arch", "qwen3-8b", "--reduced", "--device", "cpu",
+            *json.loads(sys.argv[1])]
 out = io.StringIO()
 with contextlib.redirect_stdout(out):
     try:
@@ -105,18 +105,25 @@ print(json.dumps({"code": code, "out": out.getvalue(), "bad": bad}))
 """
 
 
+def _spmd(args):
+    """``python -m repro_torch.launch.spmd`` (reduced qwen3-8b, on the
+    CPU) with ``args``: its printed lines, once its exit code is 0 and no
+    foreign module loaded in it."""
+    src = pathlib.Path(__file__).resolve().parent.parent / "src"
+    env = dict(os.environ, PYTHONPATH=str(src), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", SPMD_PROBE, json.dumps(args)],
+                         env=env, text=True, capture_output=True,
+                         timeout=300, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["code"] == 0 and got["bad"] == []
+    return [json.loads(l) for l in got["out"].splitlines()]
+
+
 def test_the_mesh_entry_point_and_its_ranks_import_neither_jax_nor_repro():
     """``python -m repro_torch.launch.spmd ... --device cpu``: the entry
     point, and each rank it spawns (which imports the collectives, the
     live mesh and the sharded model), load only the port."""
-    src = pathlib.Path(__file__).resolve().parent.parent / "src"
-    env = dict(os.environ, PYTHONPATH=str(src), OMP_NUM_THREADS="1")
-    out = subprocess.run([sys.executable, "-c", SPMD_PROBE], env=env,
-                         text=True, capture_output=True, timeout=300,
-                         check=True)
-    got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got["code"] == 0 and got["bad"] == []
-    lines = [json.loads(l) for l in got["out"].splitlines()]
+    lines = _spmd(["--mesh", "1x2"])
     assert lines[0] == {"spmd": "backend", "backend": "gloo",
                         "mesh": [1, 2], "device": "cpu"}
     ranks = [l for l in lines if l["spmd"] == "rank"]
@@ -125,3 +132,23 @@ def test_the_mesh_entry_point_and_its_ranks_import_neither_jax_nor_repro():
         assert r["foreign"] == []
         assert r["collectives"]["all_reduce"]["model"]["calls"] > 0
     assert lines[-1]["spmd"] == "check" and lines[-1]["ok"]
+
+
+def test_the_mesh_train_entry_point_checks_ok_on_two_data_ranks():
+    """``python -m repro_torch.launch.spmd --shape train --mesh 2x1
+    --reduced --device cpu``: the gradients at the starting weights and 2
+    AdamW steps with ZeRO-3 over two data ranks, held against one process
+    (``check_train``); each rank reduce-scatters in its backward and loads
+    only the port."""
+    lines = _spmd(["--mesh", "2x1", "--shape", "train"])
+    assert lines[0] == {"spmd": "backend", "backend": "gloo",
+                        "mesh": [2, 1], "device": "cpu"}
+    ranks = [l for l in lines if l["spmd"] == "rank"]
+    assert [r["rank"] for r in ranks] == [0, 1]
+    for r in ranks:
+        assert r["foreign"] == []
+        rs = r["collectives"]["reduce_scatter"]["data"]
+        assert rs["calls"] == rs["backward"] > 0
+    check = lines[-1]
+    assert check["spmd"] == "check" and check["ok"] and check["steps"] == 2
+    assert check["grads_leaf_scaled_err"] <= check["limits"]["grads"]

@@ -38,7 +38,9 @@ from repro_torch.distributed import collectives as C
 from repro_torch.launch import spmd
 from repro_torch.launch.mesh import LocalMesh, make_local_mesh
 from repro_torch.models import build_model
+from repro_torch.training.optimizer import OptConfig
 from repro_torch.training.train_step import build_cell
+from repro_torch.tree import leaves
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -402,26 +404,46 @@ def test_other_families_across_a_mesh_name_the_next_slice(name):
         build_model(get_config(name).reduced(), device="cpu", mesh=mesh)
 
 
-def test_a_train_cell_across_a_mesh_names_the_next_slice():
-    """The model's one-card methods and a train cell raise on a live mesh;
-    a prefill cell holds the rank's rows (here a 2 x 1 mesh, rank 1: rows
-    2-3 of 4) without any collective."""
-    cfg = get_config("qwen3-8b").reduced()
+@pytest.mark.parametrize("name", MODELS)
+def test_a_train_cell_on_a_one_by_one_mesh_steps_as_one_process(name,
+                                                               setup):
+    """``make_local_mesh(1, 1)`` needs no process group: a train cell
+    built on it takes the one-process step bit for bit (loss, grad norm,
+    every parameter and moment), and calls no collective; on a live
+    2 x 1 mesh a prefill cell holds the rank's rows (rank 1: rows 2-3 of
+    4) without any collective, and the paged methods stay one card's."""
+    from repro_torch.distributed import collectives as C
+    cfg = get_config(name).reduced()
+    shape = dict(kind="train", seq_len=8, global_batch=4)
+    out = []
+    for mesh in (make_local_mesh(1, 1), None):
+        C.reset_stats()
+        model = build_model(cfg, torch.load(setup["params"][name]),
+                            device="cpu", trainable=True, mesh=mesh)
+        step, args = build_cell(model, shape,
+                                OptConfig(lr=1e-2, warmup_steps=1),
+                                generator=torch.Generator().manual_seed(0))
+        for _ in range(2):
+            _, state, metrics = step(*args)
+        out.append((metrics, model.param_tree(), state, C.stats()))
+    (m1, p1, s1, c1), (m0, p0, s0, _) = out
+    assert c1 == {}
+    for k in ("loss", "grad_norm"):
+        assert torch.equal(m1[k], m0[k]), k
+    for a, b in zip(leaves(p1) + leaves(s1), leaves(p0) + leaves(s0)):
+        assert torch.equal(a, b)
     mesh = LocalMesh(("data", "model"), (2, 1), rank=1, coords=(1, 0))
-    model = build_model(cfg, device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="next mesh slice"):
-        build_cell(model, dict(kind="train", seq_len=8, global_batch=4))
-    with pytest.raises(NotImplementedError, match="one card"):
-        model.loss(torch.zeros((1, 8), dtype=torch.int32),
-                   torch.zeros((1, 8), dtype=torch.int32))
+    live = build_model(cfg, device="cpu", mesh=mesh)
     gen = torch.Generator().manual_seed(0)
     full = build_cell(build_model(cfg, device="cpu"),
                       dict(kind="prefill", seq_len=8, global_batch=4),
                       generator=gen)[1][1]
     gen.manual_seed(0)
-    mine = build_cell(model, dict(kind="prefill", seq_len=8, global_batch=4),
+    mine = build_cell(live, dict(kind="prefill", seq_len=8, global_batch=4),
                       generator=gen)[1][1]
     assert torch.equal(mine["tokens"], full["tokens"][2:4])
+    with pytest.raises(NotImplementedError, match="one card"):
+        live.decode_step_paged(*[None] * 9)
 
 
 def test_the_entry_point_needs_a_card_unless_told_cpu(monkeypatch, capsys):

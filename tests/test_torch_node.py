@@ -103,16 +103,64 @@ def _residency_trace(pkg_res, profiles):
         trace.append(({m: s.value for m, s in r.state.items()},
                       {m: r.activation_latency(m) for m in profiles},
                       r.warm_set(), [(e.kind, e.model, e.tier, e.seconds)
-                                     for e in r.events]))
+                                     for e in r.events], list(r.lru["gpu"])))
     return trace
+
+
+def _repair_reference_fault(entry):
+    """The reference marks a model whose host copy was evicted DISK / REMOTE
+    even while it stays in the GPU tier; the port keeps it RUNNING (ROADMAP.md
+    §3, repaired reference faults). Apply that repair to one entry of the
+    reference's trace: such a model reads RUNNING, activates in 0 s and is in
+    the warm set."""
+    if not isinstance(entry, tuple) or len(entry) != 5:
+        return entry
+    state, latency, _, events, gpu = entry
+    state, latency = dict(state), dict(latency)
+    for m in gpu:
+        if state[m] in ("disk", "remote"):
+            state[m], latency[m] = "running", 0.0
+    warm = [m for m, s in state.items() if s in ("running", "sleeping")]
+    return state, latency, warm, events, gpu
 
 
 def test_residency_matches_the_reference():
     jt = _residency_trace(jax_res, _profiles(jax_cm, jax_config,
                                              jax_cm.HardwareSpec()))
     pt = _residency_trace(res, _profiles(cm, get_config, REF_HW))
-    assert pt == jt
+    repaired = [_repair_reference_fault(e) for e in jt]
+    assert repaired != jt      # this trace reaches the reference's fault
+    assert pt == repaired
     assert res.RETRACE_COST_S == jax_res.RETRACE_COST_S
+
+
+def test_residency_keeps_a_resident_model_running_when_its_host_copy_goes():
+    """The repaired reference fault: making host room for m0 drops m4's host
+    copy while m4 is still on the card. The reference then marks m4 DISK and
+    refuses to activate it; the port keeps it RUNNING, and drops its disk
+    copy once m4 goes back to the host."""
+    def run(pkg_cm, pkg_res):
+        profiles = {f"m{i}": pkg_cm.synthetic_profile(f"m{i}", params_b=0.5 + i)
+                    for i in range(6)}
+        r = pkg_res.HierarchicalResidency(profiles, c_gpu=12e9, c_cpu=20e9,
+                                          c_disk=60e9)
+        for m in ("m5", "m4", "m5", "m4", "m0"):
+            assert r.ensure_gpu(m)[0], m
+        return r, r.ensure_gpu("m4")
+
+    r, (ok, t_act) = run(cm, res)
+    assert ok and t_act == 0.0
+    assert r.lru["gpu"] and all(r.state[m] is res.ModelState.RUNNING
+                                for m in r.lru["gpu"])
+    assert r.used("cpu") <= r.cap["cpu"] and r.used("gpu") <= r.cap["gpu"]
+    # m5 sends m4 back to the host: its disk copy goes, so that no model is
+    # in both the host and the disk tier
+    assert r.ensure_gpu("m5")[0]
+    assert r.state["m4"] is res.ModelState.SLEEPING
+    assert not set(r.lru["cpu"]) & set(r.lru["disk"])
+    assert r.used("disk") <= r.cap["disk"]
+    _, (jax_ok, _) = run(jax_cm, jax_res)
+    assert not jax_ok
 
 
 @pytest.mark.parametrize("required", [1e9, 2e10, 5e10, 1e13])
