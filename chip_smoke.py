@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --mesh-controls   # the mesh limits' readings
 
 Phases, each printing one JSON line (and failing the run on any error):
 
@@ -210,8 +211,9 @@ Phases, each printing one JSON line (and failing the run on any error):
                 served on the card and the CPU from the same weights, each
                 request with the same frames or patch embeddings: identical
                 greedy tokens, the knobs degrading;
-24. encdec_main -- full-width whisper-medium (24 decoder and 24 encoder
-                layers, bf16) serving the 8 prompt lengths, scaled into
+24. encdec_main -- full-width whisper-medium at 12 of its 24 decoder and
+                12 of its 24 encoder layers (bf16; cut in depth, PERF.md
+                section 4) serving the 8 prompt lengths, scaled into
                 its 448-token decoder context less the 64 new tokens,
                 without extras (the engine's stub frames, 1,500 x 1,024):
                 the knobs (256, 8) degrade to 0 and 1; paged decode and
@@ -222,8 +224,9 @@ Phases, each printing one JSON line (and failing the run on any error):
                 cache's bytes against the formula; a profile of the first
                 step with the encoder's and the cross prefill's shares, and
                 of one decode step with the cross decode's;
-25. vlm_main -- the same for full-width llama-3.2-vision-11b (40 layers, 8
-                cross, 1,601 x 4,096 stub patch embeddings, 20.2 GB).
+25. vlm_main -- the same for full-width llama-3.2-vision-11b at 20 of its
+                40 layers (4 cross; cut in depth, PERF.md section 4),
+                1,601 x 4,096 stub patch embeddings.
 
 26. kernels_train -- the SSD scan's backward (``csrc/ssd_chunk_bwd.cu``)
                 against its plain version (``ref.ssd_chunk_bwd``) at
@@ -273,48 +276,69 @@ Phases, each printing one JSON line (and failing the run on any error):
                 steps) under deterministic algorithms, the loss below half
                 its first value; step time, tokens/s, MFU, peak memory, the
                 SSD backward's and forward's shares of a profiled step;
-31. mesh     -- the model across a (data, model) mesh of two ranks sharing
+31. mesh     -- first flash, paged decode and the SSD scan against their
+                plain versions at the shapes each rank of a 1 x 2 job
+                launches them (``kernel_check_mesh`` lines: half of each
+                config's heads, the full-head checks' limits); then the
+                model across a (data, model) mesh of two ranks sharing
                 the card over gloo (``repro_torch.launch.spmd``, one spawn
                 per mesh, a file store, for the serving and the training
-                jobs): qwen3-8b at its widths and 2 layers (bf16) on
-                1 x 2 (tensor parallel: heads, d_ff and the
-                vocabulary split) and 2 x 1 (ZeRO-3: every leaf's D
-                gathered before use), a prefill of 2 x 1,024 through flash
-                then decode steps through paged attention over the dense
-                cache split by KV heads (4 on 1 x 2; 1 on 2 x 1, where
-                every step all-gathers the whole weights through the
-                host); moonshot at its widths and 2
-                layers in f32 (routing must not flip on bf16 reduction
-                order) with the capacity factor E / K (dropless) on 1 x 2
-                (expert parallel: two all-to-alls), a prefill of 2 x 512
-                then 4 steps; each held against the same model in this
-                process fed the ranks' tokens: logits within 2e-2 of each
-                row's magnitude, the greedy tokens equal but where the
-                one-process top-2 gap is under that, the ranks of a data
-                index bitwise equal, flash and paged launched on every
-                rank through the one-card path's variants, no plain call,
-                no pair dropped on either side, no ``jax`` or ``repro``
-                module in a rank; per rank its launches by variant and
-                ``collectives.stats()``. Then, in the same spawns, the
-                ``mesh_train`` lines: qwen3-8b at its widths and 2 layers
-                (bf16) on 1 x 2 (tensor parallel, a vocab-parallel loss)
+                jobs), every family at its published widths, cut in depth
+                (``MESH_LAYERS``), each rank drawing its blocks leaf by
+                leaf: qwen3-8b (2 layers, bf16) on 1 x 2 (tensor
+                parallel: heads, d_ff and the vocabulary split) and 2 x 1
+                (ZeRO-3: every leaf's D gathered before use), a prefill of
+                2 x 1,024 through flash then decode steps through paged
+                attention over the dense cache split by KV heads (4 on
+                1 x 2; 1 on 2 x 1, where every step all-gathers the whole
+                weights through the host); mamba2-2.7b (2 of 64 layers,
+                bf16: the SSM's heads and d_inner split, the gated norm's
+                sum of squares all-reduced) on 1 x 2 and 2 x 1, 2 x 1,024,
+                the SSD scan's wgmma variant at 40 / 80 heads; moonshot (2
+                layers, f32: routing must not flip on bf16 reduction
+                order; capacity factor E / K, dropless) on 1 x 2 (expert
+                parallel: two all-to-alls), 2 x 512; jamba-v0.1-52b (one
+                period: 8 of 32 layers, 7 SSM, 1 attention, 4 MoE; f32,
+                dropless) on 1 x 2, 2 x 512, each rank's peak (its
+                26.6 GB block) and the one process's (53 GB) printed
+                beside the card's memory; whisper-medium (2 of 24 decoder
+                and 2 of 24 encoder layers, bf16, 1,500 frames: the
+                encoder's heads and the cross K/V split) on 1 x 2, 2 x
+                256; llama-3.2-vision-11b (one period: 5 of 40 layers,
+                the cross layer 3, bf16, 1,601 patch rows) on 1 x 2,
+                2 x 1,024; 4 decode steps on 1 x 2, 1 on 2 x 1. Each held
+                against the same model in this process fed the ranks'
+                tokens: logits within 2e-2 of each row's magnitude, the
+                greedy tokens equal but where the one-process top-2 gap
+                is under that, the ranks of a data index bitwise equal,
+                the path's kernels (flash and paged for attention, the
+                SSD scan for SSM layers) launched on every rank through
+                the one process's variants, no plain call, no pair
+                dropped on either side, no ``jax`` or ``repro`` module in
+                a rank; per rank its launches by variant,
+                ``collectives.stats()`` and peak memory. Then, in the same
+                spawns, the ``mesh_train`` lines: qwen3-8b (2 layers,
+                bf16) on 1 x 2 (tensor parallel, a vocab-parallel loss)
                 and 2 x 1 (ZeRO-3: each gather reduce-scatters its
-                weight's gradient; data parallel), moonshot at its widths
-                and 2 layers (f32, dropless) on 1 x 2 (expert parallel:
-                the all-to-alls reversed in the backward); the gradient
-                at the starting weights, then 2 AdamW steps each (lr
-                1e-4, no warmup) from an AdamW state 3 steps in
-                (``spmd.warm_state``), held against the same in this
-                process: each step's loss and grad norm, and the
+                weight's gradient; data parallel), mamba2-2.7b (2 layers,
+                bf16) on both, and in f32 on 1 x 2 as well, 2 x 1,024;
+                moonshot (2 layers, f32, dropless) on 1 x 2 (the
+                all-to-alls reversed in the backward), 2 x 512;
+                whisper-medium (2 + 2 layers, bf16) on 1 x 2, 2 x 256 with
+                its frames; the gradient at the starting weights, then 2
+                AdamW steps each (lr 1e-4, no warmup) from an AdamW state
+                3 steps in (``spmd.warm_state``), held against the same
+                in this process: each step's loss and grad norm, and the
                 gradients and parameters put back together from the
-                ranks' blocks, within ``spmd.TRAIN_LIMITS`` (PERF.md),
-                every rank's losses and leaf replicas equal,
-                flash's training forward and backward launched on every
-                rank with the one process's variants, no plain call, no
-                pair dropped; per rank its collectives by kind (backward
-                calls and the reduce-scatters' bytes among them). Its
-                seconds are a gloo run's, which stages every collective
-                through the host: they show no collective speed.
+                ranks' blocks, within ``spmd.train_limits`` (PERF.md),
+                every rank's losses and leaf replicas equal, flash's
+                training forward and backward and the SSD scan and its
+                backward launched on every rank with the one process's
+                variants, no plain call, no pair dropped; per rank its
+                collectives by kind (backward calls and the
+                reduce-scatters' bytes among them). Its seconds are a
+                gloo run's, which stages every collective through the
+                host: they show no collective speed.
 
 The models of phases 19-25 are drawn on the card one at a time, each
 freed before the next; so are the training phases' models. Every
@@ -555,15 +579,15 @@ def check_flash(torch, gen, prompt_lens):
                     causal_lens=list(prompt_lens), cross=[300, S]))
 
 
-def ssd_inputs(torch, gen, S, h, p, n, dtype):
-    """One sequence's SSD inputs: x, B and C in ``dtype``, dt and A in
+def ssd_inputs(torch, gen, S, h, p, n, dtype, B=1):
+    """``B`` sequences' SSD inputs: x, B and C in ``dtype``, dt and A in
     f32."""
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
-    return (rnd(1, S, h, p).to(dtype),
-            torch.nn.functional.softplus(rnd(1, S, h)),
+    return (rnd(B, S, h, p).to(dtype),
+            torch.nn.functional.softplus(rnd(B, S, h)),
             -torch.exp(rnd(h) * 0.3),
-            rnd(1, S, h, n).to(dtype), rnd(1, S, h, n).to(dtype))
+            rnd(B, S, h, n).to(dtype), rnd(B, S, h, n).to(dtype))
 
 
 def scaled_err(got, want) -> float:
@@ -3636,6 +3660,24 @@ def phase_hybrid_main(torch, args, prompt_lens):
 
 # ------------------------------------------- encoder-decoder and vlm
 CROSS = dict(encdec="whisper-medium", vlm="llama-3.2-vision-11b")
+# the cross paths' depth: half of each model's layers (whisper's decoder
+# and encoder alike; vision's 4 of 8 periods), cut to pay for the mesh
+# phase's SSM, hybrid and cross-attention jobs; every mechanism (the
+# encoder, the cross prefill, the cross decode) runs at the published
+# widths all the same
+CROSS_LAYERS = {"whisper-medium": 12, "llama-3.2-vision-11b": 20}
+
+
+def cross_config(name: str):
+    """``name`` at its widths and ``CROSS_LAYERS[name]`` layers (an
+    encoder's too)."""
+    from repro_torch.configs import get_config
+    n = CROSS_LAYERS[name]
+    cfg = dataclasses.replace(get_config(name), n_layers=n)
+    if cfg.encoder is not None:
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+            cfg.encoder, n_layers=n))
+    return cfg
 # a decoder's published context where the main path's prompts exceed it:
 # Whisper's n_text_ctx, 448 tokens in every published Whisper model
 TEXT_CTX = {"whisper-medium": 448}
@@ -3844,9 +3886,10 @@ def cross_ranges(torch):
 
 
 def phase_cross_main(torch, args, key: str, prompt_lens):
-    """Full-width whisper-medium (``key`` encdec: 24 decoder and 24 encoder
-    layers) or llama-3.2-vision-11b (vlm: 40 layers, 8 cross), bf16, at
-    full depth: the main path's 8 prompt lengths (whisper's scaled into
+    """Full-width whisper-medium (``key`` encdec: 12 of its 24 decoder and
+    12 of its 24 encoder layers) or llama-3.2-vision-11b (vlm: 20 of its
+    40 layers, 4 cross), bf16 (:func:`cross_config`): the main path's 8
+    prompt lengths (whisper's scaled into
     its 448-token decoder context: :func:`cross_prompt_lens`), 64 new
     tokens each, without extras (the engine's stub: 1,500 x 1,024 frames,
     or 1,601 x 4,096 patch embeddings); the chunk and horizon knobs (256,
@@ -3857,9 +3900,7 @@ def phase_cross_main(torch, args, key: str, prompt_lens):
     step (the prefills and a decode) with the encoder's and the cross
     sub-layers' shares, and of one decode step with the cross decode's.
     Returns the path's launches."""
-    from repro_torch.configs import get_config
-
-    cfg = get_config(CROSS[key])
+    cfg = cross_config(CROSS[key])
     where = f"{key}_main"
     prompt_lens = cross_prompt_lens(cfg.name, prompt_lens)
     model, build_s = build_timed(torch, cfg, args.seed)
@@ -4017,7 +4058,8 @@ def train_kernel_shapes() -> dict:
     Hkv, hd, causal, dtype). qwen3-8b's microbatch of train_main; whisper's
     encoder, causal decoder and cross attention at train_whisper's batch;
     llama-3.2-vision's cross attention over its 1,601 rows; two small f32
-    cases of ragged lengths."""
+    cases of ragged lengths; whisper's shapes on a rank of the mesh
+    phase's 1 x 2 train job (half the heads, 2 x 256)."""
     import torch
     from repro_torch.configs import get_config
     q3, w, vis = (get_config(n) for n in (TRAIN["model"], CROSS["encdec"],
@@ -4039,6 +4081,13 @@ def train_kernel_shapes() -> dict:
                                           False, bf16),
         "f32 causal ragged 77x131": (2, 77, 131, 8, 2, 64, True, f32),
         "f32 cross ragged 50x131": (2, 50, 131, 8, 1, 128, False, f32),
+        # a rank's half of the heads in the mesh phase's 1 x 2 train jobs
+        **{f"{k} {Sq}x{Sk}, a 1 x 2 rank": (2, Sq, Sk, h // 2, hkv // 2, d,
+                                             c, bf16)
+           for k, (Sq, Sk, h, hkv, d, c) in {
+               "whisper encoder": (w.n_ctx, w.n_ctx, *wh, False),
+               "whisper decoder causal": (256, 256, *wh, True),
+               "whisper cross": (256, w.n_ctx, *wh, False)}.items()},
     }
 
 
@@ -4169,8 +4218,8 @@ def ssd_bwd_shapes() -> dict:
     """The SSD backward's shapes, by label: (B, S, H, P, N, dtype, with a
     final-state gradient). mamba2-2.7b's and jamba's training microbatch
     (2 x 4,096 tokens, bf16), a prime length (a ragged last chunk) at
-    mamba2's heads with and without the final state's gradient, and an
-    f32 case."""
+    mamba2's heads with and without the final state's gradient, one rank's
+    40 heads of a 1 x 2 mesh (2 x 1,024, bf16), and an f32 case."""
     import torch
     from repro_torch.configs import get_config
     bf16, f32 = torch.bfloat16, torch.float32
@@ -4187,6 +4236,10 @@ def ssd_bwd_shapes() -> dict:
     p = next_prime(1000)
     out[f"{SSM_MODEL} heads 1x{p}"] = (1, p, *wide, bf16, False)
     out[f"{SSM_MODEL} heads 1x{p}, dstate"] = (1, p, *wide, bf16, True)
+    # a rank's heads in the mesh phase's 1 x 2 train job
+    tp = 2
+    out[f"{SSM_MODEL} 1/{tp} of the heads 2x1024"] = (
+        2, 1024, wide[0] // tp, *wide[1:], bf16, False)
     out["f32 2x263, dstate"] = (2, 263, 8, 64, 128, f32, True)
     return out
 
@@ -5020,65 +5073,229 @@ def train_phases(torch, args, mark):
 
 
 # the mesh phase: two ranks on the one card over gloo, one spawn per mesh
-# (for the mesh_train jobs too); full widths, cut in depth to 2 layers;
-# qwen3-8b's prefill of 2 x 1,024 then decode steps (4 under tensor
-# parallelism; 1 under ZeRO-3, whose every step all-gathers every weight
-# through the host), moonshot's (f32, capacity factor E / K: dropless) of
-# 2 x 512 then 4
-MESH = dict(layers=2, batch=2, meshes={
+# (for the mesh_train jobs too); full widths, cut in depth (MESH_LAYERS);
+# prefills of 2 x S then decode steps (4 under tensor parallelism; 1 under
+# ZeRO-3, whose every step all-gathers every weight through the host):
+# qwen3-8b and mamba2-2.7b (bf16) of 2 x 1,024; moonshot (f32, capacity
+# factor E / K: dropless) of 2 x 512; jamba (f32, dropless) of 2 x 512;
+# whisper-medium (bf16, 1,500 frames) of 2 x 256; llama-3.2-vision-11b
+# (bf16, 1,601 patch rows) of 2 x 1,024
+MESH = dict(batch=2, meshes={
     (1, 2): (("qwen_1x2", MAIN["model"], 1024, 4),
-             ("moe_1x2", "moonshot-v1-16b-a3b", 512, 4)),
-    (2, 1): (("qwen_2x1", MAIN["model"], 1024, 1),)})
+             ("moe_1x2", "moonshot-v1-16b-a3b", 512, 4),
+             ("mamba2_1x2", SSM_MODEL, 1024, 4),
+             ("jamba_1x2", "jamba-v0.1-52b", 512, 4),
+             ("whisper_1x2", "whisper-medium", 256, 4),
+             ("vlm_1x2", "llama-3.2-vision-11b", 1024, 4)),
+    (2, 1): (("qwen_2x1", MAIN["model"], 1024, 1),
+             ("mamba2_2x1", SSM_MODEL, 1024, 1))})
+# each model's layers in the mesh phase: 2 of qwen3-8b's 36, moonshot's 48
+# and mamba2's 64; one period of jamba (8 of 32: 7 SSM, 1 attention, 4
+# MoE) and of vision (5 of 40, the cross layer 3); 2 of whisper's 24
+# decoder and 2 of its 24 encoder layers
+MESH_LAYERS = {MAIN["model"]: 2, "moonshot-v1-16b-a3b": 2, SSM_MODEL: 2,
+               "jamba-v0.1-52b": 8, "llama-3.2-vision-11b": 5,
+               "whisper-medium": 2}
 
 
-def mesh_config(torch, name: str):
-    """``name`` at its widths and ``MESH["layers"]`` layers; a MoE in f32
-    (routing must not flip on bf16 reduction order) and dropless
-    (``spmd.dropless``: capacity factor E / K)."""
+def mesh_config(torch, name: str, dtype=None):
+    """``name`` at its widths and ``MESH_LAYERS[name]`` layers (an
+    encoder's too), in ``dtype`` (a ``torch`` dtype's name) where given;
+    a MoE in f32 (routing must not flip on bf16 reduction order) and
+    dropless (``spmd.dropless``: capacity factor E / K)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import spmd
-    cfg = dataclasses.replace(get_config(name), n_layers=MESH["layers"])
+    n = MESH_LAYERS[name]
+    cfg = dataclasses.replace(get_config(name), n_layers=n)
+    if cfg.encoder is not None:
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+            cfg.encoder, n_layers=n))
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=getattr(torch, dtype))
     if cfg.moe is None:
         return cfg
     return spmd.dropless(dataclasses.replace(cfg, dtype=torch.float32))
 
 
-def phase_mesh(torch, args) -> dict:
-    """The model across a (data, model) mesh of two ranks sharing the card
-    over gloo (``repro_torch.launch.spmd``), one spawn per mesh for the
-    serving jobs (``MESH``) and the training jobs (``MESH_TRAIN``) alike.
-    Serving: qwen3-8b with tensor parallelism (1 x 2) and with ZeRO-3 (2 x
-    1), moonshot with expert parallelism (1 x 2), each held against the
-    same model in this process fed the ranks' tokens (:func:`mesh_serving`).
-    Training, the ``mesh_train`` lines: the same meshes' AdamW steps held
-    against the same steps in this process (:func:`mesh_training`). No
-    ``jax`` or ``repro`` module may load in any rank. The times are of a
-    gloo run, which stages every collective through the host: they show no
-    collective speed. Returns each rank's launches by path."""
+def mesh_kernels(cfg, train: bool) -> tuple:
+    """The hand kernels a mesh job of ``cfg`` launches on every rank:
+    serving, flash (the prefills) and paged attention (the decode steps)
+    for attention layers and the SSD scan for SSM layers; training, flash's
+    training forward and its backward, the SSD scan and its backward."""
+    attn, ssm = cfg.family != "ssm", cfg.ssm is not None
+    if train:
+        return ((("flash_attention_lse", "flash_attention_bwd") if attn
+                 else ()) + (("ssd_chunk", "ssd_chunk_bwd") if ssm else ()))
+    return ((("flash_attention", "paged_attention") if attn else ())
+            + (("ssd_chunk",) if ssm else ()))
+
+
+def mesh_kernel_shapes(torch) -> dict:
+    """The shapes at which each rank of the mesh phase's 1 x 2 serving
+    jobs (``MESH``) launches the hand kernels, each config's heads halved,
+    by kernel and label: flash (B, Sq, Sk, H, Hkv, hd, causal, dtype) for
+    the causal self prefill, the encoder, the cross prefill and the cross
+    decode (Sq 1); paged (B, sequence length, H, Hkv, hd, dtype) for the
+    decode steps; the SSD scan (B, S, H, P, N, chunk, dtype)."""
+    tp = 2
+    out = {"flash_attention": {}, "paged_attention": {}, "ssd_chunk": {}}
+    for label, name, S, steps in MESH["meshes"][(1, tp)]:
+        cfg = mesh_config(torch, name)
+        B, dt = MESH["batch"], cfg.dtype
+        if cfg.family != "ssm":
+            heads = (cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.head_dim_)
+            out["flash_attention"][f"{label} self {S}"] = (
+                B, S, S, *heads, True, dt)
+            out["paged_attention"][f"{label} decode {S + steps}"] = (
+                B, S + steps, *heads, dt)
+            if cfg.encoder is not None:
+                out["flash_attention"][f"{label} encoder {cfg.n_ctx}"] = (
+                    B, cfg.n_ctx, cfg.n_ctx, *heads, False, dt)
+            if cfg.n_ctx:
+                out["flash_attention"][f"{label} cross {S}x{cfg.n_ctx}"] = (
+                    B, S, cfg.n_ctx, *heads, False, dt)
+                out["flash_attention"][f"{label} cross decode {cfg.n_ctx}"] = (
+                    B, 1, cfg.n_ctx, *heads, False, dt)
+        if cfg.ssm is not None:
+            s = cfg.ssm
+            out["ssd_chunk"][f"{label} {S}"] = (
+                B, S, s.n_heads(cfg.d_model) // tp, s.head_dim, s.d_state,
+                s.chunk, dt)
+    return out
+
+
+def check_mesh_kernels(torch, gen) -> dict:
+    """Flash, paged decode and the SSD scan against their plain versions
+    (``ref.blockwise_attention``, ``ref.paged_attention_ref``,
+    ``ref.ssd_chunk_scan``, f32 on the same values) at each rank shape of
+    :func:`mesh_kernel_shapes`, under the full-head checks' limits: bf16
+    attention within 2e-2 absolute and of a row's magnitude, f32 within
+    1e-5; the SSD scan's y within 1e-2 of its magnitude and of each head's
+    in bf16 (1e-4 in f32), its state within 1e-4. Returns
+    the errors and variants by kernel and label."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk as ssd
+
+    shapes = mesh_kernel_shapes(torch)
+    out = {k: {} for k in shapes}
+
+    def held(name, label, err, row_err, dt):
+        if dt == torch.float32:
+            require(err <= 1e-5, f"{name} at the mesh's {label} (f32): "
+                    f"max_abs_err {err}")
+        else:
+            require(err <= 2e-2 and row_err <= 2e-2,
+                    f"{name} at the mesh's {label}: max_abs_err {err}, "
+                    f"row-scaled {row_err}")
+
+    for label, (B, Sq, Sk, H, Hkv, hd, causal, dt) in \
+            shapes["flash_attention"].items():
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                   for shape in ((B, Sq, H, hd), (B, Sk, Hkv, hd),
+                                 (B, Sk, Hkv, hd)))
+        err, row_err = chunk_errors(
+            fa.flash_attention(q, k, v, causal=causal),
+            ref.blockwise_attention(q.float(), k.float(), v.float(), causal))
+        held("flash_attention", label, err, row_err, dt)
+        out["flash_attention"][label] = dict(
+            max_abs_err=err, row_scaled_err=row_err,
+            variant=fa.variant(dt, hd), shape=[B, Sq, Sk, H, Hkv, hd],
+            causal=causal, dtype=str(dt))
+        del q, k, v
+    page = 16
+    for label, (B, n, H, Hkv, hd, dt) in shapes["paged_attention"].items():
+        W = -(-n // page)
+        q, kp, vp, bt, sl = paged_inputs(torch, gen, [n] * B, H, Hkv, hd,
+                                         page, W, B * W + 1, dt)
+        err, row_err = chunk_errors(
+            pa.paged_attention(q, kp, vp, bt, sl),
+            ref.paged_attention_ref(q.float(), kp.float(), vp.float(), bt,
+                                    sl))
+        held("paged_attention", label, err, row_err, dt)
+        out["paged_attention"][label] = dict(
+            max_abs_err=err, row_scaled_err=row_err,
+            shape=[B, n, H, Hkv, hd], dtype=str(dt))
+        del q, kp, vp
+    for label, (B, S, H, P, N, chunk, dt) in shapes["ssd_chunk"].items():
+        args = ssd_inputs(torch, gen, S, H, P, N, dt, B=B)
+        y, st = ssd.ssd_chunk(*args, chunk)
+        y_ref, st_ref = ref.ssd_chunk_scan(*args, chunk)
+        errs = dict(y_scaled_err=scaled_err(y, y_ref),
+                    y_head_scaled_err=head_scaled_err(y, y_ref),
+                    state_scaled_err=scaled_err(st, st_ref))
+        lim = 1e-4 if dt == torch.float32 else 1e-2
+        require(errs["state_scaled_err"] <= 1e-4
+                and errs["y_scaled_err"] <= lim
+                and errs["y_head_scaled_err"] <= lim,
+                f"ssd_chunk at the mesh's {label}: {errs}")
+        out["ssd_chunk"][label] = dict(
+            **errs, variant=ssd.variant(dt, N, P, chunk),
+            shape=[B, S, H, P, N], dtype=str(dt))
+        del args, y, st, y_ref, st_ref
+    for name, by in out.items():
+        for label, rec in by.items():
+            emit("kernel_check_mesh", name=name, case=label, **rec)
+    return out
+
+
+def mesh_jobs(torch, args) -> dict:
+    """By mesh shape, the ``spmd.Job`` of each ``MESH`` case and then the
+    ``spmd.TrainJob`` of each ``MESH_TRAIN`` case, their tokens and frames
+    or patch embeddings drawn from the seed."""
     from repro_torch.launch import spmd
     from repro_torch.training.optimizer import OptConfig
-
-    reset_peak(torch)
-    smi = nvidia_smi()
     gen = torch.Generator().manual_seed(args.seed + 25)
     gen_train = torch.Generator().manual_seed(args.seed + 26)
+    gen_extras = torch.Generator().manual_seed(args.seed + 27)
     opt = OptConfig(lr=spmd.TRAIN_LR, warmup_steps=1)
-    paths = {}
+    out = {}
     for shape, cases in MESH["meshes"].items():
-        jobs = []
+        jobs = out[shape] = []
         for _, name, S, steps in cases:
             cfg = mesh_config(torch, name)
             jobs.append(spmd.Job(cfg, torch.randint(
                 0, cfg.vocab, (MESH["batch"], S), generator=gen,
-                dtype=torch.int32), steps, seed=args.seed))
-        train_cases = MESH_TRAIN["meshes"][shape]
-        for _, name, S in train_cases:
-            cfg = dataclasses.replace(mesh_config(torch, name),
-                                      n_layers=MESH_TRAIN["layers"])
+                dtype=torch.int32), steps, seed=args.seed,
+                extras=spmd.modality_extras(cfg, MESH["batch"], gen_extras)))
+        for _, name, S, dtype, steps in MESH_TRAIN["meshes"][shape]:
+            cfg = mesh_config(torch, name, dtype)
             jobs.append(spmd.TrainJob(cfg, torch.randint(
                 0, cfg.vocab, (MESH_TRAIN["batch"], S), generator=gen_train,
-                dtype=torch.int32), MESH_TRAIN["steps"], opt=opt,
-                seed=args.seed))
+                dtype=torch.int32), steps, opt=opt, seed=args.seed,
+                extras=spmd.modality_extras(cfg, MESH_TRAIN["batch"],
+                                            gen_extras)))
+    return out
+
+
+def phase_mesh(torch, args) -> dict:
+    """The hand kernels at the 1 x 2 ranks' shapes against their plain
+    versions (:func:`check_mesh_kernels`), then the model across a (data,
+    model) mesh of two ranks sharing the card
+    over gloo (``repro_torch.launch.spmd``), one spawn per mesh for the
+    serving jobs (``MESH``) and the training jobs (``MESH_TRAIN``) alike.
+    Serving: qwen3-8b and mamba2-2.7b with tensor parallelism (1 x 2) and
+    with ZeRO-3 (2 x 1), moonshot with expert parallelism (1 x 2), jamba,
+    whisper-medium and llama-3.2-vision-11b with tensor and expert
+    parallelism (1 x 2), each held against the same model in this process
+    fed the ranks' tokens (:func:`mesh_serving`). Training, the
+    ``mesh_train`` lines: the same meshes' AdamW steps held against the
+    same steps in this process (:func:`mesh_training`). No ``jax`` or
+    ``repro`` module may load in any rank. The times are of a gloo run,
+    which stages every collective through the host: they show no
+    collective speed. Returns each rank's launches by path."""
+    from repro_torch.launch import spmd
+
+    check_mesh_kernels(torch, torch.Generator(device="cuda").manual_seed(
+        args.seed + 28))
+    reset_peak(torch)
+    smi = nvidia_smi()
+    card = torch.cuda.get_device_properties(0).total_memory
+    paths = {}
+    for shape, jobs in mesh_jobs(torch, args).items():
+        cases, train_cases = MESH["meshes"][shape], MESH_TRAIN["meshes"][shape]
+        reset_peak(torch)
         t0 = time.perf_counter()
         backend, results = spmd.run(jobs, shape, device="cuda")
         seconds = time.perf_counter() - t0
@@ -5086,50 +5303,84 @@ def phase_mesh(torch, args) -> dict:
                 f"two ranks on one card")
         n = len(cases)
         for case, job, res in zip(cases, jobs[:n], results[:n]):
-            mesh_serving(case, job, res, shape, backend, seconds, smi, paths)
+            mesh_serving(case, job, res, shape, backend, seconds, smi, card,
+                         paths)
         for case, job, res in zip(train_cases, jobs[n:], results[n:]):
-            mesh_training(case, job, res, shape, backend, seconds, smi,
+            mesh_training(case, job, res, shape, backend, seconds, smi, card,
                           paths)
         del results
         reset_peak(torch)
     return paths
 
 
-def mesh_serving(case, job, res, shape, backend, seconds, smi, paths):
+def mesh_memory(res, card: int) -> dict:
+    """Each rank's peak device memory (the ranks run together, the one
+    process after them), the one process's, and the card's, in GB."""
+    ranks = [r["peak_bytes"] for r in res["records"]]
+    return dict(ranks_peak_gb=[b / 1e9 for b in ranks],
+                ranks_peak_sum_gb=sum(ranks) / 1e9,
+                one_process_peak_gb=res["single"]["peak_bytes"] / 1e9,
+                card_total_gb=card / 1e9)
+
+
+def require_mesh_kernels(where: str, res, kernels) -> None:
+    """Every rank launched each of ``kernels`` with the one process's
+    variants, and no plain version ran on any rank or in the one
+    process."""
+    one = res["single"]["counts"]
+    require(not any(one["plain_calls"].values()),
+            f"{where}: a plain version ran in the one process: "
+            f"{one['plain_calls']}")
+    for r in res["records"]:
+        c, rank = r["counts"], r["rank"]
+        for k in kernels:
+            require(c["launches"][k] > 0,
+                    f"{where}: rank {rank} never launched {k}")
+            if k in c["launches_by_variant"]:
+                require(c["launches_by_variant"][k]
+                        == one["launches_by_variant"][k],
+                        f"{where}: rank {rank}'s {k} variants "
+                        f"{c['launches_by_variant'][k]} are not the one "
+                        f"process's {one['launches_by_variant'][k]}")
+        require(not any(c["plain_calls"].values()),
+                f"{where}: a plain version ran on rank {rank}: "
+                f"{c['plain_calls']}")
+
+
+def mesh_serving(case, job, res, shape, backend, seconds, smi, card,
+                 paths):
     """One serving job of :func:`phase_mesh`: logits within the row-scaled
     2e-2 of the one process's, greedy tokens equal but near ties, the
-    ranks of a data index equal, flash and paged launched on every rank
-    through the one-card path's variants, no plain call, no pair dropped
-    by the MoE on either side."""
+    ranks of a data index equal, the path's kernels (:func:`mesh_kernels`)
+    launched on every rank through the one process's variants, no plain
+    call, no pair dropped by the MoE on either side. Prints each rank's
+    launches by variant, collectives and peak memory beside the one
+    process's and the card's."""
     label, _, S, steps = case
     cfg, chk, single = job.cfg, res["check"], res["single"]
     one = single["counts"]
+    require_mesh_kernels(f"mesh {label}", res, mesh_kernels(cfg, False))
     for r in res["records"]:
-        c, rank = r["counts"], r["rank"]
-        for k in ("flash_attention", "paged_attention"):
-            require(c["launches"][k] > 0,
-                    f"mesh {label}: rank {rank} never launched {k}")
-        require(c["launches_by_variant"]["flash_attention"]
-                == one["launches_by_variant"]["flash_attention"],
-                f"mesh {label}: rank {rank}'s flash variants "
-                f"{c['launches_by_variant']['flash_attention']} are not the "
-                f"one-card path's")
-        require(not any(c["plain_calls"].values()),
-                f"mesh {label}: a plain version ran on rank {rank}")
-        paths[f"mesh_{label}_rank{rank}"] = {
-            k: n for k, n in c["launches"].items() if n}
+        paths[f"mesh_{label}_rank{r['rank']}"] = {
+            k: n for k, n in r["counts"]["launches"].items() if n}
     require(chk["ok"], f"mesh {label}: {chk}")
     if cfg.moe is not None:
         require(chk["dropped"] == {"mesh": 0, "one_process": 0},
                 f"mesh {label}: pairs dropped {chk['dropped']}")
     emit("mesh", case=label, model=cfg.name, layers=cfg.n_layers,
+         encoder_layers=cfg.encoder.n_layers if cfg.encoder else None,
          dtype=str(cfg.dtype), mesh=list(shape), backend=backend,
          prompts=[MESH["batch"], S], decode_steps=steps,
+         extras={k: list(v.shape) for k, v in (job.extras or {}).items()},
          capacity_factor=(cfg.moe.capacity_factor if cfg.moe else None),
          mesh_and_checks_s=seconds, mesh_s=res["mesh_seconds"],
-         check=chk, ranks=res["ranks"],
+         check=chk, ranks=res["ranks"], memory=mesh_memory(res, card),
          one_process=dict(launches={k: n for k, n in
                                     one["launches"].items() if n},
+                          launches_by_variant={
+                              k: v for k, v in
+                              one["launches_by_variant"].items()
+                              if any(v.values())},
                           plain_calls=one["plain_calls"],
                           moe_pairs=single["moe_pairs"],
                           moe_dropped=single["moe_dropped"],
@@ -5137,72 +5388,162 @@ def mesh_serving(case, job, res, shape, backend, seconds, smi, paths):
          nvidia_smi=smi)
 
 
-# the mesh_train lines: in the mesh phase's spawns, full widths, 2 layers;
-# the gradient at the starting weights, then 2 AdamW steps (lr 1e-4, no
-# warmup, from spmd.warm_state) of qwen3-8b (bf16) on 2 x 1,024 tokens with
-# tensor parallelism (1 x 2) and with ZeRO-3 and data parallelism (2 x 1),
-# of moonshot (f32, dropless) on 2 x 512 with expert parallelism (1 x 2);
-# each against the same in this process, within spmd.TRAIN_LIMITS
-# (PERF.md)
-MESH_TRAIN = dict(layers=2, batch=2, steps=2, meshes={
-    (1, 2): (("qwen_tp_1x2", MAIN["model"], 1024),
-             ("moe_ep_1x2", "moonshot-v1-16b-a3b", 512)),
-    (2, 1): (("qwen_zero3_2x1", MAIN["model"], 1024),)})
+# the mesh_train lines: in the mesh phase's spawns, full widths, 2 layers
+# (whisper: 2 decoder and 2 encoder layers); the gradient at the starting
+# weights, then AdamW steps (lr 1e-4, no warmup, from spmd.warm_state) of
+# qwen3-8b and mamba2-2.7b (bf16) on 2 x 1,024 tokens with tensor
+# parallelism (1 x 2) and with ZeRO-3 and data parallelism (2 x 1), of
+# mamba2-2.7b in f32 as well on 1 x 2 (bf16 rounding moves its gradients
+# 1-2% of their norm: f32 holds its sharded backward to tighter limits), of
+# moonshot (f32, dropless) on 2 x 512 with expert parallelism (1 x 2), of
+# whisper-medium (bf16, 1,500 frames) on 2 x 256 with tensor parallelism
+# (1 x 2); each against the same in this process, within
+# spmd.train_limits (PERF.md). A case: (label, model, S, dtype, steps)
+MESH_TRAIN = dict(batch=2, meshes={
+    (1, 2): (("qwen_tp_1x2", MAIN["model"], 1024, "bfloat16", 2),
+             ("moe_ep_1x2", "moonshot-v1-16b-a3b", 512, "float32", 2),
+             ("mamba2_tp_1x2", SSM_MODEL, 1024, "bfloat16", 2),
+             ("mamba2_tp_f32_1x2", SSM_MODEL, 1024, "float32", 2),
+             ("whisper_tp_1x2", "whisper-medium", 256, "bfloat16", 2)),
+    (2, 1): (("qwen_zero3_2x1", MAIN["model"], 1024, "bfloat16", 2),
+             ("mamba2_zero3_2x1", SSM_MODEL, 1024, "bfloat16", 2))})
 
 
-def mesh_training(case, job, res, shape, backend, seconds, smi, paths):
+def mesh_training(case, job, res, shape, backend, seconds, smi, card,
+                  paths):
     """One training job of :func:`phase_mesh` (a ``mesh_train`` line).
     Requires, on every rank: each step's loss and grad norm, and the
     gradients at the starting weights and the parameters after the steps
     put back together from the ranks' blocks, within
-    ``spmd.TRAIN_LIMITS`` of the one process's, every rank's losses and
-    norms and every leaf's replicas equal, the flash forward (with lse)
-    and backward launched with the one process's variants, no plain call
-    (in the one process neither), and for the MoE no pair dropped on
-    either side. Prints each rank's
-    collectives by kind, the reduce-scatters' bytes among them."""
-    label, _, S = case
+    ``spmd.train_limits`` of the one process's, every rank's losses and
+    norms and every leaf's replicas equal, the path's training kernels
+    (:func:`mesh_kernels`: flash's forward with lse and backward, the SSD
+    scan and its backward) launched with the one process's variants, no
+    plain call (in the one process neither), and for the MoE no pair
+    dropped on either side. Prints each rank's collectives by kind, the
+    reduce-scatters' bytes among them, and its peak memory."""
+    label, _, S = case[:3]
     cfg, chk, single = job.cfg, res["check"], res["single"]
     one = single["counts"]
-    require(not any(one["plain_calls"].values()),
-            f"mesh_train {label}: a plain version ran in the one process: "
-            f"{one['plain_calls']}")
+    kernels = mesh_kernels(cfg, True)
+    require_mesh_kernels(f"mesh_train {label}", res, kernels)
     for r in res["records"]:
-        c, rank = r["counts"], r["rank"]
-        for k in ("flash_attention_lse", "flash_attention_bwd"):
-            require(c["launches"][k] > 0,
-                    f"mesh_train {label}: rank {rank} never launched {k}")
-            require(c["launches_by_variant"][k]
-                    == one["launches_by_variant"][k],
-                    f"mesh_train {label}: rank {rank}'s {k} variants "
-                    f"{c['launches_by_variant'][k]} are not the one "
-                    f"process's {one['launches_by_variant'][k]}")
-        require(not any(c["plain_calls"].values()),
-                f"mesh_train {label}: a plain version ran on rank {rank}: "
-                f"{c['plain_calls']}")
-        paths[f"mesh_train_{label}_rank{rank}"] = {
-            k: n for k, n in c["launches"].items() if n}
+        paths[f"mesh_train_{label}_rank{r['rank']}"] = {
+            k: n for k, n in r["counts"]["launches"].items() if n}
     require(chk["ok"], f"mesh_train {label}: {chk}")
     if cfg.moe is not None:
         require(chk["dropped"] == {"mesh": 0, "one_process": 0},
                 f"mesh_train {label}: pairs dropped {chk['dropped']}")
     emit("mesh_train", case=label, model=cfg.name, layers=cfg.n_layers,
+         encoder_layers=cfg.encoder.n_layers if cfg.encoder else None,
          dtype=str(cfg.dtype), mesh=list(shape), backend=backend,
          batch=[MESH_TRAIN["batch"], S], steps=job.steps, lr=job.opt.lr,
+         extras={k: list(v.shape) for k, v in (job.extras or {}).items()},
          capacity_factor=(cfg.moe.capacity_factor if cfg.moe else None),
          mesh_and_checks_s=seconds, mesh_s=res["mesh_seconds"],
          one_process_s=res["one_process_seconds"],
          check_s=res["check_seconds"], check=chk, ranks=res["ranks"],
+         memory=mesh_memory(res, card),
          one_process=dict(
              launches={k: n for k, n in one["launches"].items() if n},
              launches_by_variant={
-                 k: one["launches_by_variant"][k] for k in
-                 ("flash_attention_lse", "flash_attention_bwd")},
+                 k: one["launches_by_variant"][k] for k in kernels
+                 if k in one["launches_by_variant"]},
              plain_calls=one["plain_calls"],
              moe_pairs=single["moe_pairs"],
              moe_dropped=single["moe_dropped"],
              seconds=single["seconds"]),
          nvidia_smi=smi)
+
+
+def _pre_wb_not_summed(p, x, cfg, ctx=None):
+    """A planted fault: ``mamba2._pre`` with ``wB`` not entering the rank's
+    heads, so its gradient is this rank's part alone."""
+    import torch.nn.functional as F
+    from repro_torch.distributed import collectives as C
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models.common import rms_norm
+    s = cfg.ssm
+    H = p["wdt"].shape[1]
+    h = C.enter(rms_norm(x, p["ln"], cfg.norm_eps), "tp", ctx)
+    Bm = (h @ p["wB"]).reshape(*h.shape[:-1], s.n_groups, s.d_state)
+    Cm = (h @ C.enter(p["wC"], "tp", ctx)).reshape(
+        *h.shape[:-1], s.n_groups, s.d_state)
+    dt = F.softplus((h @ p["wdt"]).float() + p["dt_bias"])
+    return (h @ p["wx"], h @ p["wz"], M2._groups(Bm, H, cfg, ctx),
+            M2._groups(Cm, H, cfg, ctx), dt)
+
+
+def _no_data_sum(self) -> None:
+    """A planted fault: ``Model.sum_grads_over_data`` summing nothing, so
+    the gradients of the leaves no fsdp dim splits are each data rank's
+    rows' alone."""
+
+
+# the faults of --mesh-controls, by mesh: (label, module, attribute, planted)
+MESH_FAULTS = {
+    (1, 2): ("wB_grad_not_summed", "repro_torch.models.mamba2", "_pre",
+             _pre_wb_not_summed),
+    (2, 1): ("data_grads_not_summed", "repro_torch.models.transformer",
+             "Model.sum_grads_over_data", _no_data_sum)}
+
+
+def mesh_control_rank(mesh, device, job, fault):
+    """One rank of :func:`mesh_controls`: ``spmd.train`` of ``job``, then
+    again with ``fault`` (a ``MESH_FAULTS`` entry) planted; both records,
+    their gradients and parameters on the CPU."""
+    import importlib
+    from repro_torch.launch import spmd
+    from repro_torch.tree import tree_map
+    _, module, attr, planted = fault
+    obj = importlib.import_module(module)
+    *owner, attr = attr.split(".")
+    for name in owner:
+        obj = getattr(obj, name)
+    out = []
+    for faulty in (False, True):
+        saved = getattr(obj, attr)
+        if faulty:
+            setattr(obj, attr, planted)
+        try:
+            rec = spmd.train(mesh, device, job)
+        finally:
+            setattr(obj, attr, saved)
+        for key in ("grads", "params"):
+            rec[key] = tree_map(lambda t: t.detach().cpu(), rec[key])
+        out.append(rec)
+    return out
+
+
+def mesh_controls(torch, args) -> None:
+    """``--mesh-controls``: the readings that ``spmd.train_limits`` of
+    mamba2-2.7b lie between. First :func:`check_mesh_kernels`; then its
+    train jobs of the mesh phase
+    (``MESH_TRAIN``, the same tokens) on each mesh, sound and then with the
+    mesh's planted fault (``MESH_FAULTS``), each held against the same job
+    in one process by ``spmd.check_train``; prints every reading
+    (``mesh_control`` lines) and requires none."""
+    from repro_torch.launch import spmd
+    smi = nvidia_smi()
+    check_mesh_kernels(torch, torch.Generator(device="cuda").manual_seed(
+        args.seed + 28))
+    for shape, jobs in mesh_jobs(torch, args).items():
+        n = len(MESH["meshes"][shape])
+        for case, job in zip(MESH_TRAIN["meshes"][shape], jobs[n:]):
+            if job.cfg.name != SSM_MODEL:
+                continue
+            backend, per_rank = spmd.launch(
+                mesh_control_rank, shape, (job, MESH_FAULTS[shape]),
+                device="cuda")
+            single = spmd.train(None, torch.device("cuda"), job)
+            for i, fault in enumerate((None, MESH_FAULTS[shape][0])):
+                chk = spmd.check_train([r[i] for r in per_rank], single, job,
+                                       shape)
+                emit("mesh_control", case=case[0], fault=fault,
+                     mesh=list(shape), backend=backend, steps=job.steps,
+                     check=chk, nvidia_smi=smi)
+            del per_rank, single
+            torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -5218,6 +5559,11 @@ def main(argv=None) -> int:
                     "this lr instead of train_main's, and print both "
                     "curves without holding them to each other (how each "
                     "falls at that lr)")
+    ap.add_argument("--mesh-controls", action="store_true",
+                    help="build the kernels, run only mamba2-2.7b's mesh "
+                    "train jobs, sound and with a planted fault, print "
+                    "their checks' readings without requiring them, and "
+                    "exit")
     args = ap.parse_args(argv)
     # cuBLAS is deterministic only with a fixed workspace, set before torch
     # loads it; train_main's resume check runs under deterministic
@@ -5253,6 +5599,9 @@ def main(argv=None) -> int:
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[str(_build._target(n).relative_to(ROOT))
                     for n in _build.SOURCES])
+    if args.mesh_controls:
+        mesh_controls(torch, args)
+        return 0
     if args.lr_witness_layers:
         from repro_torch.configs import get_config
         with torch.enable_grad():

@@ -25,24 +25,27 @@ def build_model(cfg: Union[str, ArchConfig],
     run's model). ``mesh`` sets the sharding context
     (:mod:`repro_torch.distributed.sharding`): a production mesh is data
     the launch tooling reads; on a live mesh
-    (:func:`repro_torch.launch.mesh.make_local_mesh`) ``params`` (or the
-    weights drawn from ``seed``, the same on every rank) are the whole
-    tree and the model keeps this rank's block of each leaf, raising
+    (:func:`repro_torch.launch.mesh.make_local_mesh`) ``params`` are the
+    whole tree and the model keeps this rank's block of each leaf, or,
+    without ``params``, each leaf is drawn whole from ``seed`` (the same
+    on every rank) and cut to its block before the next is drawn
+    (:func:`init_params`), so a rank never holds the whole model. Raises
     ``ValueError`` for a leaf the mesh does not divide."""
     if isinstance(cfg, str):
         cfg = get_config(cfg)
     device = resolve_device(device)
-    if params is None and device.type == "meta":
-        params = abstract_tree(param_specs(cfg))
-    elif params is None:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
-        params = init_params(cfg, gen, device)
     ctx = ShardingCtx(mesh)
     check_mesh(cfg, ctx)
-    if ctx.live:
-        params = ctx.shard_tree(params, pspec_tree(param_specs(cfg),
-                                                   mesh_rules(mesh)))
+    if params is None and device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        params = init_params(cfg, gen, device, ctx)
+    else:
+        if params is None:
+            params = abstract_tree(param_specs(cfg))
+        if ctx.live:
+            params = ctx.shard_tree(params, pspec_tree(param_specs(cfg),
+                                                       mesh_rules(mesh)))
     return Model(cfg, params, trainable, mesh=mesh).to(device)
 
 

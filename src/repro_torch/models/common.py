@@ -214,16 +214,43 @@ def _init_leaf(spec: Spec, dtype: torch.dtype, generator: torch.Generator,
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device=None) -> Dict[str, Any]:
+                device=None, ctx=None) -> Dict[str, Any]:
     """Random parameters drawn from the reference's ``init_tree``
     distribution (normal with std = scale / sqrt(fan_in), drawn in f32 and
     cast; ones and zeros where it has them; its leaf dtypes) — the same
     distribution, not the same bits. ``generator`` must live on
-    ``device``."""
+    ``device``.
+
+    With a live ``ctx`` (:class:`~repro_torch.distributed.sharding.
+    ShardingCtx`) each leaf is drawn whole and cut to this rank's block
+    (:meth:`~repro_torch.distributed.sharding.ShardingCtx.local_block`)
+    before the next is drawn, from the same generator in the same order:
+    the blocks of the whole tree's draw, while the device holds the
+    blocks so far and one whole leaf, never the whole tree."""
     from repro_torch import resolve_device
     device = resolve_device(device)
-    return _map_specs(lambda s: _init_leaf(s, cfg.dtype, generator, device),
-                      param_specs(cfg))
+    specs = param_specs(cfg)
+
+    def draw(s):
+        return _init_leaf(s, cfg.dtype, generator, device)
+    if ctx is None or not ctx.live:
+        return _map_specs(draw, specs)
+    return _zip_specs(lambda s, spec, name: ctx.local_block(draw(s), spec,
+                                                            name),
+                      specs, pspec_tree(specs, ctx.rules))
+
+
+def _zip_specs(fn, tree, other, path: str = ""):
+    """``fn(spec, other's entry, path)`` over the Specs of a
+    :func:`param_specs` tree in insertion order, beside a tree ``other``
+    of its layout (``"/layers/0/attn/wq"`` the path of a leaf)."""
+    if isinstance(tree, Spec):
+        return fn(tree, other, path)
+    if isinstance(tree, dict):
+        return {k: _zip_specs(fn, v, other[k], f"{path}/{k}")
+                for k, v in tree.items()}
+    return [_zip_specs(fn, v, o, f"{path}/{i}")
+            for i, (v, o) in enumerate(zip(tree, other))]
 
 
 def abstract_tree(specs, dtype_override=None) -> Dict[str, Any]:

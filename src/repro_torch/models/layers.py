@@ -13,11 +13,11 @@ so a function given one rank's block of the heads (``wq``/``wk``/``wv``
 columns, ``wo`` rows: ``H/tp`` query and ``Hkv/tp`` KV heads) attends over
 those heads alone, and an FFN given its block of ``d_ff`` computes that
 block. Their output products (``wo``, ``w_down``) are then partial sums,
-which :func:`attn_full`, :func:`attn_decode` and :func:`ffn_apply` add up
-over ``model`` when given a live ``ctx``
-(:func:`repro_torch.distributed.collectives.all_reduce_sum`); without one
-they are the one-card functions. Under autograd the normed rows (and the
-qk-norm scales) enter the rank's block through
+which :func:`attn_full`, :func:`attn_decode`, :func:`attn_decode_cross`
+and :func:`ffn_apply` add up over ``model`` when given a live ``ctx``
+(:func:`repro_torch.distributed.collectives.all_reduce_sum`); without
+one they are the one-card functions. Under autograd the normed rows (and
+the qk-norm scales) enter the rank's block through
 :func:`~repro_torch.distributed.collectives.enter`, so their gradients are
 summed over ``model``, and the all-reduce's backward is the identity.
 """
@@ -72,12 +72,14 @@ def attn_full(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
     encoder's not. Cross-attention projects k/v from the raw ``kv_src``
     [B,Sk,C] (the encoder's output or the patch embeddings) and never
     ropes; its caller passes ``causal=False``. On a live ``ctx`` the
-    weights are this rank's heads, the normed rows enter them (their
-    gradient summed over ``model``) and the output is summed over
-    ``model``. Returns (output [B,S,D], k, v [B,Sk,Hkv,hd] for the
-    cache)."""
+    weights are this rank's heads, the normed rows (and ``kv_src``, which
+    feeds every rank's heads) enter them, their gradients summed over
+    ``model``, and the output is summed over ``model``. Returns (output
+    [B,S,D], k, v [B,Sk,Hkv,hd] for the cache)."""
     cross = kv_src is not None
     h = C.enter(rms_norm(x, p["ln"], cfg.norm_eps), "tp", ctx)
+    if cross:
+        kv_src = C.enter(kv_src, "tp", ctx)
     q, k, v = _project_qkv(p, h, kv_src if cross else h, cfg, cross, ctx)
     if not cross:
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -89,18 +91,22 @@ def attn_full(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
 
 
 def attn_decode_cross(p, x: torch.Tensor, cfg: ArchConfig,
-                      k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+                      k: torch.Tensor, v: torch.Tensor,
+                      ctx=None) -> torch.Tensor:
     """Single-token cross-attention against a lane's static context K/V
     (the reference's ``attn_decode(..., cross=True)``): x [B,1,D]; k/v
     [B,n_ctx,Hkv,hd], the prompt's cross K/V in the state cache. No rope,
     no mask, no write: one query row per lane through
-    :func:`repro_torch.kernels.ops.flash_attention`, non-causal.
-    Returns the output [B,1,D]."""
-    H, hd = cfg.n_heads, cfg.head_dim_
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    :func:`repro_torch.kernels.ops.flash_attention`, non-causal. On a live
+    ``ctx`` ``wq``/``wo`` and k/v hold this rank's heads and the output is
+    summed over ``model``. Returns the output [B,1,D]."""
+    hd = cfg.head_dim_
+    H = p["wq"].shape[1] // hd
+    h = C.enter(rms_norm(x, p["ln"], cfg.norm_eps), "tp", ctx)
     q = (h @ p["wq"]).reshape(*h.shape[:-1], H, hd)
     o = ops.flash_attention(q.contiguous(), k, v, causal=False)
-    return o.reshape(*x.shape[:-1], H * hd) @ p["wo"]
+    return C.all_reduce_sum(o.reshape(*x.shape[:-1], H * hd) @ p["wo"],
+                            "tp", ctx)
 
 
 def attn_decode_paged(p, x: torch.Tensor, cfg: ArchConfig,

@@ -26,18 +26,23 @@ sequence and recomputed in the backward, so ``[B, S, Vp]`` logits never
 exist. Serving models are frozen: no parameter requires a gradient, so the
 serving methods never build a graph.
 
-Across a live mesh (``build_model(..., mesh=make_local_mesh(d, m))``, the
-dense and MoE families): each rank holds its block of every leaf
+Across a live mesh (``build_model(..., mesh=make_local_mesh(d, m))``,
+every family): each rank holds its block of every leaf, the encoder's too
 (:meth:`ShardingCtx.shard_tree` under :meth:`Model.param_pspecs`).
 :meth:`Model.prefill`, :meth:`Model.prefill_with_state` and
 :meth:`Model.decode_step` then run Megatron tensor parallelism over
-``model`` (heads, ``d_ff`` and the vocabulary split; the ``wo`` and
-``w_down`` products all-reduced), ZeRO-3 over ``data`` (each leaf's
-``fsdp`` dim all-gathered before its layer uses it) and the reference's
-expert parallelism (:func:`repro_torch.models.moe._moe_sharded`), on the
-rank's rows of the batch; activations are whole over ``model`` between
-the layers. :meth:`Model.backbone` and :meth:`Model.loss` train the same
-way: the collectives carry the gradients back
+``model`` (the attention's, the cross-attention's and the encoder's
+heads, the SSM's heads and ``d_inner`` channels, ``d_ff`` and the
+vocabulary split; the ``wo``, ``wout`` and ``w_down`` products
+all-reduced, and the SSM's gated norm's sum of squares), ZeRO-3 over
+``data`` (each leaf's ``fsdp`` dim all-gathered before its layer uses it)
+and the reference's expert parallelism
+(:func:`repro_torch.models.moe._moe_sharded`), on the rank's rows of the
+batch (and of the frames or patch embeddings); activations, the
+encoder's output among them, are whole over ``model`` between the
+layers. The decode cache holds the rank's lanes and heads
+(:meth:`Model.cache`). :meth:`Model.backbone` and :meth:`Model.loss`
+train the same way: the collectives carry the gradients back
 (:mod:`repro_torch.distributed.collectives`; each ZeRO-3 gather is
 recomputed in the backward with its layer and reduce-scatters the
 weight's gradient to this rank's block), and the loss is vocab-parallel.
@@ -67,27 +72,44 @@ from repro_torch.tree import leaves
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 # the families that run across a live mesh
-MESH_FAMILIES = ("dense", "moe")
+MESH_FAMILIES = FAMILIES
 
 
 def check_mesh(cfg: ArchConfig, ctx: ShardingCtx) -> None:
-    """Raise for a family that does not run across a live mesh yet, and
-    (``ValueError``) for head counts its ``model`` axis does not split:
-    a leaf's columns may divide where its heads do not."""
+    """Raise ``ValueError``, naming the leaf, for head counts or SSM
+    channels that a live mesh's ``model`` axis does not split: a leaf's
+    columns may divide where its heads do not."""
     if not ctx.live:
         return
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} across a mesh is the next "
-            f"mesh slice (mamba2, jamba and the encoder families); this one "
-            f"runs {MESH_FAMILIES}")
     tp = ctx.axis_size("tp")
-    for leaf, what, n in (("wq", "heads", cfg.n_heads),
-                          ("wk", "KV heads", cfg.n_kv_heads)):
+    checks = []
+    if cfg.family != "ssm":
+        checks += [("layers/*/attn/wq", "heads", cfg.n_heads),
+                   ("layers/*/attn/wk", "KV heads", cfg.n_kv_heads)]
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        checks += [("layers/*/ssm/wdt", "SSM heads", s.n_heads(cfg.d_model)),
+                   ("layers/*/ssm/wx", "d_inner channels",
+                    s.d_inner(cfg.d_model))]
+    if cfg.encoder is not None:
+        checks += [("encoder/layers/*/attn/wq", "heads", cfg.n_heads),
+                   ("encoder/layers/*/attn/wk", "KV heads", cfg.n_kv_heads)]
+    if cfg.family in ("encdec", "vlm"):
+        checks += [("layers/*/cross/wq", "heads", cfg.n_heads),
+                   ("layers/*/cross/wk", "KV heads", cfg.n_kv_heads)]
+    for leaf, what, n in checks:
         if n % tp:
-            raise ValueError(f"{cfg.name}: layers/*/attn/{leaf}: {n} {what} "
-                             f"do not split over mesh axis 'model' of {tp} "
-                             f"ranks")
+            raise ValueError(f"{cfg.name}: {leaf}: {n} {what} do not split "
+                             f"over mesh axis 'model' of {tp} ranks")
+    if cfg.ssm is not None:
+        # a rank's block of the SSM heads holds whole groups or lies in one
+        s = cfg.ssm
+        H = s.n_heads(cfg.d_model) // tp
+        per = s.n_heads(cfg.d_model) // s.n_groups
+        if H % per and per % H:
+            raise ValueError(f"{cfg.name}: layers/*/ssm/wB: {s.n_groups} "
+                             f"groups of {per} heads do not align with "
+                             f"the {H} SSM heads of each of {tp} ranks")
 
 
 def _param(t: torch.Tensor, trainable: bool) -> nn.Parameter:
@@ -226,7 +248,8 @@ class Model(nn.Module):
         if cfg.encoder is not None:
             enc = params["encoder"]
             self.encoder_layers = nn.ModuleList(
-                Block(lp, trainable) for lp in enc["layers"])
+                Block(lp, trainable, encoder_layer_specs(cfg))
+                for lp in enc["layers"])
             if len(self.encoder_layers) != cfg.encoder.n_layers:
                 raise ValueError(f"{len(self.encoder_layers)} encoder layers "
                                  f"of parameters for a "
@@ -240,8 +263,11 @@ class Model(nn.Module):
         # layer index -> entry of the state cache's cross K/V
         cross = [i for i, b in enumerate(self.layers) if b.cross is not None]
         self.cross_layer = {i: j for j, i in enumerate(cross)}
-        # KV heads this rank holds
-        self.n_kv_local = cfg.n_kv_heads // self.ctx.axis_size("tp")
+        # KV heads (and SSM heads) this rank holds
+        tp = self.ctx.axis_size("tp")
+        self.n_kv_local = cfg.n_kv_heads // tp
+        self.n_ssm_heads_local = (cfg.ssm.n_heads(cfg.d_model) // tp
+                                  if cfg.ssm is not None else 0)
 
     def _kv_layout(self) -> Dict[int, int]:
         """Layer index -> arena layer of each attention layer, in the
@@ -376,9 +402,12 @@ class Model(nn.Module):
     # ---------------------------------------------------------------- encoder
     def _encoder_layer(self, blk: Block, x: torch.Tensor,
                        pos: torch.Tensor) -> torch.Tensor:
-        o, _, _ = L.attn_full(blk.attn, x, self.cfg, pos, causal=False)
+        cfg, ctx = self.cfg, self.ctx
+        o, _, _ = L.attn_full(blk.weights("attn", ctx), x, cfg, pos,
+                              causal=False, ctx=ctx)
         x = x + o
-        return x + L.ffn_apply(blk.ffn, x, self.cfg, gelu=True)
+        return x + L.ffn_apply(blk.weights("ffn", ctx), x, cfg, gelu=True,
+                               ctx=ctx)
 
     def encode(self, frames: torch.Tensor,
                remat: bool = False) -> torch.Tensor:
@@ -387,7 +416,9 @@ class Model(nn.Module):
         for Whisper's learned positions, as in the reference) and the GELU
         FFN in every layer, then the final norm. With ``remat`` (and grad
         enabled) each layer is recomputed in the backward pass, as the
-        reference's ``jax.checkpoint(body)`` does. -> [B,F,D]."""
+        reference's ``jax.checkpoint(body)`` does. On a live mesh the
+        rank's rows, its heads and block of ``d_ff``, as the decoder's
+        layers. -> [B,F,D]."""
         pos = torch.arange(frames.shape[1], device=frames.device)[None]
         x = frames
         for blk in self.encoder_layers:
@@ -414,20 +445,20 @@ class Model(nn.Module):
                src: Optional[torch.Tensor]) -> torch.Tensor:
         """One decoder layer over the whole sequence: the mixer (causal
         self-attention or the Mamba2 scan), the cross sub-layer of a cross
-        layer, the FFN. On a live mesh the attention's and the FFN's
-        weights are gathered over ``data`` here, inside the layer's
-        recomputation, so the backward gathers them again rather than
-        keeping them."""
+        layer, the FFN. On a live mesh each part's weights are gathered
+        over ``data`` here, inside the layer's recomputation, so the
+        backward gathers them again rather than keeping them."""
         cfg, ctx = self.cfg, self.ctx
         if blk.mixer == "attn":
             o, _, _ = L.attn_full(blk.weights("attn", ctx), x, cfg,
                                   positions, ctx=ctx)
         else:
-            o, _ = M2.ssm_full(blk.ssm, x, cfg)
+            o, _ = M2.ssm_full(blk.weights("ssm", ctx), x, cfg, ctx)
         x = x + o
         if blk.cross is not None:
-            o, _, _ = L.attn_full(blk.cross, x, cfg, positions, kv_src=src,
-                                  causal=False)
+            o, _, _ = L.attn_full(blk.weights("cross", ctx), x, cfg,
+                                  positions, kv_src=src, causal=False,
+                                  ctx=ctx)
             x = x + o
         return blk.ffn_apply(x, cfg, ctx)
 
@@ -513,7 +544,8 @@ class Model(nn.Module):
         ``extras``: ``{"frames": [B,F,D]}`` for an encdec model (the
         encoder runs over them), ``{"ctx_embeds": [B,N,C]}`` for a vlm;
         each cross layer attends to them after its mixer, before its
-        FFN."""
+        FFN. On a live mesh every entry holds the rank's lanes and heads,
+        as :meth:`cache`'s blocks do."""
         cfg, ctx = self.cfg, self.ctx
         x = self.embed(tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
@@ -527,13 +559,14 @@ class Model(nn.Module):
                                       positions, ctx=ctx)
                 ks[self.kv_layer[i]], vs[self.kv_layer[i]] = k, v
             else:
-                o, c = M2.ssm_full(blk.ssm, x, cfg)
+                o, c = M2.ssm_full(blk.weights("ssm", ctx), x, cfg, ctx)
                 parts["state"].append(c["state"])
                 parts["conv"].append(c["conv"])
             x = x + o
             if blk.cross is not None:
-                o, ck, cv = L.attn_full(blk.cross, x, cfg, positions,
-                                        kv_src=src, causal=False)
+                o, ck, cv = L.attn_full(blk.weights("cross", ctx), x, cfg,
+                                        positions, kv_src=src, causal=False,
+                                        ctx=ctx)
                 x = x + o
                 parts["cross_k"].append(ck)
                 parts["cross_v"].append(cv)
@@ -727,20 +760,22 @@ class Model(nn.Module):
         P] f32, "conv": [n_ssm_layers, batch, conv_dim-1, di]}`` and the
         cross layers' static ``{"cross_k", "cross_v": [n_cross_layers,
         batch, n_ctx, Hkv, hd]}`` in the model dtype; ``{}`` for a model
-        with neither."""
+        with neither. On a live mesh H, di and Hkv are this rank's
+        ``H/tp``, ``di/tp`` and ``Hkv/tp``."""
         cfg, dev = self.cfg, self.device
         out: Dict[str, torch.Tensor] = {}
         if self.n_ssm_layers:
-            s, D, n = cfg.ssm, cfg.d_model, self.n_ssm_layers
+            s, n = cfg.ssm, self.n_ssm_layers
+            H = self.n_ssm_heads_local
             out["state"] = torch.zeros(
-                (n, batch, s.n_heads(D), s.d_state, s.head_dim),
+                (n, batch, H, s.d_state, s.head_dim),
                 dtype=torch.float32, device=dev)
             out["conv"] = torch.zeros(
-                (n, batch, s.conv_dim - 1, s.d_inner(D)), dtype=cfg.dtype,
+                (n, batch, s.conv_dim - 1, H * s.head_dim), dtype=cfg.dtype,
                 device=dev)
         if self.cross_layer:
             shape = (len(self.cross_layer), batch, cfg.n_ctx,
-                     cfg.n_kv_heads, cfg.head_dim_)
+                     self.n_kv_local, cfg.head_dim_)
             out["cross_k"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
             out["cross_v"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
         return out
@@ -753,9 +788,11 @@ class Model(nn.Module):
         hd]}`` in the model dtype, S = ``s_max`` rounded up to a multiple of
         ``page_tokens`` so that :meth:`decode_step` can read a lane's cache
         as whole pages. Layer ``i`` uses entry ``kv_layer[i]``. On a live
-        mesh ``batch`` is the rank's lanes and Hkv its ``Hkv / tp`` heads:
-        the cache is split by KV heads over ``model``, where the reference's
-        ``cache_specs`` split its sequence (``kv_sp``)."""
+        mesh ``batch`` is the rank's lanes and each entry its heads'
+        block: the K/V and the cross K/V are split by KV heads over
+        ``model``, where the reference's ``cache_specs`` split their
+        sequence (``kv_sp``), the SSM state by heads and the conv window
+        by channels, as the reference's."""
         out = self.state_cache(batch)
         if self.kv_layer:
             cfg = self.cfg
@@ -772,8 +809,12 @@ class Model(nn.Module):
         Each entry stacks its layers on a leading dim that no mesh axis
         splits; the rest is split as the reference's ``cache_specs``
         splits a slot's cache (lanes over the batch axes, K/V rows over
-        ``kv_sp``, SSM heads and conv channels over ``tp``)."""
+        ``kv_sp``, SSM heads and conv channels over ``tp``), but on a live
+        mesh, whose K/V and cross K/V :meth:`cache` splits by KV heads
+        (``tp``) instead of rows."""
         cfg, ctx = self.cfg, self.ctx
+        kv_axes = (("batch", None, "tp", None) if ctx.live
+                   else ("batch", "kv_sp", None, None))
         raw = {}
         n_kv, n_ssm, n_cross = (len(self.kv_layer), self.n_ssm_layers,
                                 len(self.cross_layer))
@@ -787,13 +828,12 @@ class Model(nn.Module):
         if n_cross:
             for name in ("cross_k", "cross_v"):
                 raw[name] = ((n_cross, batch, cfg.n_ctx, cfg.n_kv_heads,
-                              cfg.head_dim_), cfg.dtype,
-                             ("batch", "kv_sp", None, None))
+                              cfg.head_dim_), cfg.dtype, kv_axes)
         if n_kv:
             S = -(-seq // page_tokens) * page_tokens
             for name in ("k", "v"):
                 raw[name] = ((n_kv, batch, S, cfg.n_kv_heads, cfg.head_dim_),
-                             cfg.dtype, ("batch", "kv_sp", None, None))
+                             cfg.dtype, kv_axes)
         structs = {k: TensorSpec(shp, dt) for k, (shp, dt, _) in raw.items()}
         specs = {k: (None,) + ctx.spec(*axes, dims=shp[1:])
                  for k, (shp, _, axes) in raw.items()}
@@ -825,14 +865,15 @@ class Model(nn.Module):
                                       bt, seq_lens, page_tokens,
                                       ops.paged_attention, ctx=ctx)
             else:
-                x = x + M2.ssm_decode(blk.ssm, x, cache["state"][j],
-                                      cache["conv"][j], cfg)
+                x = x + M2.ssm_decode(blk.weights("ssm", ctx), x,
+                                      cache["state"][j], cache["conv"][j],
+                                      cfg, ctx)
                 j += 1
             if blk.cross is not None:
                 c = self.cross_layer[i]
-                x = x + L.attn_decode_cross(blk.cross, x, cfg,
-                                            cache["cross_k"][c],
-                                            cache["cross_v"][c])
+                x = x + L.attn_decode_cross(blk.weights("cross", ctx), x,
+                                            cfg, cache["cross_k"][c],
+                                            cache["cross_v"][c], ctx)
             x = blk.ffn_apply(x, cfg, ctx)
         x = rms_norm(x, self.final_ln, cfg.norm_eps)
         return self._logits(x[:, 0])

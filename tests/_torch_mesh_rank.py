@@ -1,14 +1,19 @@
-"""The rank side of ``test_torch_mesh.py``: what each spawned rank runs.
+"""The rank side of ``test_torch_mesh.py``, ``test_torch_mesh_train.py``
+and ``test_torch_mesh_families.py``: what each spawned rank runs.
 
 Imports the port alone (a rank must load neither JAX nor the JAX
 package), so that ``torch.multiprocessing``'s spawn can unpickle
 :func:`run_cases` in a fresh process.
 """
+import dataclasses
+from typing import Any
+
 import torch
 
 from repro_torch.distributed import collectives as C
 from repro_torch.launch import spmd
 from repro_torch.models import build_model, moe
+from repro_torch.models import layers as L
 
 
 def probe_collectives(mesh):
@@ -112,4 +117,124 @@ def run_train_cases(mesh, device, cases, int8_cfg=None):
         out["int8"] = probe_int8(mesh, int8_cfg)
     for key, job in cases.items():
         out[key] = spmd.train(mesh, device, job)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_mesh_families.py: every family's serving and training, and the
+# faults it plants
+# ---------------------------------------------------------------------------
+
+def _gated_norm_local(y, z, scale, cfg, ctx=None):
+    """The planted fault: the gated norm's variance over this rank's
+    channels alone."""
+    import torch.nn.functional as F
+    from repro_torch.models.common import rms_norm
+    return rms_norm(y * F.silu(z), scale, cfg.norm_eps)
+
+
+def _pre_wb_not_summed(p, x, cfg, ctx=None):
+    """The planted fault: ``mamba2._pre`` with ``wB`` not entering the
+    rank's heads, so its gradient is this rank's part alone."""
+    import torch.nn.functional as F
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models.common import rms_norm
+    s = cfg.ssm
+    H = p["wdt"].shape[1]
+    h = C.enter(rms_norm(x, p["ln"], cfg.norm_eps), "tp", ctx)
+    Bm = (h @ p["wB"]).reshape(*h.shape[:-1], s.n_groups, s.d_state)
+    Cm = (h @ C.enter(p["wC"], "tp", ctx)).reshape(
+        *h.shape[:-1], s.n_groups, s.d_state)
+    dt = F.softplus((h @ p["wdt"]).float() + p["dt_bias"])
+    return (h @ p["wx"], h @ p["wz"], M2._groups(Bm, H, cfg, ctx),
+            M2._groups(Cm, H, cfg, ctx), dt)
+
+
+def _attn_full_kv_src_not_summed(p, x, cfg, positions, kv_src=None,
+                                 causal=True, ctx=None):
+    """The planted fault: ``layers.attn_full`` with the cross source not
+    entering the rank's heads, so the encoder's output gets this rank's
+    part of its gradient alone."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import rms_norm
+    if kv_src is None:
+        return _ATTN_FULL(p, x, cfg, positions, causal=causal, ctx=ctx)
+    h = C.enter(rms_norm(x, p["ln"], cfg.norm_eps), "tp", ctx)
+    q, k, v = L._project_qkv(p, h, kv_src, cfg, True, ctx)
+    o = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=causal)
+    o = o.reshape(*x.shape[:-1], q.shape[-2] * cfg.head_dim_)
+    return C.all_reduce_sum(o @ p["wo"], "tp", ctx), k, v
+
+
+# the repaired function, which the planted one calls for self-attention
+_ATTN_FULL = L.attn_full
+# fault -> (module, attribute, planted version)
+FAULTS = {"gated_norm_local": ("repro_torch.models.mamba2", "gated_norm",
+                               _gated_norm_local),
+          "wB_grad_not_summed": ("repro_torch.models.mamba2", "_pre",
+                                 _pre_wb_not_summed),
+          "kv_src_grad_not_summed": ("repro_torch.models.layers",
+                                     "attn_full",
+                                     _attn_full_kv_src_not_summed)}
+
+
+@dataclasses.dataclass
+class Cell:
+    """A train cell of ``training.build_cell``: ``cfg`` at ``shape``, the
+    weights and the batch drawn from ``seed``, ``steps`` AdamW steps."""
+    cfg: Any
+    shape: Any
+    seed: int = 0
+    steps: int = 2
+
+
+def cell_steps(mesh, device, cell):
+    """Each step's metrics (loss, grad norm) of ``cell`` on this rank."""
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_step import build_cell
+    model = build_model(cell.cfg, device=device, seed=cell.seed,
+                        trainable=True, mesh=mesh)
+    step, args = build_cell(model, cell.shape,
+                            OptConfig(lr=1e-2, warmup_steps=1),
+                            generator=torch.Generator().manual_seed(
+                                cell.seed))
+    out = []
+    for _ in range(cell.steps):
+        _, _, metrics = step(*args)
+        out.append({k: float(v) for k, v in metrics.items()})
+    return out
+
+
+def run_family_cases(mesh, device, cases):
+    """Every case of one mesh: ``cases`` ``{key: (spmd.Job,
+    spmd.TrainJob or Cell, fault or None, wide)}``; returns ``{key:
+    record}`` (:func:`spmd.serve`'s, :func:`spmd.train`'s or
+    :func:`cell_steps`'), each faulty case run with its :data:`FAULTS`
+    entry planted and then removed, and each
+    ``wide`` case (a float64 copy of a model) with the port's float32 cast
+    points (``Tensor.float``, ``torch.float32``) widened to float64."""
+    import importlib
+    out = {}
+    for key, (job, fault, wide) in cases.items():
+        patches = []
+        if fault is not None:
+            name, attr, planted = FAULTS[fault]
+            patches.append((importlib.import_module(name), attr, planted))
+        if wide:
+            patches += [(torch.Tensor, "float", torch.Tensor.double),
+                        (torch, "float32", torch.float64)]
+        saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
+        for obj, attr, new in patches:
+            setattr(obj, attr, new)
+        try:
+            if isinstance(job, Cell):
+                out[key] = cell_steps(mesh, device, job)
+            elif isinstance(job, spmd.TrainJob):
+                out[key] = spmd.train(mesh, device, job)
+            else:
+                out[key] = spmd.serve(mesh, device, job)
+        finally:
+            for obj, attr, old in saved:
+                setattr(obj, attr, old)
     return out

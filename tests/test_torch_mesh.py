@@ -397,11 +397,34 @@ def test_a_mesh_that_does_not_divide_a_leaf_raises():
 
 
 @pytest.mark.parametrize("name", ["mamba2-2.7b", "whisper-medium",
-                                  "jamba-v0.1-52b"])
-def test_other_families_across_a_mesh_name_the_next_slice(name):
-    mesh = LocalMesh(("data", "model"), (1, 2), rank=0, coords=(0, 0))
-    with pytest.raises(NotImplementedError, match="next mesh slice"):
-        build_model(get_config(name).reduced(), device="cpu", mesh=mesh)
+                                  "jamba-v0.1-52b", "llama-3.2-vision-11b"])
+def test_every_family_on_a_one_by_one_mesh_is_bitwise_the_single_device_model(
+        name):
+    """The SSM, hybrid and cross-attention families build on
+    ``make_local_mesh(1, 1)`` (every family runs across a mesh): their
+    prefill (with the frames or patch embeddings), decode steps and every
+    cache entry (K/V, SSM state and conv window, cross K/V) are the
+    one-card model's bit for bit, and no collective is called."""
+    from repro_torch.models.transformer import FAMILIES, MESH_FAMILIES
+    assert MESH_FAMILIES == FAMILIES
+    cfg = get_config(name).reduced()
+    gen = torch.Generator().manual_seed(3)
+    job = spmd.Job(cfg, torch.randint(0, cfg.vocab, (2, S), generator=gen,
+                                      dtype=torch.int32), STEPS,
+                   extras=spmd.modality_extras(cfg, 2, gen))
+    cpu = torch.device("cpu")
+    one = spmd.serve(make_local_mesh(1, 1), cpu, job)
+    assert one["collectives"] == {}
+    bare = spmd.serve(None, cpu, job)
+    for k in ("logits", "fed", "k", "v", "cache_k", "cache_v"):
+        assert (one[k] is None and bare[k] is None) or torch.equal(
+            one[k], bare[k]), k
+    for k in ("state", "cache_state"):
+        assert (one[k] is None) == (bare[k] is None), k
+        for n, t in (one[k] or {}).items():
+            assert torch.equal(t, bare[k][n]), (k, n)
+    assert (one["k"] is None) == (cfg.family == "ssm")
+    assert one["state"] is not None
 
 
 @pytest.mark.parametrize("name", MODELS)

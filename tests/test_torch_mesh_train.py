@@ -504,7 +504,7 @@ def test_check_train_passes_the_mesh_run_and_fails_a_planted_fault(
     assert [r["rows"] for r in out["records"]] == [(0, 2), (2, 4)]
     res = spmd.check_train(_plant(out["records"], fault, job.cfg), single,
                            job, (2, 1))
-    limits = spmd.TRAIN_LIMITS[job.cfg.dtype]
+    limits = spmd.train_limits(job.cfg)
     if fault == "none":
         assert res["ok"], res
         assert res["grads_leaf_scaled_err"] <= limits["grads"]
