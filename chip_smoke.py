@@ -338,7 +338,18 @@ Phases, each printing one JSON line (and failing the run on any error):
                 collectives by kind (backward calls and the
                 reduce-scatters' bytes among them). Its seconds are a
                 gloo run's, which stages every collective through the
-                host: they show no collective speed.
+                host: they show no collective speed. Then, in the same
+                spawns, the ``mesh_dryrun`` lines: ``build_cell``'s step
+                of qwen3-8b (2 layers, bf16) on 1 x 2 and 2 x 1 and of
+                moonshot (2 layers, f32, dropless) on 1 x 2, at a 2 x 512
+                prefill and a 2 x 512 train step, run on each rank once
+                more with its peak reset, held to the dry run's count of
+                the same rank's step in a world of the ``fake`` backend
+                of the same mesh (``launch.mesh.counting_mesh``; counted
+                in this process before the spawns): the collectives'
+                calls and bytes by kind and axis and the argument bytes
+                equal, each rank's peak within ``LAUNCH``'s 0.75-1.25 of
+                the predicted.
 
 The models of phases 19-25 are drawn on the card one at a time, each
 freed before the next; so are the training phases' models. Every
@@ -5241,9 +5252,10 @@ def check_mesh_kernels(torch, gen) -> dict:
 
 
 def mesh_jobs(torch, args) -> dict:
-    """By mesh shape, the ``spmd.Job`` of each ``MESH`` case and then the
-    ``spmd.TrainJob`` of each ``MESH_TRAIN`` case, their tokens and frames
-    or patch embeddings drawn from the seed."""
+    """By mesh shape, the ``spmd.Job`` of each ``MESH`` case, the
+    ``spmd.TrainJob`` of each ``MESH_TRAIN`` case (their tokens and frames
+    or patch embeddings drawn from the seed), then the ``spmd.CellJob`` of
+    each ``MESH_DRYRUN`` case."""
     from repro_torch.launch import spmd
     from repro_torch.training.optimizer import OptConfig
     gen = torch.Generator().manual_seed(args.seed + 25)
@@ -5266,7 +5278,92 @@ def mesh_jobs(torch, args) -> dict:
                 dtype=torch.int32), steps, opt=opt, seed=args.seed,
                 extras=spmd.modality_extras(cfg, MESH_TRAIN["batch"],
                                             gen_extras)))
+        for _, name, dtype in MESH_DRYRUN["meshes"].get(shape, ()):
+            jobs.append(spmd.CellJob(mesh_config(torch, name, dtype),
+                                     MESH_DRYRUN["shapes"], seed=args.seed))
     return out
+
+
+# the mesh_dryrun lines: build_cell's step of each case at each shape on
+# every rank of the mesh phase's spawns (a spmd.CellJob after the mesh's
+# train jobs), held to the dry run's count of that rank's step in a fake
+# world of the same mesh. A case: (label, model, dtype)
+MESH_DRYRUN = dict(
+    shapes={"prefill": dict(kind="prefill", global_batch=2, seq_len=512),
+            "train": dict(kind="train", global_batch=2, seq_len=512)},
+    meshes={(1, 2): (("qwen_1x2", MAIN["model"], "bfloat16"),
+                     ("moe_1x2", "moonshot-v1-16b-a3b", "float32")),
+            (2, 1): (("qwen_2x1", MAIN["model"], "bfloat16"),)})
+
+
+def mesh_dryrun_counts(torch) -> dict:
+    """By mesh shape and case, each rank's dry-run record of each
+    ``MESH_DRYRUN`` shape: its step counted on ``meta`` in a world of the
+    ``fake`` backend of that mesh (``dryrun.run_cell`` with the mesh's
+    shape and the rank), in this process, which no world holds; and under
+    ``"seconds"`` the time the counts took."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    out = {}
+    for shape, cases in MESH_DRYRUN["meshes"].items():
+        for label, name, dtype in cases:
+            cfg = mesh_config(torch, name, dtype)
+            out[(shape, label)] = [
+                {k: dryrun.run_cell(name, sh, shape, cfg=cfg, rank=r)
+                 for k, sh in MESH_DRYRUN["shapes"].items()}
+                for r in range(math.prod(shape))]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_dryrun(case, res, predicted, shape, smi) -> None:
+    """One ``MESH_DRYRUN`` case (a ``mesh_dryrun`` line per rank and
+    shape): the rank's step on the card against the dry run's count of
+    that rank: argument bytes and the collectives' calls and bytes by kind
+    and axis (``dryrun.collective_record`` of the rank's
+    ``collectives.stats()``) equal, the peak within ``LAUNCH``'s window."""
+    from repro_torch.launch import dryrun
+    label, name, dtype = case
+    lo, hi = LAUNCH["peak_window"]
+    for r in res["records"]:
+        require(not r["foreign"], f"mesh_dryrun {label}: rank {r['rank']} "
+                f"loaded {r['foreign']}")
+        for k, meas in r["cells"].items():
+            rec = predicted[(shape, label)][r["rank"]][k]
+            require(rec["status"] == "ok", f"mesh_dryrun {label} {k}: {rec}")
+            mem = rec["memory"]
+            _, by_axis = dryrun.collective_record(meas["collectives"],
+                                                  rec["collective_lines"])
+            pick = lambda b: {a: {kind: [d["count"], d["bytes"]]
+                                  for kind, d in kinds.items()}
+                              for a, kinds in b.items()}
+            ratio = mem["peak_bytes_per_device"] / meas["peak_bytes"]
+            emit("mesh_dryrun", case=label, model=name, dtype=dtype,
+                 layers=MESH_LAYERS[name], mesh=list(shape), rank=r["rank"],
+                 cell=k, **MESH_DRYRUN["shapes"][k],
+                 predicted_argument_bytes=mem["argument_bytes"],
+                 measured_argument_bytes=meas["argument_bytes"],
+                 predicted_peak_bytes=mem["peak_bytes_per_device"],
+                 measured_peak_bytes=meas["peak_bytes"],
+                 predicted_over_measured_peak=ratio,
+                 predicted_collectives=pick(rec["collectives_by_axis"]),
+                 measured_collectives=pick(by_axis),
+                 predicted_collective_s=rec["roofline"]["collective_s"],
+                 launches=meas["launches"], count_s=rec["count_s"],
+                 counts_s=predicted["seconds"], rank_job_s=r["seconds"],
+                 nvidia_smi=smi)
+            require(mem["argument_bytes"] == meas["argument_bytes"],
+                    f"mesh_dryrun {label} {k} rank {r['rank']}: argument "
+                    f"bytes {mem['argument_bytes']} predicted, "
+                    f"{meas['argument_bytes']} on the card")
+            require(pick(rec["collectives_by_axis"]) == pick(by_axis),
+                    f"mesh_dryrun {label} {k} rank {r['rank']}: collectives "
+                    f"{pick(rec['collectives_by_axis'])} predicted, "
+                    f"{pick(by_axis)} on the card")
+            require(lo <= ratio <= hi,
+                    f"mesh_dryrun {label} {k} rank {r['rank']}: predicted "
+                    f"peak {mem['peak_bytes_per_device']} is {ratio:.3f} x "
+                    f"the measured {meas['peak_bytes']}")
 
 
 def phase_mesh(torch, args) -> dict:
@@ -5281,8 +5378,11 @@ def phase_mesh(torch, args) -> dict:
     parallelism (1 x 2), each held against the same model in this process
     fed the ranks' tokens (:func:`mesh_serving`). Training, the
     ``mesh_train`` lines: the same meshes' AdamW steps held against the
-    same steps in this process (:func:`mesh_training`). No ``jax`` or
-    ``repro`` module may load in any rank. The times are of a gloo run,
+    same steps in this process (:func:`mesh_training`). The
+    ``mesh_dryrun`` lines: ``build_cell``'s steps on each rank against the
+    dry run's count of that rank, made here before the spawns
+    (:func:`mesh_dryrun`). No ``jax`` or ``repro`` module may load in any
+    rank. The times are of a gloo run,
     which stages every collective through the host: they show no
     collective speed. Returns each rank's launches by path."""
     from repro_torch.launch import spmd
@@ -5292,9 +5392,11 @@ def phase_mesh(torch, args) -> dict:
     reset_peak(torch)
     smi = nvidia_smi()
     card = torch.cuda.get_device_properties(0).total_memory
+    predicted = mesh_dryrun_counts(torch)
     paths = {}
     for shape, jobs in mesh_jobs(torch, args).items():
         cases, train_cases = MESH["meshes"][shape], MESH_TRAIN["meshes"][shape]
+        cell_cases = MESH_DRYRUN["meshes"].get(shape, ())
         reset_peak(torch)
         t0 = time.perf_counter()
         backend, results = spmd.run(jobs, shape, device="cuda")
@@ -5305,9 +5407,12 @@ def phase_mesh(torch, args) -> dict:
         for case, job, res in zip(cases, jobs[:n], results[:n]):
             mesh_serving(case, job, res, shape, backend, seconds, smi, card,
                          paths)
-        for case, job, res in zip(train_cases, jobs[n:], results[n:]):
+        m = n + len(train_cases)
+        for case, job, res in zip(train_cases, jobs[n:m], results[n:m]):
             mesh_training(case, job, res, shape, backend, seconds, smi, card,
                           paths)
+        for case, res in zip(cell_cases, results[m:]):
+            mesh_dryrun(case, res, predicted, shape, smi)
         del results
         reset_peak(torch)
     return paths

@@ -2,7 +2,8 @@
 into ``torch.distributed`` that the model and the optimizer make.
 
 Each takes the tensor, the logical axis it runs over (``"fsdp"`` /
-``"batch"`` over data, ``"tp"`` / ``"exp"`` over model; see
+``"batch"`` over data, ``"tp"`` / ``"exp"`` over model, ``"kv"`` over the
+ranks of the model line that share a replicated KV head; see
 :mod:`repro_torch.distributed.sharding`) and the context that maps it to
 this rank's process group. On an axis of one rank (no mesh, a 1 x 1 mesh,
 or the other axis's line), or on a mesh that is data, each returns its
@@ -26,8 +27,9 @@ line's ranks, so the call site says:
 - :func:`enter`: the identity forward, where a tensor replicated over the
   line enters a computation that differs across its ranks (a
   column-parallel product, this rank's block of the sequence, a weight
-  applied to this rank's heads or tokens); the backward is the all-reduce
-  sum of the ranks' partial cotangents.
+  applied to this rank's heads or tokens, a KV head's weights applied to
+  the query heads of each rank that shares it); the backward is the
+  all-reduce sum of the ranks' partial cotangents.
 - :func:`all_to_all`: the backward is the reverse all-to-all.
 - :func:`reduce_scatter`: the backward is the all-gather.
 - :func:`all_reduce_max` has no gradient (the loss's row max, the int8
@@ -36,14 +38,16 @@ line's ranks, so the call site says:
 Without autograd the all-reduces reduce into their input where it is
 contiguous and return it.
 
-:func:`stats` counts the calls and payload bytes by kind and mesh axis:
-the all-gather's output, the reduce-scatter's and the all-reduces'
-input, the all-to-all's input, on this rank. A call made by a backward
+:func:`stats` counts the calls and payload bytes by kind and mesh axis
+(``"kv"`` for the KV replicas' line): the all-gather's output, the
+reduce-scatter's and the all-reduces' input, the all-to-all's input, on
+this rank. A call made by a backward
 pass counts under the kind it runs (an all-gather's backward is a
 ``reduce_scatter``) and also in ``"backward"``.
 """
 from __future__ import annotations
 
+import time
 from collections import defaultdict
 from typing import Dict
 
@@ -70,7 +74,8 @@ def _line(ctx, logical: str):
     rank alone (or the mesh is data: the dry run's production meshes)."""
     if ctx is None or not ctx.live or ctx.axis_size(logical) == 1:
         return None
-    return (ctx.group(logical), ctx.axis_size(logical), ctx.rules[logical],
+    axis = "kv" if logical == "kv" else ctx.rules[logical]
+    return (ctx.group(logical), ctx.axis_size(logical), axis,
             ctx.index(logical))
 
 
@@ -89,12 +94,38 @@ def _autograd(*ts: torch.Tensor) -> bool:
 # The calls themselves, on a line of more than one rank
 # ---------------------------------------------------------------------------
 
+def _run(call, group, *tensors) -> None:
+    """Run the asynchronous collective ``call()`` over ``tensors`` and wait
+    for it outside any dispatch mode: the copies a backend makes as it
+    completes one (gloo's) are not the model's ops, and a counter
+    (:mod:`repro_torch.launch.counter`) must see the same ops whatever the
+    backend. On gloo, also wait until its worker thread has let go of
+    ``tensors``, which it does just after the work completes, so that they
+    are freed where the caller drops them, as on any other backend (at
+    most a second: past that the frees may come late, nothing else)."""
+    import torch.distributed as dist
+    from torch.utils._python_dispatch import _disable_current_modes
+    held = [t._use_count() for t in tensors]
+    work = call()
+    with _disable_current_modes():
+        work.wait()
+    del work
+    if dist.get_backend(group) != "gloo":
+        return
+    t0 = time.perf_counter()
+    while ([t._use_count() for t in tensors] != held
+           and time.perf_counter() - t0 < 1.0):
+        time.sleep(0)
+
+
 def _gather(x, line, dim, backward=False):
     import torch.distributed as dist
     group, n, axis, _ = line
     parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
              for _ in range(n)]
-    dist.all_gather(parts, x.contiguous(), group=group)
+    x = x.contiguous()
+    _run(lambda: dist.all_gather(parts, x, group=group, async_op=True),
+         group, x, *parts)
     out = torch.cat(parts, dim=dim)
     _count("all_gather", axis, out, backward)
     return out
@@ -107,7 +138,8 @@ def _reduce(x, line, backward=False, kind="all_reduce"):
     group, _, axis, _ = line
     x = x.contiguous()
     op = dist.ReduceOp.MAX if kind == "all_reduce_max" else dist.ReduceOp.SUM
-    dist.all_reduce(x, op=op, group=group)
+    _run(lambda: dist.all_reduce(x, op=op, group=group, async_op=True),
+         group, x)
     _count(kind, axis, x, backward)
     return x
 
@@ -125,7 +157,8 @@ def _scatter(x, line, dim, backward=False):
     _count("reduce_scatter", axis, x, backward)
     xs = x.movedim(dim, 0).contiguous()
     out = xs.new_empty((size, *xs.shape[1:]))
-    dist.reduce_scatter_tensor(out, xs, group=group)
+    _run(lambda: dist.reduce_scatter_tensor(out, xs, group=group,
+                                            async_op=True), group, out, xs)
     return out.movedim(0, dim).contiguous()
 
 
@@ -138,7 +171,8 @@ def _exchange(x, line, split_axis, concat_axis, backward=False):
     xs = x.movedim(split_axis, 0)
     send = xs.reshape(n, xs.shape[0] // n, *xs.shape[1:]).contiguous()
     recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
+    _run(lambda: dist.all_to_all_single(recv, send, group=group,
+                                        async_op=True), group, recv, send)
     _count("all_to_all", axis, send, backward)
     return torch.cat([recv[j].movedim(0, split_axis) for j in range(n)],
                      dim=concat_axis)

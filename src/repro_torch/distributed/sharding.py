@@ -25,6 +25,15 @@ tensor, :meth:`ShardingCtx.shard_tree` a whole parameter tree, and
 Where a mesh axis does not divide the dim it splits, a live mesh raises
 ``ValueError`` naming the leaf; the reference's partitioner pads instead.
 
+The attention's leaves are cut by whole heads (:func:`head_layout`), which
+a context given the config's ``heads`` applies in :meth:`ShardingCtx.
+local_block`: where ``model`` does not exceed the KV heads, in equal blocks,
+as their specs cut them; where it does, each KV head is replicated over the
+``model / Hkv`` consecutive ranks whose query heads read it (Megatron's
+answer), and its group's query heads split over those ranks, the first ones
+holding one more where they do not split evenly. The reference's GSPMD cuts
+the flattened ``Hkv * hd`` columns instead; the partition specs stay its.
+
 The reference's distribution modes (``tp_sp``, ``tp_sp_opt``, ``fsdp_cp``)
 and its activation constraints (``ShardingCtx.cs``) have no counterpart:
 the port runs one mode, Megatron tensor parallelism with ZeRO-3 weights,
@@ -42,6 +51,62 @@ import torch
 from repro_torch.launch.mesh import LocalMesh, Mesh
 
 PSpec = Tuple[Any, ...]
+
+
+# the attention leaves cut by the head layout: query-head columns (and
+# ``wo``'s rows) and KV-head columns, in self-attention, cross-attention
+# and the encoder's attention alike
+Q_LEAVES = ("wq", "bq", "wo")
+KV_LEAVES = ("wk", "wv", "bk", "bv")
+
+
+def head_leaf(name: str) -> Optional[str]:
+    """``"q"`` or ``"kv"`` for a leaf the head layout cuts (its path ends
+    in ``attn/<leaf>`` or ``cross/<leaf>``), else None."""
+    parts = name.strip("/").split("/")
+    if len(parts) < 2 or parts[-2] not in ("attn", "cross"):
+        return None
+    return ("q" if parts[-1] in Q_LEAVES
+            else "kv" if parts[-1] in KV_LEAVES else None)
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadBlock:
+    """One rank's heads: query heads ``q[0] .. q[1]-1``, KV heads ``kv[0]
+    .. kv[1]-1``, each KV head held by ``replicas`` ranks of the line."""
+    q: Tuple[int, int]
+    kv: Tuple[int, int]
+    replicas: int = 1
+
+
+def head_layout(n_heads: int, n_kv_heads: int, tp: int,
+                index: int) -> HeadBlock:
+    """The heads of rank ``index`` of a ``model`` line of ``tp`` ranks.
+    Where ``tp`` divides the KV heads, equal blocks of both. Where ``tp`` is
+    a multiple of them, the ``r = tp / Hkv`` consecutive ranks of KV group
+    ``g`` each hold KV head ``g``, and the group's ``H / Hkv`` query heads
+    are split over them in ``torch.tensor_split`` order (the first ranks one
+    more): rank 0 holds a largest block. Raises ``ValueError`` naming
+    ``layers/*/attn/wq`` (the cross layers' and the encoder's heads are
+    the same) for more ranks than heads, or where neither of ``tp`` and
+    the KV heads divides the other."""
+    H, Hkv = n_heads, n_kv_heads
+    if Hkv % tp == 0:
+        n, m = H // tp, Hkv // tp
+        return HeadBlock((index * n, (index + 1) * n),
+                         (index * m, (index + 1) * m))
+    if tp > H or tp % Hkv:
+        why = ("" if tp > H else ": neither of the ranks and the KV heads "
+               "divides the other")
+        raise ValueError(f"layers/*/attn/wq: {H} heads ({Hkv} KV heads) do "
+                         f"not split over mesh axis 'model' of {tp} ranks"
+                         f"{why}")
+    r = tp // Hkv
+    g, j = divmod(index, r)
+    G = H // Hkv
+    sizes = [G // r + (i < G % r) for i in range(r)]
+    lo = g * G + sum(sizes[:j])
+    return HeadBlock((lo, lo + sizes[j]), (g, g + 1), r)
 
 
 def mesh_rules(mesh: Optional[Mesh]) -> Dict[Optional[str], Any]:
@@ -81,11 +146,24 @@ class ShardingCtx:
     partition spec of logical ``axes``, dropping an axis whose mesh extent
     does not divide its dim (batch 1 long-context decode). On a
     :class:`~repro_torch.launch.mesh.LocalMesh` of more than one rank it is
-    ``live``: it knows this rank's position and process groups."""
+    ``live``: it knows this rank's position and process groups, and, given
+    the config's ``heads`` (query heads, KV heads), its block of them
+    (:attr:`head_block`) and the line of ranks that share its KV heads,
+    the logical axis ``"kv"``."""
     mesh: Optional[Mesh] = None
+    heads: Optional[Tuple[int, int]] = None
 
     def __post_init__(self):
         self.rules = mesh_rules(self.mesh)
+        self.head_block = None
+        if self.live and self.heads and self.heads[1]:
+            self.head_block = head_layout(*self.heads, self.axis_size("tp"),
+                                          self.index("tp"))
+
+    @property
+    def kv_replicas(self) -> int:
+        """The ranks of the ``model`` line that hold this rank's KV heads."""
+        return self.head_block.replicas if self.head_block else 1
 
     @property
     def enabled(self) -> bool:
@@ -94,6 +172,8 @@ class ShardingCtx:
     def axis_size(self, logical: Optional[str]) -> int:
         if not self.enabled or logical is None:
             return 1
+        if logical == "kv":
+            return self.kv_replicas
         return axes_size(self.mesh, self.rules.get(logical))
 
     def spec(self, *axes: Optional[str],
@@ -137,33 +217,61 @@ class ShardingCtx:
         ``logical``'s mesh axis (None where that axis has one rank)."""
         if not self.live:
             return None
+        if logical == "kv":
+            return self.mesh.line("model", self.kv_replicas)
         return self.mesh.groups.get(self._axis(logical))
 
     def index(self, logical: Optional[str]) -> int:
-        """This rank's position along ``logical``'s mesh axis."""
+        """This rank's position along ``logical``'s mesh axis (along the
+        ranks sharing its KV heads for ``"kv"``)."""
+        if logical == "kv":
+            return self.index("tp") % self.kv_replicas
         if not self.live or logical is None or self.rules.get(logical) is None:
             return 0
         return self.mesh.index(self._axis(logical))
 
+    def block_slices(self, shape: Sequence[int], spec: PSpec,
+                     name: str = "tensor") -> Tuple[Tuple[int, int], ...]:
+        """Per dim, the ``[lo, hi)`` of this rank's block of a whole tensor
+        of ``shape`` under ``spec``: each dim cut into equal blocks over its
+        entry's mesh axis, but the ``model`` dim of an attention leaf
+        (:func:`head_leaf` of ``name``), which holds the rank's heads of
+        :attr:`head_block`. Raises ``ValueError`` naming ``name`` where an
+        axis does not divide its dim."""
+        spec = tuple(spec)[:len(shape)]
+        spec += (None,) * (len(shape) - len(spec))
+        kind = head_leaf(name) if self.head_block else None
+        out = []
+        for dim, (n, entry) in enumerate(zip(shape, spec)):
+            k = axes_size(self.mesh, entry) if self.live else 1
+            if kind is not None and entry == self.rules["tp"]:
+                lo, hi = getattr(self.head_block, kind)
+                per = n // self.heads[kind == "kv"]
+                out.append((lo * per, hi * per))
+            elif k == 1:
+                out.append((0, n))
+            elif n % k:
+                raise ValueError(
+                    f"{name}: dim {dim} of {tuple(shape)} does not split "
+                    f"over mesh axis {entry!r} of {k} ranks")
+            else:
+                i = self.mesh.index(entry)
+                out.append((i * n // k, (i + 1) * n // k))
+        return tuple(out)
+
     def local_block(self, t: torch.Tensor, spec: PSpec,
                     name: str = "tensor") -> torch.Tensor:
-        """This rank's block of the whole tensor ``t`` under ``spec``: each
-        dim cut into equal blocks over its entry's mesh axis, a copy of its
-        own; ``t`` itself where no dim is cut. Raises ``ValueError`` naming
-        ``name`` where an axis does not divide its dim."""
+        """This rank's block of the whole tensor ``t`` under ``spec``
+        (:meth:`block_slices`), a copy of its own; ``t`` itself where no dim
+        is cut. Raises ``ValueError`` naming ``name`` where an axis does not
+        divide its dim."""
         if not self.live:
             return t
         out = t
-        for dim, entry in enumerate(tuple(spec)[:t.dim()]):
-            n = axes_size(self.mesh, entry)
-            if n == 1:
-                continue
-            if t.shape[dim] % n:
-                raise ValueError(
-                    f"{name}: dim {dim} of {tuple(t.shape)} does not split "
-                    f"over mesh axis {entry!r} of {n} ranks")
-            size = t.shape[dim] // n
-            out = out.narrow(dim, self.mesh.index(entry) * size, size)
+        for dim, (lo, hi) in enumerate(self.block_slices(t.shape, spec,
+                                                         name)):
+            if hi - lo != t.shape[dim]:
+                out = out.narrow(dim, lo, hi - lo)
         return t if out is t else out.clone(
             memory_format=torch.contiguous_format)
 
@@ -187,22 +295,28 @@ LINE = {"data": "batch", "model": "tp"}
 class Placement:
     """Where one leaf lives on a live mesh: the mesh axes of more than one
     rank that cut it (``split``) and those it is whole on (``replicated``),
-    each in the mesh's order."""
+    each in the mesh's order, and the ranks of the ``model`` line that hold
+    each of its blocks (``shared``: a KV block replicated over ``model /
+    Hkv`` ranks, :func:`head_layout`)."""
     split: Tuple[str, ...] = ()
     replicated: Tuple[str, ...] = ()
+    shared: int = 1
 
 
-def placements(pspecs, mesh: Optional[Mesh]):
+def placements(pspecs, mesh: Optional[Mesh], kv_replicas: int = 1,
+               name: str = ""):
     """The :class:`Placement` of every leaf of a partition-spec tree (a
     spec is a tuple of entries, a tree dicts and lists of specs) on
     ``mesh``: a leaf is split over each mesh axis its spec names, and
-    replicated over the mesh's other axes of more than one rank. Without a
-    mesh every leaf is a Placement of no axis.
+    replicated over the mesh's other axes of more than one rank. A KV
+    leaf (:func:`head_leaf`) is shared by ``kv_replicas`` ranks of the
+    ``model`` line. Without a mesh every leaf is a Placement of no axis.
 
     The optimizer counts a leaf's squares once across its replicas (the
     global grad norm), sums the gradients of a leaf replicated over
     ``data`` (each data rank saw its own rows), and takes a leaf's max
-    over the ranks that split it (the int8 compression's scale)."""
+    over the ranks that split it (the int8 compression's scale: the max
+    of a shared block's replicas is the block's)."""
     if isinstance(pspecs, tuple):
         if mesh is None:
             return Placement()
@@ -211,11 +325,14 @@ def placements(pspecs, mesh: Optional[Mesh]):
             if entry is not None:
                 named.update((entry,) if isinstance(entry, str) else entry)
         big = [a for a, n in zip(mesh.axis_names, mesh.axis_sizes) if n > 1]
+        shared = kv_replicas if head_leaf(name) == "kv" else 1
         return Placement(tuple(a for a in big if a in named),
-                         tuple(a for a in big if a not in named))
+                         tuple(a for a in big if a not in named), shared)
     if isinstance(pspecs, dict):
-        return {k: placements(v, mesh) for k, v in pspecs.items()}
-    return [placements(v, mesh) for v in pspecs]
+        return {k: placements(v, mesh, kv_replicas, f"{name}/{k}")
+                for k, v in pspecs.items()}
+    return [placements(v, mesh, kv_replicas, f"{name}/{i}")
+            for i, v in enumerate(pspecs)]
 
 
 def param_shardings(mesh: Optional[Mesh], defs):

@@ -14,8 +14,11 @@ dry run reads from a compiled executable.
 * ``ideal_bytes`` -- the op-level counterpart of the reference's
   ``_COUNTED_OPS``: matmuls (operands and output), sorts and top-k
   (operands and outputs), gathers, scatters and index ops (the rows they
-  move, read and written, and their indices), and every hand-kernel call as
-  one unit; elementwise ops, copies and reductions count as fused;
+  move, read and written, and their indices), the collectives (``c10d``
+  ops, as the reference's ``_COUNTED_OPS`` charges its collectives: their
+  operands and outputs, an all-reduce's buffer twice), and every
+  hand-kernel call as one unit; elementwise ops, copies and reductions
+  count as fused;
 * ``transcendentals`` -- elements of exp, log, tanh, sigmoid, silu, gelu,
   softplus, rsqrt and softmax (their backward forms too);
 * memory -- the bytes of the step's arguments, of its outputs, the outputs
@@ -65,6 +68,13 @@ _SCATTER = {aten.index_put, aten.index_put_, aten._index_put_impl_,
             aten.index_add, aten.index_add_, aten.index_copy,
             aten.index_copy_, aten.embedding_dense_backward,
             aten.masked_scatter, aten.masked_scatter_}
+
+# the collectives (``c10d`` ops, which take their outputs as operands):
+# each charged its outputs (the first operand) and inputs (the second), an
+# in-place all-reduce its buffer as both
+_COLLECTIVE_INPUT = {"allgather_": 1, "_allgather_base_": 1,
+                     "_reduce_scatter_base_": 1, "reduce_scatter_": 1,
+                     "alltoall_base_": 1, "alltoall_": 1, "allreduce_": 0}
 
 _TRANSCENDENTAL = {aten.exp, aten.exp_, aten.log, aten.log_, aten.tanh,
                    aten.tanh_, aten.sigmoid, aten.sigmoid_, aten.silu,
@@ -146,6 +156,11 @@ class Counter(TorchDispatchMode):
         if packet in _NO_DATA or func.is_view:
             return out
         ins = _tensors((args, kwargs))
+        if func.namespace == "c10d":
+            moved = self._collective(func, args)
+            self.bytes_accessed += moved
+            self.ideal_bytes += moved
+            return out
         in_b = sum(nbytes(t) for t in ins)
         out_b = sum(nbytes(t) for t in outs)
         self.bytes_accessed += in_b + out_b
@@ -161,6 +176,18 @@ class Counter(TorchDispatchMode):
         if packet in _TRANSCENDENTAL:
             self.transcendentals += max((t.numel() for t in ins), default=0)
         return out
+
+    @staticmethod
+    def _collective(func, args) -> int:
+        """A ``c10d`` op's bytes: its outputs (its first operand) and its
+        inputs (the operand :data:`_COLLECTIVE_INPUT` names; the buffer
+        again for an in-place all-reduce)."""
+        name = func._overloadpacket.__name__
+        if name not in _COLLECTIVE_INPUT:
+            raise NotImplementedError(f"the counter has no rule for "
+                                      f"c10d.{name}")
+        return (tensor_bytes(args[0])
+                + tensor_bytes(args[_COLLECTIVE_INPUT[name]]))
 
     def kernel(self, name: str, n_bytes: float, n_flops: float) -> None:
         """One call of a hand kernel, counted as one unit."""

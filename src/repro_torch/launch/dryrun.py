@@ -14,10 +14,23 @@ which the port does not model.
 
 Meshes:
   * ``single`` (16x16) and ``multi`` (2x16x16): the reference's production
-    meshes, as data. Per-device argument bytes come from each leaf's
-    partition spec; flops and bytes are the whole step's over the device
-    count. ``temp_bytes``, the peak and the collective term are null: with
-    no SPMD partitioner the port has no source for them.
+    meshes. The port counts one rank's real sharded step: the model built
+    on ``meta`` across a live mesh of the production shape in a world of
+    ``torch.distributed``'s ``fake`` backend
+    (:func:`repro_torch.launch.mesh.counting_mesh`; the multi-pod mesh as
+    ``(data=32, model=16)``, ``pod`` folded into ``data``), rank 0's step
+    run under the counter. Its memory (the peak among it), cost and
+    collectives are that rank's; rank 0 holds a largest block of the head
+    layout, so its count bounds every rank's. The collectives are in the
+    reference's form, ``{kind: {count, bytes, traffic, max_group}}``
+    (``bytes`` each op's output), with a split by mesh axis
+    (``collectives_by_axis``; the ranks of rank 0's line along each axis
+    in ``collective_lines``), which the roofline's collective term reads.
+    ``spec_argument_bytes`` keeps the per-device argument bytes of the
+    reference's partition specs; the rank's differ from them by the head
+    layout (replicated KV heads, uneven query blocks) and by the cache
+    split by KV heads where the specs split its rows. A cell whose heads
+    the mesh cannot lay out is an error.
   * ``local``: one card (``make_local_mesh``); every field is filled, the
     collective term is 0.
 
@@ -41,18 +54,24 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import SHAPES, get_config, list_configs, shape_of
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import shard_shape
 from repro_torch.launch.counter import Counter
-from repro_torch.launch.mesh import (Mesh, make_local_mesh,
-                                     make_production_mesh)
-from repro_torch.launch.roofline import H100, Hardware, roofline_terms
+from repro_torch.launch.mesh import (COUNTED, Mesh, counting_mesh,
+                                     make_local_mesh, make_production_mesh)
+from repro_torch.launch.roofline import (H100, Hardware, _traffic,
+                                         roofline_terms)
 
 RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 
 # the config of an arch name (a test points it at the reduced configs)
 CONFIG = get_config
 
-def make_mesh(name: str) -> Mesh:
+def make_mesh(name) -> Mesh:
+    """The mesh of ``name`` ("single", "multi", "local" or a (data,
+    model) shape)."""
+    if not isinstance(name, str):
+        return Mesh(("data", "model"), tuple(name))
     if name == "local":
         # the one card the roofline's H100 terms describe
         if not torch.cuda.is_available():
@@ -62,23 +81,69 @@ def make_mesh(name: str) -> Mesh:
 
 
 def count_cell(cfg, shape, overrides=None, opt_cfg=None,
-               n_micro: int = 1) -> Dict[str, Any]:
+               n_micro: int = 1, mesh=None) -> Dict[str, Any]:
     """One step of the cell on ``meta`` under a counter: ``{"cost",
-    "memory", "kernels", "count_s"}`` (the whole step, one device)."""
+    "memory", "kernels", "collectives", "count_s"}``: the whole step on one
+    device, or this rank's of a live ``mesh`` (a
+    :func:`~repro_torch.launch.mesh.counting_mesh`), with its collectives
+    (``collectives.stats()`` of the step)."""
     from repro_torch.models import build_model
     from repro_torch.training.train_step import build_cell
     sh = shape_of(shape)
-    model = build_model(cfg, device="meta", trainable=sh["kind"] == "train")
+    model = build_model(cfg, device="meta", trainable=sh["kind"] == "train",
+                        mesh=mesh)
     for k, v in (overrides or {}).items():
         setattr(model, k, v)
     step, args = build_cell(model, sh, opt_cfg=opt_cfg, n_micro=n_micro)
     t0 = time.perf_counter()
     c = Counter()
+    C.reset_stats()
     with torch.set_grad_enabled(sh["kind"] == "train"):
         mem = c.run(step, *args)
     return {"cost": c.cost(), "memory": mem,
             "kernels": {k: dict(v) for k, v in sorted(c.kernels.items())},
-            "count_s": time.perf_counter() - t0}
+            "collectives": C.stats(), "count_s": time.perf_counter() - t0}
+
+
+# the reference's kind of each of the port's collectives
+KINDS = {"all_gather": "all-gather", "all_reduce": "all-reduce",
+         "all_reduce_max": "all-reduce", "reduce_scatter": "reduce-scatter",
+         "all_to_all": "all-to-all"}
+
+
+def collective_lines(mesh, kv_replicas: int) -> Dict[str, list]:
+    """The ranks of rank 0's line along each axis a collective can run on:
+    ``data`` (stride ``model``), ``model`` and the KV replicas' ``kv``."""
+    data, model = mesh.axis_sizes
+    return {"data": [d * model for d in range(data)],
+            "model": list(range(model)), "kv": list(range(kv_replicas))}
+
+
+def collective_record(stats, lines: Dict[str, list]):
+    """``collectives.stats()`` in the reference's form: (``{kind: {count,
+    bytes, traffic, max_group}}``, the same by mesh axis). ``bytes`` is each
+    op's output, as the reference's ``parse_collectives`` reads it: the
+    all-gather's gathered tensor, the all-reduce's buffer, the
+    reduce-scatter's block (``stats()`` counts its input: over the line's
+    size), the all-to-all's buffer; ``traffic`` is ``_traffic`` over the
+    line's ranks."""
+    total: Dict[str, Dict[str, float]] = {}
+    by_axis: Dict[str, Dict[str, Dict[str, float]]] = {}
+    for kind, axes in sorted(stats.items()):
+        k = KINDS[kind]
+        for axis, s in sorted(axes.items()):
+            n = len(lines[axis])
+            b = s["bytes"] // n if k == "reduce-scatter" else s["bytes"]
+            rec = by_axis.setdefault(axis, {}).setdefault(
+                k, {"count": 0, "bytes": 0, "traffic": 0.0, "group": n})
+            tot = total.setdefault(k, {"count": 0, "bytes": 0,
+                                       "traffic": 0.0, "max_group": 0})
+            for d in (rec, tot):
+                d["count"] += s["calls"]
+                d["bytes"] += b
+                d["traffic"] += _traffic(k, b, n)
+            tot["max_group"] = max(tot["max_group"], n)
+    return total, by_axis
 
 
 def _leaf_pairs(tree, specs):
@@ -127,20 +192,21 @@ def per_device_arguments(cfg, shape, mesh: Mesh, opt_cfg=None) -> int:
     return total
 
 
-_COUNTS: Dict[Any, Dict[str, Any]] = {}
-
-
-def _count(arch: str, cfg, shape_name, overrides, opt_cfg,
-           n_micro: int) -> Dict[str, Any]:
-    """The cell's count, made once per process (the same for every mesh:
-    the port divides it)."""
-    key = (arch, json.dumps(shape_of(shape_name), sort_keys=True),
-           repr(sorted((overrides or {}).items())), repr(cfg), repr(opt_cfg),
-           n_micro)
-    if key not in _COUNTS:
-        _COUNTS[key] = count_cell(cfg, shape_name, overrides=overrides,
-                                  opt_cfg=opt_cfg, n_micro=n_micro)
-    return _COUNTS[key]
+def _count(cfg, shape_name, overrides, opt_cfg, n_micro: int, mesh,
+           rank: int = 0) -> Dict[str, Any]:
+    """The cell's count on ``mesh``: the whole step for ``local``, else
+    rank ``rank``'s in a counting world of the mesh's shape
+    (:func:`~repro_torch.launch.mesh.counting_mesh`), with the lines of its
+    collectives."""
+    if mesh == "local":
+        return count_cell(cfg, shape_name, overrides=overrides,
+                          opt_cfg=opt_cfg, n_micro=n_micro)
+    from repro_torch.models.transformer import sharding_ctx
+    with counting_mesh(mesh, rank) as lm:
+        rec = count_cell(cfg, shape_name, overrides=overrides,
+                         opt_cfg=opt_cfg, n_micro=n_micro, mesh=lm)
+        rec["lines"] = collective_lines(lm, sharding_ctx(cfg, lm).kv_replicas)
+    return rec
 
 
 def shape_label(shape) -> str:
@@ -150,43 +216,50 @@ def shape_label(shape) -> str:
     return f"{shape['kind']}_{shape['global_batch']}x{shape['seq_len']}"
 
 
-def run_cell(arch: str, shape_name, mesh: str, overrides=None,
+def run_cell(arch: str, shape_name, mesh, overrides=None,
              hw: Hardware = H100, cfg=None, opt_cfg=None,
-             n_micro: int = 1) -> dict:
-    """Count one cell on ``mesh`` ("single", "multi" or "local"); return
-    the analysis record. ``shape_name`` is a name of ``SHAPES`` or a shape
-    dict (the smoke's card shapes); ``cfg`` replaces the arch's config (a
-    config cut in depth), ``opt_cfg`` and ``n_micro`` set a train cell's
-    step as ``build_cell`` takes them."""
+             n_micro: int = 1, rank: int = 0) -> dict:
+    """Count one cell on ``mesh`` ("single", "multi", "local" or a (data,
+    model) shape, counted as the production meshes are, rank ``rank``'s
+    step); return the analysis record. ``shape_name`` is a name of
+    ``SHAPES`` or a shape dict (the smoke's card shapes); ``cfg`` replaces
+    the arch's config (a config cut in depth), ``opt_cfg`` and ``n_micro``
+    set a train cell's step as ``build_cell`` takes them."""
     cfg = cfg or CONFIG(arch)
+    mesh = mesh if isinstance(mesh, str) else tuple(mesh)
     label = shape_label(shape_name)
-    rec: Dict[str, Any] = {"arch": arch, "shape": label, "mesh": mesh}
+    rec: Dict[str, Any] = {"arch": arch, "shape": label,
+                           "mesh": mesh if isinstance(mesh, str)
+                           else list(mesh)}
     if isinstance(shape_name, str) and shape_name in cfg.skipped_shapes():
         rec["status"] = "skipped"
         rec["skip_reason"] = cfg.skipped_shapes()[shape_name]
         return rec
-    m = make_mesh(mesh)
-    n = m.size
-    direct = _count(arch, cfg, shape_name, overrides, opt_cfg, n_micro)
+    n = make_mesh(mesh).size
+    direct = _count(cfg, shape_name, overrides, opt_cfg, n_micro, mesh, rank)
     rec["count_s"] = round(direct["count_s"], 2)
     mem = dict(direct["memory"])
+    mem["peak_bytes_per_device"] = mem.pop("peak_bytes")
+    mem["fits_h100_80g"] = bool(mem["peak_bytes_per_device"] <= hw.hbm_cap)
+    by_axis = lines = None
     if n > 1:
-        mem = {"argument_bytes": per_device_arguments(cfg, shape_name, m,
-                                                      opt_cfg),
-               "output_bytes": None, "temp_bytes": None,
-               "alias_bytes": None, "peak_bytes_per_device": None,
-               "fits_h100_80g": None,
-               "unsharded_argument_bytes": direct["memory"]["argument_bytes"]}
+        mem["spec_argument_bytes"] = per_device_arguments(
+            cfg, shape_name, make_mesh(mesh), opt_cfg)
+        rec["counted_as"] = list(COUNTED.get(mesh, mesh))
+        rec["rank"] = rank
+        lines = direct["lines"]
+        rec["collectives"], by_axis = collective_record(
+            direct["collectives"], lines)
+        rec["collectives_by_axis"] = by_axis
+        rec["collective_lines"] = lines
     else:
-        mem["peak_bytes_per_device"] = mem.pop("peak_bytes")
-        mem["fits_h100_80g"] = bool(mem["peak_bytes_per_device"]
-                                    <= hw.hbm_cap)
+        rec["collectives"] = {}
     rec["memory"] = mem
-    rec["cost"] = {k: v / n for k, v in direct["cost"].items()}
+    rec["cost"] = dict(direct["cost"])
     rec["kernels"] = direct["kernels"]
-    rec["collectives"] = None if n > 1 else {}
     rec["roofline"] = roofline_terms(rec["cost"], rec["collectives"], n, cfg,
-                                     shape_of(shape_name), hw)
+                                     shape_of(shape_name), hw,
+                                     by_axis=by_axis, lines=lines)
     rec["status"] = "ok"
     return rec
 

@@ -3,8 +3,9 @@
 
   PYTHONPATH=src python -m repro_torch.launch.report [--mesh single|multi|local]
 
-A term the port has no source for (the collective term and the peak on
-the multi-device meshes) prints as "n/a".
+Every mesh's records carry the peak and the collective term (on the
+production meshes, rank 0's of a counted sharded step); a record that
+lacks one prints it as "n/a".
 """
 from __future__ import annotations
 

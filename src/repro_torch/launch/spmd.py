@@ -409,18 +409,19 @@ def warm_state(model, opt_cfg, seed: int) -> Dict[str, Any]:
     moments the first step moves each element by about lr sign(g), which
     flips where g is near 0, so two runs whose gradients differ in the
     last bits move such elements 2 lr apart; from these the update is
-    smooth in the gradient."""
-    from repro_torch.tree import leaves, unflatten
+    smooth in the gradient. Each leaf is cut as its parameter is (the head
+    layout's blocks of the attention's leaves)."""
+    from repro_torch.tree import leaves, leaves_with_paths, unflatten
     pspecs = _spec_leaves(model.param_pspecs())
-    whole = leaves(model.abstract_params())
+    whole = leaves_with_paths(model.abstract_params())
     dev = leaves(model.param_tree())[0].device
     gen = torch.Generator(device=dev).manual_seed(seed)
     ctx = model.ctx
 
     def draw(fill):
         return [ctx.local_block(fill(torch.empty(w.shape, dtype=torch.float32,
-                                                 device=dev)), spec)
-                for w, spec in zip(whole, pspecs)]
+                                                 device=dev)), spec, path)
+                for (path, w), spec in zip(whole, pspecs)]
 
     tree = model.param_tree()
     state = {"m": unflatten(tree, draw(
@@ -503,29 +504,33 @@ def whole(records: List[Dict[str, Any]], key: str, cfg: ArchConfig,
           shape: Sequence[int], device=None):
     """The whole tree of ``key`` (``"params"`` or ``"grads"``) put back
     together on ``device`` (default: the blocks') from the ranks' blocks,
-    each placed by its leaf's partition spec on the ``shape`` mesh; and
-    whether every rank's block equals the whole's at its place (the
-    replicas of a leaf agree bitwise)."""
+    each placed where its leaf's partition spec and the head layout put
+    it on the ``shape`` mesh (:meth:`~repro_torch.distributed.sharding.
+    ShardingCtx.block_slices`); and whether every rank's block equals the
+    whole's at its place (the replicas of a leaf, a shared KV block's
+    among them, agree bitwise)."""
     from repro_torch.distributed.sharding import param_shardings
     from repro_torch.launch.mesh import LocalMesh
-    from repro_torch.models.common import param_specs
-    from repro_torch.tree import leaves, unflatten
-    sizes = dict(zip(("data", "model"), shape))
-    specs = _spec_leaves(param_shardings(
-        LocalMesh(("data", "model"), tuple(shape)), param_specs(cfg)))
-    blocks = [(dict(zip(("data", "model"), r["coords"])), leaves(r[key]))
+    from repro_torch.models.common import abstract_tree, param_specs
+    from repro_torch.models.transformer import sharding_ctx
+    from repro_torch.tree import leaves, leaves_with_paths, unflatten
+    mesh_of = lambda r: LocalMesh(("data", "model"), tuple(shape),
+                                  rank=r["rank"], coords=tuple(r["coords"]))
+    specs = _spec_leaves(param_shardings(mesh_of(records[0]),
+                                         param_specs(cfg)))
+    shapes = [t.shape for t in leaves(abstract_tree(param_specs(cfg)))]
+    blocks = [(sharding_ctx(cfg, mesh_of(r)), leaves(r[key]))
               for r in records]
+    paths = [p for p, _ in leaves_with_paths(records[0][key])]
     parts, agree = [], True
-    for i, spec in enumerate(specs):
+    for i, (spec, path) in enumerate(zip(specs, paths)):
         ref = blocks[0][1][i]
-        spec = tuple(spec)[:ref.dim()]
-        out = torch.empty([n * (sizes[e] if e else 1)
-                           for n, e in zip(ref.shape, spec)],
-                          dtype=ref.dtype, device=device or ref.device)
+        out = torch.empty(shapes[i], dtype=ref.dtype,
+                          device=device or ref.device)
         places = []
-        for at, bl in blocks:
-            idx = tuple(slice(at[e] * n, (at[e] + 1) * n) if e else slice(None)
-                        for n, e in zip(bl[i].shape, spec))
+        for ctx, bl in blocks:
+            idx = tuple(slice(lo, hi) for lo, hi in
+                        ctx.block_slices(shapes[i], spec, path))
             places.append((idx, bl[i].to(out.device)))
             out[idx] = places[-1][1]
         agree &= all(torch.equal(out[idx], b) for idx, b in places)
@@ -607,6 +612,66 @@ def check_train(records: List[Dict[str, Any]], single: Dict[str, Any],
 
 
 # ---------------------------------------------------------------------------
+# One rank's cell steps: what the dry run's counting world predicts
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CellJob:
+    """``training.build_cell``'s step of ``cfg`` at each of ``shapes``
+    (label -> shape dict), in turn on one trainable model drawn from
+    ``seed``: what :mod:`repro_torch.launch.dryrun` counts on a fake world
+    of the same mesh (:func:`~repro_torch.launch.mesh.counting_mesh`)."""
+    cfg: ArchConfig
+    shapes: Dict[str, Any]
+    seed: int = 0
+
+
+def cell(mesh, device: torch.device, job: CellJob) -> Dict[str, Any]:
+    """One rank's steps of ``job``: each shape's step once, with the
+    device's peak reset (run after jobs of the same models, the smoke's
+    mesh phase holds no first-use allocation in it). Returns per label the
+    arguments' bytes, the step's peak (the arguments plus the most the
+    step allocated above what was resident before it; None on the CPU),
+    the collectives it made (``collectives.stats()``) and its launches;
+    the seconds of the whole job, the model's build included, and the
+    foreign modules."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels import ops
+    from repro_torch.launch.counter import tensor_bytes
+    from repro_torch.models import build_model
+    from repro_torch.training.train_step import build_cell
+    t0 = time.perf_counter()
+    model = build_model(job.cfg, device=device, seed=job.seed,
+                        trainable=True, mesh=mesh)
+    out = {}
+    for label, shape in job.shapes.items():
+        gen = torch.Generator(device=device).manual_seed(job.seed)
+        step, args = build_cell(model, shape, generator=gen)
+        with torch.set_grad_enabled(shape["kind"] == "train"):
+            cuda = device.type == "cuda"
+            if cuda:
+                torch.cuda.synchronize(device)
+                base = torch.cuda.memory_allocated(device)
+            _reset_peak(device)
+            C.reset_stats()
+            ops.reset_counts()
+            res = step(*args)
+            if cuda:
+                torch.cuda.synchronize(device)
+        arg_bytes = tensor_bytes(args)
+        out[label] = dict(
+            argument_bytes=arg_bytes,
+            peak_bytes=(arg_bytes + _peak(device) - base if cuda else None),
+            collectives=C.stats(),
+            launches={k: n for k, n in ops.counts()["launches"].items()
+                      if n})
+        del res, step, args
+    return dict(rank=getattr(mesh, "rank", 0),
+                coords=list(getattr(mesh, "coords", (0, 0))), cells=out,
+                seconds=time.perf_counter() - t0, foreign=foreign_modules())
+
+
+# ---------------------------------------------------------------------------
 # Jobs on the mesh, then in one process
 # ---------------------------------------------------------------------------
 
@@ -614,11 +679,13 @@ def work_all(mesh, device: torch.device, jobs: Sequence[Any]
              ) -> List[Dict[str, Any]]:
     """Each job in turn on one spawn of the ranks: :func:`serve` of a
     :class:`Job`, :func:`train` of a :class:`TrainJob` (its gradients and
-    parameters copied to the CPU)."""
+    parameters copied to the CPU), :func:`cell` of a :class:`CellJob`."""
     from repro_torch.tree import tree_map
     out = []
     for job in jobs:
-        if isinstance(job, TrainJob):
+        if isinstance(job, CellJob):
+            rec = cell(mesh, device, job)
+        elif isinstance(job, TrainJob):
             rec = train(mesh, device, job)
             for key in ("grads", "params"):
                 rec[key] = tree_map(lambda t: t.detach().cpu(), rec[key])
@@ -632,10 +699,13 @@ def work_all(mesh, device: torch.device, jobs: Sequence[Any]
 
 def run(jobs: Sequence[Any], shape: Sequence[int], *, device: str = "cuda",
         threads: Optional[int] = None) -> Tuple[str, List[Dict[str, Any]]]:
-    """The jobs (:class:`Job` and :class:`TrainJob`) on one spawn of a
-    ``shape`` mesh, then each in this process (a serving job fed the
-    tokens the mesh fed; a train job's gradients and parameters kept on
-    its device, where :func:`check_train` compares them), and the checks.
+    """The jobs (:class:`Job`, :class:`TrainJob` and :class:`CellJob`) on
+    one spawn of a ``shape`` mesh, then each serving and train job in this
+    process (a serving job fed the tokens the mesh fed; a train job's
+    gradients and parameters kept on its device, where
+    :func:`check_train` compares them), and the checks; a cell job's
+    records are its ranks' alone (its ``check`` and ``single`` None: the
+    caller holds them to the dry run's count).
     Returns (backend, per job ``{"mesh_seconds", "one_process_seconds",
     "check_seconds", "ranks": [rank_line], "check", "records",
     "single"}``); ``mesh_seconds`` is the spawn's, all jobs together, and
@@ -651,6 +721,10 @@ def run(jobs: Sequence[Any], shape: Sequence[int], *, device: str = "cuda",
     for i, job in enumerate(jobs):
         records = [r[i] for r in per_rank]
         t1 = time.perf_counter()
+        if isinstance(job, CellJob):
+            out.append(dict(mesh_seconds=mesh_s, records=records,
+                            check=None, single=None))
+            continue
         if isinstance(job, TrainJob):
             single = train(None, dev, job)
             t2 = time.perf_counter()

@@ -7,10 +7,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, get_config
-from repro_torch.distributed.sharding import ShardingCtx, mesh_rules
+from repro_torch.distributed.sharding import mesh_rules
 from repro_torch.models.common import (abstract_tree, init_params,
                                        param_specs, pspec_tree)
-from repro_torch.models.transformer import Model, check_mesh
+from repro_torch.models.transformer import Model, sharding_ctx
 
 
 def build_model(cfg: Union[str, ArchConfig],
@@ -29,13 +29,15 @@ def build_model(cfg: Union[str, ArchConfig],
     whole tree and the model keeps this rank's block of each leaf, or,
     without ``params``, each leaf is drawn whole from ``seed`` (the same
     on every rank) and cut to its block before the next is drawn
-    (:func:`init_params`), so a rank never holds the whole model. Raises
-    ``ValueError`` for a leaf the mesh does not divide."""
+    (:func:`init_params`), so a rank never holds the whole model. The
+    attention's leaves are cut by the head layout
+    (:func:`~repro_torch.distributed.sharding.head_layout`). Raises
+    ``ValueError`` for a leaf the mesh does not divide or heads it cannot
+    lay out."""
     if isinstance(cfg, str):
         cfg = get_config(cfg)
     device = resolve_device(device)
-    ctx = ShardingCtx(mesh)
-    check_mesh(cfg, ctx)
+    ctx = sharding_ctx(cfg, mesh)
     if params is None and device.type != "meta":
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)

@@ -10,8 +10,10 @@ update the arena plane in place, where the reference returns a new
 
 Tensor parallelism (Megatron): the head counts are read off the weights,
 so a function given one rank's block of the heads (``wq``/``wk``/``wv``
-columns, ``wo`` rows: ``H/tp`` query and ``Hkv/tp`` KV heads) attends over
-those heads alone, and an FFN given its block of ``d_ff`` computes that
+columns, ``wo`` rows: its query and KV heads of
+:func:`repro_torch.distributed.sharding.head_layout`, ``H/tp`` and
+``Hkv/tp``, or one KV head shared with the other ranks of its group and
+that group's query heads on this rank) attends over those heads alone, and an FFN given its block of ``d_ff`` computes that
 block. Their output products (``wo``, ``w_down``) are then partial sums,
 which :func:`attn_full`, :func:`attn_decode`, :func:`attn_decode_cross`
 and :func:`ffn_apply` add up over ``model`` when given a live ``ctx``
@@ -19,7 +21,10 @@ and :func:`ffn_apply` add up over ``model`` when given a live ``ctx``
 one they are the one-card functions. Under autograd the normed rows (and
 the qk-norm scales) enter the rank's block through
 :func:`~repro_torch.distributed.collectives.enter`, so their gradients are
-summed over ``model``, and the all-reduce's backward is the identity.
+summed over ``model``, and the all-reduce's backward is the identity. A
+replicated KV head's weights (``wk``/``wv``/``bk``/``bv``) enter the
+ranks that share it through the ``"kv"`` line, so their gradient is
+summed over those ranks.
 """
 from __future__ import annotations
 
@@ -42,16 +47,18 @@ def _project_qkv(p: Mapping[str, torch.Tensor], h: torch.Tensor,
     cross-attention has not. H and Hkv are the heads the weights hold: on
     a live ``ctx`` this rank's, so the qk-norm scales, whole on every
     rank, enter the rank's heads (their gradient summed over
-    ``model``)."""
+    ``model``), and the K/V weights enter the ranks sharing their heads
+    (their gradient summed over ``"kv"``)."""
     hd = cfg.head_dim_
     H, Hkv = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
+    kv = lambda name: C.enter(p[name], "kv", ctx)
     q = h @ p["wq"]
-    k = src @ p["wk"]
-    v = src @ p["wv"]
+    k = src @ kv("wk")
+    v = src @ kv("wv")
     if cfg.qkv_bias and not cross:
         q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        k = k + kv("bk")
+        v = v + kv("bv")
     q = q.reshape(*h.shape[:-1], H, hd)
     k = k.reshape(*src.shape[:-1], Hkv, hd)
     v = v.reshape(*src.shape[:-1], Hkv, hd)
@@ -177,7 +184,7 @@ def attn_decode(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
     the output is summed over ``model``. Returns the output [B,1,D]."""
     B, S, Hkv, hd = k_cache.shape
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k_new, v_new = _project_qkv(p, h, h, cfg)
+    q, k_new, v_new = _project_qkv(p, h, h, cfg, ctx=ctx)
     q = apply_rope(q, positions[:, None], cfg.rope_theta)
     k_new = apply_rope(k_new, positions[:, None], cfg.rope_theta)
     lanes = torch.arange(B, device=x.device)

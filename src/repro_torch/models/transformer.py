@@ -28,7 +28,13 @@ serving methods never build a graph.
 
 Across a live mesh (``build_model(..., mesh=make_local_mesh(d, m))``,
 every family): each rank holds its block of every leaf, the encoder's too
-(:meth:`ShardingCtx.shard_tree` under :meth:`Model.param_pspecs`).
+(:meth:`ShardingCtx.shard_tree` under :meth:`Model.param_pspecs`), the
+attention's by whole heads
+(:func:`~repro_torch.distributed.sharding.head_layout`): where ``model``
+exceeds the KV heads, each KV head is replicated over the ranks whose
+query heads read it, their gradients summed over those ranks, and a
+group's query heads that do not split evenly over them give the first
+ranks one more.
 :meth:`Model.prefill`, :meth:`Model.prefill_with_state` and
 :meth:`Model.decode_step` then run Megatron tensor parallelism over
 ``model`` (the attention's, the cross-attention's and the encoder's
@@ -59,8 +65,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, TensorSpec
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import (ShardingCtx, param_shardings,
-                                              placements)
+from repro_torch.distributed.sharding import (ShardingCtx, head_layout,
+                                              param_shardings, placements)
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
@@ -75,41 +81,45 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 MESH_FAMILIES = FAMILIES
 
 
+def sharding_ctx(cfg: ArchConfig, mesh) -> ShardingCtx:
+    """The model's sharding context on ``mesh``, given the config's heads,
+    so that a live mesh cuts the attention's leaves by the head layout;
+    raises where :func:`check_mesh` does."""
+    check_mesh(cfg, ShardingCtx(mesh))
+    heads = None if cfg.family == "ssm" else (cfg.n_heads, cfg.n_kv_heads)
+    return ShardingCtx(mesh, heads=heads)
+
+
 def check_mesh(cfg: ArchConfig, ctx: ShardingCtx) -> None:
-    """Raise ``ValueError``, naming the leaf, for head counts or SSM
-    channels that a live mesh's ``model`` axis does not split: a leaf's
-    columns may divide where its heads do not."""
+    """Raise ``ValueError``, naming the leaf, for heads that a live mesh's
+    ``model`` axis cannot lay out (:func:`~repro_torch.distributed.
+    sharding.head_layout`: the attention's, the cross layers' and the
+    encoder's alike) or SSM heads and channels it does not split."""
     if not ctx.live:
         return
     tp = ctx.axis_size("tp")
-    checks = []
     if cfg.family != "ssm":
-        checks += [("layers/*/attn/wq", "heads", cfg.n_heads),
-                   ("layers/*/attn/wk", "KV heads", cfg.n_kv_heads)]
-    if cfg.ssm is not None:
-        s = cfg.ssm
-        checks += [("layers/*/ssm/wdt", "SSM heads", s.n_heads(cfg.d_model)),
-                   ("layers/*/ssm/wx", "d_inner channels",
-                    s.d_inner(cfg.d_model))]
-    if cfg.encoder is not None:
-        checks += [("encoder/layers/*/attn/wq", "heads", cfg.n_heads),
-                   ("encoder/layers/*/attn/wk", "KV heads", cfg.n_kv_heads)]
-    if cfg.family in ("encdec", "vlm"):
-        checks += [("layers/*/cross/wq", "heads", cfg.n_heads),
-                   ("layers/*/cross/wk", "KV heads", cfg.n_kv_heads)]
-    for leaf, what, n in checks:
+        try:
+            head_layout(cfg.n_heads, cfg.n_kv_heads, tp, 0)
+        except ValueError as e:
+            raise ValueError(f"{cfg.name}: {e}") from None
+    if cfg.ssm is None:
+        return
+    s = cfg.ssm
+    for leaf, what, n in (("layers/*/ssm/wdt", "SSM heads",
+                           s.n_heads(cfg.d_model)),
+                          ("layers/*/ssm/wx", "d_inner channels",
+                           s.d_inner(cfg.d_model))):
         if n % tp:
             raise ValueError(f"{cfg.name}: {leaf}: {n} {what} do not split "
                              f"over mesh axis 'model' of {tp} ranks")
-    if cfg.ssm is not None:
-        # a rank's block of the SSM heads holds whole groups or lies in one
-        s = cfg.ssm
-        H = s.n_heads(cfg.d_model) // tp
-        per = s.n_heads(cfg.d_model) // s.n_groups
-        if H % per and per % H:
-            raise ValueError(f"{cfg.name}: layers/*/ssm/wB: {s.n_groups} "
-                             f"groups of {per} heads do not align with "
-                             f"the {H} SSM heads of each of {tp} ranks")
+    # a rank's block of the SSM heads holds whole groups or lies in one
+    H = s.n_heads(cfg.d_model) // tp
+    per = s.n_heads(cfg.d_model) // s.n_groups
+    if H % per and per % H:
+        raise ValueError(f"{cfg.name}: layers/*/ssm/wB: {s.n_groups} "
+                         f"groups of {per} heads do not align with "
+                         f"the {H} SSM heads of each of {tp} ranks")
 
 
 def _param(t: torch.Tensor, trainable: bool) -> nn.Parameter:
@@ -228,8 +238,7 @@ class Model(nn.Module):
                 f"family {cfg.family!r}")
         # the sharding context: the dry run's mesh as data, or the live
         # mesh whose blocks ``params`` hold (build_model's ``mesh``)
-        self.ctx = ShardingCtx(mesh)
-        check_mesh(cfg, self.ctx)
+        self.ctx = sharding_ctx(cfg, mesh)
         self.cfg = cfg
         self.vocab_padded = pad_vocab(cfg.vocab, 256)
         self.embedding = _param(params["embed"], trainable)
@@ -263,9 +272,13 @@ class Model(nn.Module):
         # layer index -> entry of the state cache's cross K/V
         cross = [i for i, b in enumerate(self.layers) if b.cross is not None]
         self.cross_layer = {i: j for j, i in enumerate(cross)}
-        # KV heads (and SSM heads) this rank holds
-        tp = self.ctx.axis_size("tp")
-        self.n_kv_local = cfg.n_kv_heads // tp
+        # KV heads (and SSM heads) this rank holds: on a live mesh its
+        # block of the head layout (one replicated KV head where ``model``
+        # exceeds them), else all
+        tp = self.ctx.axis_size("tp") if self.ctx.live else 1
+        hb = self.ctx.head_block
+        self.n_kv_local = (hb.kv[1] - hb.kv[0] if hb is not None
+                           else cfg.n_kv_heads // tp)
         self.n_ssm_heads_local = (cfg.ssm.n_heads(cfg.d_model) // tp
                                   if cfg.ssm is not None else 0)
 
@@ -337,7 +350,8 @@ class Model(nn.Module):
         """Each parameter's :class:`~repro_torch.distributed.sharding.
         Placement` on the model's mesh: the mesh axes that split it and
         those it is replicated over."""
-        return placements(self.param_pspecs(), self.ctx.mesh)
+        return placements(self.param_pspecs(), self.ctx.mesh,
+                          self.ctx.kv_replicas)
 
     def sum_grads_over_data(self) -> None:
         """After a backward on a live mesh with a data axis: sum over
@@ -760,8 +774,9 @@ class Model(nn.Module):
         P] f32, "conv": [n_ssm_layers, batch, conv_dim-1, di]}`` and the
         cross layers' static ``{"cross_k", "cross_v": [n_cross_layers,
         batch, n_ctx, Hkv, hd]}`` in the model dtype; ``{}`` for a model
-        with neither. On a live mesh H, di and Hkv are this rank's
-        ``H/tp``, ``di/tp`` and ``Hkv/tp``."""
+        with neither. On a live mesh H and di are this rank's ``H/tp`` and
+        ``di/tp``, and Hkv its KV heads of the head layout (one where
+        ``model`` exceeds them)."""
         cfg, dev = self.cfg, self.device
         out: Dict[str, torch.Tensor] = {}
         if self.n_ssm_layers:
@@ -811,7 +826,9 @@ class Model(nn.Module):
         splits a slot's cache (lanes over the batch axes, K/V rows over
         ``kv_sp``, SSM heads and conv channels over ``tp``), but on a live
         mesh, whose K/V and cross K/V :meth:`cache` splits by KV heads
-        (``tp``) instead of rows."""
+        (``tp``) instead of rows. Where a live mesh's ``model`` exceeds the
+        KV heads the spec leaves them whole, while each rank holds one,
+        replicated (:meth:`cache` allocates the rank's blocks)."""
         cfg, ctx = self.cfg, self.ctx
         kv_axes = (("batch", None, "tp", None) if ctx.live
                    else ("batch", "kv_sp", None, None))

@@ -17,8 +17,9 @@ Across a live mesh (``ctx`` and the leaves'
 :func:`~repro_torch.distributed.sharding.placements`) every rank updates
 its own blocks of the parameters and of the state, elementwise as on one
 card; the grad norm is global (each rank's squares, each leaf counted on
-one rank of its replicas, summed over the mesh) and the int8 scale is the
-max over the ranks that split the leaf.
+one rank of its replicas, a KV block replicated over ranks of the
+``model`` line too, summed over the mesh) and the int8 scale is the max
+over the ranks that split the leaf.
 """
 from __future__ import annotations
 
@@ -120,12 +121,14 @@ def global_norm(tree, ctx=None, places=None) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's f32 sum of squares, added
     in leaf order. On a live mesh (``ctx``, ``places`` the leaves'
     placements) the leaves are this rank's blocks: a leaf counts on the
-    ranks at index 0 of each axis it is replicated over, and the sum runs
-    over ``data`` and ``model``."""
+    ranks at index 0 of each axis it is replicated over (and a KV block
+    shared by ranks of the ``model`` line, on the first of them), and the
+    sum runs over ``data`` and ``model``."""
     ls = leaves(tree)
     sq = torch.zeros((), dtype=torch.float32, device=ls[0].device)
     for x, pl in zip(ls, leaves(places) if places else [None] * len(ls)):
-        if pl is None or all(ctx.index(LINE[a]) == 0 for a in pl.replicated):
+        if pl is None or (all(ctx.index(LINE[a]) == 0 for a in pl.replicated)
+                          and (pl.shared == 1 or ctx.index("kv") == 0)):
             sq = sq + x.float().square().sum()
     for axis in LINE:
         sq = C.all_reduce_sum(sq, LINE[axis], ctx)

@@ -210,8 +210,8 @@ def build_cell(model: Model, shape, opt_cfg: Optional[OptConfig] = None,
     of the batch (:func:`batch_pspecs`; all of it where the data axis does
     not divide it), :meth:`Model.cache`'s block for them and, training,
     the AdamW state of its blocks of the parameters
-    (:func:`~repro_torch.training.optimizer.opt_pspecs`); ``n_micro``
-    splits each rank's rows."""
+    (:func:`~repro_torch.training.optimizer.opt_pspecs`), on ``meta`` as
+    on a device; ``n_micro`` splits each rank's rows."""
     sh = shape_of(shape)
     params = model.param_tree()
     meta = model.device.type == "meta"
@@ -229,12 +229,8 @@ def build_cell(model: Model, shape, opt_cfg: Optional[OptConfig] = None,
         return step, (params, opt, batch)
     if sh["kind"] == "prefill":
         return make_prefill_step(model), (params, batch)
-    B, S = batch["tokens"].shape[0], sh["seq_len"]
-    if meta:
-        structs, _ = model.cache_specs(B, S)
-        cache = {k: torch.empty(s.shape, dtype=s.dtype, device="meta")
-                 for k, s in structs.items()}
-    else:
-        cache = model.cache(B, S)
+    # the rank's block of the cache on a live mesh (on ``meta`` too:
+    # ``cache_specs``' shapes are the whole mesh's)
+    cache = model.cache(batch["tokens"].shape[0], sh["seq_len"])
     return make_decode_step(model), (params, cache, batch["tokens"],
                                      batch["positions"])

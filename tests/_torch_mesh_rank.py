@@ -238,3 +238,34 @@ def run_family_cases(mesh, device, cases):
             for obj, attr, old in saved:
                 setattr(obj, attr, old)
     return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_dryrun_mesh.py: a rank's count of build_cell's step
+# ---------------------------------------------------------------------------
+
+def count_step(mesh, device, cfg, shape, seed=0):
+    """``training.build_cell``'s step of ``cfg`` at ``shape`` on this rank
+    (weights and batch drawn from ``seed``), run once under
+    ``launch.counter.Counter``: its cost, memory, kernels and collectives
+    (``collectives.stats()`` of the step)."""
+    from repro_torch.launch.counter import Counter
+    from repro_torch.training.train_step import build_cell
+    train = shape["kind"] == "train"
+    model = build_model(cfg, device=device, seed=seed, trainable=train,
+                        mesh=mesh)
+    step, args = build_cell(model, shape,
+                            generator=torch.Generator().manual_seed(seed))
+    C.reset_stats()
+    c = Counter()
+    with torch.set_grad_enabled(train):
+        mem = c.run(step, *args)
+    return dict(cost=c.cost(), memory=mem, collectives=C.stats(),
+                kernels={k: dict(v) for k, v in sorted(c.kernels.items())})
+
+
+def count_cells(mesh, device, cases):
+    """:func:`count_step` of each case ``{key: (cfg, shape)}`` on this
+    rank."""
+    return {key: count_step(mesh, device, cfg, shape)
+            for key, (cfg, shape) in cases.items()}

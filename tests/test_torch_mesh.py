@@ -377,14 +377,19 @@ def test_tp_axis_and_batch_axes_equal_the_reference(multi):
 
 
 def test_a_mesh_that_does_not_divide_a_leaf_raises():
-    """Reduced qwen3-8b has 2 KV heads: 4 ranks on ``model`` cannot split
-    them (though ``wk``'s 64 columns split), where the reference's
-    partitioner would pad; nor 3 ranks on ``data`` its width of 128,
-    named by the first leaf it splits."""
-    mesh = LocalMesh(("data", "model"), (1, 4), rank=1, coords=(0, 1))
-    with pytest.raises(ValueError, match="attn/wk: 2 KV heads"):
+    """Reduced qwen3-8b has 4 heads and 2 KV heads: 3 ranks on ``model``
+    cannot lay them out (neither of 3 and 2 divides the other; 4 ranks
+    replicate each KV head over 2, and the rank holds one), where the
+    reference's partitioner would pad; nor 3 ranks on ``data`` its width
+    of 128, named by the first leaf it splits."""
+    with pytest.raises(ValueError, match=r"attn/wq: 4 heads \(2 KV heads\)"):
         build_model(get_config("qwen3-8b").reduced(), device="cpu",
-                    mesh=mesh)
+                    mesh=LocalMesh(("data", "model"), (1, 3), rank=1,
+                                   coords=(0, 1)))
+    mesh = LocalMesh(("data", "model"), (1, 4), rank=1, coords=(0, 1))
+    model = build_model(get_config("qwen3-8b").reduced(), device="cpu",
+                        mesh=mesh)
+    assert model.n_kv_local == 1 and model.ctx.kv_replicas == 2
     with pytest.raises(ValueError, match=r"/embed: dim 1 of \(512, 128\)"):
         build_model(get_config("qwen3-8b").reduced(), device="cpu",
                     mesh=LocalMesh(("data", "model"), (3, 1), rank=0,
