@@ -269,7 +269,7 @@ Phases, each printing one JSON line (and failing the run on any error):
 29. train_whisper -- whisper-medium whole (24 + 24 layers, bf16) a few
                 steps on stub frames and 448-token decoder sequences: the
                 loss falls;
-30. train_mamba2 -- mamba2-2.7b whole (64 layers, bf16): at 2 layers the
+30. train_mamba2 -- mamba2-2.7b (32 of 64 layers, bf16): at 2 layers the
                 loss and every gradient leaf with the SSD kernels against
                 the plain scan on the card; then train_main's batch (4 x
                 4,096 tokens in 2 microbatches, AdamW, the cyclic batch, 12
@@ -349,7 +349,19 @@ Phases, each printing one JSON line (and failing the run on any error):
                 in this process before the spawns): the collectives'
                 calls and bytes by kind and axis and the argument bytes
                 equal, each rank's peak within ``LAUNCH``'s 0.75-1.25 of
-                the predicted.
+                the predicted. The reference's other sharding modes:
+                first flash with its ``q_offset`` (0 and S/2, every
+                head, ``wgmma`` in bf16 and ``simt`` in f32) and paged
+                attention with its row log-sum-exp (a lane of length 0
+                among them) at an ``fsdp_cp`` 1 x 2 rank's shapes, held
+                to their plain versions and timed (the ``kernels`` line's
+                ``mode_shapes``); then in the same spawns qwen3-8b (2
+                layers, bf16, 2 x 1,024, 4 decode steps) in ``tp_sp_opt``
+                and ``fsdp_cp`` on 1 x 2 and 2 x 1 and moonshot (f32,
+                dropless, 2 x 512) in ``fsdp_cp`` on 1 x 2, each held as
+                the ``tp_sp`` jobs are, and ``mesh_dryrun`` lines of their
+                prefill and decode cells (qwen3-8b ``tp_sp_opt`` 1 x 2,
+                ``fsdp_cp`` 1 x 2 and 2 x 1).
 
 The models of phases 19-25 are drawn on the card one at a time, each
 freed before the next; so are the training phases' models. Every
@@ -4024,9 +4036,11 @@ SSD_BWD_NAMES = ("states_wgmma", "chunk_wgmma", "increments_kernel",
 # turns on the last bits of the gradients, the plain scan's own run too;
 # at 4e-3 both fall monotonically from step 5 on and halve it:
 # ``--lr-witness-layers 64 --lr-witness-lr 8e-3`` or ``4e-3``)
-MAMBA_TRAIN = dict(model=SSM_MODEL, batch=4, n_micro=2, seq=4096,
-                   period=256, steps=12, lr=4e-3, warmup=2, grad_layers=2,
-                   grad_batch=2)
+# the training run at 32 of mamba2-2.7b's 64 layers: cut to pay for the
+# mesh phase's sharding-mode jobs
+MAMBA_TRAIN = dict(model=SSM_MODEL, layers=32, batch=4, n_micro=2,
+                   seq=4096, period=256, steps=12, lr=4e-3, warmup=2,
+                   grad_layers=2, grad_batch=2)
 
 
 def bwd_ptxas(lib: str = "flash_attention_bwd") -> dict:
@@ -4880,8 +4894,8 @@ def lr_witness(torch, args, cfg, lr=None) -> dict:
 
 
 def phase_train_mamba2(torch, args) -> dict:
-    """mamba2-2.7b whole (64 layers, bf16, tied embeddings) in training.
-    First the gradient check: at 2 layers and 4,096 tokens, the loss and
+    """mamba2-2.7b at its widths and 32 of its 64 layers (bf16, tied
+    embeddings) in training. First the gradient check: at 2 layers and 4,096 tokens, the loss and
     every gradient leaf with the SSD kernels against the same model with
     the plain scan on the card. Then train_main's batch shape and
     schedule (4 sequences of 4,096 tokens in 2 microbatches, AdamW, the
@@ -4927,7 +4941,7 @@ def phase_train_mamba2(torch, args) -> dict:
     lr_witness(torch, args, cfg)
 
     # ---- the training run
-    cfg = base
+    cfg = dc.replace(base, n_layers=m["layers"])
     batch = cyclic_batch(torch, cfg, m["batch"], m["seq"], m["period"],
                          args.seed)
     torch.use_deterministic_algorithms(True)
@@ -5090,16 +5104,25 @@ def train_phases(torch, args, mark):
 # qwen3-8b and mamba2-2.7b (bf16) of 2 x 1,024; moonshot (f32, capacity
 # factor E / K: dropless) of 2 x 512; jamba (f32, dropless) of 2 x 512;
 # whisper-medium (bf16, 1,500 frames) of 2 x 256; llama-3.2-vision-11b
-# (bf16, 1,601 patch rows) of 2 x 1,024
+# (bf16, 1,601 patch rows) of 2 x 1,024. Then the reference's other
+# sharding modes: qwen3-8b in tp_sp_opt (a sequence-parallel prefill) and
+# fsdp_cp (a context-parallel prefill and weight-stationary decode steps
+# over the sequence-split cache) on both meshes, 4 decode steps each, and
+# moonshot in fsdp_cp on 1 x 2. A case: (label, model, S, steps, mode)
 MESH = dict(batch=2, meshes={
-    (1, 2): (("qwen_1x2", MAIN["model"], 1024, 4),
-             ("moe_1x2", "moonshot-v1-16b-a3b", 512, 4),
-             ("mamba2_1x2", SSM_MODEL, 1024, 4),
-             ("jamba_1x2", "jamba-v0.1-52b", 512, 4),
-             ("whisper_1x2", "whisper-medium", 256, 4),
-             ("vlm_1x2", "llama-3.2-vision-11b", 1024, 4)),
-    (2, 1): (("qwen_2x1", MAIN["model"], 1024, 1),
-             ("mamba2_2x1", SSM_MODEL, 1024, 1))})
+    (1, 2): (("qwen_1x2", MAIN["model"], 1024, 4, "tp_sp"),
+             ("moe_1x2", "moonshot-v1-16b-a3b", 512, 4, "tp_sp"),
+             ("mamba2_1x2", SSM_MODEL, 1024, 4, "tp_sp"),
+             ("jamba_1x2", "jamba-v0.1-52b", 512, 4, "tp_sp"),
+             ("whisper_1x2", "whisper-medium", 256, 4, "tp_sp"),
+             ("vlm_1x2", "llama-3.2-vision-11b", 1024, 4, "tp_sp"),
+             ("qwen_opt_1x2", MAIN["model"], 1024, 4, "tp_sp_opt"),
+             ("qwen_cp_1x2", MAIN["model"], 1024, 4, "fsdp_cp"),
+             ("moe_cp_1x2", "moonshot-v1-16b-a3b", 512, 4, "fsdp_cp")),
+    (2, 1): (("qwen_2x1", MAIN["model"], 1024, 1, "tp_sp"),
+             ("mamba2_2x1", SSM_MODEL, 1024, 1, "tp_sp"),
+             ("qwen_opt_2x1", MAIN["model"], 1024, 4, "tp_sp_opt"),
+             ("qwen_cp_2x1", MAIN["model"], 1024, 4, "fsdp_cp"))})
 # each model's layers in the mesh phase: 2 of qwen3-8b's 36, moonshot's 48
 # and mamba2's 64; one period of jamba (8 of 32: 7 SSM, 1 attention, 4
 # MoE) and of vision (5 of 40, the cross layer 3); 2 of whisper's 24
@@ -5144,29 +5167,48 @@ def mesh_kernels(cfg, train: bool) -> tuple:
 def mesh_kernel_shapes(torch) -> dict:
     """The shapes at which each rank of the mesh phase's 1 x 2 serving
     jobs (``MESH``) launches the hand kernels, each config's heads halved,
-    by kernel and label: flash (B, Sq, Sk, H, Hkv, hd, causal, dtype) for
-    the causal self prefill, the encoder, the cross prefill and the cross
-    decode (Sq 1); paged (B, sequence length, H, Hkv, hd, dtype) for the
-    decode steps; the SSD scan (B, S, H, P, N, chunk, dtype)."""
+    by kernel and label: flash (B, Sq, Sk, H, Hkv, hd, causal, dtype,
+    q_offset) for the causal self prefill, the encoder, the cross prefill
+    and the cross decode (Sq 1); paged (B, sequence lengths, rows, H, Hkv,
+    hd, dtype, with the log-sum-exp) for the decode steps; the SSD scan
+    (B, S, H, P, N, chunk, dtype). An ``fsdp_cp`` job's ranks attend with
+    every head: flash over their S/2 query rows against all S keys at
+    ``q_offset`` 0 and S/2, paged over their half of the cache's rows with
+    the log-sum-exp (rank 0's rows all visible; rank 1's up to the last
+    step, and a lane of length 0, a rank holding none of its rows)."""
     tp = 2
     out = {"flash_attention": {}, "paged_attention": {}, "ssd_chunk": {}}
-    for label, name, S, steps in MESH["meshes"][(1, tp)]:
+    for label, name, S, steps, mode in MESH["meshes"][(1, tp)]:
         cfg = mesh_config(torch, name)
         B, dt = MESH["batch"], cfg.dtype
+        if mode == "fsdp_cp":
+            heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)
+            s = S // tp
+            for r in range(tp):
+                out["flash_attention"][f"{label} rank {r} rows {s}"] = (
+                    B, s, S, *heads, True, dt, r * s)
+            rows = -(-(S + steps) // (16 * tp)) * 16
+            out["paged_attention"][f"{label} rank 0 decode {rows}"] = (
+                B, [rows] * B, rows, *heads, dt, True)
+            out["paged_attention"][f"{label} rank 1 decode {rows}"] = (
+                B, [0, S + steps - rows], rows, *heads, dt, True)
+            continue
+        if mode != "tp_sp":     # tp_sp_opt's kernels run tp_sp's shapes
+            continue
         if cfg.family != "ssm":
             heads = (cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.head_dim_)
             out["flash_attention"][f"{label} self {S}"] = (
-                B, S, S, *heads, True, dt)
+                B, S, S, *heads, True, dt, 0)
             out["paged_attention"][f"{label} decode {S + steps}"] = (
-                B, S + steps, *heads, dt)
+                B, [S + steps] * B, S + steps, *heads, dt, False)
             if cfg.encoder is not None:
                 out["flash_attention"][f"{label} encoder {cfg.n_ctx}"] = (
-                    B, cfg.n_ctx, cfg.n_ctx, *heads, False, dt)
+                    B, cfg.n_ctx, cfg.n_ctx, *heads, False, dt, 0)
             if cfg.n_ctx:
                 out["flash_attention"][f"{label} cross {S}x{cfg.n_ctx}"] = (
-                    B, S, cfg.n_ctx, *heads, False, dt)
+                    B, S, cfg.n_ctx, *heads, False, dt, 0)
                 out["flash_attention"][f"{label} cross decode {cfg.n_ctx}"] = (
-                    B, 1, cfg.n_ctx, *heads, False, dt)
+                    B, 1, cfg.n_ctx, *heads, False, dt, 0)
         if cfg.ssm is not None:
             s = cfg.ssm
             out["ssd_chunk"][f"{label} {S}"] = (
@@ -5182,8 +5224,16 @@ def check_mesh_kernels(torch, gen) -> dict:
     :func:`mesh_kernel_shapes`, under the full-head checks' limits: bf16
     attention within 2e-2 absolute and of a row's magnitude, f32 within
     1e-5; the SSD scan's y within 1e-2 of its magnitude and of each head's
-    in bf16 (1e-4 in f32), its state within 1e-4. Returns
-    the errors and variants by kernel and label."""
+    in bf16 (1e-4 in f32), its state within 1e-4. Flash at its
+    ``q_offset``; paged with the log-sum-exp where the shape asks: within
+    1e-4 of the plain version's, a lane of length 0 an output of 0 and a
+    log-sum-exp of -inf exactly. The ``fsdp_cp`` shapes (an offset or the
+    log-sum-exp) are timed as well: the kernel (with and without the
+    device spin, and its host time), its plain version, its bound from its
+    cost and, for flash, SDPA with the offset's causal mask. Returns the
+    errors, variants and times by kernel and label."""
+    import torch.nn.functional as F
+    from repro_torch.launch import roofline as rl
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
@@ -5191,6 +5241,10 @@ def check_mesh_kernels(torch, gen) -> dict:
 
     shapes = mesh_kernel_shapes(torch)
     out = {k: {} for k in shapes}
+    # the card's peak for the products' type: the tensor cores' dense bf16
+    # rate, or f32 outside them (the simt variants), H100 SXM data sheet
+    peak = lambda dt: (rl.H100.peak_flops if dt == torch.bfloat16
+                       else 67e12)
 
     def held(name, label, err, row_err, dt):
         if dt == torch.float32:
@@ -5201,33 +5255,72 @@ def check_mesh_kernels(torch, gen) -> dict:
                     f"{name} at the mesh's {label}: max_abs_err {err}, "
                     f"row-scaled {row_err}")
 
-    for label, (B, Sq, Sk, H, Hkv, hd, causal, dt) in \
+    for label, (B, Sq, Sk, H, Hkv, hd, causal, dt, off) in \
             shapes["flash_attention"].items():
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
                    for shape in ((B, Sq, H, hd), (B, Sk, Hkv, hd),
                                  (B, Sk, Hkv, hd)))
         err, row_err = chunk_errors(
-            fa.flash_attention(q, k, v, causal=causal),
-            ref.blockwise_attention(q.float(), k.float(), v.float(), causal))
+            fa.flash_attention(q, k, v, causal=causal, q_offset=off),
+            ref.blockwise_attention(q.float(), k.float(), v.float(), causal,
+                                    off))
         held("flash_attention", label, err, row_err, dt)
         out["flash_attention"][label] = dict(
             max_abs_err=err, row_scaled_err=row_err,
             variant=fa.variant(dt, hd), shape=[B, Sq, Sk, H, Hkv, hd],
-            causal=causal, dtype=str(dt))
+            causal=causal, q_offset=off, dtype=str(dt))
+        if " rank " in label:                  # an fsdp_cp rank's shape
+            n_bytes, n_flops = rl.flash_cost(Sq, Sk, H, Hkv, hd, causal,
+                                             q.element_size(), off)
+            b_ms, b_by = rl.bound(B * n_bytes, B * n_flops, peak(dt))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            mask = (torch.arange(Sq, device="cuda")[:, None] + off
+                    >= torch.arange(Sk, device="cuda")[None])
+            out["flash_attention"][label].update(
+                **kernel_times(lambda: fa.flash_attention(
+                    q, k, v, causal=True, q_offset=off)),
+                plain_ms=time_ms(lambda: ref.blockwise_attention(
+                    q, k, v, True, off), reps=5),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)))
         del q, k, v
     page = 16
-    for label, (B, n, H, Hkv, hd, dt) in shapes["paged_attention"].items():
+    for label, (B, lens, n, H, Hkv, hd, dt, lse) in \
+            shapes["paged_attention"].items():
         W = -(-n // page)
-        q, kp, vp, bt, sl = paged_inputs(torch, gen, [n] * B, H, Hkv, hd,
+        q, kp, vp, bt, sl = paged_inputs(torch, gen, lens, H, Hkv, hd,
                                          page, W, B * W + 1, dt)
-        err, row_err = chunk_errors(
-            pa.paged_attention(q, kp, vp, bt, sl),
-            ref.paged_attention_ref(q.float(), kp.float(), vp.float(), bt,
-                                    sl))
+        got = pa.paged_attention(q, kp, vp, bt, sl, return_lse=lse)
+        want = ref.paged_attention_ref(q.float(), kp.float(), vp.float(), bt,
+                                       sl, return_lse=lse)
+        rec = dict(shape=[B, n, H, Hkv, hd], lens=lens, dtype=str(dt))
+        if lse:
+            (got, got_lse), (want, want_lse) = got, want
+            empty = sl == 0
+            live = ~empty[:, None]
+            rec["lse_max_abs_err"] = float(
+                (got_lse - want_lse).abs()[live.expand_as(got_lse)].max())
+            require(rec["lse_max_abs_err"] <= 1e-4
+                    and bool(torch.isneginf(got_lse[empty]).all())
+                    and bool((got[empty] == 0).all()),
+                    f"paged_attention's log-sum-exp at the mesh's {label}: "
+                    f"{rec}")
+            got, want = got[~empty], want[~empty]
+        err, row_err = chunk_errors(got, want)
         held("paged_attention", label, err, row_err, dt)
-        out["paged_attention"][label] = dict(
-            max_abs_err=err, row_scaled_err=row_err,
-            shape=[B, n, H, Hkv, hd], dtype=str(dt))
+        if lse:
+            n_bytes, n_flops = rl.paged_cost(lens, H, Hkv, hd, W,
+                                             q.element_size(), lse=True)
+            b_ms, b_by = rl.bound(n_bytes, n_flops, peak(dt))
+            rec.update(
+                **kernel_times(lambda: pa.paged_attention(
+                    q, kp, vp, bt, sl, return_lse=True)),
+                plain_ms=time_ms(lambda: ref.paged_attention_ref(
+                    q, kp, vp, bt, sl, return_lse=True), reps=5),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        out["paged_attention"][label] = dict(max_abs_err=err,
+                                             row_scaled_err=row_err, **rec)
         del q, kp, vp
     for label, (B, S, H, P, N, chunk, dt) in shapes["ssd_chunk"].items():
         args = ssd_inputs(torch, gen, S, H, P, N, dt, B=B)
@@ -5265,12 +5358,13 @@ def mesh_jobs(torch, args) -> dict:
     out = {}
     for shape, cases in MESH["meshes"].items():
         jobs = out[shape] = []
-        for _, name, S, steps in cases:
+        for _, name, S, steps, mode in cases:
             cfg = mesh_config(torch, name)
             jobs.append(spmd.Job(cfg, torch.randint(
                 0, cfg.vocab, (MESH["batch"], S), generator=gen,
                 dtype=torch.int32), steps, seed=args.seed,
-                extras=spmd.modality_extras(cfg, MESH["batch"], gen_extras)))
+                extras=spmd.modality_extras(cfg, MESH["batch"], gen_extras),
+                mode=mode))
         for _, name, S, dtype, steps in MESH_TRAIN["meshes"][shape]:
             cfg = mesh_config(torch, name, dtype)
             jobs.append(spmd.TrainJob(cfg, torch.randint(
@@ -5278,22 +5372,38 @@ def mesh_jobs(torch, args) -> dict:
                 dtype=torch.int32), steps, opt=opt, seed=args.seed,
                 extras=spmd.modality_extras(cfg, MESH_TRAIN["batch"],
                                             gen_extras)))
-        for _, name, dtype in MESH_DRYRUN["meshes"].get(shape, ()):
+        for _, name, dtype, mode in MESH_DRYRUN["meshes"].get(shape, ()):
             jobs.append(spmd.CellJob(mesh_config(torch, name, dtype),
-                                     MESH_DRYRUN["shapes"], seed=args.seed))
+                                     dryrun_shapes(mode), seed=args.seed,
+                                     mode=mode))
     return out
 
 
 # the mesh_dryrun lines: build_cell's step of each case at each shape on
 # every rank of the mesh phase's spawns (a spmd.CellJob after the mesh's
 # train jobs), held to the dry run's count of that rank's step in a fake
-# world of the same mesh. A case: (label, model, dtype)
+# world of the same mesh. A case: (label, model, dtype, sharding mode); a
+# tp_sp case runs the prefill and train shapes, the other modes (which do
+# not train yet) the prefill and decode shapes
 MESH_DRYRUN = dict(
     shapes={"prefill": dict(kind="prefill", global_batch=2, seq_len=512),
-            "train": dict(kind="train", global_batch=2, seq_len=512)},
-    meshes={(1, 2): (("qwen_1x2", MAIN["model"], "bfloat16"),
-                     ("moe_1x2", "moonshot-v1-16b-a3b", "float32")),
-            (2, 1): (("qwen_2x1", MAIN["model"], "bfloat16"),)})
+            "train": dict(kind="train", global_batch=2, seq_len=512),
+            "decode": dict(kind="decode", global_batch=2, seq_len=512)},
+    meshes={(1, 2): (("qwen_1x2", MAIN["model"], "bfloat16", "tp_sp"),
+                     ("moe_1x2", "moonshot-v1-16b-a3b", "float32", "tp_sp"),
+                     ("qwen_opt_1x2", MAIN["model"], "bfloat16",
+                      "tp_sp_opt"),
+                     ("qwen_cp_1x2", MAIN["model"], "bfloat16", "fsdp_cp")),
+            (2, 1): (("qwen_2x1", MAIN["model"], "bfloat16", "tp_sp"),
+                     ("qwen_cp_2x1", MAIN["model"], "bfloat16",
+                      "fsdp_cp"))})
+
+
+def dryrun_shapes(mode: str) -> dict:
+    """The ``MESH_DRYRUN`` shapes a case in ``mode`` runs."""
+    kinds = ("prefill", "train") if mode == "tp_sp" else ("prefill",
+                                                          "decode")
+    return {k: MESH_DRYRUN["shapes"][k] for k in kinds}
 
 
 def mesh_dryrun_counts(torch) -> dict:
@@ -5306,11 +5416,12 @@ def mesh_dryrun_counts(torch) -> dict:
     t0 = time.perf_counter()
     out = {}
     for shape, cases in MESH_DRYRUN["meshes"].items():
-        for label, name, dtype in cases:
+        for label, name, dtype, mode in cases:
             cfg = mesh_config(torch, name, dtype)
             out[(shape, label)] = [
-                {k: dryrun.run_cell(name, sh, shape, cfg=cfg, rank=r)
-                 for k, sh in MESH_DRYRUN["shapes"].items()}
+                {k: dryrun.run_cell(name, sh, shape, cfg=cfg, rank=r,
+                                    mode=mode)
+                 for k, sh in dryrun_shapes(mode).items()}
                 for r in range(math.prod(shape))]
     out["seconds"] = time.perf_counter() - t0
     return out
@@ -5323,7 +5434,7 @@ def mesh_dryrun(case, res, predicted, shape, smi) -> None:
     and axis (``dryrun.collective_record`` of the rank's
     ``collectives.stats()``) equal, the peak within ``LAUNCH``'s window."""
     from repro_torch.launch import dryrun
-    label, name, dtype = case
+    label, name, dtype, mode = case
     lo, hi = LAUNCH["peak_window"]
     for r in res["records"]:
         require(not r["foreign"], f"mesh_dryrun {label}: rank {r['rank']} "
@@ -5339,8 +5450,8 @@ def mesh_dryrun(case, res, predicted, shape, smi) -> None:
                               for a, kinds in b.items()}
             ratio = mem["peak_bytes_per_device"] / meas["peak_bytes"]
             emit("mesh_dryrun", case=label, model=name, dtype=dtype,
-                 layers=MESH_LAYERS[name], mesh=list(shape), rank=r["rank"],
-                 cell=k, **MESH_DRYRUN["shapes"][k],
+                 mode=mode, layers=MESH_LAYERS[name], mesh=list(shape),
+                 rank=r["rank"], cell=k, **MESH_DRYRUN["shapes"][k],
                  predicted_argument_bytes=mem["argument_bytes"],
                  measured_argument_bytes=meas["argument_bytes"],
                  predicted_peak_bytes=mem["peak_bytes_per_device"],
@@ -5384,11 +5495,14 @@ def phase_mesh(torch, args) -> dict:
     (:func:`mesh_dryrun`). No ``jax`` or ``repro`` module may load in any
     rank. The times are of a gloo run,
     which stages every collective through the host: they show no
-    collective speed. Returns each rank's launches by path."""
+    collective speed. The sharding modes' jobs (a ``MESH`` case's mode,
+    ``tp_sp_opt`` or ``fsdp_cp``) are held as ``tp_sp``'s are. Returns
+    each rank's launches by path, and the kernels' checks at the ranks'
+    shapes (:func:`check_mesh_kernels`)."""
     from repro_torch.launch import spmd
 
-    check_mesh_kernels(torch, torch.Generator(device="cuda").manual_seed(
-        args.seed + 28))
+    kernel_checks = check_mesh_kernels(
+        torch, torch.Generator(device="cuda").manual_seed(args.seed + 28))
     reset_peak(torch)
     smi = nvidia_smi()
     card = torch.cuda.get_device_properties(0).total_memory
@@ -5415,7 +5529,7 @@ def phase_mesh(torch, args) -> dict:
             mesh_dryrun(case, res, predicted, shape, smi)
         del results
         reset_peak(torch)
-    return paths
+    return paths, kernel_checks
 
 
 def mesh_memory(res, card: int) -> dict:
@@ -5461,7 +5575,7 @@ def mesh_serving(case, job, res, shape, backend, seconds, smi, card,
     call, no pair dropped by the MoE on either side. Prints each rank's
     launches by variant, collectives and peak memory beside the one
     process's and the card's."""
-    label, _, S, steps = case
+    label, _, S, steps, mode = case
     cfg, chk, single = job.cfg, res["check"], res["single"]
     one = single["counts"]
     require_mesh_kernels(f"mesh {label}", res, mesh_kernels(cfg, False))
@@ -5472,7 +5586,7 @@ def mesh_serving(case, job, res, shape, backend, seconds, smi, card,
     if cfg.moe is not None:
         require(chk["dropped"] == {"mesh": 0, "one_process": 0},
                 f"mesh {label}: pairs dropped {chk['dropped']}")
-    emit("mesh", case=label, model=cfg.name, layers=cfg.n_layers,
+    emit("mesh", case=label, model=cfg.name, mode=mode, layers=cfg.n_layers,
          encoder_layers=cfg.encoder.n_layers if cfg.encoder else None,
          dtype=str(cfg.dtype), mesh=list(shape), backend=backend,
          prompts=[MESH["batch"], S], decode_steps=steps,
@@ -5789,7 +5903,7 @@ def main(argv=None) -> int:
         torch, args, prompt_lens, prompts, mark)
     train_checks, ssd_checks, train_paths, train_variants = train_phases(
         torch, args, mark)
-    mesh_paths = phase_mesh(torch, args)
+    mesh_paths, mesh_checks = phase_mesh(torch, args)
     mark("mesh")
     emit("timing", seconds_by_phase=seconds,
          total_s=time.perf_counter() - t0)
@@ -5845,6 +5959,10 @@ def main(argv=None) -> int:
                 "max_abs_err", "ms", "ms_no_spin", "host_ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")}
                 for shape, z in zoo.items()},
+            # flash with its query offset and paged attention with its
+            # row log-sum-exp at an fsdp_cp rank's shapes (the mesh phase)
+            mode_shapes={label: rec for label, rec in
+                         mesh_checks.get(name, {}).items() if "ms" in rec},
             **({"moe_main_variants": moe_variants}
                if name == "chunk_prefill_attention" else {})))
     qwen = next(iter(train_checks.values()))   # train_main's shape

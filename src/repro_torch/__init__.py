@@ -7,7 +7,9 @@ chunked-prefill and flash attention, the Mamba2 SSD scan) are the
 hand-written Hopper kernels under ``csrc/``, on CPU tensors their plain
 PyTorch versions in ``kernels/ref.py``.
 """
+import importlib
 import sys
+import threading
 
 import torch
 
@@ -29,3 +31,20 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def import_dynamo() -> None:
+    """Import ``torch._dynamo``, once, on a thread of its own.
+    ``torch.utils.checkpoint`` and a ``TorchDispatchMode``'s dispatch import
+    it on their first call, and that import leaves a reference cycle
+    through a frame (``torch.fx``'s ``wrap`` keeps its caller's frame),
+    which holds every frame of the calling stack, and every tensor those
+    frames hold, until Python's cyclic collector happens to run. A
+    thread's stack holds no frame of the caller's: call this before
+    either."""
+    if "torch._dynamo" in sys.modules:
+        return
+    t = threading.Thread(target=importlib.import_module,
+                         args=("torch._dynamo",))
+    t.start()
+    t.join()

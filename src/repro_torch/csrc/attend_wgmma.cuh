@@ -18,7 +18,8 @@
 //
 // Two things differ between the kernels, and a source type supplies them:
 // * where a row's position comes from (stage, k_len, pos, bounds): its
-//   index (flash, causal and top-left aligned), computed, or
+//   index plus a query offset (flash, causal and top-left aligned at 0),
+//   computed, or
 //   positions[b, row] (the chunk), staged in shared memory and reduced
 //   there; a row sees key j when j <= its position and j < kv_len();
 // * where a K/V tile comes from (tile_arg, load): one box per 64 columns of
@@ -74,17 +75,19 @@ __device__ __forceinline__ int warp_min(int v) {
 }
 
 // Contiguous K/V: tensor maps over [B, Sk, Hkv * hd]. Row positions are
-// row indices (causal) or Sk - 1 (every key visible), computed, not staged.
+// row indices plus q_off (causal: a context-parallel rank's queries are
+// rows q_off .. of the keys' sequence) or Sk - 1 (every key visible),
+// computed, not staged.
 struct DenseKV {
-  int Sk, causal;
+  int Sk, causal, q_off;
 
   __device__ int kv_len() const { return Sk; }
   __device__ void stage(int*, int, int, int) const {}
   __device__ int k_len(const int*, int q0, int) const {
-    return causal ? min(q0 + kBM, Sk) : Sk;
+    return causal ? min(q0 + kBM + q_off, Sk) : Sk;
   }
   __device__ int pos(const int*, int q0, int r) const {
-    return causal ? q0 + r : Sk - 1;
+    return causal ? q0 + r + q_off : Sk - 1;
   }
   __device__ void bounds(const int*, int q0, int wg, int, int& lo,
                          int& hi) const {

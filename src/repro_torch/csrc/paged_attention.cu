@@ -9,6 +9,15 @@
 // spliced in at position seq_len - 1 (bitwise equal to scattering it
 // first).
 //
+// Optionally each (sequence, query head) row's log-sum-exp, lse [B, H]
+// f32: the row max plus the log of the row sum of its scaled scores, which
+// the combine holds. Asked for it, the kernel clamps seq_len to >= 0
+// instead: a lane of length 0 writes empty partials only, an output of 0
+// and a log-sum-exp of -inf. That is a rank of a sequence-split cache that
+// holds none of the lane's positions; the ranks' outputs are then merged
+// by their log-sum-exps (exp(lse - max) weighs the empty one 0). Not asked
+// for it, nothing changes: no store, the same clamp, the same bits.
+//
 // Bound on the H100: the bytes of K/V read (2 * seq_len * hd values per
 // sequence and kv head); a decode query does 2 flops per byte, so tensor
 // cores bring nothing and the design keeps the memory system busy:
@@ -120,13 +129,14 @@ __global__ void __launch_bounds__(kDecThreads)
         const int32_t* __restrict__ seq_lens, const T* __restrict__ k_new,
         const T* __restrict__ v_new, float* __restrict__ acc_out,
         float* __restrict__ ml_out, int H, int Hkv, int hd, int page, int W,
-        int span, float scale) {
+        int span, int min_len, float scale) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int b = blockIdx.x, kvh = blockIdx.y, z = blockIdx.z;
   const int nz = gridDim.z, g = H / Hkv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // clamp >= 1 (idle slots) and to the block table's reach
-  const int seq_len = min(max(seq_lens[b], 1), W * page);
+  // clamp >= min_len (1: idle slots; 0 with the log-sum-exp) and to the
+  // block table's reach
+  const int seq_len = min(max(seq_lens[b], min_len), W * page);
   const int t_begin = z * span, t_end = min(t_begin + span, seq_len);
   const int64_t part = ((int64_t)(b * Hkv + kvh) * nz + z) * g;  // row 0
   if (t_begin >= t_end) {
@@ -263,12 +273,14 @@ __global__ void __launch_bounds__(kDecThreads)
 // order. The block reads the splits' (m, l) into shared memory at once, one
 // thread folds them into the weights exp(m_z - M) and the denominator, and
 // each thread then sums its columns over the non-empty splits, which are a
-// prefix (split z is empty when z * span >= seq_len).
+// prefix (split z is empty when z * span >= seq_len). With `lse` it also
+// writes the row's M + log(L): -inf where every split is empty.
 template <typename T>
 __global__ void __launch_bounds__(kDecThreads)
     paged_attention_combine_kernel(const float* __restrict__ acc,
                                    const float* __restrict__ ml,
-                                   T* __restrict__ out, int H, int Hkv,
+                                   T* __restrict__ out,
+                                   float* __restrict__ lse, int H, int Hkv,
                                    int hd, int nz) {
   extern __shared__ float s_w[];  // [nz] m, then weights; [nz] l
   __shared__ float s_den;
@@ -296,6 +308,8 @@ __global__ void __launch_bounds__(kDecThreads)
     }
     s_den = fmaxf(L, 1e-30f);
     s_used = used;
+    if (lse != nullptr)
+      lse[(int64_t)b * H + h] = used ? M + logf(L) : -INFINITY;
   }
   __syncthreads();
   const int used = s_used;
@@ -311,9 +325,9 @@ __global__ void __launch_bounds__(kDecThreads)
 template <typename T>
 int launch(const void* q, const void* kp, const void* vp, const void* bt,
            const void* seq_lens, const void* k_new, const void* v_new,
-           void* out, void* acc, void* ml, int B, int H, int Hkv, int hd,
-           int page, int W, int n_split, int span, float scale,
-           cudaStream_t stream) {
+           void* out, float* lse, void* acc, void* ml, int B, int H,
+           int Hkv, int hd, int page, int W, int n_split, int span,
+           float scale, cudaStream_t stream) {
   if (n_split < 1 || span % kSplitTile != 0 || (int64_t)n_split * span <
       (int64_t)W * page || hd > 32 * kMaxCols || (hd * sizeof(T)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
@@ -324,7 +338,8 @@ int launch(const void* q, const void* kp, const void* vp, const void* bt,
       <<<dim3(B, Hkv, n_split), kDecThreads, smem, stream>>>(
           (const T*)q, (const T*)kp, (const T*)vp, (const int32_t*)bt,
           (const int32_t*)seq_lens, (const T*)k_new, (const T*)v_new,
-          (float*)acc, (float*)ml, H, Hkv, hd, page, W, span, scale);
+          (float*)acc, (float*)ml, H, Hkv, hd, page, W, span,
+          lse != nullptr ? 0 : 1, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t csmem = 2 * 4 * (size_t)n_split;
@@ -332,13 +347,16 @@ int launch(const void* q, const void* kp, const void* vp, const void* bt,
   if (err != cudaSuccess) return (int)err;
   paged_attention_combine_kernel<T>
       <<<dim3(B, H), kDecThreads, csmem, stream>>>(
-          (const float*)acc, (const float*)ml, (T*)out, H, Hkv, hd, n_split);
+          (const float*)acc, (const float*)ml, (T*)out, lse, H, Hkv, hd,
+          n_split);
   return (int)cudaGetLastError();
 }
 
 }  // namespace repro_paged
 
 // dtype: 0 = float32, 1 = bfloat16. k_new/v_new may be null (no splice).
+// lse: [B, H] float32 row log-sum-exp output (seq_lens then clamped to
+// >= 0), or null (clamped to >= 1).
 // (n_split, span) is the split plan; acc [B, Hkv, n_split, g, hd] and
 // ml [B, Hkv, n_split, g, 2] are f32 scratch for the partials. Every float
 // pointer is 16-byte aligned and hd * sizeof(dtype) a multiple of 16. scale is the score scale,
@@ -346,19 +364,20 @@ int launch(const void* q, const void* kp, const void* vp, const void* bt,
 extern "C" int repro_paged_attention(int dtype, const void* q, const void* kp,
                                      const void* vp, const void* block_table,
                                      const void* seq_lens, const void* k_new,
-                                     const void* v_new, void* out, void* acc,
-                                     void* ml, int B, int H, int Hkv, int hd,
+                                     const void* v_new, void* out,
+                                     float* lse, void* acc, void* ml, int B,
+                                     int H, int Hkv, int hd,
                                      int page, int W, int n_split, int span,
                                      float scale, void* stream) {
   using namespace repro_paged;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
     return launch<float>(q, kp, vp, block_table, seq_lens, k_new, v_new, out,
-                         acc, ml, B, H, Hkv, hd, page, W, n_split, span,
+                         lse, acc, ml, B, H, Hkv, hd, page, W, n_split, span,
                          scale, st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, kp, vp, block_table, seq_lens, k_new,
-                                 v_new, out, acc, ml, B, H, Hkv, hd, page, W,
-                                 n_split, span, scale, st);
+                                 v_new, out, lse, acc, ml, B, H, Hkv, hd,
+                                 page, W, n_split, span, scale, st);
   return (int)cudaErrorInvalidValue;
 }

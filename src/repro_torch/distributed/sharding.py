@@ -34,11 +34,29 @@ answer), and its group's query heads split over those ranks, the first ones
 holding one more where they do not split evenly. The reference's GSPMD cuts
 the flattened ``Hkv * hd`` columns instead; the partition specs stay its.
 
-The reference's distribution modes (``tp_sp``, ``tp_sp_opt``, ``fsdp_cp``)
-and its activation constraints (``ShardingCtx.cs``) have no counterpart:
-the port runs one mode, Megatron tensor parallelism with ZeRO-3 weights,
-its activations replicated over ``model`` between the layers' collectives
-(:mod:`repro_torch.models.layers`, :mod:`repro_torch.models.moe`).
+The reference's three distribution modes (``ShardingCtx.mode``; the
+parameters are split alike in all three):
+
+* ``tp_sp`` (the default): Megatron tensor parallelism with ZeRO-3
+  weights, activations whole over ``model`` between the layers'
+  all-reduces, the attention's leaves cut by the head layout above, the
+  decode cache split by KV heads.
+* ``tp_sp_opt``: ``tp_sp`` with Megatron sequence parallelism in prefill
+  (``S > 1``): each ``model`` rank holds its ``S / tp`` rows of the
+  residual, the normed rows are all-gathered before attention and the FFN
+  and the partial sums reduce-scattered after them. Decode is ``tp_sp``'s.
+* ``fsdp_cp``: ZeRO-3 with context parallelism. Prefill keeps the residual
+  split by batch and sequence, gathers each layer's weights whole, and
+  attends the rank's queries over K/V rows gathered along the sequence. A
+  decode step is weight-stationary: the ``[B, 1, D]`` activations are split
+  ``D`` over ``data`` to meet the weights' blocks, and the decode cache is
+  split by sequence (``kv_sp``). Heads are not cut by the head layout: the
+  leaves are the partition specs' equal blocks.
+
+The reference's activation constraints (``ShardingCtx.cs``) have no
+counterpart: the modes' collectives are explicit calls
+(:mod:`repro_torch.models.layers`, :mod:`repro_torch.models.moe`,
+:mod:`repro_torch.models.transformer`).
 """
 from __future__ import annotations
 
@@ -51,6 +69,9 @@ import torch
 from repro_torch.launch.mesh import LocalMesh, Mesh
 
 PSpec = Tuple[Any, ...]
+
+# the reference's distribution modes (``repro/distributed/sharding.py``)
+MODES = ("tp_sp", "tp_sp_opt", "fsdp_cp")
 
 
 # the attention leaves cut by the head layout: query-head columns (and
@@ -149,11 +170,15 @@ class ShardingCtx:
     ``live``: it knows this rank's position and process groups, and, given
     the config's ``heads`` (query heads, KV heads), its block of them
     (:attr:`head_block`) and the line of ranks that share its KV heads,
-    the logical axis ``"kv"``."""
+    the logical axis ``"kv"``. ``mode`` is one of :data:`MODES`; another
+    name raises ``ValueError``."""
     mesh: Optional[Mesh] = None
     heads: Optional[Tuple[int, int]] = None
+    mode: str = "tp_sp"
 
     def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"sharding mode {self.mode!r}: one of {MODES}")
         self.rules = mesh_rules(self.mesh)
         self.head_block = None
         if self.live and self.heads and self.heads[1]:

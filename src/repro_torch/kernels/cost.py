@@ -10,15 +10,17 @@ call on ``meta`` with it. ``launch.roofline`` re-exports these functions.
 from __future__ import annotations
 
 
-def paged_cost(seq_lens, H, Hkv, hd, W, esize):
+def paged_cost(seq_lens, H, Hkv, hd, W, esize, lse: bool = False):
     """Paged decode over lanes of ``seq_lens`` tokens: K and V read once,
-    q in, out written, the block table and lengths; 4 * hd flops per
-    (lane, key) pair and head."""
-    tokens = sum(max(s, 1) for s in seq_lens)
+    q in, out written (and with ``lse`` each row's f32 log-sum-exp, a lane
+    of length 0 then reading nothing), the block table and lengths; 4 * hd
+    flops per (lane, key) pair and head."""
+    tokens = sum(max(s, 0 if lse else 1) for s in seq_lens)
     B = len(seq_lens)
     n_bytes = (2 * tokens * Hkv * hd * esize        # K and V, read once
                + 2 * B * H * hd * esize             # q in, out
-               + B * W * 4 + B * 4)                 # block table, seq_lens
+               + B * W * 4 + B * 4                  # block table, seq_lens
+               + (B * H * 4 if lse else 0))         # the row log-sum-exp
     return n_bytes, 4 * tokens * H * hd             # QK^T and PV products
 
 
@@ -34,19 +36,20 @@ def chunk_cost(pos, H, Hkv, hd, W, esize):
     return n_bytes, 4 * visible * H * hd
 
 
-def _visible(Sq: int, Sk: int, causal: bool) -> int:
-    """(query, key) pairs attended: top-left causal, or all."""
+def _visible(Sq: int, Sk: int, causal: bool, q_offset: int = 0) -> int:
+    """(query, key) pairs attended: all, or causal with query i seeing keys
+    j <= i + ``q_offset`` (top-left aligned at 0)."""
     if not causal:
         return Sq * Sk
-    n = min(Sq, Sk)
-    return n * (n + 1) // 2 + (Sq - n) * Sk
+    n = max(0, min(Sq, Sk - q_offset))      # rows that do not see every key
+    return n * (n + 1) // 2 + n * q_offset + (Sq - n) * Sk
 
 
-def flash_cost(Sq, Sk, H, Hkv, hd, causal, esize):
+def flash_cost(Sq, Sk, H, Hkv, hd, causal, esize, q_offset: int = 0):
     """Bytes (q, k, v in, out written) and flops of one sequence's dense
     attention: 4 * hd per visible (query, key) pair and head."""
     n_bytes = (2 * Sq * H * hd + 2 * Sk * Hkv * hd) * esize
-    return n_bytes, 4 * _visible(Sq, Sk, causal) * H * hd
+    return n_bytes, 4 * _visible(Sq, Sk, causal, q_offset) * H * hd
 
 
 def bwd_cost(B, Sq, Sk, H, Hkv, hd, causal, esize):

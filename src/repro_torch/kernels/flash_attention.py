@@ -48,7 +48,8 @@ bwd_launches_by_variant = {v: 0 for v in BWD_VARIANTS}
 def _fn():
     P, I = ctypes.c_void_p, ctypes.c_int
     f = _build.library("flash_attention").repro_flash_attention
-    f.argtypes = [I, P, P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, P]
+    f.argtypes = [I, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float,
+                  P]
     f.restype = I
     return f
 
@@ -119,7 +120,8 @@ def allocate_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.empty_like(lse))
 
 
-def _forward(q, k, v, causal: bool, out, lse, dims) -> torch.Tensor:
+def _forward(q, k, v, causal: bool, out, lse, dims,
+             q_offset: int = 0) -> torch.Tensor:
     B, Sq, Sk, H, Hkv, hd = dims
     _build.check_aligned(_NAME, [q, k, v, out])
     if B == 0 or Sq == 0:
@@ -127,23 +129,27 @@ def _forward(q, k, v, causal: bool, out, lse, dims) -> torch.Tensor:
     err = _fn()(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(), B, Sq, Sk, H, Hkv,
-                hd, int(causal), hd ** -0.5,
+                hd, int(causal), q_offset, hd ** -0.5,
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, _NAME)
     return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """q [B, Sq, H, hd]; k/v [B, Sk, Hkv, hd] with Hkv dividing H (query
     head h reads kv head h // (H / Hkv)); ``causal`` masks key j from query
-    i when j > i (top-left aligned). -> [B, Sq, H, hd] in q's dtype.
+    i when j > i + ``q_offset`` (top-left aligned at 0; a context-parallel
+    rank's queries are rows ``q_offset ..`` of the keys' sequence).
+    -> [B, Sq, H, hd] in q's dtype.
 
     Launches the CUDA kernel on the current stream; raises on any input it
     does not take and on a failed launch."""
     global launches
     dims = _check(q, k, v)
-    out = _forward(q, k, v, causal, allocate(q, False)[0], None, dims)
+    _build.require(q_offset >= 0, _NAME, f"q_offset {q_offset} < 0")
+    out = _forward(q, k, v, causal, allocate(q, False)[0], None, dims,
+                   q_offset)
     launches += 1
     launches_by_variant[variant(q.dtype, q.shape[3])] += 1
     return out

@@ -71,14 +71,14 @@ def _charge(name: str, cost) -> None:
 # table's whole length (W * page rows), as a decode cell's positions
 # (seq_len - 1) make it.
 
-def _paged_meta(q, k_pages, block_table):
+def _paged_meta(q, k_pages, block_table, lse: bool):
     B, H, hd = q.shape
     _, page, Hkv, _ = k_pages.shape
     W = block_table.shape[1]
-    out, _ = _pa.allocate(q, Hkv, W, page)
+    out, _, row_lse = _pa.allocate(q, Hkv, W, page, lse)
     _charge("paged_attention", _cost.paged_cost(
-        [W * page] * B, H, Hkv, hd, W, q.element_size()))
-    return out
+        [W * page] * B, H, Hkv, hd, W, q.element_size(), lse))
+    return (out, row_lse) if lse else out
 
 
 def _chunk_meta(q, k_pages, block_table):
@@ -92,11 +92,11 @@ def _chunk_meta(q, k_pages, block_table):
     return _cp.allocate(q)
 
 
-def _flash_meta(q, k, causal: bool, lse: bool):
+def _flash_meta(q, k, causal: bool, lse: bool, q_offset: int = 0):
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     n_bytes, n_flops = _cost.flash_cost(Sq, Sk, H, Hkv, hd, causal,
-                                        q.element_size())
+                                        q.element_size(), q_offset)
     out, row_lse = _fa.allocate(q, lse)
     if not lse:
         _charge("flash_attention", (B * n_bytes, B * n_flops))
@@ -136,14 +136,18 @@ def _ssd_bwd_meta(x, dt, A, Bm, Cm, dstate, chunk: int):
 
 # ------------------------------------------------------------- dispatch
 def paged_attention(q, k_pages, v_pages, block_table, seq_lens,
-                    k_new=None, v_new=None):
+                    k_new=None, v_new=None, return_lse: bool = False):
+    """-> out, or (out, the row log-sum-exp) with ``return_lse``
+    (:func:`repro_torch.kernels.paged_attention.paged_attention`)."""
     if _on_meta(q):
-        return _paged_meta(q, k_pages, block_table)
+        return _paged_meta(q, k_pages, block_table, return_lse)
     if _on_cpu(q, "paged_attention"):
         return _ref.paged_attention_ref(q, k_pages, v_pages, block_table,
-                                        seq_lens, k_new=k_new, v_new=v_new)
+                                        seq_lens, k_new=k_new, v_new=v_new,
+                                        return_lse=return_lse)
     return _pa.paged_attention(q, k_pages, v_pages, block_table, seq_lens,
-                               k_new=k_new, v_new=v_new)
+                               k_new=k_new, v_new=v_new,
+                               return_lse=return_lse)
 
 
 def chunk_prefill_attention(q, k_pages, v_pages, block_table, positions):
@@ -202,17 +206,26 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-def flash_attention(q, k, v, causal: bool = True):
+def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
+    """-> [B, Sq, H, hd]; causal with query i seeing keys j <= i +
+    ``q_offset`` (:func:`repro_torch.kernels.flash_attention.
+    flash_attention`). Under grad ``q_offset`` must be 0: the backward
+    kernel has no offset yet (training in the sequence-split modes is
+    ROADMAP §1's)."""
+    if q_offset and _needs_grad(q, k, v):
+        raise NotImplementedError(
+            f"flash_attention: q_offset {q_offset} under grad: the backward "
+            f"takes no query offset yet (ROADMAP §1)")
     if _on_meta(q) and not _needs_grad(q, k, v):
-        return _flash_meta(q, k, causal, lse=False)
+        return _flash_meta(q, k, causal, lse=False, q_offset=q_offset)
     if _on_cpu(q, "flash_attention"):
-        out = _ref.blockwise_attention(q, k, v, causal)
+        out = _ref.blockwise_attention(q, k, v, causal, q_offset)
         if out.requires_grad:
             out = _CountPlainBackward.apply("flash_attention_bwd", out)
         return out
     if _needs_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, causal)
-    return _fa.flash_attention(q, k, v, causal)
+    return _fa.flash_attention(q, k, v, causal, q_offset)
 
 
 class SSDChunkFn(torch.autograd.Function):

@@ -36,23 +36,27 @@ def split_plan(B: int, Hkv: int, W: int, page: int) -> Tuple[int, int]:
     return -(-n_tiles // per), per * SPLIT_TILE
 
 
-def allocate(q: torch.Tensor, Hkv: int, W: int, page: int):
-    """The kernel's output and scratch on q's device: -> (out like q, the
+def allocate(q: torch.Tensor, Hkv: int, W: int, page: int,
+             with_lse: bool = False):
+    """The kernel's outputs and scratch on q's device: -> (out like q, the
     splits' f32 partials in one buffer: acc [B, Hkv, n_split, g, hd], then
-    ml [B, Hkv, n_split, g, 2], 16-byte aligned as hd % 4 == 0)."""
+    ml [B, Hkv, n_split, g, 2], 16-byte aligned as hd % 4 == 0; the row
+    log-sum-exp [B, H] f32 when ``with_lse``, else None)."""
     B, H, hd = q.shape
     n_split, _ = split_plan(B, Hkv, W, page)
     scratch = torch.empty(B * Hkv * n_split * (H // Hkv) * (hd + 2),
                           dtype=torch.float32, device=q.device)
-    return torch.empty_like(q), scratch
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    return torch.empty_like(q), scratch, lse
 
 
 @functools.cache
 def _fn():
     P, I = ctypes.c_void_p, ctypes.c_int
     f = _build.library("paged_attention").repro_paged_attention
-    f.argtypes = [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
-                  ctypes.c_float, P]
+    f.argtypes = [I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                  I, ctypes.c_float, P]
     f.restype = I
     return f
 
@@ -61,12 +65,17 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_table: torch.Tensor,
                     seq_lens: torch.Tensor,
                     k_new: Optional[torch.Tensor] = None,
-                    v_new: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    v_new: Optional[torch.Tensor] = None,
+                    return_lse: bool = False):
     """q [B, H, hd]; {k,v}_pages [n_rows, page, Hkv, hd] (one layer of the
     arena plane, read in place); block_table [B, W] int32 of valid plane
     rows; seq_lens [B] int32, clamped to >= 1; k_new/v_new [B, Hkv, hd]
     (optional) spliced in at position seq_len - 1. -> [B, H, hd] in q's
-    dtype.
+    dtype. With ``return_lse`` -> (out, lse [B, H] f32), each row's
+    log-sum-exp over its scaled scores, and ``seq_lens`` clamped to >= 0:
+    a lane of length 0 gives an output of 0 and a log-sum-exp of -inf.
+    Without it the launches and outputs are those of the kernel before
+    the log-sum-exp existed, bit for bit.
 
     Launches the CUDA kernels on the current stream; raises on any input
     they do not take and on a failed launch."""
@@ -94,10 +103,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _build.check_tensors(_NAME, floats, [block_table, seq_lens])
     _build.require(hd * q.element_size() % 16 == 0, _NAME,
                    "a head's row must be a multiple of 16 bytes")
-    out, scratch = allocate(q, Hkv, W, page)
+    out, scratch, lse = allocate(q, Hkv, W, page, return_lse)
     _build.check_aligned(_NAME, floats + [out])
     if B == 0:
-        return out
+        return (out, lse) if return_lse else out
     n_split, span = split_plan(B, Hkv, W, page)
     n_rows = B * Hkv * n_split * (H // Hkv)
     acc = scratch.data_ptr()
@@ -106,9 +115,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                 seq_lens.data_ptr(),
                 k_new.data_ptr() if k_new is not None else None,
                 v_new.data_ptr() if v_new is not None else None,
-                out.data_ptr(), acc, acc + 4 * n_rows * hd,
-                B, H, Hkv, hd, page, W, n_split, span, hd ** -0.5,
-                torch.cuda.current_stream(q.device).cuda_stream)
+                out.data_ptr(), None if lse is None else lse.data_ptr(), acc,
+                acc + 4 * n_rows * hd, B, H, Hkv, hd, page, W, n_split, span,
+                hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, _NAME)
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -28,18 +28,24 @@ def _gather(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_table, seq_lens,
-                        k_new=None, v_new=None):
+                        k_new=None, v_new=None, return_lse: bool = False):
     """q [B,H,hd]; pages [n_rows, page, Hkv, hd]; block_table [B,slots].
 
     ``seq_lens`` is clamped to >= 1 (an idle slot points at the null row).
     ``k_new``/``v_new`` [B,Hkv,hd] (optional) are spliced in at position
     ``seq_len - 1`` instead of being read from the pages: elementwise equal
     to scatter-then-gather, so the output is bitwise equal too.
+
+    With ``return_lse`` -> (out, lse [B,H] f32): each row's log-sum-exp
+    over its scaled scores; ``seq_lens`` is then clamped to >= 0, and a
+    lane of length 0 gives an output of 0 and a log-sum-exp of -inf (a
+    rank holding none of the lane's positions, whose share a split
+    attention's combine weighs by exp(lse - max) = 0).
     """
     B, H, hd = q.shape
     _, page, Hkv, _ = k_pages.shape
     slots = block_table.shape[1]
-    seq_lens = torch.clamp(seq_lens.long(), min=1)
+    seq_lens = torch.clamp(seq_lens.long(), min=0 if return_lse else 1)
     k = _gather(k_pages, block_table)
     v = _gather(v_pages, block_table)
     if k_new is not None:
@@ -54,8 +60,13 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, seq_lens,
     valid = torch.arange(slots * page, device=q.device)[None, :] \
         < seq_lens[:, None]
     s = s.masked_fill(~valid[:, None, :], float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhk,bkhd->bhd", p, v.float()).to(q.dtype)
+    if not return_lse:
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bhk,bkhd->bhd", p, v.float()).to(q.dtype)
+    lse = torch.logsumexp(s, dim=-1)                        # [B,H]
+    p = torch.exp(s - lse.clamp_min(-1e30)[..., None])      # 0 when empty
+    out = torch.einsum("bhk,bkhd->bhd", p, v.float()).to(q.dtype)
+    return out, lse
 
 
 def chunk_prefill_attention_ref(q, k_pages, v_pages, block_table, positions):
@@ -96,15 +107,17 @@ def _repeat_kv(k: torch.Tensor, v: torch.Tensor, H: int):
     return k, v
 
 
-def flash_attention_ref(q, k, v, causal: bool = True):
+def flash_attention_ref(q, k, v, causal: bool = True, q_offset: int = 0):
     """The attention oracle. q [B,Sq,H,hd]; k/v [B,Sk,Hkv,hd]; causal is
-    top-left aligned (query i sees keys j <= i). All in f32."""
+    top-left aligned and shifted by ``q_offset``: query i sees keys
+    j <= i + q_offset (the rank's block of a sequence whose first row is
+    row ``q_offset`` of the keys). All in f32."""
     B, Sq, H, hd = q.shape
     k, v = _repeat_kv(k, v, H)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (hd ** -0.5)
     if causal:
         Sk = k.shape[1]
-        mask = (torch.arange(Sq, device=q.device)[:, None]
+        mask = (torch.arange(Sq, device=q.device)[:, None] + q_offset
                 >= torch.arange(Sk, device=q.device)[None, :])
         s = s.masked_fill(~mask[None, None], float("-inf"))
     p = torch.softmax(s, dim=-1)
@@ -114,11 +127,12 @@ def flash_attention_ref(q, k, v, causal: bool = True):
 _Q_CHUNK = 512
 
 
-def blockwise_attention(q, k, v, causal: bool = True):
+def blockwise_attention(q, k, v, causal: bool = True, q_offset: int = 0):
     """Chunked softmax attention, the plain version of the flash kernel.
-    q [B,Sq,H,hd]; k/v [B,Sk,Hkv,hd] (repeated to H heads here). Scores are
-    materialised one q-chunk at a time (f32); the score dot runs in the I/O
-    dtype, as in the reference's prefill."""
+    q [B,Sq,H,hd]; k/v [B,Sk,Hkv,hd] (repeated to H heads here); causal as
+    :func:`flash_attention_ref`'s, query i seeing keys j <= i +
+    ``q_offset``. Scores are materialised one q-chunk at a time (f32); the
+    score dot runs in the I/O dtype, as in the reference's prefill."""
     B, S, H, hd = q.shape
     k, v = _repeat_kv(k, v, H)
     Sk = k.shape[1]
@@ -132,7 +146,7 @@ def blockwise_attention(q, k, v, causal: bool = True):
         qb = q[:, idx * qc:(idx + 1) * qc]
         scores = torch.einsum("bqhd,bkhd->bhqk", qb, k).float() * scale
         if causal:
-            qpos = idx * qc + torch.arange(qc, device=q.device)
+            qpos = idx * qc + q_offset + torch.arange(qc, device=q.device)
             mask = qpos[:, None] >= kpos[None, :]
             scores = scores.masked_fill(~mask[None, None], float("-inf"))
         m = torch.clamp(scores.amax(dim=-1, keepdim=True), min=-1e30)

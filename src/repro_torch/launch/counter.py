@@ -42,6 +42,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch import import_dynamo
 from repro_torch.kernels import ops
 
 aten = torch.ops.aten
@@ -136,6 +137,7 @@ class Counter(TorchDispatchMode):
 
     # ---------------------------------------------------------- dispatch
     def __enter__(self):
+        import_dynamo()     # before the first dispatch, which imports it
         _ACTIVE.append(self)
         ops.charge = charge
         return super().__enter__()

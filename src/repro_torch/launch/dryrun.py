@@ -8,9 +8,13 @@ reads XLA's cost and memory analyses. The port runs the step of
 under :class:`repro_torch.launch.counter.Counter`: every layer is counted
 directly, as eager dispatch sees them all (the reference unrolls 1- and
 2-group variants and extrapolates; the port's tests hold that
-extrapolation to the direct count). There is one sharding mode: the
-reference's ``--sharding-mode`` changes only activation constraints,
-which the port does not model.
+extrapolation to the direct count). ``--sharding-mode`` picks the
+reference's distribution mode (``tp_sp``, ``tp_sp_opt``, ``fsdp_cp``:
+:mod:`repro_torch.distributed.sharding`), each with its own collectives
+and memory per rank, counted as they run; a record keeps its ``mode``,
+and the other modes' records land under ``<mesh>-<mode>/``. A cell a mode
+does not run yet (a family other than dense and MoE, a train cell) is
+written as an error naming the mode.
 
 Meshes:
   * ``single`` (16x16) and ``multi`` (2x16x16): the reference's production
@@ -38,9 +42,11 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b \\
       --shape train_4k --mesh local
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
-      [--mesh single|multi|both|local] [--skip-existing]
+      [--mesh single|multi|both|local] [--skip-existing] \\
+      [--sharding-mode tp_sp|tp_sp_opt|fsdp_cp]
 
-Results land in results/dryrun_torch/<mesh>/<arch>__<shape>.json.
+Results land in results/dryrun_torch/<mesh>/<arch>__<shape>.json
+(``<mesh>-<mode>/`` for a mode other than ``tp_sp``).
 """
 from __future__ import annotations
 
@@ -55,7 +61,7 @@ import torch
 
 from repro_torch.configs.base import SHAPES, get_config, list_configs, shape_of
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import shard_shape
+from repro_torch.distributed.sharding import MODES, shard_shape
 from repro_torch.launch.counter import Counter
 from repro_torch.launch.mesh import (COUNTED, Mesh, counting_mesh,
                                      make_local_mesh, make_production_mesh)
@@ -81,17 +87,19 @@ def make_mesh(name) -> Mesh:
 
 
 def count_cell(cfg, shape, overrides=None, opt_cfg=None,
-               n_micro: int = 1, mesh=None) -> Dict[str, Any]:
+               n_micro: int = 1, mesh=None,
+               mode: str = "tp_sp") -> Dict[str, Any]:
     """One step of the cell on ``meta`` under a counter: ``{"cost",
     "memory", "kernels", "collectives", "count_s"}``: the whole step on one
     device, or this rank's of a live ``mesh`` (a
-    :func:`~repro_torch.launch.mesh.counting_mesh`), with its collectives
-    (``collectives.stats()`` of the step)."""
+    :func:`~repro_torch.launch.mesh.counting_mesh`) in sharding mode
+    ``mode``, with its collectives (``collectives.stats()`` of the
+    step)."""
     from repro_torch.models import build_model
     from repro_torch.training.train_step import build_cell
     sh = shape_of(shape)
     model = build_model(cfg, device="meta", trainable=sh["kind"] == "train",
-                        mesh=mesh)
+                        mesh=mesh, mode=mode)
     for k, v in (overrides or {}).items():
         setattr(model, k, v)
     step, args = build_cell(model, sh, opt_cfg=opt_cfg, n_micro=n_micro)
@@ -165,15 +173,17 @@ def sharded_bytes(tree, specs, mesh: Optional[Mesh]) -> int:
                * t.element_size() for t, s in _leaf_pairs(tree, specs))
 
 
-def per_device_arguments(cfg, shape, mesh: Mesh, opt_cfg=None) -> int:
+def per_device_arguments(cfg, shape, mesh: Mesh, opt_cfg=None,
+                         mode: str = "tp_sp") -> int:
     """Per-device bytes of a cell's arguments on ``mesh``: the parameters
     under their pspecs, the optimizer state under ``opt_pspecs``, the batch
-    under ``batch_pspecs`` and the decode cache under its specs."""
+    under ``batch_pspecs`` and the decode cache under its specs (those of
+    sharding mode ``mode``)."""
     from repro_torch.models import build_model
     from repro_torch.training.optimizer import OptConfig, opt_pspecs
     from repro_torch.training.train_step import batch_pspecs, build_cell
     sh = shape_of(shape)
-    model = build_model(cfg, device="meta", mesh=mesh)
+    model = build_model(cfg, device="meta", mesh=mesh, mode=mode)
     _, args = build_cell(model, sh, opt_cfg=opt_cfg)
     pspecs = model.param_pspecs()
     bspecs = batch_pspecs(model, sh)
@@ -193,19 +203,21 @@ def per_device_arguments(cfg, shape, mesh: Mesh, opt_cfg=None) -> int:
 
 
 def _count(cfg, shape_name, overrides, opt_cfg, n_micro: int, mesh,
-           rank: int = 0) -> Dict[str, Any]:
+           rank: int = 0, mode: str = "tp_sp") -> Dict[str, Any]:
     """The cell's count on ``mesh``: the whole step for ``local``, else
     rank ``rank``'s in a counting world of the mesh's shape
-    (:func:`~repro_torch.launch.mesh.counting_mesh`), with the lines of its
-    collectives."""
+    (:func:`~repro_torch.launch.mesh.counting_mesh`) in sharding mode
+    ``mode``, with the lines of its collectives."""
     if mesh == "local":
         return count_cell(cfg, shape_name, overrides=overrides,
-                          opt_cfg=opt_cfg, n_micro=n_micro)
+                          opt_cfg=opt_cfg, n_micro=n_micro, mode=mode)
     from repro_torch.models.transformer import sharding_ctx
     with counting_mesh(mesh, rank) as lm:
         rec = count_cell(cfg, shape_name, overrides=overrides,
-                         opt_cfg=opt_cfg, n_micro=n_micro, mesh=lm)
-        rec["lines"] = collective_lines(lm, sharding_ctx(cfg, lm).kv_replicas)
+                         opt_cfg=opt_cfg, n_micro=n_micro, mesh=lm,
+                         mode=mode)
+        rec["lines"] = collective_lines(
+            lm, sharding_ctx(cfg, lm, mode).kv_replicas)
     return rec
 
 
@@ -218,17 +230,18 @@ def shape_label(shape) -> str:
 
 def run_cell(arch: str, shape_name, mesh, overrides=None,
              hw: Hardware = H100, cfg=None, opt_cfg=None,
-             n_micro: int = 1, rank: int = 0) -> dict:
+             n_micro: int = 1, rank: int = 0, mode: str = "tp_sp") -> dict:
     """Count one cell on ``mesh`` ("single", "multi", "local" or a (data,
     model) shape, counted as the production meshes are, rank ``rank``'s
-    step); return the analysis record. ``shape_name`` is a name of
-    ``SHAPES`` or a shape dict (the smoke's card shapes); ``cfg`` replaces
-    the arch's config (a config cut in depth), ``opt_cfg`` and ``n_micro``
-    set a train cell's step as ``build_cell`` takes them."""
+    step) in sharding mode ``mode``; return the analysis record.
+    ``shape_name`` is a name of ``SHAPES`` or a shape dict (the smoke's
+    card shapes); ``cfg`` replaces the arch's config (a config cut in
+    depth), ``opt_cfg`` and ``n_micro`` set a train cell's step as
+    ``build_cell`` takes them."""
     cfg = cfg or CONFIG(arch)
     mesh = mesh if isinstance(mesh, str) else tuple(mesh)
     label = shape_label(shape_name)
-    rec: Dict[str, Any] = {"arch": arch, "shape": label,
+    rec: Dict[str, Any] = {"arch": arch, "shape": label, "mode": mode,
                            "mesh": mesh if isinstance(mesh, str)
                            else list(mesh)}
     if isinstance(shape_name, str) and shape_name in cfg.skipped_shapes():
@@ -236,7 +249,8 @@ def run_cell(arch: str, shape_name, mesh, overrides=None,
         rec["skip_reason"] = cfg.skipped_shapes()[shape_name]
         return rec
     n = make_mesh(mesh).size
-    direct = _count(cfg, shape_name, overrides, opt_cfg, n_micro, mesh, rank)
+    direct = _count(cfg, shape_name, overrides, opt_cfg, n_micro, mesh, rank,
+                    mode)
     rec["count_s"] = round(direct["count_s"], 2)
     mem = dict(direct["memory"])
     mem["peak_bytes_per_device"] = mem.pop("peak_bytes")
@@ -244,7 +258,7 @@ def run_cell(arch: str, shape_name, mesh, overrides=None,
     by_axis = lines = None
     if n > 1:
         mem["spec_argument_bytes"] = per_device_arguments(
-            cfg, shape_name, make_mesh(mesh), opt_cfg)
+            cfg, shape_name, make_mesh(mesh), opt_cfg, mode)
         rec["counted_as"] = list(COUNTED.get(mesh, mesh))
         rec["rank"] = rank
         lines = direct["lines"]
@@ -264,8 +278,9 @@ def run_cell(arch: str, shape_name, mesh, overrides=None,
     return rec
 
 
-def cell_path(arch: str, shape: str, mesh: str) -> Path:
-    return RESULTS / mesh / f"{arch}__{shape}.json"
+def cell_path(arch: str, shape: str, mesh: str, mode: str = "tp_sp") -> Path:
+    d = mesh if mode == "tp_sp" else f"{mesh}-{mode}"
+    return RESULTS / d / f"{arch}__{shape}.json"
 
 
 def _line(rec: dict) -> str:
@@ -289,7 +304,13 @@ def main(argv=None) -> None:
                     choices=["single", "multi", "both", "local"])
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--sharding-mode", default="tp_sp", choices=list(MODES),
+                    help="the distribution mode (the reference's): tp_sp, "
+                         "tp_sp_opt (sequence-parallel prefill) or fsdp_cp "
+                         "(ZeRO-3 + context parallel, weight-stationary "
+                         "decode)")
     args = ap.parse_args(argv)
+    mode = args.sharding_mode
 
     archs = list_configs() if (args.all or not args.arch) else [args.arch]
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
@@ -299,17 +320,17 @@ def main(argv=None) -> None:
     for mesh_name in meshes:
         for arch in archs:
             for shape in shapes:
-                out = cell_path(arch, shape, mesh_name)
+                out = cell_path(arch, shape, mesh_name, mode)
                 if args.skip_existing and out.exists():
                     print(f"[skip-existing] {mesh_name}/{arch}/{shape}")
                     continue
-                print(f"[dryrun] mesh={mesh_name} arch={arch} "
+                print(f"[dryrun] mesh={mesh_name} mode={mode} arch={arch} "
                       f"shape={shape} ...", flush=True)
                 try:
-                    rec = run_cell(arch, shape, mesh_name)
+                    rec = run_cell(arch, shape, mesh_name, mode=mode)
                 except Exception as e:
                     rec = {"arch": arch, "shape": shape, "mesh": mesh_name,
-                           "status": "error", "error": str(e),
+                           "mode": mode, "status": "error", "error": str(e),
                            "traceback": traceback.format_exc()}
                     failures.append((mesh_name, arch, shape, str(e)))
                 out.parent.mkdir(parents=True, exist_ok=True)

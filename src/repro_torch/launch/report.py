@@ -2,6 +2,7 @@
 ``repro/launch/report.py``, with the H100's capacity in the fits column.
 
   PYTHONPATH=src python -m repro_torch.launch.report [--mesh single|multi|local]
+      [--mode tp_sp|tp_sp_opt|fsdp_cp]
 
 Every mesh's records carry the peak and the collective term (on the
 production meshes, rank 0's of a counted sharded step); a record that
@@ -24,8 +25,10 @@ def _fits(mem) -> str:
     return "n/a" if fits is None else ("yes" if fits else "NO")
 
 
-def table(mesh: str = "single") -> str:
-    d = dryrun.RESULTS / mesh
+def table(mesh: str = "single", mode: str = "tp_sp") -> str:
+    """The table of ``mesh``'s records in sharding mode ``mode`` (under
+    ``<mesh>-<mode>/`` for a mode other than ``tp_sp``)."""
+    d = dryrun.RESULTS / (mesh if mode == "tp_sp" else f"{mesh}-{mode}")
     lines = [
         "| arch | shape | bound | compute (ms) | memory (ms) | collective "
         "(ms) | peak GB/chip | fits H100 80 GB | useful-FLOP ratio | "
@@ -58,8 +61,9 @@ def table(mesh: str = "single") -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mesh", default="single")
+    ap.add_argument("--mode", default="tp_sp")
     args = ap.parse_args(argv)
-    print(table(args.mesh))
+    print(table(args.mesh, args.mode))
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@ same model in one process.
 
     PYTHONPATH=src python -m repro_torch.launch.spmd --arch qwen3-8b \\
         --mesh 1x2 --shape prefill|decode|train [--layers 4] [--reduced] \\
-        [--device cpu]
+        [--mode tp_sp|tp_sp_opt|fsdp_cp] [--device cpu]
 
 :func:`launch` spawns one process per rank (``torch.multiprocessing``,
 spawn), which meet through a file store in a temporary directory (no TCP
@@ -28,7 +28,9 @@ within :data:`ROW_LIMIT` of each row's magnitude, and the same greedy
 token except where the one-process row's top two are closer than that. A
 MoE drops pairs differently on the mesh, where capacity is per rank, as
 the reference's does, so the entry point runs it :func:`dropless` on both
-sides.
+sides. ``--mode`` picks the reference's distribution mode of the serving
+steps (:mod:`repro_torch.distributed.sharding`; the ranks are held against
+the same one process in every mode); training runs in ``tp_sp`` alone.
 
 :func:`train` is one rank's training: the model built trainable from
 the whole weights, its blocks of the parameters and of an AdamW state a
@@ -60,6 +62,7 @@ import torch
 
 from repro_torch import foreign_modules
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import MODES
 from repro_torch.launch.mesh import make_local_mesh
 
 # the logits' error over each row's largest magnitude (the smoke's bf16
@@ -150,7 +153,8 @@ class Job:
     (``torch.save``), else the weights drawn from ``seed``. ``extras``:
     the model's modality inputs for the whole batch (``{"frames": [B, F,
     D]}`` or ``{"ctx_embeds": [B, N, C]}``, on the CPU), each rank
-    taking its rows."""
+    taking its rows. ``mode``: the sharding mode of the model on the
+    mesh."""
     cfg: ArchConfig
     tokens: torch.Tensor
     steps: int = 0
@@ -158,6 +162,7 @@ class Job:
     params: Optional[str] = None
     seed: int = 0
     extras: Optional[Dict[str, torch.Tensor]] = None
+    mode: str = "tp_sp"
 
 
 def _reset_peak(device) -> None:
@@ -218,7 +223,7 @@ def serve(mesh, device: torch.device, job: Job) -> Dict[str, Any]:
     params = (None if job.params is None
               else torch.load(job.params, map_location=device))
     model = build_model(job.cfg, params, device=device, seed=job.seed,
-                        mesh=mesh)
+                        mesh=mesh, mode=job.mode)
     del params
     ctx = model.ctx
     B, S = job.tokens.shape
@@ -233,18 +238,15 @@ def serve(mesh, device: torch.device, job: Job) -> Dict[str, Any]:
         logits, k, v, state = model.prefill_with_state(toks, extras)
         out, fed = [logits], []
         cache = model.cache(hi - lo, S + job.steps)
-        if k is not None:
-            cache["k"][:, :, :S] = k
-            cache["v"][:, :, :S] = v
-        for name, t in (state or {}).items():
-            cache[name].copy_(t)
+        model.fill_cache(cache, k, v, state)
         for i in range(job.steps):
             nxt = (logits.argmax(-1).int() if job.feed is None
                    else job.feed[lo:hi, i].to(device))
             fed.append(nxt)
             pos = torch.full((hi - lo,), S + i, dtype=torch.int32,
                              device=device)
-            logits = model.decode_step(cache, nxt[:, None], pos)
+            logits = model.decode_step(cache, nxt[:, None], pos,
+                                       global_rows=B)
             out.append(logits)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -620,10 +622,12 @@ class CellJob:
     """``training.build_cell``'s step of ``cfg`` at each of ``shapes``
     (label -> shape dict), in turn on one trainable model drawn from
     ``seed``: what :mod:`repro_torch.launch.dryrun` counts on a fake world
-    of the same mesh (:func:`~repro_torch.launch.mesh.counting_mesh`)."""
+    of the same mesh (:func:`~repro_torch.launch.mesh.counting_mesh`), in
+    sharding mode ``mode``."""
     cfg: ArchConfig
     shapes: Dict[str, Any]
     seed: int = 0
+    mode: str = "tp_sp"
 
 
 def cell(mesh, device: torch.device, job: CellJob) -> Dict[str, Any]:
@@ -642,7 +646,7 @@ def cell(mesh, device: torch.device, job: CellJob) -> Dict[str, Any]:
     from repro_torch.training.train_step import build_cell
     t0 = time.perf_counter()
     model = build_model(job.cfg, device=device, seed=job.seed,
-                        trainable=True, mesh=mesh)
+                        trainable=True, mesh=mesh, mode=job.mode)
     out = {}
     for label, shape in job.shapes.items():
         gen = torch.Generator(device=device).manual_seed(job.seed)
@@ -756,7 +760,12 @@ def main(argv=None) -> int:
     ap.add_argument("--reduced", action="store_true",
                     help="the config's reduced widths (f32)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--mode", choices=list(MODES), default="tp_sp",
+                    help="the sharding mode of the serving steps")
     args = ap.parse_args(argv)
+    if args.shape == "train" and args.mode != "tp_sp":
+        ap.error(f"--shape train runs in sharding mode 'tp_sp' alone: "
+                 f"training in {args.mode!r} is ROADMAP §1's")
     data, model = (int(n) for n in args.mesh.lower().split("x"))
     cfg = get_config(args.arch)
     if args.reduced:
@@ -782,13 +791,13 @@ def main(argv=None) -> int:
                             opt=OptConfig(lr=TRAIN_LR, warmup_steps=1),
                             extras=extras)
     else:
-        job = spmd.Job(cfg, tokens, steps, extras=extras)
+        job = spmd.Job(cfg, tokens, steps, extras=extras, mode=args.mode)
     _, (out,) = spmd.run([job], (data, model), device=args.device)
     for line in out["ranks"]:
         print(json.dumps({"spmd": "rank", **line}), flush=True)
     print(json.dumps({"spmd": "check", "arch": cfg.name,
                       "layers": cfg.n_layers, "batch": batch, "seq": seq,
-                      "steps": steps,
+                      "steps": steps, "mode": args.mode,
                       "mesh_seconds": out["mesh_seconds"],
                       **out["check"]}), flush=True)
     return 0 if out["check"]["ok"] else 1

@@ -16,7 +16,7 @@ from repro_torch.models.transformer import Model, sharding_ctx
 def build_model(cfg: Union[str, ArchConfig],
                 params: Optional[Dict[str, Any]] = None, *,
                 device=None, seed: int = 0, trainable: bool = False,
-                mesh=None) -> Model:
+                mesh=None, mode: str = "tp_sp") -> Model:
     """A :class:`Model` on ``device`` (``cuda`` unless the caller names
     another), frozen unless ``trainable``. Without ``params`` the weights
     are drawn by :func:`init_params` from a ``torch.Generator`` on the
@@ -31,13 +31,17 @@ def build_model(cfg: Union[str, ArchConfig],
     on every rank) and cut to its block before the next is drawn
     (:func:`init_params`), so a rank never holds the whole model. The
     attention's leaves are cut by the head layout
-    (:func:`~repro_torch.distributed.sharding.head_layout`). Raises
-    ``ValueError`` for a leaf the mesh does not divide or heads it cannot
-    lay out."""
+    (:func:`~repro_torch.distributed.sharding.head_layout`; in
+    ``fsdp_cp`` the partition specs' equal blocks). ``mode`` is the
+    reference's distribution mode (``tp_sp``, ``tp_sp_opt`` or
+    ``fsdp_cp``: :mod:`repro_torch.distributed.sharding`). Raises
+    ``ValueError`` for a leaf the mesh does not divide, heads it cannot
+    lay out or an unknown mode, and ``NotImplementedError`` for a family
+    the mode does not run yet."""
     if isinstance(cfg, str):
         cfg = get_config(cfg)
     device = resolve_device(device)
-    ctx = sharding_ctx(cfg, mesh)
+    ctx = sharding_ctx(cfg, mesh, mode)
     if params is None and device.type != "meta":
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
@@ -48,7 +52,7 @@ def build_model(cfg: Union[str, ArchConfig],
         if ctx.live:
             params = ctx.shard_tree(params, pspec_tree(param_specs(cfg),
                                                        mesh_rules(mesh)))
-    return Model(cfg, params, trainable, mesh=mesh).to(device)
+    return Model(cfg, params, trainable, mesh=mesh, mode=mode).to(device)
 
 
 __all__ = ["Model", "build_model", "init_params"]

@@ -25,10 +25,21 @@ summed over ``model``, and the all-reduce's backward is the identity. A
 replicated KV head's weights (``wk``/``wv``/``bk``/``bv``) enter the
 ranks that share it through the ``"kv"`` line, so their gradient is
 summed over those ranks.
+
+The reference's other two modes (:mod:`repro_torch.distributed.sharding`):
+with ``sp`` (``tp_sp_opt`` prefill), :func:`attn_full` and
+:func:`ffn_apply` take the rank's rows of the sequence, all-gather the
+normed rows over ``model`` once and reduce-scatter the partial sums back
+to the rank's rows, in place of the all-reduce.
+:func:`attn_context_parallel` is ``fsdp_cp``'s prefill attention (whole
+weights, the rank's query rows, K/V rows gathered along the sequence, the
+causal diagonal shifted by the rank's first row), and
+:func:`attn_decode_stationary` / :func:`ffn_decode_stationary` its
+weight-stationary decode step over the sequence-split cache.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,7 +81,7 @@ def _project_qkv(p: Mapping[str, torch.Tensor], h: torch.Tensor,
 
 def attn_full(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
               kv_src: Optional[torch.Tensor] = None, causal: bool = True,
-              ctx=None):
+              ctx=None, sp: bool = False):
     """Full-sequence self- or cross-attention through
     :func:`repro_torch.kernels.ops.flash_attention` on the un-repeated K/V.
 
@@ -81,10 +92,14 @@ def attn_full(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
     ropes; its caller passes ``causal=False``. On a live ``ctx`` the
     weights are this rank's heads, the normed rows (and ``kv_src``, which
     feeds every rank's heads) enter them, their gradients summed over
-    ``model``, and the output is summed over ``model``. Returns (output
+    ``model``, and the output is summed over ``model``. With ``sp``
+    (``tp_sp_opt``'s prefill, self-attention) ``x`` is the rank's rows of
+    the sequence: the normed rows are all-gathered over ``model`` and the
+    output reduce-scattered back to the rank's rows. Returns (output
     [B,S,D], k, v [B,Sk,Hkv,hd] for the cache)."""
     cross = kv_src is not None
-    h = C.enter(rms_norm(x, p["ln"], cfg.norm_eps), "tp", ctx)
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    h = C.all_gather(h, "tp", 1, ctx) if sp else C.enter(h, "tp", ctx)
     if cross:
         kv_src = C.enter(kv_src, "tp", ctx)
     q, k, v = _project_qkv(p, h, kv_src if cross else h, cfg, cross, ctx)
@@ -93,8 +108,143 @@ def attn_full(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
         k = apply_rope(k, positions, cfg.rope_theta)
     o = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=causal)
+    o = o.reshape(*h.shape[:-1], q.shape[-2] * cfg.head_dim_) @ p["wo"]
+    if sp:
+        return C.reduce_scatter(o, "tp", 1, ctx), k, v
+    return C.all_reduce_sum(o, "tp", ctx), k, v
+
+
+def attn_context_parallel(p, x: torch.Tensor, cfg: ArchConfig,
+                          positions: torch.Tensor, ctx):
+    """``fsdp_cp``'s prefill self-attention (the reference's ``attn_full``
+    in that mode): ``p`` the layer's whole weights, x [B, s, D] the rank's
+    rows of the batch and its block of s = S / tp rows of the sequence at
+    ``positions`` [1, s]. q, k and v of every head from the rank's rows;
+    K/V all-gathered over ``model`` along the sequence to [B, S, Hkv, hd];
+    flash attention of the rank's queries over them, the causal diagonal
+    shifted by the rank's first row (``q_offset``). No collective on the
+    output. Returns (output [B, s, D], the rank's rows of k and v [B, s,
+    Hkv, hd]: the sequence-split cache's)."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q, k, v = _project_qkv(p, h, h, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    kf = C.all_gather(k.contiguous(), "tp", 1, ctx)
+    vf = C.all_gather(v.contiguous(), "tp", 1, ctx)
+    o = ops.flash_attention(q.contiguous(), kf, vf, causal=True,
+                            q_offset=ctx.index("tp") * x.shape[1])
+    del kf, vf
     o = o.reshape(*x.shape[:-1], q.shape[-2] * cfg.head_dim_)
-    return C.all_reduce_sum(o @ p["wo"], "tp", ctx), k, v
+    return o @ p["wo"], k, v
+
+
+def norm_split(x: torch.Tensor, scale: torch.Tensor, cfg: ArchConfig,
+               ctx) -> torch.Tensor:
+    """``rms_norm`` of rows whose ``D`` is split over ``data`` (``fsdp_cp``'s
+    decode residual): x [..., D/dp] this rank's block, ``scale`` [D] whole.
+    The sum of squares is summed over ``data`` and divided by the whole
+    ``D``."""
+    n = x.shape[-1]
+    xf = x.float()
+    sq = C.all_reduce_sum(xf.square().sum(dim=-1, keepdim=True), "fsdp",
+                          ctx)
+    var = sq / (n * ctx.axis_size("fsdp"))
+    w = scale.narrow(0, ctx.index("fsdp") * n, n)
+    return (xf * torch.rsqrt(var + cfg.norm_eps) * w.float()).to(x.dtype)
+
+
+def _stationary(h: torch.Tensor, w: torch.Tensor, ctx) -> torch.Tensor:
+    """A weight-stationary product: h [..., D/dp] against the rank's block
+    w [D/dp, n/tp], the partial sums over ``data`` all-reduced."""
+    return C.all_reduce_sum(h @ w, "fsdp", ctx)
+
+
+def attn_decode_stationary(p, x: torch.Tensor, cfg: ArchConfig,
+                           positions: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, page: int,
+                           lanes: Tuple[int, int], ctx) -> torch.Tensor:
+    """``fsdp_cp``'s decode attention (the reference's ``attn_decode`` in
+    that mode), weight-stationary over a sequence-split cache.
+
+    x [B, 1, D/dp]: every lane, the rank's block of ``D``; ``p`` the
+    rank's blocks, ``wq``/``wk``/``wv`` [D/dp, cols/tp] and ``wo`` [H hd/tp,
+    D/dp]; ``lanes`` the rank's lanes ``lo, hi`` of the B; positions [hi -
+    lo] their new tokens' positions; k/v_cache [hi - lo, S/tp, Hkv, hd]
+    the rank's block of rows of every head (rank m of ``model`` holds rows
+    m S/tp ..).
+
+    Each projection's partial sums are all-reduced over ``data``, its
+    columns of the rank's lanes all-gathered over ``model``: q, k and v of
+    every head. The new token's K/V is written by the rank holding its
+    position. Each rank attends over its rows (``ops.paged_attention``
+    through :func:`dense_table`, lengths clamped to its rows, 0 where it
+    holds none) and gets each row's log-sum-exp; the ranks' outputs are
+    merged by them over ``model`` (max, rescale, sum). The output's
+    columns of the rank's ``wo`` rows, all-gathered over ``data`` to every
+    lane, go through ``wo``, whose partial sums are all-reduced over
+    ``model``. No weight is gathered. Returns [B, 1, D/dp]."""
+    hd = cfg.head_dim_
+    lo, hi = lanes
+    b, S_loc = k_cache.shape[0], k_cache.shape[1]
+    m = ctx.index("tp")
+    h = norm_split(x, p["ln"], cfg, ctx)
+
+    def proj(w: str, bias: str) -> torch.Tensor:
+        y = _stationary(h, p[w], ctx)[lo:hi]
+        if cfg.qkv_bias:
+            y = y + p[bias]
+        return C.all_gather(y, "tp", 2, ctx)
+
+    q, k_new, v_new = proj("wq", "bq"), proj("wk", "bk"), proj("wv", "bv")
+    q = q.reshape(b, 1, -1, hd)
+    k_new = k_new.reshape(b, 1, -1, hd)
+    v_new = v_new.reshape(b, 1, -1, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["qn"], cfg.norm_eps)
+        k_new = rms_norm(k_new, p["kn"], cfg.norm_eps)
+    q = apply_rope(q, positions[:, None], cfg.rope_theta)
+    k_new = apply_rope(k_new, positions[:, None], cfg.rope_theta)
+    # the new token's row, written where this rank holds its position
+    local = positions.long() - m * S_loc
+    own = ((local >= 0) & (local < S_loc))[:, None, None]
+    rows = local.clamp(0, S_loc - 1)
+    ids = torch.arange(b, device=x.device)
+    k_cache[ids, rows] = torch.where(own, k_new[:, 0].to(k_cache.dtype),
+                                     k_cache[ids, rows])
+    v_cache[ids, rows] = torch.where(own, v_new[:, 0].to(v_cache.dtype),
+                                     v_cache[ids, rows])
+    bt, _ = dense_table(b, S_loc, page, positions)
+    seq_lens = (local + 1).clamp(0, S_loc).int()
+    shape = (b * S_loc // page, page) + k_cache.shape[2:]
+    o, lse = ops.paged_attention(q[:, 0].contiguous(), k_cache.view(shape),
+                                 v_cache.view(shape), bt, seq_lens,
+                                 return_lse=True)              # [b, H, hd]
+    # merge the ranks' shares of each row: exp(lse - max) weighs a rank
+    # holding none of the lane's rows 0
+    w = torch.exp(lse - C.all_reduce_max(lse, "tp", ctx))[..., None]
+    acc = C.all_reduce_sum(torch.cat([o.float() * w, w], dim=-1), "tp",
+                           ctx)
+    o = (acc[..., :hd] / acc[..., hd:]).to(x.dtype).reshape(b, 1, -1)
+    n = p["wo"].shape[0]
+    o = C.all_gather(o.narrow(2, m * n, n).contiguous(), "batch", 0, ctx) \
+        if hi - lo < x.shape[0] else o.narrow(2, m * n, n)
+    return C.all_reduce_sum(o @ p["wo"], "tp", ctx)
+
+
+def ffn_decode_stationary(p, x: torch.Tensor, cfg: ArchConfig,
+                          ctx) -> torch.Tensor:
+    """``fsdp_cp``'s weight-stationary decode FFN (the reference's
+    ``ffn_apply`` on a ``[B, 1, D]`` row in that mode): x [B, 1, D/dp], the
+    rank's blocks ``w_up``/``w_gate`` [D/dp, F/tp] and ``w_down`` [F/tp,
+    D/dp]; the up and gate products' partial sums all-reduced over
+    ``data``, the down product's over ``model``. Returns [B, 1, D/dp]."""
+    h = norm_split(x, p["ln"], cfg, ctx)
+    up = _stationary(h, p["w_up"], ctx)
+    if cfg.ffn_gelu:
+        act = F.gelu(up, approximate="tanh")
+    else:
+        act = F.silu(_stationary(h, p["w_gate"], ctx)) * up
+    return C.all_reduce_sum(act @ p["w_down"], "tp", ctx)
 
 
 def attn_decode_cross(p, x: torch.Tensor, cfg: ArchConfig,
@@ -227,17 +377,24 @@ def attn_chunk_paged(p, x: torch.Tensor, cfg: ArchConfig,
 
 
 def ffn_apply(p, x: torch.Tensor, cfg: ArchConfig,
-              gelu: Optional[bool] = None, ctx=None) -> torch.Tensor:
+              gelu: Optional[bool] = None, ctx=None,
+              sp: bool = False) -> torch.Tensor:
     """SwiGLU, or the 2-matrix GELU MLP (``gelu``, by default
     ``cfg.ffn_gelu``; the encoder's is always GELU) with the tanh
     approximation that ``jax.nn.gelu`` uses by default. On a live ``ctx``
     the weights are this rank's block of ``d_ff``, the normed rows enter
     it (their gradient summed over ``model``) and the output is summed
-    over ``model``."""
-    h = C.enter(rms_norm(x, p["ln"], cfg.norm_eps), "tp", ctx)
+    over ``model``. With ``sp`` (``tp_sp_opt``'s prefill) ``x`` is the
+    rank's rows of the sequence, gathered over ``model`` once normed, and
+    the output is reduce-scattered back to them."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    h = C.all_gather(h, "tp", 1, ctx) if sp else C.enter(h, "tp", ctx)
     up = h @ p["w_up"]
     if cfg.ffn_gelu if gelu is None else gelu:
         act = F.gelu(up, approximate="tanh")
     else:
         act = F.silu(h @ p["w_gate"]) * up
-    return C.all_reduce_sum(act @ p["w_down"], "tp", ctx)
+    out = act @ p["w_down"]
+    if sp:
+        return C.reduce_scatter(out, "tp", 1, ctx)
+    return C.all_reduce_sum(out, "tp", ctx)

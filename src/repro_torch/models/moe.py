@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.distributed import collectives as C
 from repro_torch.models.common import rms_norm
+from repro_torch.models.layers import norm_split
 
 Info = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -118,11 +119,13 @@ def _moe_local(p: Mapping[str, torch.Tensor], x: torch.Tensor,
 
 
 def _moe_sharded(p: Mapping[str, torch.Tensor], x: torch.Tensor,
-                 moe: MoEConfig, ctx) -> torch.Tensor:
+                 moe: MoEConfig, ctx, sp: bool = False) -> torch.Tensor:
     """The reference's ``_moe_sharded`` on one rank. x [b, S, D]: the
     rank's rows over ``data`` (all B where dp does not divide it),
     replicated over ``model``; p the rank's blocks: router [D/dp, E],
-    w_gate/w_up [E/tp, D/dp, F], w_down [E/tp, F, D/dp].
+    w_gate/w_up [E/tp, D/dp, F], w_down [E/tp, F, D/dp]. With ``sp`` (the
+    sequence-split modes' prefill) x [b, S/tp, D] is already the rank's
+    block of the sequence, routed as it comes, and so is the output.
 
     Under autograd the rows and the router enter this rank's block of the
     sequence (their gradients summed over ``model``), the all-to-alls run
@@ -135,6 +138,8 @@ def _moe_sharded(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     tp = ctx.axis_size("exp")
     b, S, D = x.shape
     E, K = moe.n_experts, moe.top_k
+    if sp:
+        S *= tp
     seq_shardable = S % tp == 0
     if not seq_shardable and tp > 1 and torch.is_grad_enabled() and (
             x.requires_grad or p["router"].requires_grad):
@@ -142,7 +147,7 @@ def _moe_sharded(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                          f"'model' of {tp} ranks: the sharded MoE has no "
                          f"gradient for it")
     s_loc = S // tp if seq_shardable else S
-    if seq_shardable:
+    if seq_shardable and not sp:
         x = C.enter(x, "exp", ctx).narrow(1, ctx.index("exp") * s_loc, s_loc)
     T_loc = b * s_loc
     C_loc = _capacity(T_loc, E, K, moe.capacity_factor, dropless=(S == 1))
@@ -158,17 +163,39 @@ def _moe_sharded(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     out = C.all_to_all(out, "exp", 1, 0, ctx)                 # [E, C_loc, D]
     y = _combine(out, info, T_loc, K, C_loc).reshape(b, s_loc, D)
     # the sequence whole again on every model rank, for the next layer
-    return (C.all_gather(y, "exp", 1, ctx, grad="block") if seq_shardable
-            else y)
+    return (C.all_gather(y, "exp", 1, ctx, grad="block")
+            if seq_shardable and not sp else y)
 
 
 def moe_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor,
-              cfg: ArchConfig, ctx=None) -> torch.Tensor:
+              cfg: ArchConfig, ctx=None, sp: bool = False) -> torch.Tensor:
     """The MoE FFN of one layer: the norm inside, the residual outside.
     x [B,S,D]; every one of the B*S rows is routed, pad rows too, and
     takes capacity as the reference's do. On a live ``ctx``,
-    :func:`_moe_sharded` with this rank's blocks. Returns [B,S,D]."""
+    :func:`_moe_sharded` with this rank's blocks (``sp``: x the rank's rows
+    of the sequence). Returns [B,S,D]."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     if ctx is not None and ctx.live:
-        return _moe_sharded(p, h, cfg.moe, ctx)
+        return _moe_sharded(p, h, cfg.moe, ctx, sp)
     return _moe_local(p, h, cfg.moe)
+
+
+def moe_decode_stationary(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                          cfg: ArchConfig, ctx, split: bool) -> torch.Tensor:
+    """The MoE FFN of ``fsdp_cp``'s weight-stationary decode step: x [B, 1,
+    D/dp] every lane, the rank's block of ``D``; ``split`` whether the
+    lanes are split over ``data``. The normed rows are resharded to the
+    layout :func:`_moe_sharded` takes, the rank's lanes whole (an
+    all-to-all over ``data``, or an all-gather of ``D`` where every data
+    rank holds every lane), and its output back to every lane's block of
+    ``D``. Returns [B, 1, D/dp]."""
+    h = norm_split(x, p["ln"], cfg, ctx)
+    n = h.shape[-1]
+    if split:
+        h = C.all_to_all(h, "batch", 0, 2, ctx)           # [B/dp, 1, D]
+    else:
+        h = C.all_gather(h, "batch", 2, ctx)
+    y = _moe_sharded(p, h, cfg.moe, ctx)
+    if split:
+        return C.all_to_all(y, "batch", 2, 0, ctx)        # [B, 1, D/dp]
+    return y.narrow(2, ctx.index("fsdp") * n, n)

@@ -54,6 +54,15 @@ recomputed in the backward with its layer and reduce-scatters the
 weight's gradient to this rank's block), and the loss is vocab-parallel.
 The paged, chunked and horizon methods run on one card and raise on a
 live mesh.
+
+That is the reference's default distribution mode, ``tp_sp``.
+``build_model(..., mode=)`` takes its two others
+(:mod:`repro_torch.distributed.sharding`) for the dense and MoE families'
+serving steps: ``tp_sp_opt`` (a sequence-parallel prefill,
+:meth:`Model._prefill_seq_split`) and ``fsdp_cp`` (a context-parallel
+prefill; a weight-stationary decode step, :meth:`Model._decode_stationary`,
+over a cache split by sequence). Their training and the other families
+raise ``NotImplementedError`` (``MODE_FAMILIES``).
 """
 from __future__ import annotations
 
@@ -63,6 +72,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import import_dynamo
 from repro_torch.configs.base import ArchConfig, TensorSpec
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import (ShardingCtx, head_layout,
@@ -81,13 +91,21 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 MESH_FAMILIES = FAMILIES
 
 
-def sharding_ctx(cfg: ArchConfig, mesh) -> ShardingCtx:
-    """The model's sharding context on ``mesh``, given the config's heads,
-    so that a live mesh cuts the attention's leaves by the head layout;
-    raises where :func:`check_mesh` does."""
-    check_mesh(cfg, ShardingCtx(mesh))
-    heads = None if cfg.family == "ssm" else (cfg.n_heads, cfg.n_kv_heads)
-    return ShardingCtx(mesh, heads=heads)
+# the families each sharding mode runs (the others raise)
+MODE_FAMILIES = {"tp_sp": FAMILIES, "tp_sp_opt": ("dense", "moe"),
+                 "fsdp_cp": ("dense", "moe")}
+
+
+def sharding_ctx(cfg: ArchConfig, mesh, mode: str = "tp_sp") -> ShardingCtx:
+    """The model's sharding context on ``mesh`` in ``mode``, given the
+    config's heads, so that a live mesh cuts the attention's leaves by the
+    head layout (``fsdp_cp``, whose heads are not split, cuts the specs'
+    equal blocks); raises where :func:`check_mesh` does."""
+    ctx = ShardingCtx(mesh, mode=mode)
+    check_mesh(cfg, ctx)
+    if cfg.family == "ssm" or mode == "fsdp_cp":
+        return ctx
+    return ShardingCtx(mesh, heads=(cfg.n_heads, cfg.n_kv_heads), mode=mode)
 
 
 def check_mesh(cfg: ArchConfig, ctx: ShardingCtx) -> None:
@@ -98,7 +116,7 @@ def check_mesh(cfg: ArchConfig, ctx: ShardingCtx) -> None:
     if not ctx.live:
         return
     tp = ctx.axis_size("tp")
-    if cfg.family != "ssm":
+    if cfg.family != "ssm" and ctx.mode != "fsdp_cp":
         try:
             head_layout(cfg.n_heads, cfg.n_kv_heads, tp, 0)
         except ValueError as e:
@@ -133,6 +151,7 @@ def _maybe_remat(remat: bool, fn, *args):
     """``fn(*args)``, recomputed in the backward pass (nothing it computes
     is kept but its output) when ``remat`` and grad is enabled."""
     if remat and torch.is_grad_enabled():
+        import_dynamo()
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
 
@@ -151,32 +170,57 @@ class Block(nn.Module):
             leaves = parts.get(name)
             setattr(self, name, None if leaves is None else nn.ParameterDict(
                 {k: _param(v, trainable) for k, v in leaves.items()}))
-        # part -> leaf -> the dim its spec splits over "fsdp"
-        self.fsdp_dims = {part: {k: s.axes.index("fsdp")
-                                 for k, s in leaves.items()
-                                 if "fsdp" in s.axes}
-                          for part, leaves in (specs or {}).items()}
+        # part -> leaf -> the dim its spec splits over "fsdp" / "tp"
+        self.fsdp_dims, self.tp_dims = (
+            {part: {k: s.axes.index(axis) for k, s in leaves.items()
+                    if axis in s.axes}
+             for part, leaves in (specs or {}).items()}
+            for axis in ("fsdp", "tp"))
 
-    def weights(self, part: str, ctx: Optional[ShardingCtx]):
+    def weights(self, part: str, ctx: Optional[ShardingCtx],
+                whole: bool = False):
         """The leaves of ``part`` with each ``fsdp`` dim whole: all-gathered
         over ``data`` on a live mesh (ZeRO-3), the parameters themselves
-        where that axis has one rank."""
+        where that axis has one rank. With ``whole`` (``fsdp_cp``'s
+        prefill) each ``tp`` dim is all-gathered over ``model`` as well:
+        the whole leaves."""
         leaves = getattr(self, part)
-        if ctx is None or not ctx.live or ctx.axis_size("fsdp") == 1:
+        if ctx is None or not ctx.live:
             return leaves
-        dims = self.fsdp_dims[part]
-        return {k: C.all_gather(v, "fsdp", dims[k], ctx) if k in dims else v
-                for k, v in leaves.items()}
+        out = dict(leaves)
+        for axis, dims in (("fsdp", self.fsdp_dims[part]),
+                           ("tp", self.tp_dims[part] if whole else {})):
+            if ctx.axis_size(axis) > 1:
+                out.update({k: C.all_gather(out[k], axis, d, ctx)
+                            for k, d in dims.items()})
+        return out
 
     def ffn_apply(self, x: torch.Tensor, cfg: ArchConfig,
-                  ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
+                  ctx: Optional[ShardingCtx] = None,
+                  sp: bool = False) -> torch.Tensor:
         """The residual stream after this layer's FFN, whatever its kind.
-        The MoE gathers its own weights (:func:`moe._moe_sharded`)."""
+        The MoE gathers its own weights (:func:`moe._moe_sharded`). With
+        ``sp`` x holds the rank's rows of the sequence: ``tp_sp_opt``'s
+        FFN gathers and reduce-scatters them, ``fsdp_cp``'s runs on them
+        with its whole weights and no collective."""
         if self.ffn is not None:
-            return x + L.ffn_apply(self.weights("ffn", ctx), x, cfg, ctx=ctx)
+            if sp and ctx.mode == "fsdp_cp":
+                return x + L.ffn_apply(self.weights("ffn", ctx, whole=True),
+                                       x, cfg)
+            return x + L.ffn_apply(self.weights("ffn", ctx), x, cfg, ctx=ctx,
+                                   sp=sp)
         if self.moe is not None:
-            return x + MOE.moe_apply(self.moe, x, cfg, ctx)
+            return x + MOE.moe_apply(self.moe, x, cfg, ctx, sp)
         return x
+
+    def ffn_stationary(self, x: torch.Tensor, cfg: ArchConfig,
+                       ctx: ShardingCtx, split: bool) -> torch.Tensor:
+        """:meth:`ffn_apply` in ``fsdp_cp``'s weight-stationary decode step:
+        x [B, 1, D/dp], the weights in their blocks; ``split`` whether the
+        lanes are split over ``data``."""
+        if self.ffn is not None:
+            return x + L.ffn_decode_stationary(self.ffn, x, cfg, ctx)
+        return x + MOE.moe_decode_stationary(self.moe, x, cfg, ctx, split)
 
 
 def _check_parts(blk: Block, specs, where: str) -> None:
@@ -230,7 +274,7 @@ class Model(nn.Module):
     """
 
     def __init__(self, cfg: ArchConfig, params: Dict[str, Any],
-                 trainable: bool = False, mesh=None):
+                 trainable: bool = False, mesh=None, mode: str = "tp_sp"):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
@@ -238,7 +282,12 @@ class Model(nn.Module):
                 f"family {cfg.family!r}")
         # the sharding context: the dry run's mesh as data, or the live
         # mesh whose blocks ``params`` hold (build_model's ``mesh``)
-        self.ctx = sharding_ctx(cfg, mesh)
+        self.ctx = sharding_ctx(cfg, mesh, mode)
+        if cfg.family not in MODE_FAMILIES[mode]:
+            raise NotImplementedError(
+                f"{cfg.name}: sharding mode {mode!r} runs the "
+                f"{MODE_FAMILIES[mode]} families' prefill and decode step, "
+                f"not family {cfg.family!r} (ROADMAP §1)")
         self.cfg = cfg
         self.vocab_padded = pad_vocab(cfg.vocab, 256)
         self.embedding = _param(params["embed"], trainable)
@@ -278,6 +327,7 @@ class Model(nn.Module):
         tp = self.ctx.axis_size("tp") if self.ctx.live else 1
         hb = self.ctx.head_block
         self.n_kv_local = (hb.kv[1] - hb.kv[0] if hb is not None
+                           else cfg.n_kv_heads if mode == "fsdp_cp"
                            else cfg.n_kv_heads // tp)
         self.n_ssm_heads_local = (cfg.ssm.n_heads(cfg.d_model) // tp
                                   if cfg.ssm is not None else 0)
@@ -373,6 +423,30 @@ class Model(nn.Module):
             for p, g in zip(group, flat.split([p.numel() for p in group])):
                 p.grad = g.view_as(p)
 
+    def _tp_sp(self, what: str) -> None:
+        """Raise for a step that the model's sharding mode does not run
+        yet (only ``tp_sp`` trains)."""
+        if self.ctx.mode != "tp_sp":
+            raise NotImplementedError(
+                f"{self.cfg.name}: {what} in sharding mode "
+                f"{self.ctx.mode!r}: the port trains in 'tp_sp' alone "
+                f"(ROADMAP §1)")
+
+    def _seq_split(self, S: int) -> bool:
+        """Whether a prefill of ``S`` rows runs split over ``model`` by
+        sequence (``tp_sp_opt`` for S > 1, as the reference applies it;
+        ``fsdp_cp``), on a live mesh. Raises ``ValueError`` where
+        ``model`` does not divide S."""
+        ctx = self.ctx
+        split = ctx.live and (ctx.mode == "fsdp_cp"
+                              or (ctx.mode == "tp_sp_opt" and S > 1))
+        if split and S % ctx.axis_size("tp"):
+            raise ValueError(f"{self.cfg.name}: a prompt of {S} rows does "
+                             f"not split over mesh axis 'model' of "
+                             f"{ctx.axis_size('tp')} ranks (sharding mode "
+                             f"{ctx.mode!r})")
+        return split
+
     def _one_card(self, what: str) -> None:
         if self.ctx.live:
             raise NotImplementedError(
@@ -381,18 +455,25 @@ class Model(nn.Module):
                 f"training")
 
     # -------------------------------------------------------------- embedding
-    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def embed(self, tokens: torch.Tensor, sp: bool = False,
+              stationary: bool = False) -> torch.Tensor:
         """tokens [B,S] -> rows [B,S,D]. On a live mesh vocab-parallel: the
         rank's rows of the table (D gathered over ``data``), a masked
-        lookup of the ids they hold, summed over ``model``."""
+        lookup of the ids they hold, summed over ``model``; with ``sp``
+        reduce-scattered over ``model`` to the rank's rows of the sequence
+        [B, S/tp, D]. ``stationary`` (``fsdp_cp``'s decode step): the
+        table's block [Vp/tp, D/dp] as it is, -> [B, S, D/dp]."""
         ctx = self.ctx
         if not ctx.live:
             return self.embedding[tokens.long()]
-        table = C.all_gather(self.embedding, "fsdp", 1, ctx)     # [Vp/tp, D]
+        table = (self.embedding if stationary
+                 else C.all_gather(self.embedding, "fsdp", 1, ctx))
         n = table.shape[0]
         ids = tokens.long() - ctx.index("tp") * n
         inside = (ids >= 0) & (ids < n)
         x = torch.where(inside[..., None], table[ids.clamp(0, n - 1)], 0)
+        if sp:
+            return C.reduce_scatter(x, "tp", 1, ctx)
         return C.all_reduce_sum(x, "tp", ctx)
 
     def unembed_weight(self) -> torch.Tensor:
@@ -483,6 +564,7 @@ class Model(nn.Module):
         grad enabled) every layer, and every encoder layer, is recomputed
         in the backward pass (``torch.utils.checkpoint``), so only each
         layer's input is kept."""
+        self._tp_sp("the backbone")
         x = self.embed(tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         src = self._cross_src(extras, remat)
@@ -509,6 +591,7 @@ class Model(nn.Module):
         rank holds all of it (``global_rows`` == B) and its share is the
         mean over the data axis's size, so that neither the loss nor the
         gradients summed over ``data`` count the batch more than once."""
+        self._tp_sp("training")
         hidden = self.backbone(tokens, extras)
         ctx = self.ctx
         w = self.unembed_weight()
@@ -559,8 +642,13 @@ class Model(nn.Module):
         encoder runs over them), ``{"ctx_embeds": [B,N,C]}`` for a vlm;
         each cross layer attends to them after its mixer, before its
         FFN. On a live mesh every entry holds the rank's lanes and heads,
-        as :meth:`cache`'s blocks do."""
+        as :meth:`cache`'s blocks do; in ``fsdp_cp`` the K/V hold the
+        rank's rows of the sequence and every head
+        (:meth:`_prefill_seq_split`), which :meth:`fill_cache` moves to
+        the cache's rows."""
         cfg, ctx = self.cfg, self.ctx
+        if self._seq_split(tokens.shape[1]):
+            return self._prefill_seq_split(tokens)
         x = self.embed(tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         src = self._cross_src(extras)
@@ -589,6 +677,68 @@ class Model(nn.Module):
         kv = (torch.stack(ks), torch.stack(vs)) if ks else (None, None)
         state = {name: torch.stack(ts) for name, ts in parts.items() if ts}
         return (self._logits(x[:, -1]), *kv, state or None)
+
+    def _prefill_seq_split(self, tokens: torch.Tensor):
+        """The prefill of ``tp_sp_opt`` and ``fsdp_cp`` (dense and MoE
+        stacks): the residual is the rank's [B, S/tp, D] rows between the
+        layers, the embedding reduce-scattered to them. ``tp_sp_opt``:
+        each attention and FFN all-gathers its normed rows over ``model``
+        once and reduce-scatters its partial sums back (Megatron sequence
+        parallelism); the K/V are the rank's heads over the whole
+        sequence. ``fsdp_cp``: each layer's weights gathered whole, the
+        attention context-parallel (:func:`layers.attn_context_parallel`),
+        the FFN on the rank's rows alone; the K/V are the rank's rows of
+        every head. The MoE routes the rank's rows as they come. The last
+        row's logits are those of ``model``'s last rank, all-gathered."""
+        cfg, ctx = self.cfg, self.ctx
+        S = tokens.shape[1]
+        s, m = S // ctx.axis_size("tp"), ctx.index("tp")
+        cp = ctx.mode == "fsdp_cp"
+        x = self.embed(tokens, sp=True)
+        dev = tokens.device
+        positions = (torch.arange(m * s, (m + 1) * s, device=dev) if cp
+                     else torch.arange(S, device=dev))[None]
+        n_kv = len(self.kv_layer)
+        ks, vs = [None] * n_kv, [None] * n_kv
+        for i, blk in enumerate(self.layers):
+            if cp:
+                o, k, v = L.attn_context_parallel(
+                    blk.weights("attn", ctx, whole=True), x, cfg, positions,
+                    ctx)
+            else:
+                o, k, v = L.attn_full(blk.weights("attn", ctx), x, cfg,
+                                      positions, ctx=ctx, sp=True)
+            ks[self.kv_layer[i]], vs[self.kv_layer[i]] = k, v
+            x = blk.ffn_apply(x + o, cfg, ctx, sp=True)
+        x = rms_norm(x, self.final_ln, cfg.norm_eps)
+        last = C.all_gather(x[:, -1:].contiguous(), "tp", 1, ctx,
+                            grad="block")[:, -1]
+        return self._logits(last), torch.stack(ks), torch.stack(vs), None
+
+    def fill_cache(self, cache: Dict[str, torch.Tensor], k, v,
+                   state: Optional[Dict[str, torch.Tensor]] = None) -> None:
+        """Put a prefill's K/V ([n_attn_layers, B, P, Hkv, hd], this
+        rank's block) and state (:meth:`prefill_with_state`'s) into the
+        first P positions of :meth:`cache`'s ``cache``, in place. In
+        ``fsdp_cp`` on a live mesh the K/V hold the rank's P/tp rows of
+        the prompt; each layer's rows are all-gathered over ``model`` and
+        the rank keeps those of its block of the cache's rows."""
+        if k is not None:
+            if self.ctx.live and self.ctx.mode == "fsdp_cp":
+                S_loc = cache["k"].shape[2]
+                lo = self.ctx.index("tp") * S_loc
+                for a in range(k.shape[0]):
+                    for src, dst in ((k, cache["k"]), (v, cache["v"])):
+                        rows = C.all_gather(src[a], "tp", 1, self.ctx)
+                        n = max(0, min(S_loc, rows.shape[1] - lo))
+                        dst[a, :, :n] = rows[:, lo:lo + n]
+                        del rows
+            else:
+                P = k.shape[2]
+                cache["k"][:, :, :P] = k
+                cache["v"][:, :, :P] = v
+        for name, t in (state or {}).items():
+            cache[name].copy_(t)
 
     def _require_paged(self, what: str) -> None:
         if not self.supports_chunked_prefill:
@@ -807,16 +957,28 @@ class Model(nn.Module):
         block: the K/V and the cross K/V are split by KV heads over
         ``model``, where the reference's ``cache_specs`` split their
         sequence (``kv_sp``), the SSM state by heads and the conv window
-        by channels, as the reference's."""
+        by channels, as the reference's. In ``fsdp_cp`` the K/V are split
+        by sequence (``kv_sp``), as the reference's: rank m of ``model``
+        holds rows m S/tp .. of every head, S a multiple of
+        ``page_tokens`` times the model axis."""
         out = self.state_cache(batch)
         if self.kv_layer:
             cfg = self.cfg
-            S = -(-s_max // page_tokens) * page_tokens
+            S = self._cache_rows(s_max, page_tokens)
+            if self.ctx.live and self.ctx.mode == "fsdp_cp":
+                S //= self.ctx.axis_size("tp")
             shape = (len(self.kv_layer), batch, S, self.n_kv_local,
                      cfg.head_dim_)
             out["k"] = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
             out["v"] = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
         return out
+
+    def _cache_rows(self, s_max: int, page_tokens: int) -> int:
+        """The dense cache's rows for ``s_max`` tokens: whole pages, and in
+        ``fsdp_cp`` whole pages on every rank of ``model``."""
+        unit = page_tokens * (self.ctx.axis_size("tp")
+                              if self.ctx.mode == "fsdp_cp" else 1)
+        return -(-s_max // unit) * unit
 
     def cache_specs(self, batch: int, seq: int, page_tokens: int = 16):
         """(shape/dtype tree, partition-spec tree) of :meth:`cache`'s
@@ -828,9 +990,11 @@ class Model(nn.Module):
         mesh, whose K/V and cross K/V :meth:`cache` splits by KV heads
         (``tp``) instead of rows. Where a live mesh's ``model`` exceeds the
         KV heads the spec leaves them whole, while each rank holds one,
-        replicated (:meth:`cache` allocates the rank's blocks)."""
+        replicated (:meth:`cache` allocates the rank's blocks). In
+        ``fsdp_cp`` the K/V rows are split over ``kv_sp`` on every mesh."""
         cfg, ctx = self.cfg, self.ctx
-        kv_axes = (("batch", None, "tp", None) if ctx.live
+        kv_axes = (("batch", None, "tp", None)
+                   if ctx.live and ctx.mode != "fsdp_cp"
                    else ("batch", "kv_sp", None, None))
         raw = {}
         n_kv, n_ssm, n_cross = (len(self.kv_layer), self.n_ssm_layers,
@@ -847,7 +1011,7 @@ class Model(nn.Module):
                 raw[name] = ((n_cross, batch, cfg.n_ctx, cfg.n_kv_heads,
                               cfg.head_dim_), cfg.dtype, kv_axes)
         if n_kv:
-            S = -(-seq // page_tokens) * page_tokens
+            S = self._cache_rows(seq, page_tokens)
             for name in ("k", "v"):
                 raw[name] = ((n_kv, batch, S, cfg.n_kv_heads, cfg.head_dim_),
                              cfg.dtype, kv_axes)
@@ -858,7 +1022,8 @@ class Model(nn.Module):
 
     def decode_step(self, cache: Dict[str, torch.Tensor],
                     tokens: torch.Tensor, positions: torch.Tensor,
-                    page_tokens: int = 16) -> torch.Tensor:
+                    page_tokens: int = 16,
+                    global_rows: Optional[int] = None) -> torch.Tensor:
         """One token for every lane from the dense decode cache
         (:meth:`cache`, updated in place; :meth:`state_cache` alone for a
         pure-SSM model): the reference's ``decode_step``. tokens [B,1];
@@ -867,8 +1032,15 @@ class Model(nn.Module):
         of ``page_tokens`` through ``kernels.ops.paged_attention``; SSM
         layers step their state, cross layers read their static K/V, every
         lane, idle ones too, as the reference's do. Returns logits [B,Vp]
-        f32. On a live mesh: the rank's lanes, and :meth:`cache`'s blocks."""
+        f32. On a live mesh: the rank's lanes, and :meth:`cache`'s blocks;
+        ``global_rows`` is the lanes of the whole batch (default: B times
+        the data axis; B itself where the data axis does not split it),
+        which ``fsdp_cp``'s weight-stationary step
+        (:meth:`_decode_stationary`) carries."""
         cfg, ctx = self.cfg, self.ctx
+        if ctx.live and ctx.mode == "fsdp_cp":
+            return self._decode_stationary(cache, tokens, positions,
+                                           page_tokens, global_rows)
         x = self.embed(tokens)
         if self.kv_layer:
             bt, seq_lens = L.dense_table(tokens.shape[0], cache["k"].shape[2],
@@ -894,3 +1066,39 @@ class Model(nn.Module):
             x = blk.ffn_apply(x, cfg, ctx)
         x = rms_norm(x, self.final_ln, cfg.norm_eps)
         return self._logits(x[:, 0])
+
+    def _decode_stationary(self, cache, tokens, positions, page_tokens: int,
+                           global_rows: Optional[int]) -> torch.Tensor:
+        """``fsdp_cp``'s decode step (the reference's ``decode_step`` in that
+        mode): weight-stationary, no weight gathered. The rank's tokens
+        [b, 1] are all-gathered over ``data`` (where it splits the lanes)
+        to every lane's; the residual is [B, 1, D/dp], every lane and the
+        rank's block of ``D`` (the embedding's masked lookup in the
+        table's block, summed over ``model``). Each layer:
+        :func:`layers.attn_decode_stationary` over the sequence-split
+        cache (the rank's lanes) and the stationary FFN or MoE. The
+        unembedding sums the [B, Vp/tp] partials of the rank's block of
+        the head over ``data`` and all-gathers them over ``model``.
+        Returns the rank's lanes' logits [b, Vp] f32."""
+        cfg, ctx = self.cfg, self.ctx
+        b, dp = tokens.shape[0], ctx.axis_size("batch")
+        rows = b * dp if global_rows is None else global_rows
+        if rows not in (b, b * dp):
+            raise ValueError(f"{b} lanes on a rank of a data axis of {dp} "
+                             f"ranks: not a block of a batch of {rows}")
+        split = rows != b
+        lo = ctx.index("batch") * b if split else 0
+        if split:
+            tokens = C.all_gather(tokens.contiguous(), "batch", 0, ctx)
+        x = self.embed(tokens, stationary=True)               # [B, 1, D/dp]
+        for i, blk in enumerate(self.layers):
+            a = self.kv_layer[i]
+            x = x + L.attn_decode_stationary(
+                blk.attn, x, cfg, positions, cache["k"][a], cache["v"][a],
+                page_tokens, (lo, lo + b), ctx)
+            x = blk.ffn_stationary(x, cfg, ctx, split)
+        x = L.norm_split(x[:, 0], self.final_ln, cfg, ctx)    # [B, D/dp]
+        part = C.all_reduce_sum((x @ self.unembed_weight()).float(), "fsdp",
+                                ctx)
+        logits = C.all_gather(part, "tp", 1, ctx)
+        return logits[lo:lo + b]

@@ -13,9 +13,12 @@ it returns a cell's step with its arguments, which for a model on ``meta``
 compiled: the dry run (:mod:`repro_torch.launch.dryrun`) runs the step on
 ``meta`` under its counter, and the same call on a model on the card gives
 the step the counter predicts. On a model across a live mesh the cells
-hold each rank's block of the batch, of the cache (split by KV heads) and,
-training, of the parameters and the AdamW state, as the reference's
-``in_shardings`` place them; the train step sums each replicated leaf's
+hold each rank's block of the batch, of the cache (split by KV heads; by
+sequence in ``fsdp_cp``) and, training, of the parameters and the AdamW
+state, as the reference's ``in_shardings`` place them; the model's
+sharding mode (``build_model(..., mode=)``) sets its prefill and decode
+steps, and a train cell in a mode other than ``tp_sp`` raises
+``NotImplementedError`` when its step runs; the train step sums each replicated leaf's
 gradient over ``data``, takes the global grad norm and reports the
 batch's loss, summed over ``data``.
 """
@@ -136,12 +139,14 @@ def make_prefill_step(model: Model):
     return prefill_step
 
 
-def make_decode_step(model: Model):
+def make_decode_step(model: Model, global_rows: Optional[int] = None):
     """decode_step(params, cache, tokens, positions) -> logits [B, Vp]
     f32: one token per lane from the dense decode cache (``Model.cache``),
-    updated in place."""
+    updated in place. On a live mesh the lanes are this rank's of a batch
+    of ``global_rows`` (:meth:`Model.decode_step`)."""
     def decode_step(params, cache, tokens, positions):
-        return model.decode_step(cache, tokens, positions)
+        return model.decode_step(cache, tokens, positions,
+                                 global_rows=global_rows)
     return decode_step
 
 
@@ -232,5 +237,5 @@ def build_cell(model: Model, shape, opt_cfg: Optional[OptConfig] = None,
     # the rank's block of the cache on a live mesh (on ``meta`` too:
     # ``cache_specs``' shapes are the whole mesh's)
     cache = model.cache(batch["tokens"].shape[0], sh["seq_len"])
-    return make_decode_step(model), (params, cache, batch["tokens"],
-                                     batch["positions"])
+    return (make_decode_step(model, sh["global_batch"] if ctx.live else None),
+            (params, cache, batch["tokens"], batch["positions"]))

@@ -244,16 +244,16 @@ def run_family_cases(mesh, device, cases):
 # test_torch_dryrun_mesh.py: a rank's count of build_cell's step
 # ---------------------------------------------------------------------------
 
-def count_step(mesh, device, cfg, shape, seed=0):
+def count_step(mesh, device, cfg, shape, seed=0, mode="tp_sp"):
     """``training.build_cell``'s step of ``cfg`` at ``shape`` on this rank
-    (weights and batch drawn from ``seed``), run once under
-    ``launch.counter.Counter``: its cost, memory, kernels and collectives
-    (``collectives.stats()`` of the step)."""
+    (weights and batch drawn from ``seed``) in sharding mode ``mode``, run
+    once under ``launch.counter.Counter``: its cost, memory, kernels and
+    collectives (``collectives.stats()`` of the step)."""
     from repro_torch.launch.counter import Counter
     from repro_torch.training.train_step import build_cell
     train = shape["kind"] == "train"
     model = build_model(cfg, device=device, seed=seed, trainable=train,
-                        mesh=mesh)
+                        mesh=mesh, mode=mode)
     step, args = build_cell(model, shape,
                             generator=torch.Generator().manual_seed(seed))
     C.reset_stats()
@@ -265,7 +265,58 @@ def count_step(mesh, device, cfg, shape, seed=0):
 
 
 def count_cells(mesh, device, cases):
-    """:func:`count_step` of each case ``{key: (cfg, shape)}`` on this
-    rank."""
-    return {key: count_step(mesh, device, cfg, shape)
-            for key, (cfg, shape) in cases.items()}
+    """:func:`count_step` of each case ``{key: (cfg, shape[, mode])}`` on
+    this rank."""
+    return {key: count_step(mesh, device, *case[:2], mode=(
+        case[2] if len(case) > 2 else "tp_sp")) for key, case in cases.items()}
+
+
+# ---------------------------------------------------------------------------
+# test_torch_mesh_modes.py: the sharding modes' serving and collective plans
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def mode_plan(mesh, device, job):
+    """One prefill of ``job`` (its rows of the prompts, in its mode), the
+    move of its K/V into the decode cache, then one decode step: per phase
+    (``"prefill"``, ``"decode"``) the collectives (``collectives.stats()``)
+    and the shapes of every all-gather whose input is a parameter of the
+    model (a weight gathered)."""
+    model = build_model(job.cfg, torch.load(job.params), device=device,
+                        mesh=mesh, mode=job.mode)
+    params = {p.untyped_storage().data_ptr() for p in model.parameters()}
+    gathered = []
+    gather = C._gather
+
+    def spy(x, line, dim, backward=False):
+        if x.untyped_storage().data_ptr() in params:
+            gathered.append(tuple(x.shape))
+        return gather(x, line, dim, backward)
+
+    B, S = job.tokens.shape
+    lo, hi = spmd.batch_rows(model.ctx, B)
+    out = {}
+    C._gather = spy
+    try:
+        C.reset_stats()
+        logits, k, v, state = model.prefill_with_state(job.tokens[lo:hi])
+        out["prefill"] = (C.stats(), list(gathered))
+        cache = model.cache(hi - lo, S + 1)
+        model.fill_cache(cache, k, v, state)
+        C.reset_stats()
+        gathered.clear()
+        model.decode_step(cache, logits.argmax(-1).int()[:, None],
+                          torch.full((hi - lo,), S, dtype=torch.int32),
+                          global_rows=B)
+        out["decode"] = (C.stats(), list(gathered))
+    finally:
+        C._gather = gather
+    return out
+
+
+def run_mode_cases(mesh, device, jobs, plans):
+    """Each ``spmd.Job`` of ``jobs`` (``{key: Job}``) served, and
+    :func:`mode_plan` of each of ``plans`` (``{key: Job}``)."""
+    return {"jobs": {k: spmd.serve(mesh, device, j) for k, j in jobs.items()},
+            "plans": {k: mode_plan(mesh, device, j)
+                      for k, j in plans.items()}}

@@ -1247,3 +1247,90 @@ def test_moved_cost_functions_give_the_smokes_bounds(dev):
     ms, by = rl.bound(*rl.bwd_cost(2, 4096, 4096, 32, 8, 128, True, 2),
                       rl.H100.peak_flops)
     assert by == "operations" and round(ms, 3) == 0.695
+
+
+@pytest.mark.parametrize("S,tp,H,Hkv,hd", [
+    (256, 2, 8, 2, 64),
+    (400, 4, 8, 2, 128),         # blocks of 100 rows: a ragged query tile
+    (2048, 2, 32, 8, 128),       # a 1 x 2 rank of qwen3-8b's 2 x 1,024
+    (130, 2, 4, 4, 32),          # hd 32: simt in both dtypes
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_with_a_query_offset(dev, S, tp, H, Hkv, hd,
+                                                    dtype):
+    """A context-parallel rank's block: query rows r S/tp .. of a causal
+    sequence over all S keys, ``q_offset`` r S/tp, for each rank r, against
+    ``ref.flash_attention_ref(q_offset=)`` (bf16 also by each row's error
+    over its magnitude) and against those rows of the whole sequence's
+    attention; the variant is (dtype, hd)'s and a launch is counted."""
+    rng = np.random.default_rng(S + tp)
+    B = 2
+    q = _t(rng.standard_normal((B, S, H, hd), np.float32), dev, dtype)
+    k = _t(rng.standard_normal((B, S, Hkv, hd), np.float32), dev, dtype)
+    v = _t(rng.standard_normal((B, S, Hkv, hd), np.float32), dev, dtype)
+    want_variant = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128)
+                    else "simt")
+    assert fa.variant(dtype, hd) == want_variant
+    whole = fa.flash_attention(q, k, v, causal=True)
+    s = S // tp
+    for r in range(tp):
+        qr = q[:, r * s:(r + 1) * s].contiguous()
+        before = fa.launches_by_variant[want_variant]
+        got = fa.flash_attention(qr, k, v, causal=True, q_offset=r * s)
+        assert fa.launches_by_variant[want_variant] == before + 1
+        exp = ref.flash_attention_ref(qr.float(), k.float(), v.float(),
+                                      True, q_offset=r * s)
+        torch.cuda.synchronize()
+        _close(got, exp, dtype)
+        _close(got, whole[:, r * s:(r + 1) * s], dtype)
+        if dtype == torch.bfloat16:
+            row = ((got.float() - exp).abs().amax(-1)
+                   / exp.abs().amax(-1).clamp_min(1e-30))
+            assert float(row.max()) <= 2e-2
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attention(q, k, v, causal=True, q_offset=-1)
+
+
+@pytest.mark.parametrize("B,H,Hkv,hd,page,slots", [
+    (2, 8, 2, 64, 16, 8),
+    (8, 32, 8, 128, 16, 128),     # qwen3-8b's decode: 16 splits
+    (5, 32, 8, 128, 16, 33),      # a 1 x 2 rank's 528 rows of fsdp_cp
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_log_sum_exp(dev, B, H, Hkv, hd, page,
+                                            slots, dtype):
+    """With ``return_lse``: lanes of length 0 (output 0, log-sum-exp -inf),
+    1, a span's edge and the whole window against the plain version's (the
+    log-sum-exp to 1e-4 in both dtypes: f32 scores), the other lanes'
+    outputs bitwise those of the launch without it (whose lengths are
+    clamped to 1); and a cache split in two blocks of rows, each attended
+    alone and merged by the log-sum-exps, against the whole."""
+    rng = np.random.default_rng(12)
+    q, kp, vp, bt, _ = _paged_inputs(rng, B, H, Hkv, hd, page, slots, dtype,
+                                     dev)
+    n = page * slots
+    lens = [0, 1, n, max(n - 33, 2), 0, n // 2, 17, 3][:B]
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got, lse = pa.paged_attention(q, kp, vp, bt, sl, return_lse=True)
+    plain = pa.paged_attention(q, kp, vp, bt, sl)
+    exp, exp_lse = ref.paged_attention_ref(q, kp, vp, bt, sl,
+                                           return_lse=True)
+    torch.cuda.synchronize()
+    _close(got, exp, dtype)
+    torch.testing.assert_close(lse, exp_lse, rtol=1e-4, atol=1e-4)
+    empty = sl == 0
+    assert torch.equal(got[empty], torch.zeros_like(got[empty]))
+    assert torch.isneginf(lse[empty]).all()
+    assert torch.equal(got[~empty], plain[~empty])
+    # two blocks of rows of every lane, merged by their log-sum-exps
+    parts = []
+    for lo, w in ((0, slots // 2), (slots // 2, slots - slots // 2)):
+        local = (sl - lo * page).clamp(0, w * page).int()
+        parts.append(pa.paged_attention(q, kp, vp, bt[:, lo:lo + w]
+                                        .contiguous(), local,
+                                        return_lse=True))
+    lses = torch.stack([p[1] for p in parts])
+    wts = torch.exp(lses - lses.amax(0))[..., None]
+    merged = ((torch.stack([p[0].float() for p in parts]) * wts).sum(0)
+              / wts.sum(0).clamp_min(1e-30))
+    _close(merged[~empty], exp[~empty].float(), dtype)

@@ -6,7 +6,8 @@ Fake world against live ranks: gloo CPU ranks on 2 x 2 (reduced qwen3-8b,
 moonshot, mamba2 and whisper) and on 1 x 4 (reduced qwen3-8b and whisper,
 whose 2 KV heads each rank of a pair then shares) each count
 ``training.build_cell``'s prefill, decode and train steps under the
-counter; every rank's count is matched by the fake world's count of the
+counter, and on 2 x 2 qwen3-8b's and moonshot's prefill and decode steps
+in the sharding modes ``tp_sp_opt`` and ``fsdp_cp`` as well; every rank's count is matched by the fake world's count of the
 same rank, exactly: on CPU tensors drawn from the same seed on every cost
 key, memory field, kernel and collective; on ``meta`` (the dry run's own
 count, whose hand kernels are charged by their cost functions) on every
@@ -23,6 +24,10 @@ blocks, the counting world's guards and the roofline's per-axis link rates.
 import dataclasses
 import json
 import math
+import os
+import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -59,8 +64,18 @@ SHAPE = {"prefill": dict(kind="prefill", seq_len=16, global_batch=2),
 MESHES = {(2, 2): ("qwen3-8b", "moonshot-v1-16b-a3b", "mamba2-2.7b",
                    "whisper-medium"),
           (1, 4): ("qwen3-8b", "whisper-medium")}
-CASES = [pytest.param(m, n, k, id=f"{n}-{k}-{m[0]}x{m[1]}")
-         for m, names in MESHES.items() for n in names for k in SHAPE]
+# the other sharding modes' cells, counted on 2 x 2
+MODE_CASES = [("qwen3-8b", "moonshot-v1-16b-a3b"), ("prefill", "decode"),
+              ("tp_sp_opt", "fsdp_cp")]
+CASES = ([pytest.param(m, n, k, "tp_sp", id=f"{n}-{k}-{m[0]}x{m[1]}")
+          for m, names in MESHES.items() for n in names for k in SHAPE]
+         + [pytest.param((2, 2), n, k, mode, id=f"{n}-{k}-{mode}-2x2")
+            for n in MODE_CASES[0] for k in MODE_CASES[1]
+            for mode in MODE_CASES[2]])
+
+
+def _key(name, kind, mode):
+    return f"{name}/{kind}" + ("" if mode == "tp_sp" else f"/{mode}")
 
 
 @pytest.fixture(scope="module")
@@ -70,24 +85,29 @@ def live():
     for shape, names in MESHES.items():
         cases = {f"{n}/{k}": (get_config(n).reduced(), sh)
                  for n in names for k, sh in SHAPE.items()}
+        if shape == (2, 2):
+            cases.update({_key(n, k, mode): (get_config(n).reduced(),
+                                             SHAPE[k], mode)
+                          for n in MODE_CASES[0] for k in MODE_CASES[1]
+                          for mode in MODE_CASES[2]})
         _, out[shape] = spmd.launch(count_cells, shape, (cases,),
                                     device="cpu", threads=1)
     return out
 
 
-@pytest.mark.parametrize("mesh,name,kind", CASES)
+@pytest.mark.parametrize("mesh,name,kind,mode", CASES)
 def test_the_fake_world_counts_each_rank_as_the_live_world(mesh, name, kind,
-                                                           live):
+                                                           mode, live):
     """Each rank's count on gloo against the fake world's count of that
     rank: on CPU tensors everything, on ``meta`` the collectives and the
     argument, output and alias bytes (a decode cell's cache the rank's
-    block, not the whole mesh's)."""
+    block, not the whole mesh's), in each sharding mode."""
     cfg, sh = get_config(name).reduced(), SHAPE[kind]
     for rank, got in enumerate(live[mesh]):
-        want = got[f"{name}/{kind}"]
+        want = got[_key(name, kind, mode)]
         with counting_mesh(mesh, rank) as lm:
-            cpu = count_step(lm, torch.device("cpu"), cfg, sh)
-            meta = dryrun.count_cell(cfg, sh, mesh=lm)
+            cpu = count_step(lm, torch.device("cpu"), cfg, sh, mode=mode)
+            meta = dryrun.count_cell(cfg, sh, mesh=lm, mode=mode)
         assert want["collectives"], (rank, "no collective")
         for k in ("cost", "memory", "collectives", "kernels"):
             assert cpu[k] == want[k], (rank, k, cpu[k], want[k])
@@ -95,6 +115,60 @@ def test_the_fake_world_counts_each_rank_as_the_live_world(mesh, name, kind,
         for k in ("argument_bytes", "output_bytes", "alias_bytes"):
             assert meta["memory"][k] == want["memory"][k], (rank, k)
     assert not dist.is_initialized()
+
+
+# one config of each family, each counted twice in a fresh interpreter
+PIN_FAMILIES = ("qwen3-8b", "moonshot-v1-16b-a3b", "mamba2-2.7b",
+                "jamba-v0.1-52b", "whisper-medium", "llama-3.2-vision-11b")
+PIN = """
+import gc, json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+torch.set_num_threads(1)
+from _torch_mesh_rank import count_step
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import counting_mesh
+out = {}
+for name in %r:
+    cfg = get_config(name).reduced()
+    out[name] = []
+    for collector in ("disabled", "threshold 1"):
+        gc.collect()
+        if collector == "disabled":
+            gc.disable()
+        else:
+            gc.set_threshold(1)
+        try:
+            with counting_mesh((2, 2), 0) as lm:
+                out[name].append(count_step(lm, torch.device("cpu"), cfg,
+                                            %r)["memory"])
+        finally:
+            gc.enable()
+            gc.set_threshold(700, 10, 10)
+print(json.dumps(out))
+""" % (PIN_FAMILIES, SHAPE["train"])
+
+
+def test_a_train_steps_count_does_not_depend_on_the_cyclic_collector():
+    """The pin of a fault of the port: the first checkpointed layer (and
+    the counter's first dispatch) imported ``torch._dynamo``, whose import
+    left a reference cycle through a frame holding the calling stack, so
+    the step's tensors lived until Python's cyclic collector ran and the
+    count's temporaries depended on when it did. Every family's train cell
+    (reduced, rank 0 of a fake 2 x 2), in a fresh interpreter where
+    nothing has imported ``torch._dynamo`` yet, is counted first with the
+    collector disabled, then at threshold 1: the memory records are
+    equal."""
+    tests = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(tests.parent / "src"),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", PIN, str(tests)], env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert sorted(out) == sorted(PIN_FAMILIES)
+    for name, (disabled, eager) in out.items():
+        assert disabled == eager, (name, disabled, eager)
 
 
 # ---------------------------------------------------------------------------

@@ -496,7 +496,7 @@ def test_the_cli_writes_every_cell_of_both_meshes(tmp_path, monkeypatch,
             assert r["collectives"] and r["collectives_by_axis"]
             assert r["roofline"]["collective_s"] > 0
             assert r["counted_as"] == ([32, 16] if multi else [16, 16])
-            assert "mode" not in r and "cost_points" not in r
+            assert r["mode"] == "tp_sp" and "cost_points" not in r
             assert r["cost"]["flops"] > 0
             flops.setdefault(f.name, []).append(r["cost"]["flops"])
         table = report.table(mesh_name)
