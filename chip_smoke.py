@@ -55,7 +55,7 @@ Phases, each printing one JSON line (and failing the run on any error):
                 kernel over the cache viewed as pages): tokens equal to
                 dense_monolithic's, decode tokens/s, TTFT, the cache's
                 bytes, launches, no plain call;
-8. prefix    -- qwen3-8b at its widths and 6 of its 36 layers (the main
+8. prefix    -- qwen3-8b at its widths and 3 of its 36 layers (the main
                 path's weights, shared) serving one multi-agent workflow
                 (a 1024-token shared context; stage 0 with 211 own tokens,
                 served alone first; stages 1-7 with own suffixes of 64-500
@@ -107,8 +107,8 @@ Phases, each printing one JSON line (and failing the run on any error):
                 submit and finish times, and the same metrics but the TTFT
                 percentiles;
 12. gateway  -- two ``NodeRuntime``s on the card (clusters 0 and 1), each
-                with qwen3-8b and mamba2-2.7b at their widths and 6 of 36 /
-                16 of 64 layers under a 7.0 GB budget (GPU tier: either
+                with qwen3-8b and mamba2-2.7b at their widths and 3 of 36 /
+                8 of 64 layers under a 5.0 GB budget (GPU tier: either
                 model, not both) over one pinned host copy per model (the
                 node phase's, cut), serving a generated trace of 16
                 multi-agent jobs
@@ -149,7 +149,7 @@ Phases, each printing one JSON line (and failing the run on any error):
                 one death, every job finished, the evacuated stages on node
                 0, ``close_fleet`` safe, and the card's free memory back
                 within 1 GB of its value before the boot;
-16. gateway_process -- phase 12's fleet (6 / 16 layers under 7.0 GB),
+16. gateway_process -- phase 12's fleet (3 / 8 layers under 5.0 GB),
                 each node a
                 freshly booted worker process (``reduced=False``: each child
                 draws both models on the card, cut to those depths, and
@@ -257,7 +257,7 @@ Phases, each printing one JSON line (and failing the run on any error):
                 against the CPU (plain versions);
 28. train_main -- full-width qwen3-8b in bf16: at 2 layers and 4,096
                 tokens the loss and every gradient leaf with the kernels
-                against the plain attention on the card; then at 6 of its
+                against the plain attention on the card; then at 3 of its
                 36 layers 12 AdamW steps on one batch of 4 x 4,096 tokens
                 (2 microbatches) under deterministic algorithms: the loss
                 below half its first value; an asynchronous checkpoint
@@ -328,7 +328,9 @@ Phases, each printing one JSON line (and failing the run on any error):
                 its frames; the gradient at the starting weights, then 2
                 AdamW steps each (lr 1e-4, no warmup) from an AdamW state
                 3 steps in (``spmd.warm_state``), held against the same
-                in this process: each step's loss and grad norm, and the
+                in one process with no mesh (run in rank 0's process,
+                which receives the other ranks' blocks over gloo): each
+                step's loss and grad norm, and the
                 gradients and parameters put back together from the
                 ranks' blocks, within ``spmd.train_limits`` (PERF.md),
                 every rank's losses and leaf replicas equal, flash's
@@ -356,12 +358,29 @@ Phases, each printing one JSON line (and failing the run on any error):
                 among them) at an ``fsdp_cp`` 1 x 2 rank's shapes, held
                 to their plain versions and timed (the ``kernels`` line's
                 ``mode_shapes``); then in the same spawns qwen3-8b (2
-                layers, bf16, 2 x 1,024, 4 decode steps) in ``tp_sp_opt``
-                and ``fsdp_cp`` on 1 x 2 and 2 x 1 and moonshot (f32,
+                layers, bf16, 2 x 1,024, 4 decode steps on 1 x 2, 1 on
+                2 x 1) in ``tp_sp_opt`` and ``fsdp_cp`` on 1 x 2 and
+                2 x 1 and moonshot (f32,
                 dropless, 2 x 512) in ``fsdp_cp`` on 1 x 2, each held as
                 the ``tp_sp`` jobs are, and ``mesh_dryrun`` lines of their
                 prefill and decode cells (qwen3-8b ``tp_sp_opt`` 1 x 2,
-                ``fsdp_cp`` 1 x 2 and 2 x 1).
+                ``fsdp_cp`` 1 x 2 and 2 x 1). Their training: the flash
+                backward with its ``q_offset`` (0 and 512 at an
+                ``fsdp_cp`` 1 x 2 rank of qwen3-8b, 512 query rows over
+                1,024 keys; and 375, 125 rows over 1,000 keys, a rank of
+                a model axis of 8, whose diagonal cuts the 64-row tiles),
+                in bf16 (``wgmma``) and f32 (``simt``), against its plain
+                version and timed beside SDPA with the offset's boolean
+                mask (the ``kernels`` line's ``mode_shapes`` of
+                ``flash_attention_bwd``); in the same spawns the
+                ``mesh_train`` jobs of qwen3-8b (2 layers, bf16, 2 x
+                1,024) in ``tp_sp_opt`` and ``fsdp_cp`` and of moonshot
+                (f32, dropless, 2 x 512) in ``fsdp_cp``, on 1 x 2, held
+                as the ``tp_sp`` train jobs are, rank 1 of an ``fsdp_cp``
+                job launching every flash training forward and backward
+                with the offset; and ``mesh_dryrun`` lines of a 2 x 512
+                train cell of qwen3-8b in ``tp_sp_opt`` and ``fsdp_cp``
+                on 1 x 2.
 
 The models of phases 19-25 are drawn on the card one at a time, each
 freed before the next; so are the training phases' models. Every
@@ -1906,7 +1925,7 @@ def stale_page(flow):
     return fault
 
 
-PREFIX_LAYERS = 6     # of qwen3-8b's 36: the phase's depth, cut for time
+PREFIX_LAYERS = 3     # of qwen3-8b's 36: the phase's depth, cut for time
 
 
 def shallow(model, n_layers: int):
@@ -2511,11 +2530,11 @@ GATEWAY = dict(jobs=16, rate=1.5, hbm_budget=24e9, max_slots=8, s_max=2048,
                prefill_chunk_tokens=256, decode_horizon=8, prompt_cap=512,
                gen_cap=64, max_run_s=240.0, reject_limit=1_000_000)
 # the in-process gateway's models at their published widths, cut in depth
-# for time, under a budget cut with them: its GPU tier (0.8 of it, 5.6 GB)
-# holds qwen3-8b's 6 layers (4.8 GB) or mamba2-2.7b's 16 (1.5 GB), not
+# for time, under a budget cut with them: its GPU tier (0.8 of it, 4.0 GB)
+# holds qwen3-8b's 3 layers (3.65 GB) or mamba2-2.7b's 8 (0.90 GB), not
 # both, as the full budget does the whole models
-GATEWAY_LAYERS = {MAIN["model"]: 6, SSM_MODEL: 16}
-GATEWAY_CUT_BUDGET = 7.0e9
+GATEWAY_LAYERS = {MAIN["model"]: 3, SSM_MODEL: 8}
+GATEWAY_CUT_BUDGET = 5.0e9
 
 
 def phase_gateway(torch, args, host, pred):
@@ -4016,7 +4035,7 @@ def zoo_phases(torch, args, prompt_lens, prompts, mark):
 
 
 # ------------------------------------------------- training and checkpoints
-TRAIN = dict(model="qwen3-8b", layers=6, batch=4, n_micro=2, seq=4096,
+TRAIN = dict(model="qwen3-8b", layers=3, batch=4, n_micro=2, seq=4096,
              period=256, steps=12, ckpt_at=6, lr=5e-4, warmup=2,
              grad_layers=2, grad_batch=2)
 WHISPER_TRAIN = dict(batch=4, seq=448, steps=6, lr=1e-3, warmup=2)
@@ -5107,8 +5126,9 @@ def train_phases(torch, args, mark):
 # (bf16, 1,601 patch rows) of 2 x 1,024. Then the reference's other
 # sharding modes: qwen3-8b in tp_sp_opt (a sequence-parallel prefill) and
 # fsdp_cp (a context-parallel prefill and weight-stationary decode steps
-# over the sequence-split cache) on both meshes, 4 decode steps each, and
-# moonshot in fsdp_cp on 1 x 2. A case: (label, model, S, steps, mode)
+# over the sequence-split cache) on both meshes, 4 decode steps on 1 x 2 and
+# 1 on 2 x 1 (ZeRO-3's steps through the host), and moonshot in fsdp_cp on
+# 1 x 2. A case: (label, model, S, steps, mode)
 MESH = dict(batch=2, meshes={
     (1, 2): (("qwen_1x2", MAIN["model"], 1024, 4, "tp_sp"),
              ("moe_1x2", "moonshot-v1-16b-a3b", 512, 4, "tp_sp"),
@@ -5121,8 +5141,8 @@ MESH = dict(batch=2, meshes={
              ("moe_cp_1x2", "moonshot-v1-16b-a3b", 512, 4, "fsdp_cp")),
     (2, 1): (("qwen_2x1", MAIN["model"], 1024, 1, "tp_sp"),
              ("mamba2_2x1", SSM_MODEL, 1024, 1, "tp_sp"),
-             ("qwen_opt_2x1", MAIN["model"], 1024, 4, "tp_sp_opt"),
-             ("qwen_cp_2x1", MAIN["model"], 1024, 4, "fsdp_cp"))})
+             ("qwen_opt_2x1", MAIN["model"], 1024, 1, "tp_sp_opt"),
+             ("qwen_cp_2x1", MAIN["model"], 1024, 1, "fsdp_cp"))})
 # each model's layers in the mesh phase: 2 of qwen3-8b's 36, moonshot's 48
 # and mamba2's 64; one period of jamba (8 of 32: 7 SSM, 1 attention, 4
 # MoE) and of vision (5 of 40, the cross layer 3); 2 of whisper's 24
@@ -5338,9 +5358,133 @@ def check_mesh_kernels(torch, gen) -> dict:
             **errs, variant=ssd.variant(dt, N, P, chunk),
             shape=[B, S, H, P, N], dtype=str(dt))
         del args, y, st, y_ref, st_ref
+    out["flash_attention_bwd"] = check_mesh_bwd(torch, gen, peak)
     for name, by in out.items():
         for label, rec in by.items():
             emit("kernel_check_mesh", name=name, case=label, **rec)
+    return out
+
+
+# the flash backward at the query offsets of the sequence-split modes'
+# training, qwen3-8b's heads (32/8, hd 128), B 2, in bf16 (wgmma) and f32
+# (simt): (Sq, Sk, q_offset) by label. An fsdp_cp 1 x 2 rank's 512 query
+# rows over 1,024 keys (rank 0, rank 1), and rank 3 of a model axis of 8
+# over 1,000 tokens: 125 rows at offset 375, a diagonal that cuts the
+# 64-row tiles of the wgmma variant
+MESH_BWD = {"qwen_cp_1x2 rank 0 rows 512": (512, 1024, 0),
+            "qwen_cp_1x2 rank 1 rows 512": (512, 1024, 512),
+            "tp 8 rank 3 rows 125 of 1000": (125, 1000, 375)}
+
+
+def check_mesh_bwd(torch, gen, peak) -> dict:
+    """The flash training forward and backward with ``q_offset`` at each
+    ``MESH_BWD`` shape, in bf16 and f32, against their plain versions
+    (``ref.flash_attention_lse`` and ``ref.flash_attention_bwd_ref`` at
+    the offset, f32 on the same values, the plain backward from the
+    kernel's o and lse) under ``phase_kernels_train``'s limits: lse within
+    1e-4, the output and dq, dk, dv by their largest and row-scaled
+    errors, two backward runs bitwise equal, the ``wgmma`` variant in bf16
+    and ``simt`` in f32. Each is timed: the backward (with and without
+    the device spin, and its host time), its plain version, its bound
+    (``bwd_cost`` at the offset; ``peak`` the products' rate by dtype),
+    SDPA's backward with the offset's boolean mask, and forward +
+    backward beside SDPA's forward + backward with that mask. Returns the
+    numbers by label."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline as rl
+    cfg = get_config(MAIN["model"])
+    B, H, Hkv, hd = 2, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    out = {}
+    for (label, (Sq, Sk, off)), dt in ((c, dt) for c in MESH_BWD.items()
+                                       for dt in (torch.bfloat16,
+                                                  torch.float32)):
+        q, dout = (torch.randn((B, Sq, H, hd), generator=gen,
+                               device="cuda").to(dt) for _ in range(2))
+        k, v = (torch.randn((B, Sk, Hkv, hd), generator=gen,
+                            device="cuda").to(dt) for _ in range(2))
+        o, lse = fa.flash_attention_fwd(q, k, v, True, off)
+        o_ref, lse_ref = ref.flash_attention_lse(q.float(), k.float(),
+                                                 v.float(), True, off)
+        lse_err = float((lse - lse_ref).abs().max())
+        o_err = chunk_errors(o, o_ref)
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, dout, True, off)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, dout, True, off)
+        deterministic = all(bool(torch.equal(a, b))
+                            for a, b in zip(grads, again))
+        want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                           o.float(), lse, dout.float(),
+                                           True, off)
+        errs = {n: grad_errors(g, w)
+                for n, g, w in zip(("dq", "dk", "dv"), grads, want)}
+        del again, want, o_ref, lse_ref
+        bf16 = dt == torch.bfloat16
+        variant = fa.bwd_variant(dt, hd)
+        case = f"{label} {str(dt).split('.')[-1]}"
+        require(deterministic, f"flash_attention_bwd at the mesh's {case}: "
+                f"two runs differ")
+        require(variant == ("wgmma" if bf16 else "simt"),
+                f"flash_attention_bwd at the mesh's {case}: the {variant} "
+                f"variant")
+        lim_abs, lim_row = (5e-2, 3e-2) if bf16 else (1e-4, 1e-4)
+        require(lse_err <= 1e-4 and o_err[0] <= lim_abs
+                and o_err[1] <= lim_row, f"flash_attention_fwd at the "
+                f"mesh's {case}: lse error {lse_err}, output {o_err}")
+        for n, (e_abs, e_row) in errs.items():
+            require(e_abs <= lim_abs and e_row <= lim_row,
+                    f"flash_attention_bwd at the mesh's {case}: {n} error "
+                    f"{e_abs}, row-scaled {e_row}")
+        n_bytes, n_flops = rl.bwd_cost(B, Sq, Sk, H, Hkv, hd, True,
+                                       q.element_size(), off)
+        b_ms, b_by = rl.bound(n_bytes, n_flops, peak(dt))
+        f_bytes, f_flops = rl.flash_cost(Sq, Sk, H, Hkv, hd, True,
+                                         q.element_size(), off)
+        fb_ms, fb_by = rl.bound(n_bytes + B * f_bytes,
+                                n_flops + B * f_flops, peak(dt))
+        mask = (torch.arange(Sq, device="cuda")[:, None] + off
+                >= torch.arange(Sk, device="cuda")[None])
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        dt_ = dout.transpose(1, 2)
+        with torch.enable_grad():
+            o_sdpa = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        def sdpa_bwd():
+            torch.autograd.grad(o_sdpa, (qt, kt, vt), dt_, retain_graph=True)
+
+        def sdpa_fwd_bwd():
+            with torch.enable_grad():
+                oo = F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+                torch.autograd.grad(oo, (qt, kt, vt), dt_)
+
+        def fwd_bwd():
+            oo, ll = fa.flash_attention_fwd(q, k, v, True, off)
+            fa.flash_attention_bwd(q, k, v, oo, ll, dout, True, off)
+
+        row = dict(shape=dict(B=B, Sq=Sq, Sk=Sk, H=H, Hkv=Hkv, hd=hd,
+                              causal=True, dtype=str(dt)),
+                   q_offset=off, variant=variant,
+                   deterministic=deterministic, lse_max_abs_err=lse_err,
+                   fwd_max_abs_err=o_err[0], fwd_row_scaled_err=o_err[1],
+                   max_abs_err=max(e[0] for e in errs.values()),
+                   row_scaled_err=max(e[1] for e in errs.values()),
+                   errors={n: dict(max_abs=e[0], row_scaled=e[1])
+                           for n, e in errs.items()},
+                   **kernel_times(lambda: fa.flash_attention_bwd(
+                       q, k, v, o, lse, dout, True, off)),
+                   plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(
+                       q, k, v, o, lse, dout, True, off), reps=5),
+                   bound_ms=b_ms, bound_by=b_by,
+                   library_ms=time_ms(sdpa_bwd),
+                   fwd_bwd_ms=time_ms(fwd_bwd), fwd_bwd_bound_ms=fb_ms,
+                   fwd_bwd_bound_by=fb_by,
+                   library_fwd_bwd_ms=time_ms(sdpa_fwd_bwd))
+        out[case] = row
+        del q, k, v, o, lse, dout, grads, o_sdpa, qt, kt, vt, mask
     return out
 
 
@@ -5354,6 +5498,9 @@ def mesh_jobs(torch, args) -> dict:
     gen = torch.Generator().manual_seed(args.seed + 25)
     gen_train = torch.Generator().manual_seed(args.seed + 26)
     gen_extras = torch.Generator().manual_seed(args.seed + 27)
+    # the sequence-split modes' train jobs draw from a stream of their own,
+    # so that the tp_sp jobs' tokens do not move with them
+    gen_modes = torch.Generator().manual_seed(args.seed + 30)
     opt = OptConfig(lr=spmd.TRAIN_LR, warmup_steps=1)
     out = {}
     for shape, cases in MESH["meshes"].items():
@@ -5365,16 +5512,18 @@ def mesh_jobs(torch, args) -> dict:
                 dtype=torch.int32), steps, seed=args.seed,
                 extras=spmd.modality_extras(cfg, MESH["batch"], gen_extras),
                 mode=mode))
-        for _, name, S, dtype, steps in MESH_TRAIN["meshes"][shape]:
+        for _, name, S, dtype, steps, mode in MESH_TRAIN["meshes"][shape]:
             cfg = mesh_config(torch, name, dtype)
             jobs.append(spmd.TrainJob(cfg, torch.randint(
-                0, cfg.vocab, (MESH_TRAIN["batch"], S), generator=gen_train,
+                0, cfg.vocab, (MESH_TRAIN["batch"], S),
+                generator=gen_train if mode == "tp_sp" else gen_modes,
                 dtype=torch.int32), steps, opt=opt, seed=args.seed,
                 extras=spmd.modality_extras(cfg, MESH_TRAIN["batch"],
-                                            gen_extras)))
-        for _, name, dtype, mode in MESH_DRYRUN["meshes"].get(shape, ()):
+                                            gen_extras), mode=mode))
+        for _, name, dtype, mode, kinds in MESH_DRYRUN["meshes"].get(shape,
+                                                                      ()):
             jobs.append(spmd.CellJob(mesh_config(torch, name, dtype),
-                                     dryrun_shapes(mode), seed=args.seed,
+                                     dryrun_shapes(kinds), seed=args.seed,
                                      mode=mode))
     return out
 
@@ -5382,27 +5531,29 @@ def mesh_jobs(torch, args) -> dict:
 # the mesh_dryrun lines: build_cell's step of each case at each shape on
 # every rank of the mesh phase's spawns (a spmd.CellJob after the mesh's
 # train jobs), held to the dry run's count of that rank's step in a fake
-# world of the same mesh. A case: (label, model, dtype, sharding mode); a
-# tp_sp case runs the prefill and train shapes, the other modes (which do
-# not train yet) the prefill and decode shapes
+# world of the same mesh. A case: (label, model, dtype, sharding mode, the
+# shapes it runs); the sequence-split modes' train cells run on 1 x 2,
+# where model splits the sequence
 MESH_DRYRUN = dict(
     shapes={"prefill": dict(kind="prefill", global_batch=2, seq_len=512),
             "train": dict(kind="train", global_batch=2, seq_len=512),
             "decode": dict(kind="decode", global_batch=2, seq_len=512)},
-    meshes={(1, 2): (("qwen_1x2", MAIN["model"], "bfloat16", "tp_sp"),
-                     ("moe_1x2", "moonshot-v1-16b-a3b", "float32", "tp_sp"),
+    meshes={(1, 2): (("qwen_1x2", MAIN["model"], "bfloat16", "tp_sp",
+                      ("prefill", "train")),
+                     ("moe_1x2", "moonshot-v1-16b-a3b", "float32", "tp_sp",
+                      ("prefill", "train")),
                      ("qwen_opt_1x2", MAIN["model"], "bfloat16",
-                      "tp_sp_opt"),
-                     ("qwen_cp_1x2", MAIN["model"], "bfloat16", "fsdp_cp")),
-            (2, 1): (("qwen_2x1", MAIN["model"], "bfloat16", "tp_sp"),
-                     ("qwen_cp_2x1", MAIN["model"], "bfloat16",
-                      "fsdp_cp"))})
+                      "tp_sp_opt", ("prefill", "decode", "train")),
+                     ("qwen_cp_1x2", MAIN["model"], "bfloat16", "fsdp_cp",
+                      ("prefill", "decode", "train"))),
+            (2, 1): (("qwen_2x1", MAIN["model"], "bfloat16", "tp_sp",
+                      ("prefill", "train")),
+                     ("qwen_cp_2x1", MAIN["model"], "bfloat16", "fsdp_cp",
+                      ("prefill", "decode")))})
 
 
-def dryrun_shapes(mode: str) -> dict:
-    """The ``MESH_DRYRUN`` shapes a case in ``mode`` runs."""
-    kinds = ("prefill", "train") if mode == "tp_sp" else ("prefill",
-                                                          "decode")
+def dryrun_shapes(kinds) -> dict:
+    """The ``MESH_DRYRUN`` shapes of ``kinds``, by kind."""
     return {k: MESH_DRYRUN["shapes"][k] for k in kinds}
 
 
@@ -5416,12 +5567,12 @@ def mesh_dryrun_counts(torch) -> dict:
     t0 = time.perf_counter()
     out = {}
     for shape, cases in MESH_DRYRUN["meshes"].items():
-        for label, name, dtype, mode in cases:
+        for label, name, dtype, mode, kinds in cases:
             cfg = mesh_config(torch, name, dtype)
             out[(shape, label)] = [
                 {k: dryrun.run_cell(name, sh, shape, cfg=cfg, rank=r,
                                     mode=mode)
-                 for k, sh in dryrun_shapes(mode).items()}
+                 for k, sh in dryrun_shapes(kinds).items()}
                 for r in range(math.prod(shape))]
     out["seconds"] = time.perf_counter() - t0
     return out
@@ -5434,7 +5585,7 @@ def mesh_dryrun(case, res, predicted, shape, smi) -> None:
     and axis (``dryrun.collective_record`` of the rank's
     ``collectives.stats()``) equal, the peak within ``LAUNCH``'s window."""
     from repro_torch.launch import dryrun
-    label, name, dtype, mode = case
+    label, name, dtype, mode, _ = case
     lo, hi = LAUNCH["peak_window"]
     for r in res["records"]:
         require(not r["foreign"], f"mesh_dryrun {label}: rank {r['rank']} "
@@ -5488,8 +5639,11 @@ def phase_mesh(torch, args) -> dict:
     whisper-medium and llama-3.2-vision-11b with tensor and expert
     parallelism (1 x 2), each held against the same model in this process
     fed the ranks' tokens (:func:`mesh_serving`). Training, the
-    ``mesh_train`` lines: the same meshes' AdamW steps held against the
-    same steps in this process (:func:`mesh_training`). The
+    ``mesh_train`` lines: the same meshes' AdamW steps, and qwen3-8b's and
+    moonshot's in the sequence-split modes, held against the same steps
+    in one process with no mesh, run and checked in rank 0's process
+    (``spmd.train_checked``: the blocks reach it over gloo, so no job's
+    weights or gradients go through a file) (:func:`mesh_training`). The
     ``mesh_dryrun`` lines: ``build_cell``'s steps on each rank against the
     dry run's count of that rank, made here before the spawns
     (:func:`mesh_dryrun`). No ``jax`` or ``repro`` module may load in any
@@ -5616,16 +5770,30 @@ def mesh_serving(case, job, res, shape, backend, seconds, smi, card,
 # 1-2% of their norm: f32 holds its sharded backward to tighter limits), of
 # moonshot (f32, dropless) on 2 x 512 with expert parallelism (1 x 2), of
 # whisper-medium (bf16, 1,500 frames) on 2 x 256 with tensor parallelism
-# (1 x 2); each against the same in this process, within
-# spmd.train_limits (PERF.md). A case: (label, model, S, dtype, steps)
+# (1 x 2); then the reference's other sharding modes on 1 x 2, the
+# residual split by sequence over model: qwen3-8b (bf16, 2 x 1,024) in
+# tp_sp_opt (the normed rows all-gathered, the partial sums
+# reduce-scattered) and in fsdp_cp (whole weights, context-parallel
+# attention: the flash backward at q_offset 1,024 / 2 on rank 1), and
+# moonshot (f32, dropless, 2 x 512) in fsdp_cp; each against the same in
+# one process (rank 0's, spmd.train_checked), within spmd.train_limits
+# (PERF.md). A case: (label, model, S, dtype, steps, sharding mode)
 MESH_TRAIN = dict(batch=2, meshes={
-    (1, 2): (("qwen_tp_1x2", MAIN["model"], 1024, "bfloat16", 2),
-             ("moe_ep_1x2", "moonshot-v1-16b-a3b", 512, "float32", 2),
-             ("mamba2_tp_1x2", SSM_MODEL, 1024, "bfloat16", 2),
-             ("mamba2_tp_f32_1x2", SSM_MODEL, 1024, "float32", 2),
-             ("whisper_tp_1x2", "whisper-medium", 256, "bfloat16", 2)),
-    (2, 1): (("qwen_zero3_2x1", MAIN["model"], 1024, "bfloat16", 2),
-             ("mamba2_zero3_2x1", SSM_MODEL, 1024, "bfloat16", 2))})
+    (1, 2): (("qwen_tp_1x2", MAIN["model"], 1024, "bfloat16", 2, "tp_sp"),
+             ("moe_ep_1x2", "moonshot-v1-16b-a3b", 512, "float32", 2,
+              "tp_sp"),
+             ("mamba2_tp_1x2", SSM_MODEL, 1024, "bfloat16", 2, "tp_sp"),
+             ("mamba2_tp_f32_1x2", SSM_MODEL, 1024, "float32", 2, "tp_sp"),
+             ("whisper_tp_1x2", "whisper-medium", 256, "bfloat16", 2,
+              "tp_sp"),
+             ("qwen_opt_1x2", MAIN["model"], 1024, "bfloat16", 2,
+              "tp_sp_opt"),
+             ("qwen_cp_1x2", MAIN["model"], 1024, "bfloat16", 2, "fsdp_cp"),
+             ("moe_cp_1x2", "moonshot-v1-16b-a3b", 512, "float32", 2,
+              "fsdp_cp")),
+    (2, 1): (("qwen_zero3_2x1", MAIN["model"], 1024, "bfloat16", 2,
+              "tp_sp"),
+             ("mamba2_zero3_2x1", SSM_MODEL, 1024, "bfloat16", 2, "tp_sp"))})
 
 
 def mesh_training(case, job, res, shape, backend, seconds, smi, card,
@@ -5639,13 +5807,26 @@ def mesh_training(case, job, res, shape, backend, seconds, smi, card,
     (:func:`mesh_kernels`: flash's forward with lse and backward, the SSD
     scan and its backward) launched with the one process's variants, no
     plain call (in the one process neither), and for the MoE no pair
-    dropped on either side. Prints each rank's collectives by kind, the
-    reduce-scatters' bytes among them, and its peak memory."""
+    dropped on either side. In ``fsdp_cp`` the ranks past the first of
+    ``model`` launch every flash training forward and backward with a
+    query offset and the first none; no other job launches one. Prints
+    each rank's collectives by kind, the reduce-scatters' bytes among
+    them, and its peak memory."""
     label, _, S = case[:3]
+    mode = case[5]
     cfg, chk, single = job.cfg, res["check"], res["single"]
     one = single["counts"]
     kernels = mesh_kernels(cfg, True)
     require_mesh_kernels(f"mesh_train {label}", res, kernels)
+    for r in res["records"]:
+        c = r["counts"]
+        cp = mode == "fsdp_cp" and r["coords"][1] > 0
+        want = {k: c["launches"][k] if cp else 0
+                for k in ("flash_attention_lse", "flash_attention_bwd")}
+        got = {k: c["launches_with_offset"][k] for k in want}
+        require(got == want, f"mesh_train {label}: rank {r['rank']} "
+                f"launched {got} flash calls with a query offset, not "
+                f"{want}")
     for r in res["records"]:
         paths[f"mesh_train_{label}_rank{r['rank']}"] = {
             k: n for k, n in r["counts"]["launches"].items() if n}
@@ -5653,7 +5834,8 @@ def mesh_training(case, job, res, shape, backend, seconds, smi, card,
     if cfg.moe is not None:
         require(chk["dropped"] == {"mesh": 0, "one_process": 0},
                 f"mesh_train {label}: pairs dropped {chk['dropped']}")
-    emit("mesh_train", case=label, model=cfg.name, layers=cfg.n_layers,
+    emit("mesh_train", case=label, model=cfg.name, mode=mode,
+         layers=cfg.n_layers,
          encoder_layers=cfg.encoder.n_layers if cfg.encoder else None,
          dtype=str(cfg.dtype), mesh=list(shape), backend=backend,
          batch=[MESH_TRAIN["batch"], S], steps=job.steps, lr=job.opt.lr,
@@ -5985,6 +6167,10 @@ def main(argv=None) -> int:
                           if n.get("flash_attention_bwd")},
         # ptxas's registers and spills of the backward's device kernels
         ptxas=bwd_ptxas(),
+        # with its query offset at the sequence-split modes' rank shapes
+        # (the mesh phase): SDPA's backward and forward + backward there
+        # with the offset's boolean mask
+        mode_shapes=mesh_checks["flash_attention_bwd"],
         train_shapes={label: {k: c.get(k) for k in (
             "max_abs_err", "row_scaled_err", "lse_max_abs_err", "variant",
             "ms", "ms_no_spin", "host_ms", "plain_ms", "bound_ms",

@@ -2,8 +2,10 @@
 // (sm_90a): given q [B, Sq, H, hd], k/v [B, Sk, Hkv, hd], the forward's
 // output o and row log-sum-exp lse [B, H, Sq] (f32, natural log, scaled
 // scores), and the output's gradient dout, it writes dq, dk and dv in the
-// I/O dtype, f32 inside. The mask is the forward's: causal top-left aligned
-// (query i sees keys j <= i) or none, any Sq and Sk, GQA by h // (H / Hkv).
+// I/O dtype, f32 inside. The mask is the forward's: causal (query i sees
+// keys j <= i + q_offset, top-left aligned at q_offset 0) or none, any Sq
+// and Sk, GQA by h // (H / Hkv). A context-parallel rank passes the offset
+// of its first query row, as to the forward.
 //
 // The reference has no backward kernel: it differentiates its jnp
 // blockwise attention (repro/models/layers.py::blockwise_attention) with
@@ -12,9 +14,9 @@
 //
 // 1. delta_kernel: D_i = rowsum(dO_i * O_i) (f32, [B, H, Sq]);
 // 2. dkdv_*: one block per (key tile, kv head, sequence) walks the query
-//    tiles of every query head that reads the kv head (from the key tile's
-//    first row on, when causal), recomputes P = exp(S * scale - lse) and
-//    dS = P * (dO V^T - D), and accumulates dV += P^T dO and
+//    tiles of every query head that reads the kv head (from the first row
+//    that sees the key tile, when causal), recomputes P = exp(S * scale -
+//    lse) and dS = P * (dO V^T - D), and accumulates dV += P^T dO and
 //    dK += dS^T Q (times scale at the end);
 // 3. dq_*: one block per (query tile, head, sequence) walks the key tiles
 //    it can see and accumulates dQ += dS K (times scale).
@@ -57,8 +59,11 @@
 //     producer warp: a block holds 128 query rows of Q and dO and streams
 //     64-key K / V tiles; S = Q K^T, dP = dO V^T, dS in registers, dQ +=
 //     dS K (K MN-major).
-//   Causal: whole tiles that no row sees are skipped, only the diagonal
-//   and the ragged tiles are masked, and the heaviest blocks go first. A
+//   Causal: whole tiles that no row sees are skipped, only the tiles the
+//   diagonal cuts and the ragged tiles are masked, and the heaviest blocks
+//   go first. With a q_offset that is not a multiple of 64 the diagonal
+//   cuts two query tiles of a warpgroup's keys in dkdv (and two key tiles
+//   of its rows in dq); each is masked element by element. A
 //   query row past Sq arrives as zeros (its Q, dO, lse and D), so in dkdv
 //   its dS and its share of P^T dO are 0, and dq does not store it; a key
 //   past Sk is masked in dq and only reaches dK / dV rows that are not
@@ -83,7 +88,7 @@ constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
 
 struct Dims {
-  int B, Sq, Sk, H, Hkv, hd, causal;
+  int B, Sq, Sk, H, Hkv, hd, causal, q_offset;
   float scale;
 };
 
@@ -111,7 +116,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // visible(i, j): key j of query i under the forward's mask, both in range
 __device__ __forceinline__ bool visible(const Dims& d, int i, int j) {
-  return i < d.Sq && j < d.Sk && (!d.causal || j <= i);
+  return i < d.Sq && j < d.Sk && (!d.causal || j <= i + d.q_offset);
 }
 
 // ------------------------------------------------------------------- simt
@@ -169,8 +174,8 @@ __global__ void __launch_bounds__(kThreads)
   stage_rows(Ks, k + koff, kstride, nk, hd);
   stage_rows(Vs, v + koff, kstride, nk, hd);
   for (int i = threadIdx.x; i < kSt * hd; i += kThreads) dK[i] = dV[i] = 0.f;
-  // the first query tile with a row that sees key k0
-  const int q_first = d.causal ? k0 : 0;
+  // the first query row that sees key k0
+  const int q_first = d.causal ? max(0, k0 - d.q_offset) : 0;
   for (int hh = 0; hh < g; ++hh) {
     const int h = kvh * g + hh;
     for (int q0 = q_first; q0 < d.Sq; q0 += kSt) {
@@ -233,8 +238,8 @@ __global__ void __launch_bounds__(kThreads)
     sl[r] = r < nq ? lse[at] : 0.f;
     sd[r] = r < nq ? delta[at] : 0.f;
   }
-  // keys up to the last row's position when causal
-  const int k_end = d.causal ? min(q0 + nq, d.Sk) : d.Sk;
+  // keys up to the last row's position (plus the offset) when causal
+  const int k_end = d.causal ? min(q0 + nq + d.q_offset, d.Sk) : d.Sk;
   for (int k0 = 0; k0 < k_end; k0 += kSt) {
     const int nk = min(kSt, d.Sk - k0);
     __syncthreads();
@@ -418,9 +423,9 @@ __global__ void __launch_bounds__(kConsumers, 1)
   const int nbh = d.B * d.Hkv, g = d.H / d.Hkv;
   const int k0 = (blockIdx.x / nbh) * 2 * kTile;
   const int b = (blockIdx.x % nbh) / d.Hkv, kvh = blockIdx.x % d.Hkv;
-  // query tiles from the first with a row that sees key k0, for each of
-  // the g query heads that read kv head kvh
-  const int q_first = d.causal ? k0 : 0;
+  // query tiles from the first row that sees key k0, for each of the g
+  // query heads that read kv head kvh
+  const int q_first = d.causal ? max(0, k0 - d.q_offset) : 0;
   const int n_qt = d.Sq > q_first ? (d.Sq - q_first + kTile - 1) / kTile : 0;
   const int n_t = g * n_qt;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -479,8 +484,9 @@ __global__ void __launch_bounds__(kConsumers, 1)
     const int s = t % kStages;
     const int q0 = q_first + (t % n_qt) * kTile;
     mbar_wait(full0 + 8 * s, (t / kStages) & 1);
-    // causal: a query tile wholly before this warpgroup's keys adds nothing
-    if (!d.causal || q0 + kTile > kw) {
+    // causal: a query tile that sees none of this warpgroup's keys adds
+    // nothing
+    if (!d.causal || q0 + kTile + d.q_offset > kw) {
       const uint32_t qd = sring + s * L::kStageBytes;
       const uint32_t dod = qd + L::kRowBytes;
       const float* sl = srow + s * 2 * kTile;
@@ -509,16 +515,20 @@ __global__ void __launch_bounds__(kConsumers, 1)
       pin(st);
       // P^T = exp2(S^T scale log2 e - lse log2 e), in place. Register e
       // holds key rl + 8 ((e >> 1) & 1) and query 8 (e >> 2) + col0 +
-      // (e & 1) of the tile; on the causal diagonal tile (q0 == kw) a key
-      // past the query is masked. Keys past Sk (zeros from TMA) only reach
-      // dK and dV rows that are never stored.
-      const bool diag = d.causal && q0 == kw;
+      // (e & 1) of the tile; on a tile the causal diagonal cuts (its last
+      // key past its first query's, kw + 63 > q0 + q_offset) a key past
+      // the query's is masked: at q_offset 0 the one tile q0 == kw. Keys
+      // past Sk (zeros from TMA) only reach dK and dV rows that are never
+      // stored.
+      const int shift = q0 + d.q_offset - kw;  // key less query, at the edge
+      const bool diag = d.causal && shift < kTile - 1;
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
         const float2 l = lds2(sl + 8 * (e >> 2) + col0);
         const float p =
             exp2f(st[e] * scale_log2 - ((e & 1) ? l.y : l.x) * kLog2e);
-        st[e] = diag && rl + 8 * ((e >> 1) & 1) > 8 * (e >> 2) + col0 + (e & 1)
+        st[e] = diag && rl + 8 * ((e >> 1) & 1) >
+                            shift + 8 * (e >> 2) + col0 + (e & 1)
                     ? 0.f
                     : p;
       }
@@ -607,8 +617,9 @@ __global__ void __launch_bounds__(kQThreads, 1)
   const int bh = blockIdx.x % (d.B * d.H);
   const int q0 = (nqt - 1 - blockIdx.x / (d.B * d.H)) * 2 * kTile;
   const int b = bh / d.H, h = bh % d.H, kvh = h / (d.H / d.Hkv);
-  const int n_kt = ((d.causal ? min(q0 + 2 * kTile, d.Sk) : d.Sk) + kTile -
-                    1) / kTile;
+  const int n_kt =
+      ((d.causal ? min(q0 + 2 * kTile + d.q_offset, d.Sk) : d.Sk) + kTile -
+       1) / kTile;
   const int lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -666,11 +677,12 @@ __global__ void __launch_bounds__(kQThreads, 1)
     const int64_t at = ((int64_t)b * d.H + h) * d.Sq + row;
     l2[i] = row < d.Sq ? lse[at] * kLog2e : 0.f;
     dd[i] = row < d.Sq ? delta[at] : 0.f;
-    lim[i] = (d.causal ? min(row, d.Sk - 1) : d.Sk - 1) - col0;
+    lim[i] = (d.causal ? min(row + d.q_offset, d.Sk - 1) : d.Sk - 1) - col0;
   }
   // the last key that any row of the warpgroup sees, and that all do
-  const int wg_last = d.causal ? min(qw + kTile - 1, d.Sk - 1) : d.Sk - 1;
-  const int wg_all = d.causal ? min(qw, d.Sk - 1) : d.Sk - 1;
+  const int wg_last =
+      d.causal ? min(qw + kTile - 1 + d.q_offset, d.Sk - 1) : d.Sk - 1;
+  const int wg_all = d.causal ? min(qw + d.q_offset, d.Sk - 1) : d.Sk - 1;
 
   float acc[L::kHalves][32];
 #pragma unroll
@@ -811,17 +823,19 @@ extern "C" int repro_flash_attention_bwd_variant(int dtype, int hd) {
 // dtype: 0 = float32, 1 = bfloat16. q/o/dout/dq [B, Sq, H, hd]; k/v/dk/dv
 // [B, Sk, Hkv, hd]; lse (the forward's) and delta (scratch the kernel
 // fills) [B, H, Sq] float32; every pointer 16-byte aligned, hd <= 128.
-// causal: 0 or 1. scale is the score scale, hd ** -0.5. Returns the first
-// failed launch's cudaError_t (0 on success).
+// causal: 0 or 1. q_offset >= 0: query i sees keys j <= i + q_offset when
+// causal, as in the forward. scale is the score scale, hd ** -0.5. Returns
+// the first failed launch's cudaError_t (0 on success).
 extern "C" int repro_flash_attention_bwd(
     int dtype, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
     void* dv, int B, int Sq, int Sk, int H, int Hkv, int hd, int causal,
-    float scale, void* stream) {
+    int q_offset, float scale, void* stream) {
   using namespace repro_flash_bwd;
   const cudaStream_t st = (cudaStream_t)stream;
-  const Dims d{B, Sq, Sk, H, Hkv, hd, causal, scale};
+  const Dims d{B, Sq, Sk, H, Hkv, hd, causal, q_offset, scale};
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (q_offset < 0) return (int)cudaErrorInvalidValue;
   int err = dtype == 0 ? launch_delta<float>(o, dout, delta, d, st)
                        : launch_delta<__nv_bfloat16>(o, dout, delta, d, st);
   if (err != 0) return err;

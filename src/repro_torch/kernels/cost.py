@@ -52,11 +52,12 @@ def flash_cost(Sq, Sk, H, Hkv, hd, causal, esize, q_offset: int = 0):
     return n_bytes, 4 * _visible(Sq, Sk, causal, q_offset) * H * hd
 
 
-def bwd_cost(B, Sq, Sk, H, Hkv, hd, causal, esize):
+def bwd_cost(B, Sq, Sk, H, Hkv, hd, causal, esize, q_offset: int = 0):
     """Bytes (q, o, dout, dq and k, v, dk, dv in the I/O dtype; lse f32)
-    and flops (the five products, 10 * hd per visible pair and head) of
-    the flash backward."""
-    _, fwd_flops = flash_cost(Sq, Sk, H, Hkv, hd, causal, esize)
+    and flops (the five products, 10 * hd per visible pair and head, the
+    pairs :func:`_visible` admits under ``q_offset``) of the flash
+    backward."""
+    _, fwd_flops = flash_cost(Sq, Sk, H, Hkv, hd, causal, esize, q_offset)
     n_bytes = B * (4 * Sq * H * hd + 4 * Sk * Hkv * hd) * esize \
         + B * H * Sq * 4
     return n_bytes, B * fwd_flops * 10 // 4

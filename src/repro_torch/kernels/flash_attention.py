@@ -17,7 +17,8 @@ The forward's launcher picks one of two variants from (dtype, hd) alone:
 other widths: the CUDA-core tile loop); the backward's likewise, ``wgmma``
 (bf16 with hd 64 or 128: two deterministic passes of ``wgmma`` fed by TMA)
 or ``simt``.
-Each wrapper counts its launches, in total and by variant: the serving
+Each wrapper counts its launches, in total, by variant and with a
+nonzero ``q_offset`` (a context-parallel rank past the first): the serving
 forward (:func:`flash_attention`), the forward that also writes the row
 log-sum-exp (:func:`flash_attention_fwd`) and the backward
 (:func:`flash_attention_bwd`).
@@ -42,6 +43,9 @@ lse_launches = 0
 lse_launches_by_variant = {v: 0 for v in VARIANTS}
 bwd_launches = 0
 bwd_launches_by_variant = {v: 0 for v in BWD_VARIANTS}
+# of those launches, the ones with a nonzero q_offset, by wrapper
+offset_launches = {"flash_attention": 0, "flash_attention_lse": 0,
+                   "flash_attention_bwd": 0}
 
 
 @functools.cache
@@ -58,7 +62,7 @@ def _fn():
 def _bwd_fn():
     P, I = ctypes.c_void_p, ctypes.c_int
     f = _build.library("flash_attention_bwd").repro_flash_attention_bwd
-    f.argtypes = [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+    f.argtypes = [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                   ctypes.c_float, P]
     f.restype = I
     return f
@@ -152,32 +156,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    q_offset)
     launches += 1
     launches_by_variant[variant(q.dtype, q.shape[3])] += 1
+    offset_launches["flash_attention"] += q_offset > 0
     return out
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True):
+                        causal: bool = True, q_offset: int = 0):
     """:func:`flash_attention` that also writes each row's log-sum-exp:
     -> (out [B, Sq, H, hd] in q's dtype, lse [B, H, Sq] f32, the natural
     log of the softmax denominator over the scaled scores). The same
     kernel and variant as the serving forward; ``out`` has the same bits."""
     global lse_launches
     dims = _check(q, k, v, _build.MAX_BWD_HEAD_DIM)
+    _build.require(q_offset >= 0, _NAME, f"q_offset {q_offset} < 0")
     out, lse = allocate(q, True)
     _build.check_aligned(_NAME, [lse])
-    out = _forward(q, k, v, causal, out, lse, dims)
+    out = _forward(q, k, v, causal, out, lse, dims, q_offset)
     lse_launches += 1
     lse_launches_by_variant[variant(q.dtype, q.shape[3])] += 1
+    offset_launches["flash_attention_lse"] += q_offset > 0
     return out, lse
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
-                        dout: torch.Tensor, causal: bool = True):
-    """The gradients of :func:`flash_attention_fwd`'s output: q, k, v as
-    there, ``o`` and ``lse`` what it returned, ``dout`` the gradient of
-    ``o``. -> (dq, dk, dv) in q's dtype and shapes. Deterministic: no
-    atomics, so equal inputs give equal bits.
+                        dout: torch.Tensor, causal: bool = True,
+                        q_offset: int = 0):
+    """The gradients of :func:`flash_attention_fwd`'s output: q, k, v,
+    ``causal`` and ``q_offset`` as there, ``o`` and ``lse`` what it
+    returned, ``dout`` the gradient of ``o``. -> (dq, dk, dv) in q's dtype
+    and shapes. Deterministic: no atomics, so equal inputs give equal
+    bits.
 
     Launches the CUDA kernels on the current stream; raises on any input
     they do not take and on a failed launch."""
@@ -188,6 +197,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    and lse.dtype == torch.float32, _NAME,
                    f"o and dout must be {tuple(q.shape)} and lse "
                    f"[{B}, {H}, {Sq}] float32")
+    _build.require(q_offset >= 0, _NAME, f"q_offset {q_offset} < 0")
     _build.check_tensors(_NAME, [q, k, v, o, dout], [])
     _build.check_tensors(_NAME, [lse], [])
     dq, dk, dv, delta = allocate_bwd(q, k, v, lse)
@@ -198,9 +208,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     v.data_ptr(), o.data_ptr(), dout.data_ptr(),
                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                     dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, Hkv, hd,
-                    int(causal), hd ** -0.5,
+                    int(causal), q_offset, hd ** -0.5,
                     torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, f"{_NAME}_bwd")
     bwd_launches += 1
     bwd_launches_by_variant[bwd_variant(q.dtype, hd)] += 1
+    offset_launches["flash_attention_bwd"] += q_offset > 0
     return dq, dk, dv

@@ -106,12 +106,12 @@ def _flash_meta(q, k, causal: bool, lse: bool, q_offset: int = 0):
     return out, row_lse
 
 
-def _flash_bwd_meta(q, k, v, lse, causal: bool):
+def _flash_bwd_meta(q, k, v, lse, causal: bool, q_offset: int = 0):
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     dq, dk, dv, _ = _fa.allocate_bwd(q, k, v, lse)
     _charge("flash_attention_bwd", _cost.bwd_cost(
-        B, Sq, Sk, H, Hkv, hd, causal, q.element_size()))
+        B, Sq, Sk, H, Hkv, hd, causal, q.element_size(), q_offset))
     return dq, dk, dv
 
 
@@ -187,35 +187,32 @@ class FlashAttentionFn(torch.autograd.Function):
     saved)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
+    def forward(ctx, q, k, v, causal: bool, q_offset: int):
         if _on_meta(q):
-            o, lse = _flash_meta(q, k, causal, lse=True)
+            o, lse = _flash_meta(q, k, causal, lse=True, q_offset=q_offset)
         else:
-            o, lse = _fa.flash_attention_fwd(q, k, v, causal)
+            o, lse = _fa.flash_attention_fwd(q, k, v, causal, q_offset)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.q_offset = causal, q_offset
         return o
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, o, lse = ctx.saved_tensors
         if _on_meta(q):
-            return (*_flash_bwd_meta(q, k, v, lse, ctx.causal), None)
+            return (*_flash_bwd_meta(q, k, v, lse, ctx.causal, ctx.q_offset),
+                    None, None)
         dq, dk, dv = _fa.flash_attention_bwd(q, k, v, o, lse,
-                                             dout.contiguous(), ctx.causal)
-        return dq, dk, dv, None
+                                             dout.contiguous(), ctx.causal,
+                                             ctx.q_offset)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
     """-> [B, Sq, H, hd]; causal with query i seeing keys j <= i +
     ``q_offset`` (:func:`repro_torch.kernels.flash_attention.
-    flash_attention`). Under grad ``q_offset`` must be 0: the backward
-    kernel has no offset yet (training in the sequence-split modes is
-    ROADMAP §1's)."""
-    if q_offset and _needs_grad(q, k, v):
-        raise NotImplementedError(
-            f"flash_attention: q_offset {q_offset} under grad: the backward "
-            f"takes no query offset yet (ROADMAP §1)")
+    flash_attention`), under grad too: the backward kernel applies the same
+    mask."""
     if _on_meta(q) and not _needs_grad(q, k, v):
         return _flash_meta(q, k, causal, lse=False, q_offset=q_offset)
     if _on_cpu(q, "flash_attention"):
@@ -224,7 +221,7 @@ def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
             out = _CountPlainBackward.apply("flash_attention_bwd", out)
         return out
     if _needs_grad(q, k, v):
-        return FlashAttentionFn.apply(q, k, v, causal)
+        return FlashAttentionFn.apply(q, k, v, causal, q_offset)
     return _fa.flash_attention(q, k, v, causal, q_offset)
 
 
@@ -277,8 +274,9 @@ def ssd_chunk(x, dt, A, Bm, Cm, chunk: int):
 
 
 def counts() -> dict:
-    """Launches by kernel and by variant, and plain-version calls, since the
-    last :func:`reset_counts`, as plain dicts."""
+    """Launches by kernel, by variant and (flash's three wrappers) with a
+    nonzero ``q_offset``, and plain-version calls, since the last
+    :func:`reset_counts`, as plain dicts."""
     return {"launches": {"paged_attention": _pa.launches,
                          "chunk_prefill_attention": _cp.launches,
                          "flash_attention": _fa.launches,
@@ -293,6 +291,7 @@ def counts() -> dict:
                 "flash_attention_bwd": dict(_fa.bwd_launches_by_variant),
                 "ssd_chunk": dict(_ssd.launches_by_variant),
                 "ssd_chunk_bwd": dict(_ssd.bwd_launches_by_variant)},
+            "launches_with_offset": dict(_fa.offset_launches),
             "plain_calls": dict(plain_calls)}
 
 
@@ -304,7 +303,8 @@ def reset_counts() -> None:
         mod.launches = 0
     for by in (_cp.launches_by_variant, _fa.launches_by_variant,
                _fa.lse_launches_by_variant, _fa.bwd_launches_by_variant,
-               _ssd.launches_by_variant, _ssd.bwd_launches_by_variant):
+               _fa.offset_launches, _ssd.launches_by_variant,
+               _ssd.bwd_launches_by_variant):
         for v in by:
             by[v] = 0
     for k in plain_calls:

@@ -156,30 +156,30 @@ def blockwise_attention(q, k, v, causal: bool = True, q_offset: int = 0):
     return torch.cat(outs, dim=1)
 
 
-def _scores(qc, k, i0: int, causal: bool):
+def _scores(qc, k, i0: int, causal: bool, q_offset: int = 0):
     """f32 scaled scores [B,H,qc,Sk] of query rows i0.. (``qc`` [B,qc,H,hd])
     against ``k`` [B,Sk,H,hd], and the visibility mask (None when every key
-    is visible)."""
+    is visible): query i sees keys j <= i + ``q_offset``."""
     hd = qc.shape[-1]
     s = torch.einsum("bqhd,bkhd->bhqk", qc.float(), k.float()) * (hd ** -0.5)
     if not causal:
         return s, None
-    qpos = i0 + torch.arange(qc.shape[1], device=qc.device)
+    qpos = i0 + q_offset + torch.arange(qc.shape[1], device=qc.device)
     kpos = torch.arange(k.shape[1], device=qc.device)
     return s, (qpos[:, None] >= kpos[None, :])[None, None]
 
 
-def flash_attention_lse(q, k, v, causal: bool = True):
+def flash_attention_lse(q, k, v, causal: bool = True, q_offset: int = 0):
     """The training forward's plain version: attention as
-    :func:`flash_attention_ref` (all in f32, output in q's dtype) and each
-    row's log-sum-exp over the scaled scores, lse [B,H,Sq] f32. q
-    [B,Sq,H,hd]; k/v [B,Sk,Hkv,hd]. Scores one chunk of 512 query rows at a
-    time."""
+    :func:`flash_attention_ref` (all in f32, output in q's dtype; causal
+    shifted by ``q_offset``) and each row's log-sum-exp over the scaled
+    scores, lse [B,H,Sq] f32. q [B,Sq,H,hd]; k/v [B,Sk,Hkv,hd]. Scores one
+    chunk of 512 query rows at a time."""
     B, Sq, H, hd = q.shape
     k, v = _repeat_kv(k, v, H)
     outs, lses = [], []
     for i0 in range(0, Sq, _Q_CHUNK):
-        s, mask = _scores(q[:, i0:i0 + _Q_CHUNK], k, i0, causal)
+        s, mask = _scores(q[:, i0:i0 + _Q_CHUNK], k, i0, causal, q_offset)
         if mask is not None:
             s = s.masked_fill(~mask, float("-inf"))
         lse = torch.logsumexp(s, dim=-1)                   # [B,H,qc]
@@ -189,10 +189,12 @@ def flash_attention_lse(q, k, v, causal: bool = True):
     return torch.cat(outs, dim=1).to(q.dtype), torch.cat(lses, dim=2)
 
 
-def flash_attention_bwd_ref(q, k, v, o, lse, dout, causal: bool = True):
+def flash_attention_bwd_ref(q, k, v, o, lse, dout, causal: bool = True,
+                            q_offset: int = 0):
     """The backward's plain version, from the forward's output ``o`` and
     row log-sum-exp ``lse`` [B,H,Sq] (f32): with P = exp(S * scale - lse)
-    under the mask and D = rowsum(dout * o),
+    under the mask (query i seeing keys j <= i + ``q_offset`` when causal)
+    and D = rowsum(dout * o),
 
         dV = P^T dout,  dS = P * (dout V^T - D),
         dQ = dS K * scale,  dK = dS^T Q * scale,
@@ -211,7 +213,7 @@ def flash_attention_bwd_ref(q, k, v, o, lse, dout, causal: bool = True):
     for i0 in range(0, Sq, _Q_CHUNK):
         i1 = min(i0 + _Q_CHUNK, Sq)
         qc, gc = q[:, i0:i1].float(), dout[:, i0:i1].float()
-        s, mask = _scores(qc, kr, i0, causal)
+        s, mask = _scores(qc, kr, i0, causal, q_offset)
         p = torch.exp(s - lse[:, :, i0:i1, None])
         if mask is not None:
             p = p.masked_fill(~mask, 0.0)

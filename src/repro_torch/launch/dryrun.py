@@ -13,8 +13,8 @@ reference's distribution mode (``tp_sp``, ``tp_sp_opt``, ``fsdp_cp``:
 :mod:`repro_torch.distributed.sharding`), each with its own collectives
 and memory per rank, counted as they run; a record keeps its ``mode``,
 and the other modes' records land under ``<mesh>-<mode>/``. A cell a mode
-does not run yet (a family other than dense and MoE, a train cell) is
-written as an error naming the mode.
+does not run yet (a family other than dense and MoE in ``tp_sp_opt`` and
+``fsdp_cp``) is written as an error naming the mode.
 
 Meshes:
   * ``single`` (16x16) and ``multi`` (2x16x16): the reference's production

@@ -28,9 +28,10 @@ within :data:`ROW_LIMIT` of each row's magnitude, and the same greedy
 token except where the one-process row's top two are closer than that. A
 MoE drops pairs differently on the mesh, where capacity is per rank, as
 the reference's does, so the entry point runs it :func:`dropless` on both
-sides. ``--mode`` picks the reference's distribution mode of the serving
-steps (:mod:`repro_torch.distributed.sharding`; the ranks are held against
-the same one process in every mode); training runs in ``tp_sp`` alone.
+sides. ``--mode`` picks the reference's distribution mode
+(:mod:`repro_torch.distributed.sharding`) of the serving and training
+steps alike; the ranks are held against the same one process, with no
+mesh, in every mode.
 
 :func:`train` is one rank's training: the model built trainable from
 the whole weights, its blocks of the parameters and of an AdamW state a
@@ -39,8 +40,11 @@ then 2 AdamW steps (lr :data:`TRAIN_LR`, no warmup) on its rows of the
 batch (the tokens, labels the tokens shifted by one). :func:`check_train`
 puts the ranks' blocks of the gradients and of the updated parameters
 back together (:func:`whole`) and holds them, and each step's loss and
-grad norm, against :func:`train` in this process, within
-:func:`train_limits`.
+grad norm, against :func:`train` in one process with no mesh, within
+:func:`train_limits`. :func:`run` makes that check in rank 0's process
+once the ranks have trained (:func:`train_checked`): the blocks reach it
+over the world's default group, leaf by leaf, so that no job's weights
+or gradients go through a file.
 
 Each rank prints its kernel launches by variant, its plain-version calls,
 its collectives' calls and bytes (backward calls among them), and any
@@ -319,9 +323,9 @@ def check(records: List[Dict[str, Any]], single: Dict[str, Any],
 
 
 def rank_line(rec: Dict[str, Any]) -> Dict[str, Any]:
-    """What a rank prints: its launches by variant, plain calls,
-    collectives, dropped pairs, seconds, peak device memory and foreign
-    modules."""
+    """What a rank prints: its launches by variant and with a query
+    offset, plain calls, collectives, dropped pairs, seconds, peak device
+    memory and foreign modules."""
     c = rec["counts"]
     return dict(rank=rec["rank"], coords=rec["coords"], rows=rec["rows"],
                 launches={k: n for k, n in c["launches"].items() if n},
@@ -329,6 +333,9 @@ def rank_line(rec: Dict[str, Any]) -> Dict[str, Any]:
                                      for k, by in
                                      c["launches_by_variant"].items()
                                      if any(by.values())},
+                launches_with_offset={k: n for k, n in
+                                      c["launches_with_offset"].items()
+                                      if n},
                 plain_calls={k: n for k, n in c["plain_calls"].items() if n},
                 collectives=rec["collectives"],
                 moe_pairs=rec["moe_pairs"], moe_dropped=rec["moe_dropped"],
@@ -379,7 +386,8 @@ class TrainJob:
     into ``n_micro`` microbatches of each rank's rows. ``params`` /
     ``opt_state``: files holding the whole parameter tree and AdamW state
     (``torch.save``), else the weights drawn from ``seed`` and
-    :func:`warm_state`."""
+    :func:`warm_state`. ``mode``: the sharding mode of the model on the
+    mesh."""
     cfg: ArchConfig
     tokens: torch.Tensor
     steps: int = 2
@@ -389,6 +397,7 @@ class TrainJob:
     opt_state: Optional[str] = None
     seed: int = 0
     extras: Optional[Dict[str, torch.Tensor]] = None
+    mode: str = "tp_sp"
 
 
 def train_batch(ctx, tokens: torch.Tensor, device,
@@ -437,7 +446,8 @@ def warm_state(model, opt_cfg, seed: int) -> Dict[str, Any]:
 
 
 def train(mesh, device: torch.device, job: TrainJob) -> Dict[str, Any]:
-    """One rank's training (``mesh`` None: one process). Returns its
+    """One rank's training in ``job.mode`` (``mesh`` None: one process,
+    where the mode changes nothing). Returns its
     record: ``grads``, its blocks of the gradient at the starting weights
     (taken before the steps; the counts and ``seconds`` cover the steps
     alone), and
@@ -457,7 +467,7 @@ def train(mesh, device: torch.device, job: TrainJob) -> Dict[str, Any]:
     params = (None if job.params is None
               else torch.load(job.params, map_location=device))
     model = build_model(job.cfg, params, device=device, seed=job.seed,
-                        trainable=True, mesh=mesh)
+                        trainable=True, mesh=mesh, mode=job.mode)
     del params
     ctx = model.ctx
     opt_cfg = job.opt or OptConfig()
@@ -503,12 +513,13 @@ def train(mesh, device: torch.device, job: TrainJob) -> Dict[str, Any]:
 
 
 def whole(records: List[Dict[str, Any]], key: str, cfg: ArchConfig,
-          shape: Sequence[int], device=None):
+          shape: Sequence[int], device=None, mode: str = "tp_sp"):
     """The whole tree of ``key`` (``"params"`` or ``"grads"``) put back
     together on ``device`` (default: the blocks') from the ranks' blocks,
     each placed where its leaf's partition spec and the head layout put
-    it on the ``shape`` mesh (:meth:`~repro_torch.distributed.sharding.
-    ShardingCtx.block_slices`); and whether every rank's block equals the
+    it on the ``shape`` mesh in sharding mode ``mode``
+    (:meth:`~repro_torch.distributed.sharding.ShardingCtx.block_slices`;
+    ``fsdp_cp`` cuts no head layout); and whether every rank's block equals the
     whole's at its place (the replicas of a leaf, a shared KV block's
     among them, agree bitwise)."""
     from repro_torch.distributed.sharding import param_shardings
@@ -521,7 +532,7 @@ def whole(records: List[Dict[str, Any]], key: str, cfg: ArchConfig,
     specs = _spec_leaves(param_shardings(mesh_of(records[0]),
                                          param_specs(cfg)))
     shapes = [t.shape for t in leaves(abstract_tree(param_specs(cfg)))]
-    blocks = [(sharding_ctx(cfg, mesh_of(r)), leaves(r[key]))
+    blocks = [(sharding_ctx(cfg, mesh_of(r), mode), leaves(r[key]))
               for r in records]
     paths = [p for p, _ in leaves_with_paths(records[0][key])]
     parts, agree = [], True
@@ -581,10 +592,11 @@ def check_train(records: List[Dict[str, Any]], single: Dict[str, Any],
     rel = lambda a, b: float(((a - b).abs() / b.abs().clamp_min(1e-30))
                              .max())
     dev = leaves(single["params"])[0].device
-    grads, grads_agree = whole(records, "grads", job.cfg, shape, dev)
+    grads, grads_agree = whole(records, "grads", job.cfg, shape, dev,
+                               job.mode)
     grad_err, grad_leaf = leaf_scaled_err(grads, single["grads"])
     del grads
-    params, agree = whole(records, "params", job.cfg, shape, dev)
+    params, agree = whole(records, "params", job.cfg, shape, dev, job.mode)
     param_err, param_leaf = leaf_scaled_err(params, single["params"])
     del params
     same = all(torch.equal(r["losses"], records[0]["losses"])
@@ -679,20 +691,80 @@ def cell(mesh, device: torch.device, job: CellJob) -> Dict[str, Any]:
 # Jobs on the mesh, then in one process
 # ---------------------------------------------------------------------------
 
+# the trees of a train record: its gradient and parameter blocks
+TREES = ("grads", "params")
+
+
+def _gather_trees(mesh, device: torch.device, rec: Dict[str, Any]
+                  ) -> Optional[List[Dict[str, Any]]]:
+    """Every rank's train record with its :data:`TREES` on rank 0, on the
+    CPU, each leaf of another rank sent over the world's default group (on
+    the CPU where it is gloo's, else on ``device``); None on the other
+    ranks, which send theirs."""
+    import torch.distributed as dist
+    from repro_torch.tree import leaves, tree_map, unflatten
+    via = torch.device("cpu") if dist.get_backend() == "gloo" else device
+    if mesh.rank:
+        small = {k: v for k, v in rec.items() if k not in TREES}
+        small["shapes"] = {key: [(tuple(t.shape), t.dtype)
+                                 for t in leaves(rec[key])] for key in TREES}
+        dist.send_object_list([small], dst=0)
+        for key in TREES:
+            for t in leaves(rec[key]):
+                dist.send(t.detach().to(via).contiguous(), dst=0)
+        return None
+    out = [{**rec, **{key: tree_map(lambda t: t.detach().cpu(), rec[key])
+                      for key in TREES}}]
+    for src in range(1, mesh.size):
+        got = [None]
+        dist.recv_object_list(got, src=src)
+        r = got[0]
+        for key, shapes in r.pop("shapes").items():
+            blocks = []
+            for shape, dtype in shapes:
+                t = torch.empty(shape, dtype=dtype, device=via)
+                dist.recv(t, src=src)
+                blocks.append(t.cpu())
+            r[key] = unflatten(rec[key], blocks)
+        out.append(r)
+    return out
+
+
+def train_checked(mesh, device: torch.device, job: TrainJob
+                  ) -> Dict[str, Any]:
+    """One rank's :func:`train` of ``job``, then on rank 0 the check of all
+    ranks' records: their blocks gathered there (:func:`_gather_trees`),
+    the same job trained in this process with no mesh, and
+    :func:`check_train`. Returns the rank's record without its
+    :data:`TREES`; rank 0's holds under ``"train_check"`` the check, the
+    one process's record without its trees, and the seconds of the one
+    process's run and of the check."""
+    rec = train(mesh, device, job)
+    records = _gather_trees(mesh, device, rec)
+    if records is not None:
+        t1 = time.perf_counter()
+        single = train(None, device, job)
+        t2 = time.perf_counter()
+        chk = check_train(records, single, job, mesh.axis_sizes)
+        rec["train_check"] = dict(
+            check=chk, one_process_seconds=t2 - t1,
+            check_seconds=time.perf_counter() - t2,
+            single={k: v for k, v in single.items() if k not in TREES})
+        del records, single
+    return {k: v for k, v in rec.items() if k not in TREES}
+
+
 def work_all(mesh, device: torch.device, jobs: Sequence[Any]
              ) -> List[Dict[str, Any]]:
     """Each job in turn on one spawn of the ranks: :func:`serve` of a
-    :class:`Job`, :func:`train` of a :class:`TrainJob` (its gradients and
-    parameters copied to the CPU), :func:`cell` of a :class:`CellJob`."""
-    from repro_torch.tree import tree_map
+    :class:`Job`, :func:`train_checked` of a :class:`TrainJob` (checked in
+    rank 0), :func:`cell` of a :class:`CellJob`."""
     out = []
     for job in jobs:
         if isinstance(job, CellJob):
             rec = cell(mesh, device, job)
         elif isinstance(job, TrainJob):
-            rec = train(mesh, device, job)
-            for key in ("grads", "params"):
-                rec[key] = tree_map(lambda t: t.detach().cpu(), rec[key])
+            rec = train_checked(mesh, device, job)
         else:
             rec = serve(mesh, device, job)
         out.append(rec)
@@ -704,17 +776,17 @@ def work_all(mesh, device: torch.device, jobs: Sequence[Any]
 def run(jobs: Sequence[Any], shape: Sequence[int], *, device: str = "cuda",
         threads: Optional[int] = None) -> Tuple[str, List[Dict[str, Any]]]:
     """The jobs (:class:`Job`, :class:`TrainJob` and :class:`CellJob`) on
-    one spawn of a ``shape`` mesh, then each serving and train job in this
-    process (a serving job fed the tokens the mesh fed; a train job's
-    gradients and parameters kept on its device, where
-    :func:`check_train` compares them), and the checks; a cell job's
-    records are its ranks' alone (its ``check`` and ``single`` None: the
-    caller holds them to the dry run's count).
+    one spawn of a ``shape`` mesh, then each serving job in this process
+    (fed the tokens the mesh fed), and the checks; a train job is trained
+    in one process and checked in rank 0's (:func:`train_checked`), and
+    a cell job's records are its ranks' alone (its ``check`` and
+    ``single`` None: the caller holds them to the dry run's count).
     Returns (backend, per job ``{"mesh_seconds", "one_process_seconds",
     "check_seconds", "ranks": [rank_line], "check", "records",
-    "single"}``); ``mesh_seconds`` is the spawn's, all jobs together, and
-    a train job's one-process ``grads`` and ``params`` are dropped once
-    checked."""
+    "single"}``); ``mesh_seconds`` is the spawn's, all jobs together (a
+    train job's one-process run among them), and a train job's records
+    and one-process record come without their gradients and
+    parameters."""
     from repro_torch.launch import spmd     # see launch
     t0 = time.perf_counter()
     backend, per_rank = launch(spmd.work_all, shape, (list(jobs),),
@@ -730,15 +802,18 @@ def run(jobs: Sequence[Any], shape: Sequence[int], *, device: str = "cuda",
                             check=None, single=None))
             continue
         if isinstance(job, TrainJob):
-            single = train(None, dev, job)
-            t2 = time.perf_counter()
-            chk = check_train(records, single, job, shape)
-            single["grads"] = single["params"] = None
-        else:
-            single = serve(None, dev, dataclasses.replace(
-                job, feed=gather_rows(records, "fed", dim=0)))
-            t2 = time.perf_counter()
-            chk = check(records, single)
+            tc = records[0].pop("train_check")
+            out.append(dict(mesh_seconds=mesh_s,
+                            one_process_seconds=tc["one_process_seconds"],
+                            check_seconds=tc["check_seconds"],
+                            ranks=[rank_line(r) for r in records],
+                            check=tc["check"], records=records,
+                            single=tc["single"]))
+            continue
+        single = serve(None, dev, dataclasses.replace(
+            job, feed=gather_rows(records, "fed", dim=0)))
+        t2 = time.perf_counter()
+        chk = check(records, single)
         if device == "cuda":
             torch.cuda.empty_cache()
         out.append(dict(mesh_seconds=mesh_s, one_process_seconds=t2 - t1,
@@ -761,11 +836,8 @@ def main(argv=None) -> int:
                     help="the config's reduced widths (f32)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--mode", choices=list(MODES), default="tp_sp",
-                    help="the sharding mode of the serving steps")
+                    help="the sharding mode of the ranks' model")
     args = ap.parse_args(argv)
-    if args.shape == "train" and args.mode != "tp_sp":
-        ap.error(f"--shape train runs in sharding mode 'tp_sp' alone: "
-                 f"training in {args.mode!r} is ROADMAP §1's")
     data, model = (int(n) for n in args.mesh.lower().split("x"))
     cfg = get_config(args.arch)
     if args.reduced:
@@ -789,7 +861,7 @@ def main(argv=None) -> int:
         from repro_torch.training.optimizer import OptConfig
         job = spmd.TrainJob(cfg, tokens, steps,
                             opt=OptConfig(lr=TRAIN_LR, warmup_steps=1),
-                            extras=extras)
+                            extras=extras, mode=args.mode)
     else:
         job = spmd.Job(cfg, tokens, steps, extras=extras, mode=args.mode)
     _, (out,) = spmd.run([job], (data, model), device=args.device)

@@ -27,13 +27,13 @@ ranks that share it through the ``"kv"`` line, so their gradient is
 summed over those ranks.
 
 The reference's other two modes (:mod:`repro_torch.distributed.sharding`):
-with ``sp`` (``tp_sp_opt`` prefill), :func:`attn_full` and
+with ``sp`` (``tp_sp_opt``'s prefill and training), :func:`attn_full` and
 :func:`ffn_apply` take the rank's rows of the sequence, all-gather the
 normed rows over ``model`` once and reduce-scatter the partial sums back
 to the rank's rows, in place of the all-reduce.
-:func:`attn_context_parallel` is ``fsdp_cp``'s prefill attention (whole
-weights, the rank's query rows, K/V rows gathered along the sequence, the
-causal diagonal shifted by the rank's first row), and
+:func:`attn_context_parallel` is ``fsdp_cp``'s prefill and training
+attention (whole weights, the rank's query rows, K/V rows gathered along
+the sequence, the causal diagonal shifted by the rank's first row), and
 :func:`attn_decode_stationary` / :func:`ffn_decode_stationary` its
 weight-stationary decode step over the sequence-split cache.
 """
@@ -123,10 +123,13 @@ def attn_context_parallel(p, x: torch.Tensor, cfg: ArchConfig,
     K/V all-gathered over ``model`` along the sequence to [B, S, Hkv, hd];
     flash attention of the rank's queries over them, the causal diagonal
     shifted by the rank's first row (``q_offset``). No collective on the
-    output. Returns (output [B, s, D], the rank's rows of k and v [B, s,
-    Hkv, hd]: the sequence-split cache's)."""
+    output. Under autograd the qk-norm scales enter the rank's rows (their
+    gradient summed over ``model``), and the K/V gathers' backward
+    reduce-scatters every rank's gradient of the whole sequence's K/V to
+    the rank's rows. Returns (output [B, s, D], the rank's rows of k and v
+    [B, s, Hkv, hd]: the sequence-split cache's)."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k, v = _project_qkv(p, h, h, cfg)
+    q, k, v = _project_qkv(p, h, h, cfg, ctx=ctx)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     kf = C.all_gather(k.contiguous(), "tp", 1, ctx)

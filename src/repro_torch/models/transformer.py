@@ -57,12 +57,16 @@ live mesh.
 
 That is the reference's default distribution mode, ``tp_sp``.
 ``build_model(..., mode=)`` takes its two others
-(:mod:`repro_torch.distributed.sharding`) for the dense and MoE families'
-serving steps: ``tp_sp_opt`` (a sequence-parallel prefill,
-:meth:`Model._prefill_seq_split`) and ``fsdp_cp`` (a context-parallel
-prefill; a weight-stationary decode step, :meth:`Model._decode_stationary`,
-over a cache split by sequence). Their training and the other families
-raise ``NotImplementedError`` (``MODE_FAMILIES``).
+(:mod:`repro_torch.distributed.sharding`) for the dense and MoE families:
+``tp_sp_opt`` (a sequence-parallel prefill and backbone,
+:meth:`Model._layer_seq_split`) and ``fsdp_cp`` (a context-parallel
+prefill and backbone; a weight-stationary decode step,
+:meth:`Model._decode_stationary`, over a cache split by sequence). In
+both the residual holds the rank's rows of the sequence, so a norm scale
+meets those rows alone and its gradient is summed over ``model`` after
+the backward (:meth:`Model.sum_norm_grads_over_model`). The other
+families raise ``NotImplementedError`` in these modes
+(``MODE_FAMILIES``).
 """
 from __future__ import annotations
 
@@ -286,8 +290,8 @@ class Model(nn.Module):
         if cfg.family not in MODE_FAMILIES[mode]:
             raise NotImplementedError(
                 f"{cfg.name}: sharding mode {mode!r} runs the "
-                f"{MODE_FAMILIES[mode]} families' prefill and decode step, "
-                f"not family {cfg.family!r} (ROADMAP §1)")
+                f"{MODE_FAMILIES[mode]} families, not family "
+                f"{cfg.family!r} (ROADMAP §1)")
         self.cfg = cfg
         self.vocab_padded = pad_vocab(cfg.vocab, 256)
         self.embedding = _param(params["embed"], trainable)
@@ -411,26 +415,38 @@ class Model(nn.Module):
         reduce-scattered and are left as they are."""
         if not self.ctx.live or self.ctx.axis_size("batch") == 1:
             return
-        params = [p for p, pl in zip(leaves(self._tree(lambda p: p)),
-                                     leaves(self.placements()))
-                  if "data" in pl.replicated]
+        self._sum_grads([p for p, pl in zip(leaves(self._tree(lambda p: p)),
+                                            leaves(self.placements()))
+                         if "data" in pl.replicated], "batch")
+
+    def sum_norm_grads_over_model(self) -> None:
+        """After a backward in ``tp_sp_opt`` or ``fsdp_cp`` on a live mesh
+        with a model axis: sum over ``model`` the gradients of the RMS-norm
+        scales that the residual's rows meet before any collective (each
+        layer part's ``ln`` and ``final_ln``), in one all-reduce per dtype.
+        The residual holds the rank's rows of the sequence, so each rank's
+        gradient of such a scale covers its rows alone. The other leaves
+        replicated over ``model`` come back whole: the qk-norm scales and
+        the router enter the rank's block through
+        :func:`~repro_torch.distributed.collectives.enter`."""
+        ctx = self.ctx
+        if not ctx.live or ctx.mode == "tp_sp" or ctx.axis_size("tp") == 1:
+            return
+        self._sum_grads([self.final_ln] + [
+            getattr(blk, part)["ln"] for blk in self.layers
+            for part in PARTS if getattr(blk, part) is not None], "tp")
+
+    def _sum_grads(self, params, logical: str) -> None:
+        """Sum the gradients of ``params`` over ``logical``'s line, one
+        all-reduce per dtype (a missing gradient counts as zeros)."""
         for dt in dict.fromkeys(p.dtype for p in params):
             group = [p for p in params if p.dtype == dt]
             flat = torch.cat([torch.zeros(p.numel(), dtype=dt,
                                           device=p.device) if p.grad is None
                               else p.grad.reshape(-1) for p in group])
-            flat = C.all_reduce_sum(flat, "batch", self.ctx)
+            flat = C.all_reduce_sum(flat, logical, self.ctx)
             for p, g in zip(group, flat.split([p.numel() for p in group])):
                 p.grad = g.view_as(p)
-
-    def _tp_sp(self, what: str) -> None:
-        """Raise for a step that the model's sharding mode does not run
-        yet (only ``tp_sp`` trains)."""
-        if self.ctx.mode != "tp_sp":
-            raise NotImplementedError(
-                f"{self.cfg.name}: {what} in sharding mode "
-                f"{self.ctx.mode!r}: the port trains in 'tp_sp' alone "
-                f"(ROADMAP §1)")
 
     def _seq_split(self, S: int) -> bool:
         """Whether a prefill of ``S`` rows runs split over ``model`` by
@@ -557,19 +573,59 @@ class Model(nn.Module):
             x = x + o
         return blk.ffn_apply(x, cfg, ctx)
 
+    def _attn_seq_split(self, blk: Block, x: torch.Tensor,
+                        positions: torch.Tensor):
+        """The self-attention of one layer on the rank's rows x [B, S/tp,
+        D] of the sequence: ``tp_sp_opt``'s all-gathers the normed rows
+        over ``model`` and reduce-scatters its output (the rank's heads;
+        ``positions`` the whole sequence's), ``fsdp_cp``'s is context
+        parallel on the whole weights (``positions`` the rank's rows). ->
+        (output [B, S/tp, D], k, v: the rank's heads over the sequence in
+        ``tp_sp_opt``, every head of the rank's rows in ``fsdp_cp``)."""
+        cfg, ctx = self.cfg, self.ctx
+        if ctx.mode == "fsdp_cp":
+            return L.attn_context_parallel(
+                blk.weights("attn", ctx, whole=True), x, cfg, positions, ctx)
+        return L.attn_full(blk.weights("attn", ctx), x, cfg, positions,
+                           ctx=ctx, sp=True)
+
+    def _layer_seq_split(self, blk: Block, x: torch.Tensor,
+                         positions: torch.Tensor) -> torch.Tensor:
+        """One layer of a dense or MoE stack in ``tp_sp_opt`` or
+        ``fsdp_cp`` (:meth:`_attn_seq_split`, then the FFN or MoE on the
+        rank's rows): the residual [B, S/tp, D] in and out."""
+        o, _, _ = self._attn_seq_split(blk, x, positions)
+        return blk.ffn_apply(x + o, self.cfg, self.ctx, sp=True)
+
+    def _positions(self, S: int, split: bool, dev) -> torch.Tensor:
+        """[1, n] rope positions of the attention's rows: the rank's
+        block of S in ``fsdp_cp``'s split, else all S."""
+        if split and self.ctx.mode == "fsdp_cp":
+            s = S // self.ctx.axis_size("tp")
+            m = self.ctx.index("tp")
+            return torch.arange(m * s, (m + 1) * s, device=dev)[None]
+        return torch.arange(S, device=dev)[None]
+
     def backbone(self, tokens: torch.Tensor, extras=None,
                  remat: bool = True) -> torch.Tensor:
         """tokens [B,S] -> the final-normed hidden rows [B,S,D] (on a live
-        mesh: this rank's rows, whole over ``model``). With ``remat`` (and
-        grad enabled) every layer, and every encoder layer, is recomputed
-        in the backward pass (``torch.utils.checkpoint``), so only each
-        layer's input is kept."""
-        self._tp_sp("the backbone")
-        x = self.embed(tokens)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
-        src = self._cross_src(extras, remat)
+        mesh: this rank's rows, whole over ``model``; in ``tp_sp_opt`` and
+        ``fsdp_cp`` its block [B, S/tp, D] of the sequence,
+        :meth:`_layer_seq_split`). With ``remat`` (and grad enabled) every
+        layer, and every encoder layer, is recomputed in the backward pass
+        (``torch.utils.checkpoint``), so only each layer's input is
+        kept."""
+        S = tokens.shape[1]
+        split = self._seq_split(S)
+        x = self.embed(tokens, sp=split)
+        positions = self._positions(S, split, tokens.device)
+        if split:
+            layer, args = self._layer_seq_split, (positions,)
+        else:
+            layer = self._layer
+            args = (positions, self._cross_src(extras, remat))
         for blk in self.layers:
-            x = _maybe_remat(remat, self._layer, blk, x, positions, src)
+            x = _maybe_remat(remat, layer, blk, x, *args)
         return rms_norm(x, self.final_ln, self.cfg.norm_eps)
 
     def loss(self, tokens: torch.Tensor, labels: torch.Tensor,
@@ -585,17 +641,20 @@ class Model(nn.Module):
         ``global_rows`` (default: B times the data axis, the rows split
         over ``data``), the loss is vocab-parallel
         (:func:`_nll_sum_vocab_parallel`; the head's columns gathered over
-        ``data`` once, the rows entering them once) and the result is this
+        ``data`` once, the rows entering them once; in ``tp_sp_opt`` and
+        ``fsdp_cp`` the final hidden rows all-gathered over ``model`` along
+        the sequence first, as the reference gathers them) and the result
+        is this
         rank's share of the batch's mean: the shares of the data ranks sum
         to it. Where the data axis does not divide the batch, every data
         rank holds all of it (``global_rows`` == B) and its share is the
         mean over the data axis's size, so that neither the loss nor the
         gradients summed over ``data`` count the batch more than once."""
-        self._tp_sp("training")
+        split = self._seq_split(tokens.shape[1])
         hidden = self.backbone(tokens, extras)
         ctx = self.ctx
         w = self.unembed_weight()
-        B, S, _ = hidden.shape
+        B, S = tokens.shape
         share = 1
         if ctx.live:
             dp = ctx.axis_size("batch")
@@ -606,7 +665,8 @@ class Model(nn.Module):
                 raise ValueError(f"{B} rows on a rank of a data axis of {dp} "
                                  f"ranks: not a block of a batch of {rows}")
             w = C.all_gather(w, "fsdp", 0, ctx)
-            hidden = C.enter(hidden, "tp", ctx)
+            hidden = (C.all_gather(hidden, "tp", 1, ctx) if split
+                      else C.enter(hidden, "tp", ctx))
         else:
             rows = B
         nll = (_nll_sum if ctx.axis_size("tp") == 1 else
@@ -691,23 +751,12 @@ class Model(nn.Module):
         every head. The MoE routes the rank's rows as they come. The last
         row's logits are those of ``model``'s last rank, all-gathered."""
         cfg, ctx = self.cfg, self.ctx
-        S = tokens.shape[1]
-        s, m = S // ctx.axis_size("tp"), ctx.index("tp")
-        cp = ctx.mode == "fsdp_cp"
         x = self.embed(tokens, sp=True)
-        dev = tokens.device
-        positions = (torch.arange(m * s, (m + 1) * s, device=dev) if cp
-                     else torch.arange(S, device=dev))[None]
+        positions = self._positions(tokens.shape[1], True, tokens.device)
         n_kv = len(self.kv_layer)
         ks, vs = [None] * n_kv, [None] * n_kv
         for i, blk in enumerate(self.layers):
-            if cp:
-                o, k, v = L.attn_context_parallel(
-                    blk.weights("attn", ctx, whole=True), x, cfg, positions,
-                    ctx)
-            else:
-                o, k, v = L.attn_full(blk.weights("attn", ctx), x, cfg,
-                                      positions, ctx=ctx, sp=True)
+            o, k, v = self._attn_seq_split(blk, x, positions)
             ks[self.kv_layer[i]], vs[self.kv_layer[i]] = k, v
             x = blk.ffn_apply(x + o, cfg, ctx, sp=True)
         x = rms_norm(x, self.final_ln, cfg.norm_eps)

@@ -16,11 +16,12 @@ the step the counter predicts. On a model across a live mesh the cells
 hold each rank's block of the batch, of the cache (split by KV heads; by
 sequence in ``fsdp_cp``) and, training, of the parameters and the AdamW
 state, as the reference's ``in_shardings`` place them; the model's
-sharding mode (``build_model(..., mode=)``) sets its prefill and decode
-steps, and a train cell in a mode other than ``tp_sp`` raises
-``NotImplementedError`` when its step runs; the train step sums each replicated leaf's
-gradient over ``data``, takes the global grad norm and reports the
-batch's loss, summed over ``data``.
+sharding mode (``build_model(..., mode=)``) sets its prefill, decode and
+train steps (in ``tp_sp_opt`` and ``fsdp_cp`` the residual holds the
+rank's rows of the sequence); the train step sums each replicated leaf's
+gradient over ``data`` (and, in those two modes, each norm scale's over
+``model``), takes the global grad norm and reports the batch's loss,
+summed over ``data``.
 """
 from __future__ import annotations
 
@@ -59,12 +60,14 @@ def loss_and_grads(model: Model, batch: Dict[str, torch.Tensor],
                    global_rows: Optional[int] = None):
     """The loss of ``batch`` and the gradients of the model's parameters
     (:meth:`Model.grad_tree`, this rank's blocks on a live mesh, each
-    replicated leaf's summed over ``data``): ``(loss, grads)``, the loss
-    this rank's share (:meth:`Model.loss`), detached."""
+    replicated leaf's summed over ``data``, and in ``tp_sp_opt`` and
+    ``fsdp_cp`` each norm scale's over ``model``): ``(loss, grads)``, the
+    loss this rank's share (:meth:`Model.loss`), detached."""
     model.zero_grad(set_to_none=True)
     loss = make_loss_fn(model, global_rows)(None, batch)
     loss.backward()
     model.sum_grads_over_data()
+    model.sum_norm_grads_over_model()
     return loss.detach(), model.grad_tree()
 
 

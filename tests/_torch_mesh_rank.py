@@ -107,6 +107,16 @@ def probe_int8(mesh, cfg):
     return q, state["ef"]
 
 
+def train_record(mesh, device, job):
+    """:func:`spmd.train` of ``job`` on this rank, its gradient and
+    parameter blocks on the CPU."""
+    from repro_torch.tree import tree_map
+    rec = spmd.train(mesh, device, job)
+    for key in spmd.TREES:
+        rec[key] = tree_map(lambda t: t.detach().cpu(), rec[key])
+    return rec
+
+
 def run_train_cases(mesh, device, cases, int8_cfg=None):
     """Every training case of one mesh: ``cases`` ``{key:
     spmd.TrainJob}``; returns ``{key: record}`` (:func:`spmd.train`'s,

@@ -907,6 +907,56 @@ def test_flash_backward_wgmma_at_its_tile_edges(dev, Sq, Sk, causal, hd, g):
         assert _grad_row_err(got, w) <= 3e-2
 
 
+# a context-parallel rank's queries at q_offset: (Sq, Sk, q_offset). An
+# fsdp_cp 1 x 2 rank's 512 rows over 1,024 keys (ranks 0 and 1); rank 3 of
+# 8 over 1,000 tokens, whose diagonal cuts the 64-row tiles; offsets of a
+# few rows, and one past every key (every key visible)
+BWD_OFFSETS = [(512, 1024, 0), (512, 1024, 512), (125, 1000, 375),
+               (70, 200, 3), (131, 131, 61), (40, 90, 100)]
+
+
+@pytest.mark.parametrize("Sq,Sk,off", BWD_OFFSETS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernel_at_a_query_offset(dev, Sq, Sk, off, dtype):
+    """The training forward and the backward with ``q_offset`` (query i
+    sees keys j <= i + q_offset) at B = 2, 8/2 heads of 128: lse against
+    the plain forward's at the offset to 1e-4; dq, dk, dv against the
+    plain backward on the kernel's o and lse, f32 to 1e-5, bf16 (the
+    wgmma variant) each row's error to 3e-2 of its magnitude and the
+    largest to 5e-2; two runs bitwise equal; each launch counted among
+    those with an offset where it is not 0."""
+    B, H, Hkv, hd = 2, 8, 2, 128
+    rng = np.random.default_rng(Sq + Sk + off)
+    q, dout = (_t(rng.standard_normal((B, Sq, H, hd), np.float32), dev,
+                  dtype) for _ in range(2))
+    k, v = (_t(rng.standard_normal((B, Sk, Hkv, hd), np.float32), dev,
+               dtype) for _ in range(2))
+    before = dict(fa.offset_launches)
+    o, lse = fa.flash_attention_fwd(q, k, v, True, off)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, dout, True, off)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, dout, True, off)
+    shifted = int(off > 0)
+    assert fa.offset_launches["flash_attention_lse"] == \
+        before["flash_attention_lse"] + shifted
+    assert fa.offset_launches["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 2 * shifted
+    _, lse_ref = ref.flash_attention_lse(q.float(), k.float(), v.float(),
+                                         True, off)
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       o.float(), lse, dout.float(), True,
+                                       off)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
+    for got, w, a in zip(grads, want, again):
+        assert got.dtype == dtype and got.shape == w.shape
+        assert torch.equal(got, a)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, w, **F32_TOL)
+        else:
+            assert float((got.float() - w).abs().max()) <= 5e-2
+            assert _grad_row_err(got, w) <= 3e-2
+
+
 @pytest.mark.parametrize("dtype,hd", [(torch.float32, 64),
                                       (torch.bfloat16, 64),
                                       (torch.bfloat16, 128)])

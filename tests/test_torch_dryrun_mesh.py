@@ -6,8 +6,9 @@ Fake world against live ranks: gloo CPU ranks on 2 x 2 (reduced qwen3-8b,
 moonshot, mamba2 and whisper) and on 1 x 4 (reduced qwen3-8b and whisper,
 whose 2 KV heads each rank of a pair then shares) each count
 ``training.build_cell``'s prefill, decode and train steps under the
-counter, and on 2 x 2 qwen3-8b's and moonshot's prefill and decode steps
-in the sharding modes ``tp_sp_opt`` and ``fsdp_cp`` as well; every rank's count is matched by the fake world's count of the
+counter, and on 2 x 2 qwen3-8b's and moonshot's prefill, decode and
+train steps in the sharding modes ``tp_sp_opt`` and ``fsdp_cp`` as well;
+every rank's count is matched by the fake world's count of the
 same rank, exactly: on CPU tensors drawn from the same seed on every cost
 key, memory field, kernel and collective; on ``meta`` (the dry run's own
 count, whose hand kernels are charged by their cost functions) on every
@@ -65,8 +66,8 @@ MESHES = {(2, 2): ("qwen3-8b", "moonshot-v1-16b-a3b", "mamba2-2.7b",
                    "whisper-medium"),
           (1, 4): ("qwen3-8b", "whisper-medium")}
 # the other sharding modes' cells, counted on 2 x 2
-MODE_CASES = [("qwen3-8b", "moonshot-v1-16b-a3b"), ("prefill", "decode"),
-              ("tp_sp_opt", "fsdp_cp")]
+MODE_CASES = [("qwen3-8b", "moonshot-v1-16b-a3b"),
+              ("prefill", "decode", "train"), ("tp_sp_opt", "fsdp_cp")]
 CASES = ([pytest.param(m, n, k, "tp_sp", id=f"{n}-{k}-{m[0]}x{m[1]}")
           for m, names in MESHES.items() for n in names for k in SHAPE]
          + [pytest.param((2, 2), n, k, mode, id=f"{n}-{k}-{mode}-2x2")

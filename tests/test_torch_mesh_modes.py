@@ -281,17 +281,20 @@ def test_the_collective_plans_of_the_modes(port):
 
 @pytest.mark.parametrize("mode", NEW)
 def test_the_modes_refuse_what_they_do_not_run(mode):
-    """A family or a step a mode does not run yet raises, naming the mode;
+    """A family a mode does not run yet raises, naming the mode; the loss
+    of a dense model in the mode runs (with no mesh, the one-card loss);
     an unknown mode name raises ``ValueError``."""
     from repro_torch.launch.mesh import LocalMesh
     with pytest.raises(NotImplementedError, match=mode):
         build_model(get_config("mamba2-2.7b").reduced(), device="cpu",
                     mode=mode)
-    model = build_model(get_config(QWEN).reduced(), device="cpu",
-                        trainable=True, mode=mode)
-    toks = torch.zeros((1, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match=mode):
-        model.loss(toks, toks)
+    cfg = get_config(QWEN).reduced()
+    model = build_model(cfg, device="cpu", trainable=True, mode=mode)
+    toks = torch.randint(0, cfg.vocab, (1, 8),
+                         generator=torch.Generator().manual_seed(0))
+    loss = model.loss(toks, toks)
+    one = build_model(cfg, model.param_tree(), device="cpu").loss(toks, toks)
+    assert torch.isfinite(loss) and torch.equal(loss.detach(), one)
     with pytest.raises(ValueError, match="sharding mode"):
         ShardingCtx(LocalMesh(("data", "model"), (1, 2), 0, (0, 0)),
                     mode="tp_sp_fast")
@@ -309,7 +312,8 @@ def test_a_query_offset_is_the_referenced_rows_of_the_whole_attention(S, tp):
     every key: ``flash_attention_ref`` and ``blockwise_attention`` (the
     CPU's path) with ``q_offset`` r S/tp, against those rows of the
     reference's ``kv_blockwise_attention`` over the whole sequence; and
-    ``ops.flash_attention`` takes the offset, but not under grad."""
+    ``ops.flash_attention`` takes the offset, under grad too: its
+    gradient of the rows' sum is the reference's."""
     rng = np.random.default_rng(S + tp)
     B, H, Hkv, hd = 2, 4, 2, 32
     q = rng.standard_normal((B, S, H, hd)).astype(np.float32)
@@ -327,9 +331,29 @@ def test_a_query_offset_is_the_referenced_rows_of_the_whole_attention(S, tp):
         _close(ref.blockwise_attention(qr, kt, vt, True, q_offset=r * s),
                want)
         _close(ops.flash_attention(qr, kt, vt, True, q_offset=r * s), want)
-    qg = torch.from_numpy(q[:, s:]).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="q_offset"):
-        ops.flash_attention(qg, kt, vt, True, q_offset=s)
+    qg = torch.from_numpy(q[:, s:2 * s]).requires_grad_(True)
+    ops.flash_attention(qg, kt, vt, True, q_offset=s).sum().backward()
+    dq = jax.grad(lambda x: kv_blockwise_attention(
+        x, jnp.asarray(k), jnp.asarray(v), causal=True)[:, s:2 * s].sum())(
+            jnp.asarray(q))
+    _close(qg.grad, np.asarray(dq)[:, s:2 * s])
+
+
+def test_the_flash_backward_cost_counts_the_pairs_an_offset_admits():
+    """``cost.bwd_cost`` at an offset: 10 * hd flops per pair that
+    ``cost._visible`` admits and head, its bytes those of no offset; the
+    ranks of a context-parallel line sum to the whole sequence's flops."""
+    B, H, Hkv, hd = 2, 32, 8, 128
+    for Sq, Sk, off in ((512, 1024, 0), (512, 1024, 512), (125, 1000, 375),
+                        (7, 9, 20)):
+        n_bytes, flops = cost.bwd_cost(B, Sq, Sk, H, Hkv, hd, True, 2, off)
+        assert flops == B * 10 * cost._visible(Sq, Sk, True, off) * H * hd
+        assert n_bytes == cost.bwd_cost(B, Sq, Sk, H, Hkv, hd, True, 2)[0]
+    S, tp = 1000, 8
+    s = S // tp
+    assert sum(cost.bwd_cost(B, s, S, H, Hkv, hd, True, 2, r * s)[1]
+               for r in range(tp)) == cost.bwd_cost(B, S, S, H, Hkv, hd,
+                                                    True, 2)[1]
 
 
 def test_the_flash_cost_counts_the_pairs_an_offset_admits():

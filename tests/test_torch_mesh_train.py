@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_mesh_rank import run_train_cases
+from _torch_mesh_rank import run_train_cases, train_record
 from repro.configs import get_config as jax_config
 from repro.models import build_model as jax_build
 from repro_torch.configs import get_config
@@ -458,15 +458,20 @@ def test_placements_name_the_axes_each_leaf_is_split_and_replicated_over():
 @pytest.fixture(scope="module")
 def train_run():
     """Reduced qwen3-8b trained on 2 x 1 gloo CPU ranks through
-    ``spmd.run`` (the weights and the warm AdamW state from the seed), and
-    the same job trained again in this process for planting faults in."""
+    ``spmd.run`` (the weights and the warm AdamW state from the seed),
+    which checks it in rank 0 and returns the ranks' records without
+    their trees; the same job's records with their gradient and parameter
+    blocks (``spmd.train`` on each rank of a spawn of its own), and the
+    job trained in this process, for planting faults in."""
     cfg = get_config("qwen3-8b").reduced()
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab, (4, S)).astype(np.int32))
     job = spmd.TrainJob(cfg, toks, 2, opt=OptConfig(lr=spmd.TRAIN_LR,
                                                     warmup_steps=1))
     _, (out,) = spmd.run([job], (2, 1), device="cpu", threads=1)
-    return job, out, spmd.train(None, torch.device("cpu"), job)
+    _, records = spmd.launch(train_record, (2, 1), (job,), device="cpu",
+                             threads=1)
+    return job, out, records, spmd.train(None, torch.device("cpu"), job)
 
 
 def _plant(records, fault, cfg):
@@ -496,14 +501,16 @@ def _plant(records, fault, cfg):
 def test_check_train_passes_the_mesh_run_and_fails_a_planted_fault(
         fault, train_run):
     """``spmd.run`` of a train job on 2 x 1 checks ``ok``; ``check_train``
-    on the same records with a gradient doubled (a replicated leaf's on
-    every rank, as a second sum over ``data`` would; one ZeRO-3 block's)
-    or the ranks' blocks swapped is not."""
-    job, out, single = train_run
+    on the same job's ranks' records with a gradient doubled (a replicated
+    leaf's on every rank, as a second sum over ``data`` would; one ZeRO-3
+    block's) or the ranks' blocks swapped is not."""
+    job, out, records, single = train_run
     assert out["check"]["ok"], out["check"]
     assert [r["rows"] for r in out["records"]] == [(0, 2), (2, 4)]
-    res = spmd.check_train(_plant(out["records"], fault, job.cfg), single,
-                           job, (2, 1))
+    assert all("grads" not in r and "params" not in r
+               for r in out["records"])
+    res = spmd.check_train(_plant(records, fault, job.cfg), single, job,
+                           (2, 1))
     limits = spmd.train_limits(job.cfg)
     if fault == "none":
         assert res["ok"], res
